@@ -561,11 +561,18 @@ def _aggregate(spec: WindowSpec, st: "_SortState", eval_col):
 
 
 def _segmented_cumsum(vals: np.ndarray, seg_first: np.ndarray) -> np.ndarray:
-    """Within-segment inclusive cumsum over sorted rows: the global cumsum
-    minus the global cumsum just BEFORE each row's segment start (exact
-    for int64 inputs)."""
+    """Within-segment inclusive cumsum over sorted rows.  Integers: the
+    global cumsum minus the global cumsum just BEFORE each row's segment
+    start (exact in int64).  Floats restart the cumsum at each segment
+    (pandas grouped cumsum, as the ROWS-frame prefixes do): a global
+    prefix rounds every running sum at the whole table's magnitude —
+    measured 2e-4 absolute (rel 1.4e-9) on TPC-H SF10 lineitem."""
     if not len(vals):
         return vals
+    if vals.dtype.kind == "f":
+        import pandas as pd
+
+        return pd.Series(vals).groupby(seg_first).cumsum().to_numpy()
     cs = np.cumsum(vals)
     before_seg = cs[seg_first] - vals[seg_first]
     return cs - before_seg

@@ -13,7 +13,11 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "segment_agg.cu"),
-    os.path.join(_HERE, "segment_agg_binding.cpp"),
+    os.path.join(_HERE, "radix_sort.cu"),
+    os.path.join(_HERE, "seg_scan.cu"),
+    os.path.join(_HERE, "range_extremum.cu"),
+    os.path.join(_HERE, "window_epilogue.cu"),
+    os.path.join(_HERE, "bindings.cpp"),
 ]
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),

@@ -32,60 +32,17 @@
 // would drop the NaN).
 
 #include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
 #include <stdint.h>
 
+#include "agg_ops.cuh"
 #include "segment_agg.h"
 
 namespace {
 
+using agg_ops::combine;
+using agg_ops::identity;
+
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ double as_f64(long long w) {
-  return __longlong_as_double(w);
-}
-__device__ __forceinline__ long long as_word(double v) {
-  return __double_as_longlong(v);
-}
-
-__device__ __forceinline__ double min_nan(double a, double b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  if (a < b) return a;
-  if (b < a) return b;
-  return signbit(a) ? a : b;  // equal: -0.0 wins
-}
-
-__device__ __forceinline__ double max_nan(double a, double b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  if (a > b) return a;
-  if (b > a) return b;
-  return signbit(a) ? b : a;  // equal: +0.0 wins
-}
-
-__device__ __forceinline__ long long identity(int op) {
-  switch (op) {
-    case SA_MIN_F64: return 0x7ff0000000000000LL;           // +inf
-    case SA_MAX_F64: return (long long)0xfff0000000000000ULL;  // -inf
-    case SA_MIN_I64: return LLONG_MAX;
-    case SA_MAX_I64: return LLONG_MIN;
-    default: return 0;  // counts, sums (+0.0 is the all-zero word)
-  }
-}
-
-__device__ __forceinline__ long long combine(int op, long long a, long long b) {
-  switch (op) {
-    case SA_ADD_F64: return as_word(as_f64(a) + as_f64(b));
-    case SA_MIN_F64: return as_word(min_nan(as_f64(a), as_f64(b)));
-    case SA_MAX_F64: return as_word(max_nan(as_f64(a), as_f64(b)));
-    case SA_MIN_I64: return a < b ? a : b;
-    case SA_MAX_I64: return a > b ? a : b;
-    default:  // SA_COUNT, SA_ADD_I64: two's-complement wrap, like int64 +
-      return (long long)((unsigned long long)a + (unsigned long long)b);
-  }
-}
 
 // One row's contribution to one field (its identity when masked out).
 __device__ __forceinline__ long long contribution(const SegAggParams& p, int f,

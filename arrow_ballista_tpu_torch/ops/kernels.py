@@ -1,11 +1,14 @@
-"""PyTorch lowering of physical expressions + the segment-aggregate kernel.
+"""PyTorch lowering of physical expressions + the segment-aggregate kernels.
 
 Counterpart of ``arrow_ballista_tpu/ops/kernels.py`` for one CUDA device.
 The eligible stage subtree (filter → project → partial aggregate) runs per
 batch as torch elementwise ops on the stage's device (the expression
 closures, which XLA inlined into one program on the reference) followed by
-ONE hand-written segment-aggregate kernel (``ops/cuda/segment_agg.cu``)
-that folds the masks, reduces per group and merges into the running state.
+the hand-written segment aggregate that folds the masks, reduces per group
+and merges into the running state: the scatter route
+(``ops/cuda/segment_agg.cu``) or, at large capacity on cuda, the sort
+route (``ops/cuda/radix_sort.cu`` + ``ops/cuda/seg_scan.cu``, which the
+window kernel shares).
 
 Design rules:
 * x64 only — f64/i64 device dtypes (the H100 has both); every tensor the
@@ -662,7 +665,7 @@ def _fmin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     r = torch.minimum(a, b)
     z = (a == 0) & (b == 0)
     neg = torch.signbit(a) | torch.signbit(b)
-    return torch.where(z, _signed_zero(neg), r)
+    return _keep_nan(a, b, torch.where(z, _signed_zero(neg), r))
 
 
 def _fmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -670,7 +673,14 @@ def _fmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     r = torch.maximum(a, b)
     z = (a == 0) & (b == 0)
     neg = torch.signbit(a) & torch.signbit(b)
-    return torch.where(z, _signed_zero(neg), r)
+    return _keep_nan(a, b, torch.where(z, _signed_zero(neg), r))
+
+
+def _keep_nan(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The NaN operand itself where there is one (torch's vectorised
+    minimum/maximum return an all-ones NaN; XLA and the kernels keep the
+    operand's bits)."""
+    return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, r))
 
 
 def _signed_zero(neg: torch.Tensor) -> torch.Tensor:
@@ -770,6 +780,13 @@ def states_from_numpy(
             a.astype(np.int64) if is_int else a.astype(np.float64).view(np.int64)
         )
     return torch.from_numpy(np.stack(rows)).to(device)
+
+
+# Launches of each hand-written kernel, counted by its wrapper where it
+# launches (window_kernel.py's wrappers count here too); a twin never counts.
+LAUNCHES = dict.fromkeys(
+    ("segment_agg", "radix_sort", "seg_scan", "range_extremum", "window_epilogue"), 0
+)
 
 
 # ------------------------------------------------------ segment aggregate
@@ -940,11 +957,8 @@ def segment_agg_cuda(
         list(cols),
         state,
     )
-    segment_agg_cuda.launches += 1
+    LAUNCHES["segment_agg"] += 1
     return state
-
-
-segment_agg_cuda.launches = 0
 
 
 def segment_agg(gid, tail, pred, pvalid, values, valids, ops, cols, state):
@@ -959,6 +973,430 @@ def segment_agg(gid, tail, pred, pvalid, values, valids, ops, cols, state):
             gid, tail, pred, pvalid, values, valids, ops, cols, state
         )
     return segment_agg_cuda(
+        gid, tail, pred, pvalid, values, valids, ops, cols, state
+    )
+
+
+# ------------------------------------------------------- algorithm choice
+# The segment reduction has two device routes: "scatter" (B1, segment_agg
+# above) and "sort" (one stable radix sort of the group ids, then one
+# segmented scan over every aggregate column, totals merged at each
+# segment's last row).  B1 re-scans a batch once per tile of groups, so it
+# stops paying at large capacity; the sort route costs the same at any
+# capacity.  The reference's matmul route is x32-only and not ported.
+# Bounds: the reference's builtin defaults (its routing table names no
+# cuda platform), constants until the cuda routing grid exists.
+SORT_MIN_CAPACITY = 8192  # capacity above this sorts
+SORT_MIN_ELEMS = 1 << 36  # rows x capacity above this sorts
+_AGG_ALGO: dict = {"force": None}
+
+
+def set_agg_algorithm(algo: Optional[str]) -> None:
+    """Force the segment-reduction route (tests) or None = by the bounds."""
+    if algo not in (None, "scatter", "sort"):
+        raise ValueError(f"agg algorithm {algo!r}")
+    _AGG_ALGO["force"] = algo
+
+
+def segment_algo(capacity: int, n_rows: Optional[int], device) -> str:
+    """Route of one batch: "sort" on cuda above the capacity or the
+    rows x capacity bound, else "scatter"; the CPU twins always scatter
+    unless a route is forced."""
+    if _AGG_ALGO["force"] is not None:
+        return _AGG_ALGO["force"]
+    if torch.device(device).type != "cuda":
+        return "scatter"
+    if capacity > SORT_MIN_CAPACITY:
+        return "sort"
+    if n_rows is not None and n_rows * capacity > SORT_MIN_ELEMS:
+        return "sort"
+    return "scatter"
+
+
+def algo_cache_token() -> tuple:
+    """Part of a kernel cache key: the route inputs that are not in the
+    kernel's signature."""
+    return (_AGG_ALGO["force"], SORT_MIN_CAPACITY, SORT_MIN_ELEMS)
+
+
+def _check_cuda_tensor(x, name: str, dtypes, n: int, device) -> None:
+    """ValueError unless ``x`` is a contiguous [n] tensor of one of
+    ``dtypes`` on ``device`` (checked before a binding is called: an
+    exception inside the extension may end the process)."""
+    if (
+        not isinstance(x, torch.Tensor) or x.device != device
+        or x.dtype not in dtypes or x.dim() != 1 or x.shape[0] != n
+        or not x.is_contiguous()
+    ):
+        raise ValueError(f"{name} must be a contiguous [{n}] {dtypes} tensor on {device}")
+
+
+# ------------------------------------------------------------- radix sort
+RADIX_TILE = 4096  # rows per tile of a pass (radix_sort.h: kRadixTile)
+
+
+def radix_argsort_reference(keys: list) -> torch.Tensor:
+    """Plain twin of the radix sort: stable sorts from the last key to the
+    first, so ties keep row order (``lax.sort(keys + (iota,))``)."""
+    n = keys[0].shape[0]
+    perm = torch.arange(n, dtype=I64, device=keys[0].device)
+    for k in reversed(keys):
+        _, idx = torch.sort(k[perm], stable=True)
+        perm = perm[idx]
+    return perm.to(torch.int32)
+
+
+def _radix_plan(keys: list):
+    """Check the key columns, then launch the whole-column byte histograms
+    and the sort's device plan (ops/cuda/radix_sort.h).  Returns
+    (extension, hist, plan); nothing is read back."""
+    from .cuda.build import load
+
+    if not keys or len(keys) > 32:
+        raise ValueError(f"radix sort: {len(keys)} key columns")
+    device = keys[0].device
+    n = keys[0].shape[0] if keys[0].dim() == 1 else -1
+    if device.type != "cuda" or not 0 <= n < (1 << 31):
+        raise ValueError("radix sort keys must be [n] CUDA tensors, n < 2^31")
+    for i, k in enumerate(keys):
+        _check_cuda_tensor(k, f"key {i}", (torch.int32, I64), n, device)
+    ext = load()
+    hist = torch.empty((len(keys), 8, 256), dtype=torch.int32, device=device)
+    cands = sum(k.element_size() for k in keys)
+    plan = torch.empty(1 + cands + len(keys), dtype=torch.int32, device=device)
+    ext.radix_sort_plan(list(keys), hist, plan)
+    return ext, hist, plan
+
+
+def radix_argsort_cuda(keys: list) -> torch.Tensor:
+    """Launch the hand-written stable LSD radix argsort (ops/cuda/
+    radix_sort.cu) over int32/int64 key columns, most significant first.
+
+    Replaces the multi-key ``lax.sort`` of ``arrow_ballista_tpu/ops/
+    window_kernel.py:make_window_kernel`` and the ``gid<<31 | row`` sort of
+    ``ops/kernels.py:_sorted_segment_agg``.  The whole-column byte
+    histograms decide on the device which passes run: a byte that is the
+    same on every row costs an empty launch, and the host never waits."""
+    ext, hist, plan = _radix_plan(keys)
+    n, device = keys[0].shape[0], keys[0].device
+    perm = torch.empty(n, dtype=torch.int32, device=device)
+    tiles = max(1, -(-n // RADIX_TILE))
+    ext.radix_sort_passes(
+        list(keys), hist, plan, perm,
+        torch.empty(n, dtype=torch.int32, device=device),
+        torch.empty(n, dtype=I64, device=device),
+        torch.empty(n, dtype=I64, device=device),
+        torch.empty(256 * tiles, dtype=torch.int32, device=device),
+    )
+    LAUNCHES["radix_sort"] += 1
+    return perm
+
+
+def radix_sort_pass_count(keys: list) -> int:
+    """How many LSD passes the radix sort runs on ``keys``: its device
+    plan's count, read back (for reports and tests; not a sort launch)."""
+    return int(_radix_plan(keys)[2][0].item())
+
+
+def radix_argsort(keys: list) -> torch.Tensor:
+    """int32 permutation that stably sorts the rows by ``keys`` (signed
+    order, most significant first): the CUDA kernel for CUDA tensors, its
+    plain twin for tensors on the CPU."""
+    if keys[0].device.type == "cpu":
+        return radix_argsort_reference(keys)
+    return radix_argsort_cuda(keys)
+
+
+# --------------------------------------------------------- segmented scan
+# Element sources of a scan column (ops/cuda/seg_scan.h: ScanSrc).
+SS_VALUES = 0  # values[perm[r]]; a null is 0 for a sum, the identity else
+SS_COUNT = 1   # valid[perm[r]] as 0/1 (1 without a validity)
+SS_IOTA = 2    # the sorted row index r
+SS_AUX = 3     # aux[r] as 0/1
+SCAN_MAX_COLUMNS = 32
+SCAN_TILE = 2048  # rows per block (seg_scan.h: kScanTile)
+
+
+@dataclass(frozen=True, eq=False)
+class ScanColumn:
+    """One column of a segmented scan: its element source and fold."""
+
+    src: int
+    op: int  # OP_ADD_F64 .. OP_MAX_I64 (OP_ADD_I64 for counts and iota)
+    values: Optional[torch.Tensor] = None  # [n] f64/i64, input row order
+    valid: Optional[torch.Tensor] = None   # [n] bool, input row order
+
+
+def _ident_value(op: int, dtype):
+    if op in (OP_MIN_F64, OP_MIN_I64):
+        return math.inf if dtype == F64 else torch.iinfo(I64).max
+    if op in (OP_MAX_F64, OP_MAX_I64):
+        return -math.inf if dtype == F64 else torch.iinfo(I64).min
+    return 0
+
+
+def _elements(col: ScanColumn, n: int, perm, aux, device) -> torch.Tensor:
+    """The column's elements in sorted order, typed (f64 or i64)."""
+    if col.src == SS_IOTA:
+        return torch.arange(n, dtype=I64, device=device)
+    if col.src == SS_AUX:
+        return aux.to(I64)
+
+    def gathered(x):
+        return x if perm is None else x[perm.long()]
+
+    ok = None if col.valid is None else gathered(col.valid)
+    if col.src == SS_COUNT:
+        return torch.ones(n, dtype=I64, device=device) if ok is None else ok.to(I64)
+    dtype = F64 if _OP_ROLE[col.op][1] is False else I64
+    v = gathered(col.values).to(dtype)
+    if ok is None:
+        return v
+    return torch.where(ok, v, torch.full_like(v, _ident_value(col.op, dtype)))
+
+
+def _fold(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    role, is_int = _OP_ROLE[op]
+    if role == "min":
+        return torch.minimum(a, b) if is_int else _fmin(a, b)
+    if role == "max":
+        return torch.maximum(a, b) if is_int else _fmax(a, b)
+    return a + b
+
+
+def _scan_reference(op: int, x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of ``x`` resetting where ``start``: log-step
+    doubling with the segmented operator ``(fa, a), (fb, b) -> (fa | fb,
+    b if fb else a . b)``, as the reference's associative_scan combines."""
+    v, f = x, start
+    d = 1
+    while d < x.shape[0]:
+        merged = torch.where(f[d:], v[d:], _fold(op, v[:-d], v[d:]))
+        v = torch.cat([v[:d], merged])
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        d *= 2
+    return v
+
+
+def _starts(n: int, perm, flag, key, device) -> torch.Tensor:
+    """Segment starts in sorted order (row 0 always starts one)."""
+    if flag is not None:
+        start = flag.to(torch.bool).clone()
+    else:
+        s = key if perm is None else key[perm.long()]
+        start = torch.ones(n, dtype=torch.bool, device=device)
+        start[1:] = s[1:] != s[:-1]
+    if n:
+        start[0] = True
+    return start
+
+
+def seg_scan_reference(
+    cols: list, n: int, perm=None, flag=None, key=None, aux=None,
+    reverse: bool = False,
+) -> list:
+    """Plain twin of the segmented scan: each column's inclusive scan in
+    sorted order, as int64 words (floats as their bits)."""
+    device = (perm if perm is not None else flag if flag is not None else key).device
+    if n == 0:
+        return [torch.empty(0, dtype=I64, device=device) for _ in cols]
+    start = _starts(n, perm, flag, key, device)
+    if reverse:  # a segment's last row starts the reversed scan
+        start = torch.cat([start[1:], torch.ones(1, dtype=torch.bool, device=device)])
+    out = []
+    for col in cols:
+        x = _elements(col, n, perm, aux, device)
+        if reverse:
+            s = _scan_reference(col.op, x.flip(0), start.flip(0)).flip(0)
+        else:
+            s = _scan_reference(col.op, x, start)
+        out.append(s.view(I64) if s.dtype == F64 else s)
+    return out
+
+
+def _check_scan_args(cols, n, perm, flag, key, aux, device) -> None:
+    if device.type != "cuda" or not 0 <= n < (1 << 31):
+        raise ValueError("seg_scan runs on CUDA tensors, n < 2^31")
+    if not 1 <= len(cols) <= SCAN_MAX_COLUMNS:
+        raise ValueError(f"seg_scan: {len(cols)} columns")
+    if (flag is None) == (key is None):
+        raise ValueError("seg_scan needs exactly one of flag and key")
+    if perm is not None:
+        _check_cuda_tensor(perm, "perm", (torch.int32,), n, device)
+    if flag is not None:
+        _check_cuda_tensor(flag, "flag", (torch.uint8, torch.bool), n, device)
+    if key is not None:
+        _check_cuda_tensor(key, "key", (torch.int32,), n, device)
+    for i, c in enumerate(cols):
+        if c.op not in _OP_ROLE or c.op == OP_COUNT:
+            raise ValueError(f"scan column {i}: op {c.op}")
+        if c.src == SS_AUX:
+            _check_cuda_tensor(aux, "aux", (torch.uint8, torch.bool), n, device)
+        if c.src == SS_VALUES:
+            want = I64 if _OP_ROLE[c.op][1] else F64
+            dtypes = (F64, I64) if want == F64 else (I64,)
+            _check_cuda_tensor(c.values, f"column {i} values", dtypes, n, device)
+        if c.valid is not None:
+            _check_cuda_tensor(c.valid, f"column {i} validity", (torch.bool,), n, device)
+
+
+def _launch_scan(cols, n, perm, flag, key, aux, reverse, outs, state, field_col,
+                 field_op):
+    from .cuda.build import load
+
+    device = (perm if perm is not None else flag if flag is not None else key).device
+    empty = torch.empty(0, dtype=torch.uint8, device=device)
+    blocks = max(1, -(-n // SCAN_TILE))
+    load().seg_scan(
+        n,
+        empty if perm is None else perm,
+        empty if flag is None else flag,
+        empty if key is None else key,
+        empty if aux is None else aux,
+        reverse,
+        [empty if c.values is None else c.values for c in cols],
+        [empty if c.valid is None else c.valid for c in cols],
+        [c.src for c in cols],
+        [c.op for c in cols],
+        [int(c.values is not None and c.values.dtype == I64) for c in cols],
+        [empty if o is None else o for o in outs],
+        empty if state is None else state,
+        list(field_col), list(field_op),
+        torch.empty(blocks * len(cols), dtype=I64, device=device),
+        torch.empty(blocks * len(cols), dtype=I64, device=device),
+        torch.empty(blocks, dtype=torch.uint8, device=device),
+    )
+    LAUNCHES["seg_scan"] += 1
+
+
+def seg_scan_cuda(
+    cols: list, n: int, perm=None, flag=None, key=None, aux=None,
+    reverse: bool = False,
+) -> list:
+    """Launch the hand-written segmented scan (ops/cuda/seg_scan.cu).
+
+    Replaces ``arrow_ballista_tpu/ops/window_kernel.py:_seg_scan``,
+    ``_seg_first``/``_seg_last`` and the scan of ``ops/kernels.py:
+    _scan_segments``.  Segments start where ``flag`` is set, or where
+    ``key[perm[r]]`` changes; returns each column's scan as [n] int64
+    words in sorted order."""
+    device = (perm if perm is not None else flag if flag is not None else key).device
+    _check_scan_args(cols, n, perm, flag, key, aux, device)
+    outs = [torch.empty(n, dtype=I64, device=device) for _ in cols]
+    _launch_scan(cols, n, perm, flag, key, aux, reverse, outs, None, [], [])
+    return outs
+
+
+def seg_scan(cols, n, perm=None, flag=None, key=None, aux=None, reverse=False):
+    """Segmented inclusive scan: the CUDA kernel for CUDA tensors, its
+    plain twin for tensors on the CPU."""
+    device = (perm if perm is not None else flag if flag is not None else key).device
+    if device.type == "cpu":
+        return seg_scan_reference(cols, n, perm, flag, key, aux, reverse)
+    return seg_scan_cuda(cols, n, perm, flag, key, aux, reverse)
+
+
+# ------------------------------------------------------------- sort route
+def _build_scan_plan(values: list, valids: list, ops: list, cols: list):
+    """Scan columns of the sort route and the column each state field reads
+    (``field_col``).  A field folds its column's validity into its
+    elements; the base mask is the sort key's sentinel.  Count fields over
+    the same validity share one column (count(*), an all-valid count and
+    presence all count the segment's rows)."""
+    columns: list[ScanColumn] = []
+    index: dict = {}
+    field_col: list[int] = []
+    for op, c in zip(ops, cols):
+        if op == OP_COUNT:
+            valid = valids[c] if c >= 0 else None
+            k = ("count", None if valid is None else c)
+            col = ScanColumn(SS_COUNT, OP_ADD_I64, valid=valid)
+        else:
+            k = (op, c)
+            col = ScanColumn(SS_VALUES, op, values=values[c], valid=valids[c])
+        if k not in index:
+            index[k] = len(columns)
+            columns.append(col)
+        field_col.append(index[k])
+    return columns, field_col
+
+
+def _emit_scan_outs(totals: list, field_col: list, ops: list, state, present):
+    """Merge each field's segment totals into ``state`` (twin of the
+    kernel's epilogue); groups with no row keep their state."""
+    for f, (op, j) in enumerate(zip(ops, field_col)):
+        role, is_int = _OP_ROLE[op]
+        merged = _merge_row(role, is_int, state[f], totals[j])
+        state[f] = torch.where(present, merged, state[f])
+    return state
+
+
+def _sort_key(gid, tail, pred, pvalid, capacity: int) -> torch.Tensor:
+    """Group id, or the sentinel ``capacity`` for rows the base mask drops
+    (they sort past every group)."""
+    mask = None if tail is None else tail
+    if pred is not None:
+        p = pred if pvalid is None else torch.logical_and(pred, pvalid)
+        mask = p if mask is None else torch.logical_and(mask, p)
+    if mask is None:
+        return gid
+    return torch.where(mask, gid, torch.full_like(gid, capacity))
+
+
+def sorted_segment_agg_reference(
+    gid, tail, pred, pvalid, values, valids, ops, cols, state
+) -> torch.Tensor:
+    """Plain twin of the sort route: the twins of the sort and the scan,
+    then ``_scan_segments``' read of each segment's total at its last row
+    (boundaries by ``searchsorted``), merged into ``state`` in place."""
+    n, capacity = gid.shape[0], state.shape[1]
+    key = _sort_key(gid, tail, pred, pvalid, capacity)
+    perm = radix_argsort_reference([key])
+    columns, field_col = _build_scan_plan(values, valids, ops, cols)
+    scanned = seg_scan_reference(columns, n, perm=perm, key=key)
+    s2 = key[perm.long()]
+    bounds = torch.searchsorted(
+        s2, torch.arange(capacity + 1, dtype=s2.dtype, device=s2.device)
+    )
+    present = (bounds[1:] - bounds[:-1]) > 0
+    last = torch.clamp(bounds[1:] - 1, 0, max(n - 1, 0))
+    totals = [s[last] if n else s.new_zeros(capacity) for s in scanned]
+    return _emit_scan_outs(totals, field_col, ops, state, present)
+
+
+def sorted_segment_agg_cuda(
+    gid, tail, pred, pvalid, values, valids, ops, cols, state
+) -> torch.Tensor:
+    """The sort route on the card: the radix sort of the group ids, then
+    one segmented scan whose epilogue merges every segment's totals into
+    ``state`` (ops/cuda/seg_scan.cu).  Replaces ``arrow_ballista_tpu/ops/
+    kernels.py:_sorted_segment_agg`` inside ``_fn_sorted``."""
+    _check_cuda_args(gid, tail, pred, pvalid, values, valids, ops, cols, state)
+    n, capacity = gid.shape[0], state.shape[1]
+    if n == 0:
+        return state
+    key = _sort_key(gid, tail, pred, pvalid, capacity).contiguous()
+    perm = radix_argsort_cuda([key])
+    columns, field_col = _build_scan_plan(values, valids, ops, cols)
+    _check_scan_args(columns, n, perm, None, key, None, state.device)
+    _launch_scan(columns, n, perm, None, key, None, False, [None] * len(columns),
+                 state, field_col, ops)
+    return state
+
+
+def sorted_segment_agg(gid, tail, pred, pvalid, values, valids, ops, cols, state):
+    """The sort route into ``state``: CUDA kernels for CUDA tensors, their
+    plain twins for tensors on the CPU.  Same arguments and result as
+    :func:`segment_agg`."""
+    if len(values) != len(valids) or len(values) > MAX_COLUMNS:
+        raise ValueError(f"sorted_segment_agg: {len(values)} columns")
+    if len(ops) != len(cols) or len(ops) != state.shape[0] or len(ops) > MAX_FIELDS:
+        raise ValueError(f"sorted_segment_agg: {len(ops)} fields")
+    if state.device.type == "cpu":
+        return sorted_segment_agg_reference(
+            gid, tail, pred, pvalid, values, valids, ops, cols, state
+        )
+    return sorted_segment_agg_cuda(
         gid, tail, pred, pvalid, values, valids, ops, cols, state
     )
 
@@ -980,6 +1418,7 @@ def make_partial_agg_kernel(
     specs: list[KernelAggSpec],
     capacity: int,
     flat_names: list[str],
+    algo: str = "scatter",
 ):
     """Build the fused filter → project → segment-aggregate function.
 
@@ -993,8 +1432,13 @@ def make_partial_agg_kernel(
 
     The field layout is fixed here, once: aggregates whose argument is the
     SAME closure object and dtype share one kernel column, and each distinct
-    closure runs once per batch.
+    closure runs once per batch.  ``algo`` picks the reduction route
+    (:func:`segment_algo`): "scatter" (:func:`segment_agg`) or "sort"
+    (:func:`sorted_segment_agg`); both merge into the same state.
     """
+    if algo not in ("scatter", "sort"):
+        raise ValueError(f"agg algorithm {algo!r}")
+    reduce = sorted_segment_agg if algo == "sort" else segment_agg
     closures: list[TorchClosure] = []  # distinct argument closures
     columns: list[tuple[int, Optional[torch.dtype]]] = []  # (closure, dtype)
     ops: list[int] = []
@@ -1054,8 +1498,6 @@ def make_partial_agg_kernel(
         ]
         if state is None:
             state = init_states(specs, capacity, device)
-        return segment_agg(
-            seg_ids, valid, pred, pvalid, values, valids, ops, cols, state
-        )
+        return reduce(seg_ids, valid, pred, pvalid, values, valids, ops, cols, state)
 
     return fn

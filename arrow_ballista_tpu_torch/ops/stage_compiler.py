@@ -1,18 +1,21 @@
 """Device stage compiler: swap eligible subtrees for the CUDA aggregate.
 
-Counterpart of ``arrow_ballista_tpu/ops/stage_compiler.py``, basic route
-only.  ``maybe_accelerate`` walks a physical plan and replaces each
-eligible ``HashAggregateExec`` (plus its filter/projection chain) with a
+Counterpart of ``arrow_ballista_tpu/ops/stage_compiler.py``: the basic
+route with host group ids, on its scatter or sort reduction.
+``maybe_accelerate`` walks a physical plan and replaces each eligible
+``HashAggregateExec`` (plus its filter/projection chain) with a
 :class:`TorchStageExec`: per batch the host assigns dense group ids, the
 leaf arrays cross to the stage's device, the expression closures run as
-torch ops and one segment-aggregate kernel merges the batch into the
+torch ops and the segment-aggregate kernel (or, above the capacity bound
+on cuda, the radix sort and segmented scan) merges the batch into the
 running state; after the last batch ONE fetch brings the state back.
-Everything else stays on the CPU operator path, gated by the same session
-config (``ballista.tpu.enable``).
+Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
+(``ops/window_compiler.py``).  Everything else stays on the CPU operator
+path, gated by the same session config (``ballista.tpu.enable``).
 
 Not ported (the plan keeps the CPU operators, decided at plan time):
-the device join, the keyed and sorted high-cardinality routes, median,
-count-distinct, corr, the variance family, windows, the column cache and
+the device join, the keyed high-cardinality route, median,
+count-distinct, corr, the variance family, the column cache and
 whole-stage fusion.  A join below the aggregate runs on the CPU and the
 aggregate above it on the device.
 """
@@ -391,10 +394,10 @@ class TorchStageExec(ExecutionPlan):
         self.capacity = config.tpu_segment_capacity if fused.group_exprs else 1
         self.max_capacity = config.tpu_max_capacity if fused.group_exprs else 1
         self._flat_names = K.flat_arg_names(self.leaves)
+        self._kernels: dict = {}
 
-    def _kernel_for(self, capacity: int):
-        """The per-batch stage function at the given segment capacity.
-        The CUDA kernels build on first use; that build is the stage's
+    def _build_kernels(self) -> None:
+        """The CUDA kernels build on first use; that build is the stage's
         ``tpu_compile_ns``."""
         if self.device.type == "cuda":
             from .cuda import build
@@ -403,13 +406,25 @@ class TorchStageExec(ExecutionPlan):
                 with self.metrics.timer("tpu_compile_ns"):
                     build.load()
                 self.metrics.add("kernel_compiles", 1)
-        return K.make_partial_agg_kernel(
-            self._filter_closure,
-            self._arg_closures,
-            self.specs,
-            capacity,
-            self._flat_names,
-        )
+
+    def _kernel_for(self, capacity: int, n_rows: int):
+        """The per-batch stage function at the given segment capacity, on
+        the route :func:`K.segment_algo` picks for this capacity and batch
+        size (scatter, or sort above the bounds on cuda).  Cached per
+        (capacity, route), so a capacity growth builds the next one."""
+        algo = K.segment_algo(capacity, n_rows, self.device)
+        key = (capacity, algo) + K.algo_cache_token()
+        kernel = self._kernels.get(key)
+        if kernel is None:
+            kernel = self._kernels[key] = K.make_partial_agg_kernel(
+                self._filter_closure,
+                self._arg_closures,
+                self.specs,
+                capacity,
+                self._flat_names,
+                algo=algo,
+            )
+        return kernel
 
     @property
     def schema(self) -> pa.Schema:
@@ -521,7 +536,7 @@ class TorchStageExec(ExecutionPlan):
         state = None
         n_rows_in = 0
         cap = self.capacity
-        kernel = self._kernel_for(cap)
+        self._build_kernels()
         with _closing_on_error(ra), self.metrics.timer("tpu_stage_time_ns"):
             for batch in src:
                 if batch.num_rows == 0:
@@ -559,7 +574,6 @@ class TorchStageExec(ExecutionPlan):
                             tight *= 4
                         if tight < cap:
                             cap = min(tight, self.max_capacity)
-                            kernel = self._kernel_for(cap)
                     else:
                         with self.metrics.timer("key_encode_time_ns"):
                             seg = self._assign_gids(codes, group_table)
@@ -570,11 +584,11 @@ class TorchStageExec(ExecutionPlan):
                             cap *= 4
                         cap = min(cap, self.max_capacity)
                         state = K.pad_states(self.specs, state, cap)
-                        kernel = self._kernel_for(cap)
                         self.metrics.add("capacity_growths", 1)
                 else:
                     seg = None  # all rows → group 0
 
+                kernel = self._kernel_for(cap, n)
                 with self.metrics.timer("bridge_time_ns"):
                     args = self._kernel_args(batch, n, seg, staging)
                 with self.metrics.timer("device_time_ns"):
@@ -751,7 +765,8 @@ def maybe_accelerate(
     plan: ExecutionPlan, config: BallistaConfig, device
 ) -> ExecutionPlan:
     """PhysicalOptimizerRule: replace eligible aggregates with
-    TorchStageExec on ``device``."""
+    TorchStageExec and eligible windows with TorchWindowExec on
+    ``device``."""
     if not config.tpu_enable:
         return plan
     kids = plan.children()
@@ -759,6 +774,15 @@ def maybe_accelerate(
         plan = plan.with_new_children(
             [maybe_accelerate(c, config, device) for c in kids]
         )
+    from ..exec.window import WindowExec
+
+    if isinstance(plan, WindowExec):
+        from .window_compiler import TorchWindowExec
+
+        try:
+            return TorchWindowExec(plan, config, device)
+        except K.NotLowerable:
+            return plan
     if isinstance(plan, HashAggregateExec) and plan.mode in (PARTIAL, SINGLE):
         fused = _flatten(plan)
         if fused is None:

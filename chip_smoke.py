@@ -8,28 +8,43 @@ Phases; any failure exits non-zero and prints no result line:
 
 1. card   — the card's name and power limit (nvidia-smi);
 2. build  — the CUDA kernels from this checkout's sources, built in a
-            background thread while the TPC-H data is generated;
-3. kernel — ``segment_agg`` against its plain PyTorch twin on the card over
-            seeded inputs (n in {2^20, 2^23}, capacity in {1, 4, 64, 4096,
-            2^20}) with nulls, NaN, ±0.0, all-filtered groups and int64 sums
-            past 2^53: floats within rel 1e-9 (the two sum in different
-            orders), everything else exact, and two kernel runs
-            bit-identical; each case's time per launch (median of 20)
-            beside its bound, so a capacity cliff shows;
+            background thread while the TPC-H data (lineitem, orders,
+            customer) is generated;
+3. kernel — every kernel against its plain PyTorch twin on the card over
+            seeded inputs (nulls, NaN, ±0.0, int64 past 2^53): floats
+            within rel 1e-9, everything else exact, two kernel runs
+            bit-identical, each case's time per launch (median of 20)
+            beside its bound:
+            * ``segment_agg`` (B1) at n in {2^20, 2^23} x capacity in
+              {1, 4, 64, 4096, 2^16, 2^20}, and at n = 2^23 x capacity in
+              {4096, 2^16, 2^20} the sort route (radix sort + segmented
+              scan, B6) against B1, with both routes' ms per launch;
+            * ``radix_sort`` at n in {2^20, 2^23, 2^26}: B6's one key at
+              capacity in {2^13, 2^16, 2^20} and the window key set, its
+              permutation equal to the twin's;
+            * ``seg_scan``, ``range_extremum`` and ``window_epilogue`` at
+              n in {2^20, 2^23}, and the whole window kernel against its
+              twin;
 4. query  — TPC-H q1 and q6 over ``--sf`` lineitem (``gen_lineitem``'s
             seed, streamed as ``ballista.batch.size`` = 2^23-row batches,
             ``ballista.shuffle.partitions`` = 1) through
             ``SessionContext(device="cuda")``, held against the same session
-            with ``ballista.tpu.enable=false`` (the CPU operators).  Launch
-            counts are set to 0 just before each query and read just after;
-            the plan must hold a TorchStageExec, no fallback may fire and
-            the kernel must have launched;
-5. timing — the kernel, its twin and one ``index_add_`` of the sum fields,
-            on the first batch the query phase gave the kernel (CUDA
-            events, median of 20 launches), beside the least time the card
-            could take (the bytes the call must move at 3.35 TB/s).
+            with ``ballista.tpu.enable=false`` (the CPU operators);
+5. q3     — TPC-H q3 (BASELINE config #3) the same way: the aggregate above
+            the CPU join must run on the card with no fallback, and its sort
+            route must launch;
+6. window — the per-supplier running revenue / moving average query over
+            the same lineitem: TorchWindowExec against the CPU WindowExec;
+7. timing — every kernel at the first shape its main path gave it: the
+            kernel, its twin and, where one PyTorch call computes the same
+            function, that call (CUDA events, median of 20 launches),
+            beside the least time the card could take (the bytes the call
+            must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s).
 
-Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+Launch counts are set to 0 just before each main-path run (q1/q6, q3,
+window) and read just after; a kernel of that path that never launched
+fails the run.  Then one ``{"kernels": [...]}`` line and, last,
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -44,11 +59,25 @@ import time
 
 import numpy as np
 
+# kernel-phase cases
+AGG_ROWS = (1 << 20, 1 << 23)
+AGG_CAPACITIES = (1, 4, 64, 4096, 1 << 16, 1 << 20)
+SORT_ROUTE_ROWS = 1 << 23  # B6 against B1 at capacity >= 4096
+SORT_ROWS = (1 << 20, 1 << 23, 1 << 26)
+SORT_CAPACITIES = (1 << 13, 1 << 16, 1 << 20)
+SCAN_ROWS = (1 << 20, 1 << 23)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
 REL = 1e-9
-KERNEL_SOURCE = "arrow_ballista_tpu_torch/ops/cuda/segment_agg.cu"
-REPLACES = "arrow_ballista_tpu/ops/kernels.py:1158"
+CUDA_DIR = "arrow_ballista_tpu_torch/ops/cuda/"
+# name -> (source, the JAX function it replaces)
+KERNELS = {
+    "segment_agg": ("segment_agg.cu", "arrow_ballista_tpu/ops/kernels.py:1158"),
+    "radix_sort": ("radix_sort.cu", "arrow_ballista_tpu/ops/window_kernel.py:165"),
+    "seg_scan": ("seg_scan.cu", "arrow_ballista_tpu/ops/kernels.py:1051"),
+    "range_extremum": ("range_extremum.cu", "arrow_ballista_tpu/ops/window_kernel.py:128"),
+    "window_epilogue": ("window_epilogue.cu", "arrow_ballista_tpu/ops/window_kernel.py:165"),
+}
 
 
 def card_line() -> str:
@@ -138,16 +167,19 @@ def compare_states(TK, kernel, twin, ops) -> float:
     return worst
 
 
-def kernel_phase(TK, device) -> tuple[float, dict]:
-    """Kernel vs twin over every (n, capacity) case; returns the largest
-    sum error and each case's ms per launch with its bound."""
+def kernel_phase(TK, device) -> tuple[float, dict, dict]:
+    """B1 vs its twin over every (n, capacity) case, and the sort route vs
+    B1 at n = 2^23 and the capacities where it is taken; returns the
+    largest sum error, each B1 case's ms per launch with its bound, and the
+    sort route's cases."""
     import torch
 
     specs, ops, cols = _fields(TK)
     worst = 0.0
     times: dict = {}
-    for n in (1 << 20, 1 << 23):
-        for cap in (1, 4, 64, 4096, 1 << 20):
+    sorted_times: dict = {}
+    for n in AGG_ROWS:
+        for cap in AGG_CAPACITIES:
             args = _inputs(n, cap, seed=n + cap, device=device)
             runs = []
             for _ in range(2):
@@ -168,39 +200,392 @@ def kernel_phase(TK, device) -> tuple[float, dict]:
             times[f"n={n},capacity={cap}"] = dict(ms=ms, bound_ms=bound)
             print(f"kernel n={n} capacity={cap}: ok, max_abs_err={err!r} "
                   f"ms={ms!r} bound_ms={bound!r}")
+            if n == SORT_ROUTE_ROWS and cap >= 4096:
+                # B6 against B1, both on the card, on the same inputs
+                b6 = []
+                for _ in range(2):
+                    s6 = TK.init_states(specs, cap, device)
+                    b6.append(_call(TK.sorted_segment_agg_cuda, args, ops, cols, s6))
+                torch.cuda.synchronize()
+                if not torch.equal(b6[0], b6[1]):
+                    raise AssertionError(f"sort route n={n} cap={cap}: two runs differ")
+                b1 = _call(TK.segment_agg_cuda, args, ops, cols,
+                           TK.init_states(specs, cap, device))
+                err6 = compare_states(TK, b6[0], b1, ops)
+                worst = max(worst, err6)
+                s6 = b6[0]
+                ms6 = _median_ms(
+                    lambda: _call(TK.sorted_segment_agg_cuda, args, ops, cols, s6)
+                )
+                sorted_times[f"n={n},capacity={cap}"] = dict(
+                    sort_ms=ms6, scatter_ms=ms, bound_ms=bound,
+                    max_abs_err_vs_scatter=err6,
+                )
+                print(f"sort route n={n} capacity={cap}: ok vs B1, "
+                      f"max_abs_err={err6!r} sort_ms={ms6!r} scatter_ms={ms!r}")
+                del b6, b1, s6
             del args, runs, twin, state
-    return worst, times
+    return worst, times, sorted_times
 
 
-# ------------------------------------------------------------- query phase
-class FirstCall:
-    """Wraps ``kernels.segment_agg`` to keep the first call's arguments
-    (with the state as it was before the call) for the timing phase."""
+# ------------------------------------------------ sort, scan and windows
+class Capture:
+    """Wraps ``module.name`` to keep its first call's arguments (the main
+    path's shape) for the timing phase; ``keep`` copies what the call
+    changes in place.  The wrapped function still runs."""
 
-    def __init__(self, TK):
-        self.TK = TK
-        self.inner = TK.segment_agg
+    def __init__(self, module, name: str, keep=None):
+        self.module, self.name, self.keep = module, name, keep
         self.args = None
 
     def __enter__(self):
-        def hook(gid, tail, pred, pvalid, values, valids, ops, cols, state):
-            if self.args is None:
-                self.args = (
-                    dict(gid=gid, tail=tail, pred=pred, pvalid=pvalid,
-                         values=list(values), valids=list(valids)),
-                    list(ops), list(cols), state.clone(),
-                )
-            return self.inner(
-                gid, tail, pred, pvalid, values, valids, ops, cols, state
-            )
+        inner = self.inner = getattr(self.module, self.name)
 
-        self.TK.segment_agg = hook
+        def hook(*args, **kwargs):
+            if self.args is None:
+                self.args = (self.keep(args) if self.keep else args, kwargs)
+            return inner(*args, **kwargs)
+
+        setattr(self.module, self.name, hook)
         return self
 
     def __exit__(self, *exc):
-        self.TK.segment_agg = self.inner
+        setattr(self.module, self.name, self.inner)
 
 
+def _reset_counts(TK) -> None:
+    for k in TK.LAUNCHES:
+        TK.LAUNCHES[k] = 0
+
+
+def _bound(bytes_: int, f64_ops: int = 0) -> dict:
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = f64_ops / F64_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _sort_bytes(keys) -> int:
+    return _nbytes(*keys) + 4 * keys[0].numel()  # keys read, perm written
+
+
+def _scan_bytes(TK, cols, n, perm=None, flag=None, key=None, aux=None,
+                reverse=False) -> int:
+    total = _nbytes(perm, flag, key)
+    if any(c.src == TK.SS_AUX for c in cols):
+        total += _nbytes(aux)
+    for c in cols:
+        if c.src == TK.SS_VALUES:
+            total += _nbytes(c.values)
+        total += _nbytes(c.valid) + 8 * n  # validity read, scan written
+    return total
+
+
+def _f64_sums(TK, cols, n) -> int:
+    return n * sum(c.op == TK.OP_ADD_F64 for c in cols)
+
+
+def _gid_key(n: int, cap: int, seed: int):
+    """B6's sort key: group ids with ~10% masked rows at the sentinel."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, cap, n, dtype=np.int32)
+    key[rng.random(n) < 0.1] = cap
+    return key
+
+
+def _window_keys(n: int, seed: int) -> list:
+    """The window query's key set: pad flag, partition code, then a null
+    rank and an i64 key per ORDER BY expression (a date with ties and
+    nulls, an order key, a line number)."""
+    rng = np.random.default_rng(seed)
+    pad = (np.arange(n) >= n - n // 64).astype(np.int32)
+    part = rng.integers(1, 100_001, n).astype(np.int64)
+    date_null = rng.random(n) < 0.05
+    date = np.where(date_null, 0, rng.integers(8000, 10600, n)).astype(np.int64)
+    return [pad, part, date_null.astype(np.int32), date,
+            np.zeros(n, np.int32), rng.integers(1, 60_000_001, n).astype(np.int64),
+            np.zeros(n, np.int32), rng.integers(1, 8, n).astype(np.int64)]
+
+
+def _time_sort(TK, keys) -> dict:
+    import torch
+
+    out = dict(rows=keys[0].numel(), keys=len(keys),
+               ms=_median_ms(lambda: TK.radix_argsort_cuda(keys)),
+               passes=TK.radix_sort_pass_count(keys),
+               plain_ms=_median_ms(lambda: TK.radix_argsort_reference(keys), 5),
+               library_ms=(_median_ms(lambda: torch.sort(keys[0], stable=True))
+                           if len(keys) == 1 else None),
+               max_abs_err=0.0)
+    out.update(_bound(_sort_bytes(keys)))
+    return out
+
+
+def sort_phase(TK, device) -> dict:
+    """radix_sort vs its twin: B6's one key and the window key set."""
+    import torch
+
+    times: dict = {}
+    for n in SORT_ROWS:
+        cases = [(f"one key capacity={cap}", lambda cap=cap: [_gid_key(n, cap, n + cap)])
+                 for cap in SORT_CAPACITIES]
+        cases.append(("window keys", lambda: _window_keys(n, n)))
+        for name, make in cases:
+            keys = [torch.from_numpy(k).to(device) for k in make()]
+            runs = [TK.radix_argsort_cuda(keys) for _ in range(2)]
+            twin = TK.radix_argsort_reference(keys)
+            torch.cuda.synchronize()
+            if not torch.equal(runs[0], runs[1]):
+                raise AssertionError(f"radix_sort n={n} {name}: two runs differ")
+            if not torch.equal(runs[0], twin):
+                raise AssertionError(f"radix_sort n={n} {name}: perm differs from the twin")
+            del runs, twin
+            t = _time_sort(TK, keys)
+            times[f"n={n},{name}"] = t
+            print(f"radix_sort n={n} {name}: ok, passes={t['passes']} ms={t['ms']!r} "
+                  f"library_ms={t['library_ms']!r} bound_ms={t['bound_ms']!r}")
+            del keys
+    return times
+
+
+def _scan_inputs(n: int, device, seed: int) -> dict:
+    import torch
+
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(-100, 100, n)
+    v[rng.random(n) < 0.01] = np.nan
+    z = rng.random(n) < 0.05
+    v[z] = np.where(rng.random(int(z.sum())) < 0.5, -0.0, 0.0)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return dict(
+        perm=t(rng.permutation(n).astype(np.int32)),
+        flag=t((rng.random(n) < 0.002).astype(np.uint8)),
+        aux=t((rng.random(n) < 0.3).astype(np.uint8)),
+        v=t(v), w=t(rng.integers(2**54, 2**55, n)),
+        vm=t(rng.random(n) >= 0.1), wm=t(rng.random(n) >= 0.1),
+    )
+
+
+def _scan_cols(TK, d) -> list:
+    S = TK.ScanColumn
+    return [
+        S(TK.SS_VALUES, TK.OP_ADD_F64, d["v"], d["vm"]),
+        S(TK.SS_VALUES, TK.OP_MIN_F64, d["v"], d["vm"]),
+        S(TK.SS_VALUES, TK.OP_MAX_F64, d["v"], None),
+        S(TK.SS_VALUES, TK.OP_ADD_I64, d["w"], d["wm"]),
+        S(TK.SS_VALUES, TK.OP_MIN_I64, d["w"], d["wm"]),
+        S(TK.SS_VALUES, TK.OP_MAX_I64, d["w"], None),
+        S(TK.SS_VALUES, TK.OP_ADD_F64, d["w"], None),
+        S(TK.SS_COUNT, TK.OP_ADD_I64, None, d["vm"]),
+        S(TK.SS_IOTA, TK.OP_MIN_I64),
+        S(TK.SS_AUX, TK.OP_ADD_I64),
+    ]
+
+
+def _compare_words(TK, cols, got, want, what: str) -> float:
+    """f64 sum columns within REL (NaN matching NaN), all else bit-equal;
+    returns the largest absolute difference of the sums."""
+    import torch
+
+    worst = 0.0
+    for k, (c, g, w) in enumerate(zip(cols, got, want)):
+        if c.op == TK.OP_ADD_F64 and c.src == TK.SS_VALUES:
+            gf = g.cpu().numpy().view(np.float64)
+            wf = w.cpu().numpy().view(np.float64)
+            if not np.array_equal(np.isnan(gf), np.isnan(wf)):
+                raise AssertionError(f"{what} column {k}: NaN positions differ")
+            ok = ~np.isnan(wf)
+            diff = np.abs(gf[ok] - wf[ok])
+            if diff.size:
+                worst = max(worst, float(diff.max()))
+            if np.any(diff > REL * np.abs(wf[ok])):
+                raise AssertionError(f"{what} column {k}: sum off by {diff.max()}")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what} column {k}: words differ")
+    return worst
+
+
+def _time_scan(TK, cols, n, kwargs: dict, err: float) -> dict:
+    out = dict(rows=n, columns=len(cols),
+               ms=_median_ms(lambda: TK.seg_scan_cuda(cols, n, **kwargs)),
+               plain_ms=_median_ms(lambda: TK.seg_scan_reference(cols, n, **kwargs), 5),
+               library_ms=None, max_abs_err=err)
+    out.update(_bound(_scan_bytes(TK, cols, n, **kwargs), _f64_sums(TK, cols, n)))
+    return out
+
+
+def scan_phase(TK, WK, device) -> tuple[dict, dict, dict]:
+    """seg_scan, range_extremum and window_epilogue vs their twins."""
+    import torch
+
+    scans, extrema, epilogues = {}, {}, {}
+    for n in SCAN_ROWS:
+        d = _scan_inputs(n, device, seed=n)
+        cols = _scan_cols(TK, d)
+        for reverse in (False, True):
+            kw = dict(perm=d["perm"], flag=d["flag"], aux=d["aux"], reverse=reverse)
+            runs = [TK.seg_scan_cuda(cols, n, **kw) for _ in range(2)]
+            want = TK.seg_scan_reference(cols, n, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"seg_scan n={n}: two runs differ")
+            err = _compare_words(TK, cols, runs[0], want, f"seg_scan n={n}")
+            del runs, want
+            t = _time_scan(TK, cols, n, kw, err)
+            scans[f"n={n},reverse={reverse}"] = t
+            print(f"seg_scan n={n} reverse={reverse}: ok, max_abs_err={err!r} "
+                  f"ms={t['ms']!r} bound_ms={t['bound_ms']!r}")
+        (sf,) = TK.seg_scan_cuda([TK.ScanColumn(TK.SS_IOTA, TK.OP_MIN_I64)], n, flag=d["flag"])
+        (sl,) = TK.seg_scan_cuda([TK.ScanColumn(TK.SS_IOTA, TK.OP_MAX_I64)], n,
+                                 flag=d["flag"], reverse=True)
+        for (a, b), op, vals in (((-6, 0), TK.OP_MAX_F64, d["v"]),
+                                 ((None, 0), TK.OP_MIN_F64, d["v"]),
+                                 ((-3, 2), TK.OP_MAX_I64, d["w"])):
+            args = (vals, d["vm"], d["perm"], sf, sl, a, b, op)
+            runs = [WK.range_extremum_cuda(*args) for _ in range(2)]
+            want = WK.range_extremum_reference(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], want)):
+                raise AssertionError(f"range_extremum n={n} frame={(a, b)}: differs")
+            t = _time_extremum(WK, args)
+            extrema[f"n={n},frame={(a, b)},op={op}"] = t
+            print(f"range_extremum n={n} frame={(a, b)} op={op}: ok, "
+                  f"ms={t['ms']!r} bound_ms={t['bound_ms']!r}")
+        # the whole window kernel on the card; its flags and pack calls
+        # against their twins on the same inputs
+        keys = [torch.from_numpy(k).to(device) for k in _window_keys(n, seed=n + 1)]
+        fn = WK.make_window_kernel(WINDOW_SPECS, 2, 6, 2)
+        args = [(d["v"], d["vm"]), (d["w"], None)]
+        with Capture(WK, "window_flags_cuda") as flags, \
+                Capture(WK, "window_pack_cuda") as pack:
+            runs = [fn(keys[:2], keys[2:], args) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(runs[0], runs[1]):
+            raise AssertionError(f"window kernel n={n}: two runs differ")
+        t_flags, t_pack = _time_flags(WK, flags.args), _time_pack(WK, pack.args)
+        epilogues[f"n={n},flags"], epilogues[f"n={n},pack"] = t_flags, t_pack
+        if n == SCAN_ROWS[0]:  # the whole kernel's twin runs on the host CPU
+            cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
+            want = fn([k.cpu() for k in keys[:2]], [k.cpu() for k in keys[2:]],
+                      [(cpu(v), cpu(m)) for v, m in args])
+            got = runs[0].cpu()
+            for r in range(want.shape[0]):
+                if r in WINDOW_SUM_ROWS:
+                    g, w = got[r].numpy().view(np.float64), want[r].numpy().view(np.float64)
+                    if not np.allclose(g, w, rtol=REL, atol=0, equal_nan=True):
+                        raise AssertionError(f"window kernel row {r}: sums differ")
+                elif not torch.equal(got[r], want[r]):
+                    raise AssertionError(f"window kernel row {r} differs from the twin")
+        print(f"window_epilogue n={n}: ok, flags_ms={t_flags['ms']!r} "
+              f"pack_ms={t_pack['ms']!r} pack_bound_ms={t_pack['bound_ms']!r}")
+        del d, cols, keys, runs, args, sf, sl
+    return scans, extrema, epilogues
+
+
+# the window kernel's kernel-phase specs: every kind of packed row
+WINDOW_SPECS = (
+    ("row_number",), ("rank",), ("dense_rank",), ("ntile", 7),
+    ("agg", "sum", 0), ("agg", "count", None), ("agg", "min", 1),
+    ("agg", "max", 0), ("agg", "count", 0),
+    ("aggf", "avg", 0, -6, 0), ("aggf", "max", 0, -6, 0),
+    ("aggf", "count", None, None, 1), ("aggf", "sum", 1, 2, 5),
+    ("aggf", "min", 1, None, None),
+    ("val", "lag", 0, 1), ("val", "lead", 1, 2),
+    ("val", "first_value", 0, 1), ("val", "last_value", 1, 1),
+)
+WINDOW_SUM_ROWS = {4, 12, 13, 18, 19}  # f64 sums: another summation order
+
+
+def _time_extremum(WK, args) -> dict:
+    values, valid, perm, sf, sl = args[:5]
+    n = perm.numel()
+    out = dict(rows=n, ms=_median_ms(lambda: WK.range_extremum_cuda(*args)),
+               plain_ms=_median_ms(lambda: WK.range_extremum_reference(*args), 5),
+               library_ms=None, max_abs_err=0.0)
+    out.update(_bound(_nbytes(values, valid, perm, sf, sl) + 8 * n))
+    return out
+
+
+def _time_flags(WK, captured) -> dict:
+    import torch
+
+    (keys, perm, n_part), _ = captured
+    got = WK.window_flags_cuda(keys, perm, n_part)
+    want = WK.window_flags_reference(keys, perm, n_part)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("window_flags differ from the twin")
+    n = perm.numel()
+    out = dict(rows=n, keys=len(keys),
+               ms=_median_ms(lambda: WK.window_flags_cuda(keys, perm, n_part)),
+               plain_ms=_median_ms(lambda: WK.window_flags_reference(keys, perm, n_part), 5),
+               library_ms=None, max_abs_err=0.0)
+    out.update(_bound(_nbytes(*keys, perm) + 2 * n))
+    return out
+
+
+def _time_pack(WK, captured) -> dict:
+    import torch
+
+    args, _ = captured
+    got = WK.window_pack_cuda(*args)
+    want = WK.window_pack_reference(*args)
+    if not torch.equal(got, want):
+        raise AssertionError("window_pack differs from the twin")
+    rows, perm, sf, sl, pf, pl = args
+    n = perm.numel()
+    read = _nbytes(perm, sf, sl, pf, pl)
+    read += sum(_nbytes(r.x, r.values, r.valid) for r in rows)
+    out = dict(rows=n, packed_rows=len(rows),
+               ms=_median_ms(lambda: WK.window_pack_cuda(*args)),
+               plain_ms=_median_ms(lambda: WK.window_pack_reference(*args), 5),
+               library_ms=None, max_abs_err=0.0)
+    out.update(_bound(read + 8 * n * len(rows)))
+    return out
+
+
+def _time_sort_route(TK, captured) -> dict:
+    """The sort route (K1 + K2) at a captured batch, against B1 and the
+    twin on the same batch; the yardstick is one scatter_reduce of the
+    first f64 sum field."""
+    import torch
+
+    (gid, tail, pred, pvalid, values, valids, ops, cols, state0), _ = captured
+    args = dict(gid=gid, tail=tail, pred=pred, pvalid=pvalid,
+                values=list(values), valids=list(valids))
+    k = _call(TK.sorted_segment_agg_cuda, args, ops, cols, state0.clone())
+    b1 = _call(TK.segment_agg_cuda, args, ops, cols, state0.clone())
+    tw = _call(TK.sorted_segment_agg_reference, args, ops, cols, state0.clone())
+    err = max(compare_states(TK, k, b1, ops), compare_states(TK, k, tw, ops))
+    ms = _median_ms(lambda: _call(TK.sorted_segment_agg_cuda, args, ops, cols, k))
+    b1_ms = _median_ms(lambda: _call(TK.segment_agg_cuda, args, ops, cols, b1))
+    plain = _median_ms(lambda: _call(TK.sorted_segment_agg_reference, args, ops, cols, tw), 5)
+    n, cap = gid.numel(), state0.shape[1]
+    library = None
+    f = next((i for i, op in enumerate(ops) if op == TK.OP_ADD_F64), None)
+    if f is not None:
+        mask = torch.ones(n, dtype=torch.bool, device=gid.device)
+        for m in (tail, pred, pvalid, valids[cols[f]]):
+            if m is not None:
+                mask &= m
+        v = torch.where(mask, values[cols[f]], 0.0)
+        g = gid.long()
+        acc = torch.zeros(cap, dtype=torch.float64, device=gid.device)
+        library = _median_ms(lambda: acc.scatter_reduce(0, g, v, "sum"))
+    out = dict(rows=n, capacity=cap, fields=len(ops), ms=ms, scatter_ms=b1_ms,
+               plain_ms=plain, library_ms=library, max_abs_err=err)
+    out.update(_bound(_bytes_moved(args, state0)))
+    return out
+
+
+def _keep_state(args):
+    return args[:-1] + (args[-1].clone(),)
+
+
+# ------------------------------------------------------------- query phase
 def _tables_equal(a, b, what: str) -> None:
     if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
         raise AssertionError(f"{what}: shape {a.shape} vs {b.shape}")
@@ -223,12 +608,8 @@ def _stage_nodes(plan, cls) -> list:
     return out
 
 
-def query_phase(tbt, TK, lineitem, device) -> dict:
-    import torch
-
-    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
-    from benchmarks.tpch.queries import QUERIES
-
+def lineitem_batches(lineitem) -> list:
+    """2^23-row batches of lineitem, as ``ballista.batch.size`` cuts them."""
     import pyarrow as pa
 
     # to_batches cuts at every chunk boundary of every column, so make one
@@ -238,15 +619,37 @@ def query_phase(tbt, TK, lineitem, device) -> dict:
     lineitem = lineitem.set_column(
         i, "l_comment", lineitem.column(i).cast(pa.large_string())
     ).combine_chunks()
-    batches = lineitem.to_batches(max_chunksize=1 << 23)
-    n_rows = lineitem.num_rows
-    settings = {
-        "ballista.batch.size": str(1 << 23),
-        "ballista.shuffle.partitions": "1",
-    }
+    return lineitem.to_batches(max_chunksize=1 << 23)
+
+
+SETTINGS = {  # bench.py's
+    "ballista.batch.size": str(1 << 23),
+    "ballista.shuffle.partitions": "1",
+}
+
+
+def _stage_metrics(stages) -> dict:
+    metrics: dict = {}
+    for s in stages:
+        for k, v in s.metrics.to_dict().items():
+            metrics[k] = metrics.get(k, 0) + v
+    return metrics
+
+
+BREAKDOWN = ("tpu_stage_time_ns", "bridge_time_ns", "key_encode_time_ns",
+             "device_time_ns", "tpu_compile_ns", "tpu_execute_ns")
+
+
+def query_phase(tbt, TK, batches, device) -> dict:
+    import torch
+
+    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+    from benchmarks.tpch.queries import QUERIES
+
+    n_rows = sum(b.num_rows for b in batches)
 
     def session(enable: bool):
-        cfg = dict(settings, **{"ballista.tpu.enable": str(enable).lower()})
+        cfg = dict(SETTINGS, **{"ballista.tpu.enable": str(enable).lower()})
         ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
         ctx.register_record_batches("lineitem", [batches])
         return ctx
@@ -264,35 +667,176 @@ def query_phase(tbt, TK, lineitem, device) -> dict:
         stages = _stage_nodes(plan, TorchStageExec)
         if not stages:
             raise AssertionError(f"q{q}: no TorchStageExec in the plan")
-        with FirstCall(TK) as first:
-            TK.segment_agg_cuda.launches = 0
+        _reset_counts(TK)
+        with Capture(TK, "segment_agg", keep=_keep_state) as first:
             t0 = time.perf_counter()
             got = ctx.execute(plan)
             torch.cuda.synchronize()
             dev_s = time.perf_counter() - t0
-            launches = TK.segment_agg_cuda.launches
-        if launches < 1:
+        launches = dict(TK.LAUNCHES)
+        if launches["segment_agg"] < 1:
             raise AssertionError(f"q{q}: the kernel never launched")
-        metrics: dict = {}
-        for s in stages:
-            for k, v in s.metrics.to_dict().items():
-                metrics[k] = metrics.get(k, 0) + v
+        metrics = _stage_metrics(stages)
         for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
             if metrics.get(k, 0):
                 raise AssertionError(f"q{q}: {k}={metrics[k]}")
         _tables_equal(want, got, f"q{q}")
-        breakdown = {
-            k: metrics.get(k, 0)
-            for k in ("tpu_stage_time_ns", "bridge_time_ns", "key_encode_time_ns",
-                      "device_time_ns", "tpu_compile_ns", "tpu_execute_ns")
-        }
+        breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN}
         print(
-            f"q{q}: rows={n_rows} launches={launches} "
+            f"q{q}: rows={n_rows} launches={json.dumps(launches)} "
             f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
             f"cuda_s={dev_s!r} cpu_s={cpu_s!r} breakdown={json.dumps(breakdown)}"
         )
         out[q] = dict(launches=launches, args=first.args)
     return out
+
+
+def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
+    """TPC-H q3: the aggregate above the CPU join on the card, against the
+    CPU operators; its sort route must launch."""
+    import torch
+
+    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+    from benchmarks.tpch.queries import QUERIES
+
+    n_rows = sum(b.num_rows for b in batches)
+
+    def session(enable: bool):
+        cfg = dict(SETTINGS, **{"ballista.tpu.enable": str(enable).lower()})
+        ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
+        ctx.register_record_batches("lineitem", [batches])
+        ctx.register_arrow_table("orders", orders)
+        ctx.register_arrow_table("customer", customer)
+        return ctx
+
+    cpu_ctx = session(False)
+    plan = cpu_ctx.sql(QUERIES[3]).physical_plan()
+    t0 = time.perf_counter()
+    want = cpu_ctx.execute(plan)
+    cpu_s = time.perf_counter() - t0
+
+    ctx = session(True)
+    plan = ctx.sql(QUERIES[3]).physical_plan()
+    stages = _stage_nodes(plan, TorchStageExec)
+    if not stages:
+        raise AssertionError("q3: no TorchStageExec in the plan")
+    _reset_counts(TK)
+    with Capture(TK, "radix_argsort_cuda") as sort, \
+            Capture(TK, "sorted_segment_agg_cuda", keep=_keep_state) as route:
+        t0 = time.perf_counter()
+        got = ctx.execute(plan)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    metrics = _stage_metrics(stages)
+    for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
+        if metrics.get(k, 0):
+            raise AssertionError(f"q3: {k}={metrics[k]} ({json.dumps(metrics)})")
+    for k in ("radix_sort", "seg_scan"):
+        if launches[k] < 1:
+            raise AssertionError(f"q3: the sort route's {k} never launched")
+    _tables_equal(want, got, "q3")
+    breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
+        "capacity_growths", "input_rows", "output_rows")}
+    print(
+        f"q3: lineitem_rows={n_rows} launches={json.dumps(launches)} "
+        f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
+        f"cuda_s={dev_s!r} cpu_s={cpu_s!r} "
+        f"breakdown={json.dumps(breakdown)}"
+    )
+    return dict(launches=launches, sort=sort.args, route=route.args)
+
+
+WINDOW_SQL = """select l_orderkey, l_linenumber,
+ row_number() over (partition by l_suppkey order by l_shipdate, l_orderkey, l_linenumber) rn,
+ rank() over (partition by l_suppkey order by l_shipdate) rk,
+ sum(l_extendedprice) over (partition by l_suppkey order by l_shipdate) rs,
+ avg(l_quantity) over (partition by l_suppkey order by l_shipdate, l_orderkey, l_linenumber rows between 6 preceding and current row) ma,
+ max(l_discount) over (partition by l_suppkey order by l_shipdate, l_orderkey, l_linenumber rows between 6 preceding and current row) mx,
+ lag(l_extendedprice, 1) over (partition by l_suppkey order by l_shipdate, l_orderkey, l_linenumber) lg
+from lineitem"""
+
+
+def _tables_close(a, b, what: str) -> None:
+    """Vectorised _tables_equal for large results, row by row in the
+    order both legs produce (a window keeps its input order): floats
+    within REL with NaN matching NaN, all else exact."""
+    import pyarrow.compute as pc
+
+    if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
+        raise AssertionError(f"{what}: shape {a.shape} vs {b.shape}")
+    for name in a.schema.names:
+        x, y = a.column(name), b.column(name)
+        xv = np.asarray(pc.is_valid(x))
+        if not np.array_equal(xv, np.asarray(pc.is_valid(y))):
+            raise AssertionError(f"{what}.{name}: null positions differ")
+        xn = x.fill_null(0).to_numpy()[xv]
+        yn = y.fill_null(0).to_numpy()[xv]
+        if xn.dtype.kind == "f":
+            if not np.array_equal(np.isnan(xn), np.isnan(yn)):
+                raise AssertionError(f"{what}.{name}: NaN positions differ")
+            ok = ~np.isnan(xn)
+            bad = ~(np.abs(xn[ok] - yn[ok]) <= REL * np.abs(xn[ok]))
+            if bad.any():
+                i = int(np.argmax(bad))
+                raise AssertionError(f"{what}.{name}: {xn[ok][i]!r} vs {yn[ok][i]!r}")
+        elif not np.array_equal(xn, yn):
+            raise AssertionError(f"{what}.{name}: values differ")
+
+
+def window_phase(tbt, TK, WK, batches, device) -> dict:
+    """The window query: TorchWindowExec against the CPU WindowExec."""
+    import torch
+
+    from arrow_ballista_tpu_torch.ops.window_compiler import TorchWindowExec
+
+    n_rows = sum(b.num_rows for b in batches)
+
+    def session(enable: bool):
+        cfg = dict(SETTINGS, **{"ballista.tpu.enable": str(enable).lower()})
+        ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
+        ctx.register_record_batches("lineitem", [batches])
+        return ctx
+
+    cpu_ctx = session(False)
+    plan = cpu_ctx.sql(WINDOW_SQL).physical_plan()
+    t0 = time.perf_counter()
+    want = cpu_ctx.execute(plan)
+    cpu_s = time.perf_counter() - t0
+
+    ctx = session(True)
+    plan = ctx.sql(WINDOW_SQL).physical_plan()
+    nodes = _stage_nodes(plan, TorchWindowExec)
+    if not nodes:
+        raise AssertionError("window: no TorchWindowExec in the plan")
+    _reset_counts(TK)
+    with Capture(TK, "radix_argsort_cuda") as sort, \
+            Capture(TK, "seg_scan_cuda") as scan, \
+            Capture(WK, "range_extremum_cuda") as rx, \
+            Capture(WK, "window_flags_cuda") as flags, \
+            Capture(WK, "window_pack_cuda") as pack:
+        t0 = time.perf_counter()
+        got = ctx.execute(plan)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    metrics = _stage_metrics(nodes)
+    print(
+        f"window: rows={n_rows} launches={json.dumps(launches)} "
+        f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
+        f"cuda_s={dev_s!r} cpu_s={cpu_s!r} "
+        f"window_time_ns={metrics.get('window_time_ns', 0)}"
+    )
+    if metrics.get("tpu_window", 0) < 1 or metrics.get("tpu_fallback", 0):
+        raise AssertionError(f"window: metrics {json.dumps(metrics)}")
+    for k in ("radix_sort", "seg_scan", "range_extremum", "window_epilogue"):
+        if launches[k] < 1:
+            raise AssertionError(f"window: {k} never launched")
+    t0 = time.perf_counter()
+    _tables_close(want, got, "window")
+    print(f"window: equal to the CPU WindowExec, compared in s={time.perf_counter() - t0!r}")
+    return dict(launches=launches, sort=sort.args, scan=scan.args, rx=rx.args,
+                flags=flags.args, pack=pack.args)
 
 
 # ------------------------------------------------------------ timing phase
@@ -326,7 +870,9 @@ def _bytes_moved(args: dict, state) -> int:
 def time_shape(TK, captured) -> dict:
     import torch
 
-    args, ops, cols, state0 = captured
+    (gid, tail, pred, pvalid, values, valids, ops, cols, state0), _ = captured
+    args = dict(gid=gid, tail=tail, pred=pred, pvalid=pvalid,
+                values=list(values), valids=list(valids))
     k_state = _call(TK.segment_agg_cuda, args, ops, cols, state0.clone())
     t_state = _call(TK.segment_agg_reference, args, ops, cols, state0.clone())
     err = compare_states(TK, k_state, t_state, ops)
@@ -360,6 +906,44 @@ def time_shape(TK, captured) -> dict:
 
 
 # -------------------------------------------------------------------- main
+def _entry(name: str, head: dict, launches: int, err: float, **extra) -> dict:
+    source, replaces = KERNELS[name]
+    entry = dict(
+        name=name, route="cuda", source=CUDA_DIR + source, replaces=replaces,
+        launches=launches, max_abs_err=err, ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+    )
+    entry.update(extra)
+    return entry
+
+
+def _checked_sort(TK, captured) -> dict:
+    import torch
+
+    (keys,), _ = captured
+    if not torch.equal(TK.radix_argsort_cuda(keys), TK.radix_argsort_reference(keys)):
+        raise AssertionError("radix_sort differs from the twin at a main-path shape")
+    return _time_sort(TK, keys)
+
+
+def _checked_scan(TK, captured) -> dict:
+    (cols, n, *rest), kw = captured
+    kw = dict(zip(("perm", "flag", "key", "aux", "reverse"), rest), **kw)
+    err = _compare_words(TK, cols, TK.seg_scan_cuda(cols, n, **kw),
+                         TK.seg_scan_reference(cols, n, **kw), "seg_scan main path")
+    return _time_scan(TK, cols, n, kw, err)
+
+
+def _checked_extremum(WK, captured) -> dict:
+    import torch
+
+    args, _ = captured
+    if not torch.equal(WK.range_extremum_cuda(*args), WK.range_extremum_reference(*args)):
+        raise AssertionError("range_extremum differs from the twin at a main-path shape")
+    return _time_extremum(WK, args)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0, help="TPC-H scale factor")
@@ -373,15 +957,37 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import arrow_ballista_tpu_torch as tbt
-    from arrow_ballista_tpu_torch.ops import kernels as TK
-    from arrow_ballista_tpu_torch.ops.cuda import build
-    from benchmarks.tpch.datagen import gen_lineitem
-
-    device = torch.device("cuda")
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    entries = run(opts, torch.device("cuda"))
+
+    leaked = sorted(
+        m for m in sys.modules
+        if m == "jax" or m.startswith("jax.")
+        or m == "arrow_ballista_tpu" or m.startswith("arrow_ballista_tpu.")
+    )
+    if leaked:
+        raise AssertionError(f"JAX-side modules loaded: {leaked[:5]}")
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+def run(opts, device) -> list:
+    """Every phase on ``device``; returns the kernels' entries."""
+    import arrow_ballista_tpu_torch as tbt
+    from arrow_ballista_tpu_torch.ops import kernels as TK
+    from arrow_ballista_tpu_torch.ops import window_kernel as WK
+    from arrow_ballista_tpu_torch.ops.cuda import build
+    from benchmarks.tpch.datagen import gen_lineitem, gen_table
 
     built: dict = {}
 
@@ -397,57 +1003,62 @@ def main() -> int:
     builder.start()
     t0 = time.perf_counter()
     lineitem = gen_lineitem(opts.sf)
-    print(f"datagen: sf={opts.sf} rows={lineitem.num_rows} "
-          f"s={time.perf_counter() - t0!r}")
+    orders, customer = gen_table("orders", opts.sf), gen_table("customer", opts.sf)
+    print(f"datagen: sf={opts.sf} rows={lineitem.num_rows} orders={orders.num_rows} "
+          f"customer={customer.num_rows} s={time.perf_counter() - t0!r}")
     builder.join()
     if "error" in built:
         raise built["error"]
     print(f"build: s={built['s']!r}")
 
     t0 = time.perf_counter()
-    kernel_err, kernel_times = kernel_phase(TK, device)
+    kernel_err, kernel_times, sorted_times = kernel_phase(TK, device)
+    sort_times = sort_phase(TK, device)
+    scan_times, rx_times, epilogue_times = scan_phase(TK, WK, device)
+    scan_err = max(t["max_abs_err"] for t in scan_times.values())
     print(f"kernel phase: ok s={time.perf_counter() - t0!r}")
 
-    queries = query_phase(tbt, TK, lineitem, device)
+    batches = lineitem_batches(lineitem)
     del lineitem
+    queries = query_phase(tbt, TK, batches, device)
+    q3 = q3_phase(tbt, TK, batches, orders, customer, device)
+    del orders, customer
+    window = window_phase(tbt, TK, WK, batches, device)
+    del batches
+    runs = [queries[1], queries[6], q3, window]
+    launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["args"]) for q, r in queries.items()}
-    for name, s in shapes.items():
-        print(f"timing {name}: {json.dumps(s)}")
-    main_shape = shapes["q1"]
-    entry = dict(
-        name="segment_agg",
-        route="cuda",
-        source=KERNEL_SOURCE,
-        replaces=REPLACES,
-        launches=sum(r["launches"] for r in queries.values()),
-        max_abs_err=max([kernel_err] + [s["max_abs_err"] for s in shapes.values()]),
-        ms=main_shape["ms"],
-        plain_ms=main_shape["plain_ms"],
-        bound_ms=main_shape["bound_ms"],
-        bound_by=main_shape["bound_by"],
-        library_ms=main_shape["library_ms"],
-        shapes=shapes,
-        kernel_phase=kernel_times,
-    )
+    sort_shapes = {"q3": _checked_sort(TK, q3["sort"]),
+                   "window": _checked_sort(TK, window["sort"])}
+    route = _time_sort_route(TK, q3["route"])
+    scan_shapes = {"window": _checked_scan(TK, window["scan"]), "q3_sort_route": route}
+    rx_shape = _checked_extremum(WK, window["rx"])
+    pack_shape = _time_pack(WK, window["pack"])
+    flags_shape = _time_flags(WK, window["flags"])
+    for name, t in [*shapes.items(), *(("radix_sort " + k, v) for k, v in sort_shapes.items()),
+                    *(("seg_scan " + k, v) for k, v in scan_shapes.items()),
+                    ("range_extremum window", rx_shape), ("window_pack window", pack_shape),
+                    ("window_flags window", flags_shape)]:
+        print(f"timing {name}: {json.dumps(t)}")
 
-    leaked = sorted(
-        m for m in sys.modules
-        if m == "jax" or m.startswith("jax.")
-        or m == "arrow_ballista_tpu" or m.startswith("arrow_ballista_tpu.")
-    )
-    if leaked:
-        raise AssertionError(f"JAX-side modules loaded: {leaked[:5]}")
-    print(json.dumps({"kernels": [entry]}))
-    print(json.dumps({
-        "ok": True,
-        "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        },
-    }))
-    return 0
+    entries = [
+        _entry("segment_agg", shapes["q1"], launches["segment_agg"],
+               max([kernel_err] + [s["max_abs_err"] for s in shapes.values()]),
+               shapes=shapes, kernel_phase=kernel_times, sort_route=sorted_times),
+        _entry("radix_sort", sort_shapes["q3"], launches["radix_sort"], 0.0,
+               shapes=sort_shapes, kernel_phase=sort_times),
+        _entry("seg_scan", scan_shapes["window"], launches["seg_scan"],
+               max(scan_err, route["max_abs_err"], scan_shapes["window"]["max_abs_err"]),
+               shapes=scan_shapes, kernel_phase=scan_times),
+        _entry("range_extremum", rx_shape, launches["range_extremum"], 0.0,
+               kernel_phase=rx_times),
+        _entry("window_epilogue", pack_shape, launches["window_epilogue"], 0.0,
+               shapes={"pack": pack_shape, "flags": flags_shape},
+               kernel_phase=epilogue_times),
+    ]
+
+    return entries
 
 
 if __name__ == "__main__":

@@ -25,10 +25,16 @@ HOST_COPIES = [
 ]
 # ported, not copied: context.py gains the device, ops/bridge.py gains the
 # device staging (appended after the copied body) and a zigzag identity key
-# encoder (negative keys stay on the device route), and the two sorting
+# encoder (negative keys stay on the device route), the two sorting
 # operators sort through exec/operators.py:sort_indices, because pyarrow
-# before 25 rejects per-key null placement
-ALLOWLIST = {"context.py", "ops/bridge.py", "exec/operators.py", "exec/window.py"}
+# before 25 rejects per-key null placement, exec/window.py's float running
+# sums restart per segment (_segmented_cumsum), and the window lowering
+# (ops/window_compiler.py, ops/window_kernel.py) runs the port's kernels,
+# x64 only, and raises on device errors instead of re-running on the CPU
+ALLOWLIST = {
+    "context.py", "ops/bridge.py", "exec/operators.py", "exec/window.py",
+    "ops/window_compiler.py", "ops/window_kernel.py",
+}
 
 
 def _is_forbidden(module: str) -> bool:
@@ -80,6 +86,8 @@ def test_host_copy_equals_original(rel):
         got = f.read()
     if rel == "ops/bridge.py":
         assert _drop_identity_encoder(got).startswith(_drop_identity_encoder(want))
+    elif rel == "exec/window.py":
+        assert _drop_segmented_cumsum(_undo_sort_helper(got)) == _drop_segmented_cumsum(want)
     elif rel.startswith("exec/"):
         assert _undo_sort_helper(got) == want
     elif rel not in ALLOWLIST:
@@ -89,6 +97,14 @@ def test_host_copy_equals_original(rel):
 def _drop_identity_encoder(text: str) -> str:
     return re.sub(
         r"class IdentityKeyEncoder:.*?\n\n\n(?=class )", "", text, count=1, flags=re.S
+    )
+
+
+def _drop_segmented_cumsum(text: str) -> str:
+    # the port's float cumsum restarts per segment (the reference rounds
+    # running float sums at the whole table's magnitude)
+    return re.sub(
+        r"def _segmented_cumsum\(.*?\n\n\n(?=def )", "", text, count=1, flags=re.S
     )
 
 

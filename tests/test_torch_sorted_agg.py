@@ -1,0 +1,286 @@
+"""The PyTorch port's sort route of the partial aggregate against the JAX
+package's.
+
+Twin of ``tests/test_sorted_agg.py``: the JAX package is forced to its sort
+route with ``arrow_ballista_tpu.ops.kernels.set_agg_algorithm("sort")`` and
+runs in x64 on the CPU, the port is forced with its own
+``set_agg_algorithm("sort")`` and runs on ``device="cpu"`` (the radix sort's
+and the segmented scan's plain twins), and both are held to the CPU
+operators: floats within rel 1e-9, everything else exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+import arrow_ballista_tpu as jbt
+import arrow_ballista_tpu_torch as tbt
+from arrow_ballista_tpu.ops import kernels as JK
+from arrow_ballista_tpu_torch.ops import kernels as TK
+from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+from benchmarks.tpch.datagen import ALL_TABLES, gen_table
+from benchmarks.tpch.queries import QUERIES
+
+REL = 1e-9
+_TPCH: dict = {}
+
+
+@pytest.fixture(autouse=True)
+def _force_sort():
+    old = JK._PRECISION["mode"]
+    JK.set_precision("x64")
+    JK.set_agg_algorithm("sort")
+    TK.set_agg_algorithm("sort")
+    try:
+        yield
+    finally:
+        JK.set_agg_algorithm(None)
+        TK.set_agg_algorithm(None)
+        JK._PRECISION["mode"] = old
+
+
+def _tables(sf: float) -> dict:
+    if sf not in _TPCH:
+        _TPCH[sf] = {name: gen_table(name, sf) for name in ALL_TABLES}
+    return _TPCH[sf]
+
+
+def _settings(tpu: bool) -> dict:
+    return {"ballista.tpu.enable": str(tpu).lower(), "ballista.tpu.min_rows": "0"}
+
+
+def _assert_tables_equal(a: pa.Table, b: pa.Table, what: str):
+    assert a.schema.names == b.schema.names, what
+    assert a.num_rows == b.num_rows, what
+    for name in a.schema.names:
+        for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
+            if isinstance(x, float) and x is not None and y is not None:
+                assert y == pytest.approx(x, rel=REL), (what, name)
+            else:
+                assert x == y, (what, name)
+
+
+def _sort_launches(monkeypatch) -> list:
+    """Counts the port's sort-route calls."""
+    calls = []
+    inner = TK.sorted_segment_agg
+
+    def counted(*args):
+        calls.append(args[0].shape[0])
+        return inner(*args)
+
+    monkeypatch.setattr(TK, "sorted_segment_agg", counted)
+    return calls
+
+
+def _three(sql: str, sf: float, monkeypatch, partitions=2):
+    """(cpu, jax sort route, port sort route), sorted on every column."""
+    jcpu = jbt.SessionContext(jbt.BallistaConfig(_settings(False)))
+    jdev = jbt.SessionContext(jbt.BallistaConfig(_settings(True)))
+    port = tbt.SessionContext(tbt.BallistaConfig(_settings(True)), device="cpu")
+    for name, t in _tables(sf).items():
+        for c in (jcpu, jdev, port):
+            c.register_arrow_table(name, t, partitions=partitions)
+    calls = _sort_launches(monkeypatch)
+    plan = port.sql(sql).physical_plan()
+    stages = []
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, TorchStageExec):
+            stages.append(node)
+        stack.extend(node.children())
+    assert stages, "no TorchStageExec in the port's plan"
+    got = port.execute(plan)
+    assert calls, "the sort route never ran"
+    for s in stages:
+        m = s.metrics.to_dict()
+        for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
+            assert k not in m, m
+    JK.set_agg_algorithm(None)  # the CPU leg runs no device kernel anyway
+    want = jcpu.sql(sql).collect()
+    JK.set_agg_algorithm("sort")
+    jgot = jdev.sql(sql).collect()
+    keys = [(c, "ascending") for c in want.column_names]
+    want, jgot, got = (t.sort_by(keys) for t in (want, jgot, got))
+    _assert_tables_equal(want, jgot, "jax sort route vs cpu")
+    _assert_tables_equal(want, got, "port sort route vs cpu")
+    return got
+
+
+# the cases of tests/test_sorted_agg.py
+_SQL = {
+    "q1": QUERIES[1],
+    "min_max_count_mixed": (
+        "select l_returnflag, min(l_discount), max(l_tax), count(*), "
+        "count(l_quantity), sum(l_extendedprice) "
+        "from lineitem group by l_returnflag"
+    ),
+    "high_cardinality": (
+        "select l_orderkey, sum(l_extendedprice), count(*), "
+        "min(l_linenumber) from lineitem group by l_orderkey"
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SQL))
+def test_sorted_route_matches_jax_and_cpu(name, monkeypatch):
+    _three(_SQL[name], 0.01, monkeypatch)
+
+
+def test_q3_sf01_sorted_route(monkeypatch):
+    """q3 at SF0.1: the aggregate above the CPU join on the sort route."""
+    got = _three(QUERIES[3], 0.1, monkeypatch)
+    assert got.num_rows == 10
+
+
+def _segment_inputs(n, cap, seed):
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, cap - 50, n).astype(np.int32)  # some groups empty
+    base = rng.random(n) < 0.9
+    vals = rng.uniform(-1e3, 1e3, n)
+    vals[rng.random(n) < 0.001] = np.nan
+    z = (seg % 7 == 3) & (rng.random(n) < 0.5)  # signed zeros
+    vals[z] = np.where(rng.random(int(z.sum())) < 0.5, -0.0, 0.0)
+    valid = rng.random(n) < 0.8
+    iv = rng.integers(-(2**62), 2**62, n)
+    return seg, base, vals, valid, iv
+
+
+def test_sorted_segment_agg_matches_jax():
+    """``_sorted_segment_agg`` (x64 kinds: f64 sum, counts, f64 and i64
+    min/max) against the port's sort route into a fresh state: empty and
+    all-masked groups, NaN, ±0.0, int64 extrema."""
+    n, cap = 200_001, 512
+    seg, base, vals, valid, iv = _segment_inputs(n, cap, 7)
+    m = base & valid
+    inf = float("inf")
+    imax, imin = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    kinds = ["f64", "i32", ("min", inf), ("max", -inf), ("min", imax), ("max", imin)]
+    cols = [np.where(m, vals, 0.0), m.astype(np.int64), np.where(m, vals, inf),
+            np.where(m, vals, -inf), np.where(m, iv, imax), np.where(m, iv, imin)]
+    key = np.where(base, seg, cap).astype(np.int32)
+    totals, presence = JK._sorted_segment_agg(
+        jnp.asarray(key), cap, kinds, [jnp.asarray(c) for c in cols])
+
+    specs = [TK.KernelAggSpec("sum", True), TK.KernelAggSpec("min", True),
+             TK.KernelAggSpec("max", True),
+             TK.KernelAggSpec("min", True, int_minmax=True),
+             TK.KernelAggSpec("max", True, int_minmax=True)]
+    ops = [TK.OP_ADD_F64, TK.OP_COUNT, TK.OP_MIN_F64, TK.OP_COUNT, TK.OP_MAX_F64,
+           TK.OP_COUNT, TK.OP_MIN_I64, TK.OP_COUNT, TK.OP_MAX_I64, TK.OP_COUNT,
+           TK.OP_COUNT]
+    fcols = [0, 0, 0, 0, 0, 0, 1, 1, 1, 1, -1]
+    t = torch.from_numpy
+    state = TK.init_states(specs, cap, torch.device("cpu"))
+    TK.sorted_segment_agg(t(seg), t(base), None, None, [t(vals), t(iv)],
+                          [t(valid), t(valid)], ops, fcols, state)
+    got = TK.unpack_host(specs, TK.fetch_states(state))
+    want = {0: totals[0], 1: totals[1], 2: totals[2], 4: totals[3],
+            6: totals[4], 8: totals[5], 10: presence}
+    for f, w in want.items():
+        w = np.asarray(w)
+        if f == 0:
+            np.testing.assert_allclose(got[f], w, rtol=REL, atol=1e-9)
+        elif w.dtype.kind == "f":
+            # NaN payloads bit for bit; a zero compares by value, because
+            # JAX's associative_scan interleaves partial results by adding
+            # zero padding (-0.0 comes back +0.0 there)
+            g = got[f]
+            zero = (g == 0) & (w == 0)
+            assert np.array_equal(g[~zero].view(np.int64), w[~zero].view(np.int64)), f
+        else:
+            np.testing.assert_array_equal(got[f], w, err_msg=str(f))
+    for f in (3, 5, 7, 9):  # the per-aggregate counts
+        np.testing.assert_array_equal(got[f], np.asarray(totals[1]))
+
+
+def test_sorted_route_equals_scatter_route_bit_for_bit():
+    """Both routes merge into the same [n_fields, capacity] state over
+    several batches: counts and extrema bit-equal, f64 sums within rel
+    1e-9."""
+    cap = 1024
+    specs = [TK.KernelAggSpec("count_star", False), TK.KernelAggSpec("sum", True),
+             TK.KernelAggSpec("min", True), TK.KernelAggSpec("max", True, int_minmax=True)]
+    ops = [TK.OP_COUNT, TK.OP_ADD_F64, TK.OP_COUNT, TK.OP_MIN_F64, TK.OP_COUNT,
+           TK.OP_MAX_I64, TK.OP_COUNT, TK.OP_COUNT]
+    fcols = [-1, 0, 0, 0, 0, 1, 1, -1]
+    t = torch.from_numpy
+    states = [TK.init_states(specs, cap, torch.device("cpu")) for _ in range(2)]
+    for seed in range(3):
+        seg, base, vals, valid, iv = _segment_inputs(50_000, cap, seed)
+        pred = t(np.random.default_rng(seed).random(50_000) < 0.7)
+        for fn, s in zip((TK.segment_agg, TK.sorted_segment_agg), states):
+            fn(t(seg), t(base), pred, None, [t(vals), t(iv)], [t(valid), None],
+               ops, fcols, s)
+    a, b = states[0].numpy(), states[1].numpy()
+    np.testing.assert_allclose(a[1].view(np.float64), b[1].view(np.float64),
+                               rtol=REL, atol=1e-9)
+    for f in range(len(ops)):
+        if f != 1:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=str(f))
+
+
+def test_sorted_route_with_capacity_growth(monkeypatch):
+    """Streaming batches grow the capacity; every batch runs the sort
+    route and the result equals the CPU operators'."""
+    rng = np.random.default_rng(3)
+    n = 6000
+    tbl = pa.table({
+        "k": pa.array(rng.permutation(n) % 3000, pa.int64()),
+        "x": pa.array(rng.normal(0, 1, n), pa.float64()),
+    })
+    batches = tbl.to_batches(max_chunksize=500)
+    sql = "select k, sum(x) as s, count(*) as c from t group by k"
+    out = []
+    calls = _sort_launches(monkeypatch)
+    for tpu in (False, True):
+        cfg = dict(_settings(tpu), **{"ballista.tpu.segment_capacity": "64"})
+        ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device="cpu")
+        ctx.register_record_batches("t", [batches])
+        plan = ctx.sql(sql).physical_plan()
+        out.append(ctx.execute(plan).sort_by([("k", "ascending")]))
+        if tpu:
+            growths, stack = 0, [plan]
+            while stack:
+                node = stack.pop()
+                if isinstance(node, TorchStageExec):
+                    growths += node.metrics.to_dict().get("capacity_growths", 0)
+                stack.extend(node.children())
+            assert growths >= 1
+    assert len(calls) == len(batches)
+    _assert_tables_equal(out[0], out[1], "growth")
+
+
+def test_segment_algo_routes_by_device_and_capacity():
+    TK.set_agg_algorithm(None)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert TK.segment_algo(1 << 20, 1 << 23, cpu) == "scatter"
+    assert TK.segment_algo(8192, 1 << 23, cuda) == "scatter"
+    assert TK.segment_algo(8193, 1024, cuda) == "sort"
+    assert TK.segment_algo(4096, (1 << 36) // 4096 + 1, cuda) == "sort"
+    assert TK.segment_algo(4096, None, cuda) == "scatter"
+    TK.set_agg_algorithm("sort")
+    assert TK.segment_algo(1, 10, cpu) == "sort"
+    TK.set_agg_algorithm("scatter")
+    assert TK.segment_algo(1 << 20, 1 << 23, cuda) == "scatter"
+    assert TK.algo_cache_token()[0] == "scatter"
+    with pytest.raises(ValueError):
+        TK.set_agg_algorithm("matmul")
+
+
+def test_radix_argsort_twin_is_lax_sort_order():
+    """The radix sort's twin gives ``lax.sort(keys + (iota,))``'s order."""
+    import jax
+
+    rng = np.random.default_rng(1)
+    n = 5000
+    keys = [rng.integers(0, 3, n).astype(np.int32),
+            rng.integers(-(2**62), 2**62, n) // (2**58),
+            rng.integers(-5, 5, n).astype(np.int32)]
+    iota = jnp.arange(n, dtype=jnp.int32)
+    want = jax.lax.sort(tuple(jnp.asarray(k) for k in keys) + (iota,), num_keys=4)[-1]
+    got = TK.radix_argsort([torch.from_numpy(k) for k in keys])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
