@@ -13,6 +13,7 @@
 #include <algorithm>
 #include <vector>
 
+#include "partition_id.h"
 #include "radix_sort.h"
 #include "range_extremum.h"
 #include "seg_scan.h"
@@ -277,6 +278,19 @@ void window_pack_(const at::Tensor& perm, at::Tensor inv, const at::Tensor& sf,
   launched(window_pack_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
+void partition_ids_(const at::Tensor& bits, const at::Tensor& nulls,
+                    int64_t n_out, at::Tensor out) {
+  c10::cuda::CUDAGuard guard(out.device());
+  PartitionIdParams p{};
+  p.n = out.size(0);
+  p.n_cols = (int)bits.size(0);
+  p.bits = reinterpret_cast<const long long*>(bits.data_ptr<int64_t>());
+  p.nulls = reinterpret_cast<const uint8_t*>(nulls.data_ptr<bool>());
+  p.n_out = (unsigned int)n_out;
+  p.out = out.data_ptr<int32_t>();
+  launched(partition_id_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -290,4 +304,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("range_extremum", &range_extremum_, "ROWS-frame min/max");
   m.def("window_flags", &window_flags_, "partition and peer start flags");
   m.def("window_pack", &window_pack_, "window outputs packed in input order");
+  m.def("partition_ids", &partition_ids_, "shuffle partition id of each row");
 }

@@ -24,6 +24,7 @@ Design rules:
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -784,9 +785,18 @@ def states_from_numpy(
 
 # Launches of each hand-written kernel, counted by its wrapper where it
 # launches (window_kernel.py's wrappers count here too); a twin never counts.
+# An executor runs several task threads against one card, so a count goes
+# through count_launch, under a lock.
 LAUNCHES = dict.fromkeys(
-    ("segment_agg", "radix_sort", "seg_scan", "range_extremum", "window_epilogue"), 0
+    ("segment_agg", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
+     "partition_ids"), 0
 )
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 # ------------------------------------------------------ segment aggregate
@@ -957,7 +967,7 @@ def segment_agg_cuda(
         list(cols),
         state,
     )
-    LAUNCHES["segment_agg"] += 1
+    count_launch("segment_agg")
     return state
 
 
@@ -1088,7 +1098,7 @@ def radix_argsort_cuda(keys: list) -> torch.Tensor:
         torch.empty(n, dtype=I64, device=device),
         torch.empty(256 * tiles, dtype=torch.int32, device=device),
     )
-    LAUNCHES["radix_sort"] += 1
+    count_launch("radix_sort")
     return perm
 
 
@@ -1266,7 +1276,7 @@ def _launch_scan(cols, n, perm, flag, key, aux, reverse, outs, state, field_col,
         torch.empty(blocks * len(cols), dtype=I64, device=device),
         torch.empty(blocks, dtype=torch.uint8, device=device),
     )
-    LAUNCHES["seg_scan"] += 1
+    count_launch("seg_scan")
 
 
 def seg_scan_cuda(
@@ -1501,3 +1511,139 @@ def make_partial_agg_kernel(
         return reduce(seg_ids, valid, pred, pvalid, values, valids, ops, cols, state)
 
     return fn
+
+
+# ------------------------------------------------ shuffle partition ids (B4)
+PID_MAX_PARTITIONS = 1 << 16  # the reference's bound for the device hash
+_HASH_MUL = 0x9E3779B97F4A7C15  # the host partitioner's multiplier
+_NULL_HASH = 0xA5A5A5A5DEADBEEF  # the host partitioner's null hash
+_MASK32 = 0xFFFFFFFF
+
+
+def _signed64(x: int) -> int:
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def _pid_bits(v: pa.Array) -> Optional[tuple[np.ndarray, np.ndarray]]:
+    """``(bits, is_null)`` of one key column: the raw 64-bit pattern each
+    value hashes as, viewed as int64, and the null flags — the value prep of
+    ``exec/operators.py:hash_partition_indices`` (the reference's
+    ``_pid_limbs``, as one word instead of two uint32 limbs), or None when
+    the type has no device hash (strings hash FNV over bytes on the host)."""
+    import pyarrow.compute as pc
+
+    t = v.type
+    if not (
+        pa.types.is_integer(t)
+        or pa.types.is_floating(t)
+        or pa.types.is_boolean(t)
+        or pa.types.is_date(t)
+        or pa.types.is_timestamp(t)
+    ):
+        return None
+    is_null = (
+        np.asarray(pc.is_null(v))
+        if v.null_count
+        else np.zeros(len(v), dtype=bool)
+    )
+    if pa.types.is_date32(t):
+        v = v.cast(pa.int32())
+    elif pa.types.is_date64(t) or pa.types.is_timestamp(t):
+        v = v.cast(pa.int64())
+    elif pa.types.is_boolean(t):
+        v = v.cast(pa.int8())
+    if v.null_count:
+        v = v.fill_null(0)
+    x = np.asarray(v)
+    if x.dtype.kind == "f":
+        x = x if x.dtype == np.float64 else x.astype(np.float64)
+        return x.view(np.int64), is_null
+    return x.astype(np.int64), is_null
+
+
+def partition_ids_twin(bits: torch.Tensor, nulls: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Plain PyTorch twin of the partition-id kernel: ``bits`` int64
+    ``[n_cols, n]``, ``nulls`` bool ``[n_cols, n]`` → int32 ``[n]``.
+
+    torch has no shifts on uint64, so the u64 arithmetic runs in int64:
+    multiply and add wrap mod 2^64 alike, a logical shift is an arithmetic
+    one masked to its low 32 bits, and the unsigned ``h mod n`` goes through
+    the non-negative halves: ``((hi % n) * (2^32 % n) + lo % n) % n``."""
+    h = torch.zeros(bits.shape[1], dtype=I64, device=bits.device)
+    null_hash = torch.tensor(_signed64(_NULL_HASH), dtype=I64, device=bits.device)
+    for c in range(bits.shape[0]):
+        hv = bits[c] * _signed64(_HASH_MUL)
+        hv = hv ^ ((hv >> 32) & _MASK32)
+        hv = torch.where(nulls[c], null_hash, hv)
+        h = h * 31 + hv
+    hi, lo = (h >> 32) & _MASK32, h & _MASK32
+    pid = ((hi % n_out) * ((1 << 32) % n_out) + lo % n_out) % n_out
+    return pid.to(torch.int32)
+
+
+def _check_pid_args(bits, nulls, n_out: int) -> None:
+    """ValueError unless the kernel takes these inputs (checked before the
+    binding: an exception inside the extension may end the process)."""
+    if not (
+        isinstance(bits, torch.Tensor) and bits.device.type == "cuda"
+        and bits.dtype == I64 and bits.dim() == 2 and bits.is_contiguous()
+        and bits.shape[0] >= 1
+    ):
+        raise ValueError("bits must be a contiguous CUDA int64 [n_cols, n] tensor, n_cols >= 1")
+    if not (
+        isinstance(nulls, torch.Tensor) and nulls.device == bits.device
+        and nulls.dtype == torch.bool and nulls.shape == bits.shape
+        and nulls.is_contiguous()
+    ):
+        raise ValueError(f"nulls must be a contiguous bool {tuple(bits.shape)} tensor on {bits.device}")
+    if not 1 <= n_out <= PID_MAX_PARTITIONS:
+        raise ValueError(f"n_out {n_out} outside 1..{PID_MAX_PARTITIONS}")
+
+
+def partition_ids_cuda(bits: torch.Tensor, nulls: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Launch the hand-written partition-id kernel (ops/cuda/partition_id.cu).
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:partition_id_hash`` and
+    ``make_partition_id_kernel``.  Inputs are checked first (ValueError);
+    a failed build or launch raises — nothing falls back to the host hash."""
+    from .cuda.build import load
+
+    _check_pid_args(bits, nulls, int(n_out))
+    ext = load()
+    out = torch.empty(bits.shape[1], dtype=torch.int32, device=bits.device)
+    ext.partition_ids(bits, nulls, int(n_out), out)
+    count_launch("partition_ids")
+    return out
+
+
+def partition_ids(bits: torch.Tensor, nulls: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Partition id of each row: the CUDA kernel for CUDA tensors, its
+    plain twin for tensors on the CPU."""
+    if bits.device.type == "cpu":
+        return partition_ids_twin(bits, nulls, n_out)
+    return partition_ids_cuda(bits, nulls, n_out)
+
+
+def device_partition_ids(
+    batch: pa.RecordBatch, exprs, n: int, device
+) -> Optional[np.ndarray]:
+    """int32 partition ids of ``batch``'s rows under hash partitioning by
+    ``exprs`` into ``n`` partitions, computed on ``device``; None under the
+    reference's gates (a non-column expression, a key without a device
+    hash, ``n`` outside 1..2^16, an empty batch), where the writer runs
+    the host partitioner.  Bit-identical to ``hash_partition_indices``."""
+    if n <= 0 or n > PID_MAX_PARTITIONS or batch.num_rows == 0:
+        return None
+    cols = []
+    for e in exprs:
+        if not isinstance(e, pe.Col) or not (0 <= e.index < batch.num_columns):
+            return None
+        prep = _pid_bits(batch.column(e.index))
+        if prep is None:
+            return None
+        cols.append(prep)
+    if not cols:
+        return None
+    bits = torch.from_numpy(np.stack([b for b, _ in cols])).to(device)
+    nulls = torch.from_numpy(np.stack([m for _, m in cols])).to(device)
+    return partition_ids(bits, nulls, n).cpu().numpy()

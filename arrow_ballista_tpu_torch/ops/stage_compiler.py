@@ -9,6 +9,8 @@ leaf arrays cross to the stage's device, the expression closures run as
 torch ops and the segment-aggregate kernel (or, above the capacity bound
 on cuda, the radix sort and segmented scan) merges the batch into the
 running state; after the last batch ONE fetch brings the state back.
+Under a shuffle writer's hint the output also carries each row's
+partition id, computed by the partition-id kernel (B4).
 Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
 (``ops/window_compiler.py``).  Everything else stays on the CPU operator
 path, gated by the same session config (``ballista.tpu.enable``).
@@ -169,6 +171,26 @@ class _ReadAhead:
             except queue.Empty:
                 pass
             self._thread.join(0.05)
+
+
+def _shuffle_coalesce_rows(config) -> int:
+    """Resolved host-coalescing target for shuffle-fed device stages:
+    ``ballista.shuffle.coalesce_rows`` (0 → follow ``ballista.batch.size``,
+    negative → disabled)."""
+    n = config.shuffle_coalesce_rows
+    if n < 0:
+        return 0
+    return n or config.batch_size
+
+
+def _reads_shuffle(plan) -> bool:
+    """Does this stage source pull from a shuffle reader (whose batches
+    arrive as per-map-task fragments worth coalescing)?"""
+    from ..shuffle.execution_plans import ShuffleReaderExec
+
+    if isinstance(plan, ShuffleReaderExec):
+        return True
+    return any(_reads_shuffle(c) for c in plan.children())
 
 
 @contextlib.contextmanager
@@ -395,6 +417,9 @@ class TorchStageExec(ExecutionPlan):
         self.max_capacity = config.tpu_max_capacity if fused.group_exprs else 1
         self._flat_names = K.flat_arg_names(self.leaves)
         self._kernels: dict = {}
+        # (exprs, n_out) installed by a downstream ShuffleWriterExec so
+        # the hash-partition ids ride the device instead of the host
+        self._shuffle_hint = None
 
     def _build_kernels(self) -> None:
         """The CUDA kernels build on first use; that build is the stage's
@@ -429,6 +454,17 @@ class TorchStageExec(ExecutionPlan):
     @property
     def schema(self) -> pa.Schema:
         return self._schema
+
+    def install_shuffle_hint(self, exprs, n_out: int) -> None:
+        """Downstream ShuffleWriterExec announces its hash partitioning
+        (exprs over THIS stage's output schema, n_out partitions):
+        ``_materialize`` then computes the partition-id column on the
+        stage's device (``K.device_partition_ids``) and appends it as
+        ``SHUFFLE_PID_COLUMN``, so the writer's split skips the host hash.
+        The ids equal the host partitioner's bit for bit; keys the kernel
+        cannot hash (strings, computed expressions) leave the hint unused,
+        and a kernel or build error raises."""
+        self._shuffle_hint = (list(exprs), int(n_out))
 
     def output_partitioning(self) -> Partitioning:
         return self.fused.source.output_partitioning()
@@ -497,6 +533,14 @@ class TorchStageExec(ExecutionPlan):
     ) -> Iterator[pa.RecordBatch]:
         fused = self.fused
         src = fused.source.execute(partition, ctx)
+        coalesce = _shuffle_coalesce_rows(self.config)
+        if coalesce > 0 and _reads_shuffle(fused.source):
+            # shuffle readers yield one fragment per map task; combine
+            # them to the target batch size on the host so each launch
+            # moves a full batch
+            from .bridge import coalesce_batches
+
+            src = coalesce_batches(src, coalesce, self.metrics)
         min_rows = self.config.tpu_min_rows
         if min_rows > 0:
             # peek: launch latency dominates tiny inputs, so partitions
@@ -737,6 +781,17 @@ class TorchStageExec(ExecutionPlan):
         out = pa.RecordBatch.from_arrays(cols, schema=schema)
         self.metrics.add("output_rows", out.num_rows)
         self.metrics.add("input_rows", n_rows_in)
+        hint = self._shuffle_hint
+        if hint is not None and out.num_rows:
+            pids = K.device_partition_ids(out, hint[0], hint[1], self.device)
+            if pids is not None:
+                from ..exec.operators import SHUFFLE_PID_COLUMN
+
+                # device_pid_batches is counted once, by the consuming writer
+                out = pa.RecordBatch.from_arrays(
+                    out.columns + [pa.array(pids, pa.int32())],
+                    schema=schema.append(pa.field(SHUFFLE_PID_COLUMN, pa.int32())),
+                )
         yield out
 
 

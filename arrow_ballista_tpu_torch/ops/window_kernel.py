@@ -99,7 +99,7 @@ def window_flags_cuda(keys: list, perm: torch.Tensor, n_part: int):
     seg = torch.empty(n, dtype=torch.uint8, device=device)
     peer = torch.empty(n, dtype=torch.uint8, device=device)
     load().window_flags(perm, list(keys), n_part, seg, peer)
-    K.LAUNCHES["window_epilogue"] += 1
+    K.count_launch("window_epilogue")
     return seg, peer
 
 
@@ -187,7 +187,7 @@ def range_extremum_cuda(values, valid, perm, sf, sl, a, b, op: int) -> torch.Ten
         a is not None, 0 if a is None else a, b is not None, 0 if b is None else b,
         torch.empty((depth + 1) * n, dtype=I64, device=device), out,
     )
-    K.LAUNCHES["range_extremum"] += 1
+    K.count_launch("range_extremum")
     return out
 
 
@@ -346,7 +346,7 @@ def window_pack_cuda(rows: list, perm, sf, sl, pf, pl) -> torch.Tensor:
         opt(sf), opt(sl), opt(pf), opt(pl),
         torch.tensor(desc, dtype=I64).to(device), out,
     )
-    K.LAUNCHES["window_epilogue"] += 1
+    K.count_launch("window_epilogue")
     return out
 
 

@@ -6,10 +6,12 @@ NVIDIA card.  Run from the repository root:
 
 Phases; any failure exits non-zero and prints no result line:
 
-1. card   — the card's name and power limit (nvidia-smi);
+1. card   — the card's name and power limit (nvidia-smi), and an ``env``
+            line with the versions of grpc, protobuf and pyarrow (Flight);
 2. build  — the CUDA kernels from this checkout's sources, built in a
             background thread while the TPC-H data (lineitem, orders,
-            customer) is generated;
+            customer) is generated and written as parquet (several files
+            per table) to a temporary directory;
 3. kernel — every kernel against its plain PyTorch twin on the card over
             seeded inputs (nulls, NaN, ±0.0, int64 past 2^53): floats
             within rel 1e-9, everything else exact, two kernel runs
@@ -25,6 +27,11 @@ Phases; any failure exits non-zero and prints no result line:
             * ``seg_scan``, ``range_extremum`` and ``window_epilogue`` at
               n in {2^20, 2^23}, and the whole window kernel against its
               twin;
+            * ``partition_ids`` (B4) at n in {2^20, 2^23} x key columns in
+              {1, 3} x partitions in {1, 7, 200, 2^16} over seeded keys
+              (negative ints, nulls, NaN, ±0.0, float32, date32,
+              timestamp): equal to its twin and to the host partitioner
+              ``hash_partition_indices``;
 4. query  — TPC-H q1 and q6 over ``--sf`` lineitem (``gen_lineitem``'s
             seed, streamed as ``ballista.batch.size`` = 2^23-row batches,
             ``ballista.shuffle.partitions`` = 1) through
@@ -35,15 +42,25 @@ Phases; any failure exits non-zero and prints no result line:
             route must launch;
 6. window — the per-supplier running revenue / moving average query over
             the same lineitem: TorchWindowExec against the CPU WindowExec;
-7. timing — every kernel at the first shape its main path gave it: the
+7. distributed — TPC-H q3 and q1 over the parquet files through
+            ``BallistaContext.standalone(device="cuda", num_executors=1,
+            concurrent_tasks=4)`` (the port's scheduler, executor, shuffle
+            and Flight; 8 shuffle partitions, mesh off, the default
+            ``ballista.batch.size``), held against the
+            same cluster with ``ballista.tpu.enable=false``: equal results,
+            no fallback, q3's map stage hashing its shuffle ids with
+            ``partition_ids`` (equal to the host hash on every batch, the
+            writers' ``device_pid_batches`` above 0) and its aggregate on
+            the sort route;
+8. timing — every kernel at the first shape its main path gave it: the
             kernel, its twin and, where one PyTorch call computes the same
             function, that call (CUDA events, median of 20 launches),
             beside the least time the card could take (the bytes the call
             must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s).
 
 Launch counts are set to 0 just before each main-path run (q1/q6, q3,
-window) and read just after; a kernel of that path that never launched
-fails the run.  Then one ``{"kernels": [...]}`` line and, last,
+window, distributed q3 and q1) and read just after; a kernel of that path
+that never launched fails the run.  Then one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
 """
 
@@ -54,6 +71,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -66,6 +84,10 @@ SORT_ROUTE_ROWS = 1 << 23  # B6 against B1 at capacity >= 4096
 SORT_ROWS = (1 << 20, 1 << 23, 1 << 26)
 SORT_CAPACITIES = (1 << 13, 1 << 16, 1 << 20)
 SCAN_ROWS = (1 << 20, 1 << 23)
+PID_ROWS = (1 << 20, 1 << 23)
+PID_COLUMNS = (1, 3)
+PID_PARTITIONS = (1, 7, 200, 1 << 16)
+PARQUET_FILES = 8  # per table (one file for the small ones)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
 REL = 1e-9
@@ -77,6 +99,7 @@ KERNELS = {
     "seg_scan": ("seg_scan.cu", "arrow_ballista_tpu/ops/kernels.py:1051"),
     "range_extremum": ("range_extremum.cu", "arrow_ballista_tpu/ops/window_kernel.py:128"),
     "window_epilogue": ("window_epilogue.cu", "arrow_ballista_tpu/ops/window_kernel.py:165"),
+    "partition_ids": ("partition_id.cu", "arrow_ballista_tpu/ops/kernels.py:2438"),
 }
 
 
@@ -86,6 +109,17 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return r.stdout.strip().splitlines()[0]
+
+
+def env_line() -> str:
+    """Versions of the distributed path's wire libraries."""
+    import google.protobuf
+    import grpc
+    import pyarrow
+    import pyarrow.flight  # noqa: F401
+
+    return (f"env: grpc {grpc.__version__} protobuf {google.protobuf.__version__} "
+            f"pyarrow.flight {pyarrow.__version__}")
 
 
 # ------------------------------------------------------------ kernel phase
@@ -585,6 +619,97 @@ def _keep_state(args):
     return args[:-1] + (args[-1].clone(),)
 
 
+# ------------------------------------------------------ partition ids (B4)
+def _pid_batch(n: int, n_cols: int, seed: int):
+    """Seeded hash keys: one int64 column (negatives, nulls), or a float
+    column (NaN, ±0.0, nulls; float32 at 2^20 rows, float64 above) beside a
+    date32 and a timestamp column."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    if n_cols == 1:
+        v = rng.integers(-(2**40), 2**40, n)
+        v[:1000] = np.arange(-500, 500)
+        return pa.record_batch([pa.array(v, mask=rng.random(n) < 0.05)], ["k"])
+    f = rng.standard_normal(n) * 1e6
+    f[rng.random(n) < 0.01] = np.nan
+    z = rng.random(n) < 0.02
+    f[z] = np.where(rng.random(int(z.sum())) < 0.5, -0.0, 0.0)
+    f = f.astype(np.float32) if n <= PID_ROWS[0] else f
+    days = rng.integers(-3000, 12000, n).astype("datetime64[D]")
+    us = rng.integers(0, 2**50, n).astype("datetime64[us]")
+    return pa.record_batch([
+        pa.array(f, mask=rng.random(n) < 0.05),
+        pa.array(days, pa.date32(), mask=rng.random(n) < 0.05),
+        pa.array(us, pa.timestamp("us")),
+    ], ["f", "d", "t"])
+
+
+def _pid_inputs(TK, batch, device):
+    """The kernel's inputs for every column of ``batch``, as the stage
+    prepares them (``_pid_bits``)."""
+    import torch
+
+    prep = [TK._pid_bits(batch.column(i)) for i in range(batch.num_columns)]
+    bits = torch.from_numpy(np.stack([b for b, _ in prep])).to(device)
+    nulls = torch.from_numpy(np.stack([m for _, m in prep])).to(device)
+    return bits, nulls
+
+
+def _pid_bytes(bits) -> int:
+    n_cols, n = bits.shape
+    return n * n_cols * 9 + 4 * n  # each key's word and null flag, the id
+
+
+def _time_pids(TK, bits, nulls, n_out: int) -> dict:
+    import torch
+
+    got = TK.partition_ids_cuda(bits, nulls, n_out)
+    if not torch.equal(got, TK.partition_ids_twin(bits, nulls, n_out)):
+        raise AssertionError("partition_ids differs from the twin")
+    out = dict(rows=bits.shape[1], columns=bits.shape[0], partitions=n_out,
+               ms=_median_ms(lambda: TK.partition_ids_cuda(bits, nulls, n_out)),
+               plain_ms=_median_ms(lambda: TK.partition_ids_twin(bits, nulls, n_out), 5),
+               library_ms=None, max_abs_err=0.0)
+    out.update(_bound(_pid_bytes(bits)))
+    return out
+
+
+def pid_phase(TK, device) -> dict:
+    """partition_ids vs its twin and the host partitioner."""
+    import torch
+
+    from arrow_ballista_tpu_torch.exec.expressions import Col
+    from arrow_ballista_tpu_torch.exec.operators import hash_partition_indices
+
+    times: dict = {}
+    for n in PID_ROWS:
+        for n_cols in PID_COLUMNS:
+            batch = _pid_batch(n, n_cols, seed=n + n_cols)
+            bits, nulls = _pid_inputs(TK, batch, device)
+            exprs = [Col(i, f.name) for i, f in enumerate(batch.schema)]
+            for n_out in PID_PARTITIONS:
+                runs = [TK.partition_ids_cuda(bits, nulls, n_out) for _ in range(2)]
+                twin = TK.partition_ids_twin(bits, nulls, n_out)
+                torch.cuda.synchronize()
+                if not torch.equal(runs[0], runs[1]):
+                    raise AssertionError(f"partition_ids n={n}: two runs differ")
+                host = hash_partition_indices(batch, exprs, n_out)
+                if not (torch.equal(runs[0], twin)
+                        and np.array_equal(runs[0].cpu().numpy(), host)):
+                    raise AssertionError(
+                        f"partition_ids n={n} cols={n_cols} n_out={n_out}: "
+                        "differs from the twin or the host hash")
+                t = _time_pids(TK, bits, nulls, n_out)
+                times[f"n={n},columns={n_cols},partitions={n_out}"] = t
+                print(f"partition_ids n={n} columns={n_cols} partitions={n_out}: ok "
+                      f"(= twin = host hash), ms={t['ms']!r} bound_ms={t['bound_ms']!r} "
+                      f"plain_ms={t['plain_ms']!r}")
+                del runs, twin
+            del bits, nulls, batch
+    return times
+
+
 # ------------------------------------------------------------- query phase
 def _tables_equal(a, b, what: str) -> None:
     if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
@@ -839,6 +964,142 @@ def window_phase(tbt, TK, WK, batches, device) -> dict:
                 flags=flags.args, pack=pack.args)
 
 
+# ------------------------------------------------------- distributed phase
+DIST_TABLES = ("lineitem", "orders", "customer")
+DIST_SETTINGS = {
+    "ballista.shuffle.partitions": "8",
+    "ballista.mesh.enable": "false",
+}
+
+
+def write_parquet(tables: dict, root: str) -> None:
+    """Each table as PARQUET_FILES parquet files under ``root/<name>/``
+    (one file for a table of 100 rows or fewer), written in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.parquet as pq
+
+    jobs = []
+    for name, tbl in tables.items():
+        os.makedirs(os.path.join(root, name))
+        n_parts = PARQUET_FILES if tbl.num_rows > 100 else 1
+        per = -(-tbl.num_rows // n_parts)
+        for i in range(n_parts):
+            path = os.path.join(root, name, f"part-{i}.parquet")
+            jobs.append((tbl.slice(i * per, per), path))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: pq.write_table(*job), jobs))
+
+
+class PidCheck:
+    """Wraps ``TK.device_partition_ids`` to keep every batch a stage hashed
+    and the ids it got; ``check`` then holds them against the host hash."""
+
+    def __init__(self, TK):
+        self.TK, self.seen = TK, []
+
+    def __enter__(self):
+        inner = self.inner = self.TK.device_partition_ids
+
+        def hook(batch, exprs, n, device):
+            pids = inner(batch, exprs, n, device)
+            if pids is not None:
+                self.seen.append((batch, list(exprs), n, pids))
+            return pids
+
+        self.TK.device_partition_ids = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.TK.device_partition_ids = self.inner
+
+    def check(self) -> int:
+        from arrow_ballista_tpu_torch.exec.operators import hash_partition_indices
+
+        rows = 0
+        for batch, exprs, n, pids in self.seen:
+            if not np.array_equal(pids, hash_partition_indices(batch, exprs, n)):
+                raise AssertionError("device partition ids differ from the host hash")
+            rows += batch.num_rows
+        return rows
+
+
+def _run_job(ctx, sql: str):
+    """One distributed job: (result, wall seconds, its stage metrics summed
+    per operator)."""
+    import torch
+
+    before = set(ctx._job_ids)
+    t0 = time.perf_counter()
+    out = ctx.sql(sql).collect()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    (job_id,) = set(ctx._job_ids) - before
+    scheduler, _ = ctx._standalone_handles
+    detail = scheduler.server.state.task_manager.get_job_detail(job_id)
+    metrics: dict = {}
+    for stage in detail["stages"]:
+        for op, vals in (stage.get("metrics") or {}).items():
+            acc = metrics.setdefault(op, {})
+            for k, v in vals.items():
+                if isinstance(v, (int, float)):
+                    acc[k] = acc.get(k, 0) + v
+    return out, seconds, metrics
+
+
+def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
+    """q3 and q1 through the port's standalone cluster on the card, each
+    held against the same cluster with ``ballista.tpu.enable=false``."""
+    from benchmarks.tpch.queries import QUERIES
+
+    ctx = tbt.BallistaContext.standalone(
+        tbt.BallistaConfig(dict(DIST_SETTINGS)), num_executors=1,
+        concurrent_tasks=4, device=device,
+    )
+    out: dict = {}
+    try:
+        for name in DIST_TABLES:
+            ctx.register_parquet(name, os.path.join(root, name))
+        for q in (3, 1):
+            ctx.sql("SET ballista.tpu.enable = false")
+            want, cpu_s, _ = _run_job(ctx, QUERIES[q])
+            ctx.sql("SET ballista.tpu.enable = true")
+            _reset_counts(TK)
+            with Capture(TK, "partition_ids_cuda") as first, PidCheck(TK) as pids:
+                got, dev_s, metrics = _run_job(ctx, QUERIES[q])
+            launches = dict(TK.LAUNCHES)
+            stage = metrics.get("TorchStageExec", {})
+            writer = metrics.get("ShuffleWriterExec", {})
+            if stage.get("input_rows", 0) < 1:
+                raise AssertionError(f"distributed q{q}: no device stage ran ({json.dumps(metrics)})")
+            for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
+                if stage.get(k, 0):
+                    raise AssertionError(f"distributed q{q}: {k}={stage[k]}")
+            _tables_equal(want, got, f"distributed q{q}")
+            hashed = pids.check()
+            need = ("partition_ids", "radix_sort", "seg_scan") if q == 3 else ("segment_agg",)
+            for k in need:
+                if launches[k] < 1:
+                    raise AssertionError(f"distributed q{q}: {k} never launched")
+            if q == 3 and writer.get("device_pid_batches", 0) < 1:
+                raise AssertionError("distributed q3: the writers hashed no batch on the card")
+            breakdown = {k: stage.get(k, 0) for k in BREAKDOWN + ("input_rows", "output_rows")}
+            print(
+                f"distributed q{q}: lineitem_rows={lineitem_rows} "
+                f"launches={json.dumps(launches)} "
+                f"cuda_rows_per_s={lineitem_rows / dev_s!r} "
+                f"cpu_rows_per_s={lineitem_rows / cpu_s!r} cuda_s={dev_s!r} cpu_s={cpu_s!r} "
+                f"device_pid_batches={writer.get('device_pid_batches', 0)} "
+                f"device_pid_rows={hashed} breakdown={json.dumps(breakdown)} "
+                f"repart_time_ns={writer.get('repart_time_ns', 0)} "
+                f"write_time_ns={writer.get('write_time_ns', 0)}"
+            )
+            out[q] = dict(launches=launches, pids=first.args)
+    finally:
+        ctx.close()
+    return out
+
+
 # ------------------------------------------------------------ timing phase
 def _median_ms(fn, reps: int = 20) -> float:
     import torch
@@ -958,6 +1219,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     print(f"card: {card_line()}")
+    print(env_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     entries = run(opts, torch.device("cuda"))
@@ -1006,6 +1268,12 @@ def run(opts, device) -> list:
     orders, customer = gen_table("orders", opts.sf), gen_table("customer", opts.sf)
     print(f"datagen: sf={opts.sf} rows={lineitem.num_rows} orders={orders.num_rows} "
           f"customer={customer.num_rows} s={time.perf_counter() - t0!r}")
+    lineitem_rows = lineitem.num_rows
+    t0 = time.perf_counter()
+    parquet = tempfile.TemporaryDirectory(prefix="tpch-parquet-")
+    write_parquet({"lineitem": lineitem, "orders": orders, "customer": customer},
+                  parquet.name)
+    print(f"parquet: {PARQUET_FILES} files per table s={time.perf_counter() - t0!r}")
     builder.join()
     if "error" in built:
         raise built["error"]
@@ -1016,6 +1284,7 @@ def run(opts, device) -> list:
     sort_times = sort_phase(TK, device)
     scan_times, rx_times, epilogue_times = scan_phase(TK, WK, device)
     scan_err = max(t["max_abs_err"] for t in scan_times.values())
+    pid_times = pid_phase(TK, device)
     print(f"kernel phase: ok s={time.perf_counter() - t0!r}")
 
     batches = lineitem_batches(lineitem)
@@ -1025,7 +1294,9 @@ def run(opts, device) -> list:
     del orders, customer
     window = window_phase(tbt, TK, WK, batches, device)
     del batches
-    runs = [queries[1], queries[6], q3, window]
+    with parquet:
+        dist = distributed_phase(tbt, TK, parquet.name, lineitem_rows, device)
+    runs = [queries[1], queries[6], q3, window, dist[3], dist[1]]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["args"]) for q, r in queries.items()}
@@ -1036,10 +1307,13 @@ def run(opts, device) -> list:
     rx_shape = _checked_extremum(WK, window["rx"])
     pack_shape = _time_pack(WK, window["pack"])
     flags_shape = _time_flags(WK, window["flags"])
+    (pid_bits, pid_nulls, pid_n), _ = dist[3]["pids"]
+    pid_shape = _time_pids(TK, pid_bits, pid_nulls, pid_n)
     for name, t in [*shapes.items(), *(("radix_sort " + k, v) for k, v in sort_shapes.items()),
                     *(("seg_scan " + k, v) for k, v in scan_shapes.items()),
                     ("range_extremum window", rx_shape), ("window_pack window", pack_shape),
-                    ("window_flags window", flags_shape)]:
+                    ("window_flags window", flags_shape),
+                    ("partition_ids distributed q3", pid_shape)]:
         print(f"timing {name}: {json.dumps(t)}")
 
     entries = [
@@ -1056,6 +1330,8 @@ def run(opts, device) -> list:
         _entry("window_epilogue", pack_shape, launches["window_epilogue"], 0.0,
                shapes={"pack": pack_shape, "flags": flags_shape},
                kernel_phase=epilogue_times),
+        _entry("partition_ids", pid_shape, launches["partition_ids"], 0.0,
+               kernel_phase=pid_times),
     ]
 
     return entries

@@ -415,3 +415,35 @@ def test_new_kernels_reject_bad_input(cuda):
                                TK.OP_MIN_F64)
     with pytest.raises(ValueError, match="needs"):
         WK.window_pack_cuda([WK.PackRow(WK.WP_RANK)], d["perm"], sf, None, None, None)
+
+
+@pytest.mark.parametrize("n_out", [1, 7, 200, 65536])
+@pytest.mark.parametrize("n_cols", [1, 3])
+def test_partition_ids_kernel_matches_twin(cuda, n_cols, n_out):
+    rng = np.random.default_rng(n_cols * 100 + n_out)
+    n = 300_001
+    words = rng.integers(-(2**63), 2**63 - 1, (n_cols, n), dtype=np.int64, endpoint=True)
+    words[:, :64] = np.arange(-32, 32)
+    nulls = rng.random((n_cols, n)) < 0.1
+    bits, mask = torch.from_numpy(words).to(cuda), torch.from_numpy(nulls).to(cuda)
+    runs = [TK.partition_ids_cuda(bits, mask, n_out) for _ in range(2)]
+    twin = TK.partition_ids_twin(bits, mask, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], twin)
+    assert torch.equal(runs[0].cpu(), TK.partition_ids_twin(bits.cpu(), mask.cpu(), n_out))
+
+
+def test_partition_ids_kernel_rejects_bad_input(cuda):
+    bits = torch.zeros((2, 100), dtype=torch.int64, device=cuda)
+    nulls = torch.zeros((2, 100), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="nulls"):
+        TK.partition_ids_cuda(bits, nulls[:1], 4)
+    with pytest.raises(ValueError, match="nulls"):
+        TK.partition_ids_cuda(bits, nulls.to(torch.uint8), 4)
+    with pytest.raises(ValueError, match="bits"):
+        TK.partition_ids_cuda(bits.int(), nulls, 4)
+    with pytest.raises(ValueError, match="n_out"):
+        TK.partition_ids_cuda(bits, nulls, (1 << 16) + 1)
+    with pytest.raises(ValueError, match="n_out"):
+        TK.partition_ids_cuda(bits, nulls, 0)

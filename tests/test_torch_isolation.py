@@ -14,7 +14,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "arrow_ballista_tpu_torch")
 REF = os.path.join(ROOT, "arrow_ballista_tpu")
 
-# the import closure of context.py, copied with only the import root changed
+# the import closures of context.py and client/context.py, copied with only
+# the import root changed and the reference's history tags left out
 HOST_COPIES = [
     "errors.py", "config.py", "udf.py", "catalog.py", "avro.py",
     "sql/__init__.py", "sql/lexer.py", "sql/ast.py", "sql/parser.py",
@@ -22,6 +23,31 @@ HOST_COPIES = [
     "plan/builder.py", "plan/optimizer.py",
     "exec/__init__.py", "exec/expressions.py", "exec/operators.py",
     "exec/aggregates.py", "exec/joins.py", "exec/planner.py", "ops/groups.py",
+    "client/__init__.py",
+    "executor/__init__.py", "executor/execution_loop.py", "executor/server.py",
+    "executor/isolation.py",
+    "flight/__init__.py", "flight/client.py", "flight/server.py",
+    "native/__init__.py", "native/partitioner.cc",
+    "obs/__init__.py", "obs/critical_path.py", "obs/doctor.py", "obs/events.py",
+    "obs/recorder.py", "obs/registry.py", "obs/telemetry.py", "obs/timeseries.py",
+    "obs/trace.py",
+    "proto/rpc.py", "proto/ballista.proto", "proto/keda.proto",
+    "proto/gen/ballista_pb2.py", "proto/gen/keda_pb2.py",
+    "scheduler/__init__.py", "scheduler/admission.py", "scheduler/autoscaler.py",
+    "scheduler/backend.py", "scheduler/display.py", "scheduler/event_loop.py",
+    "scheduler/execution_graph.py", "scheduler/execution_stage.py",
+    "scheduler/executor_manager.py", "scheduler/external_scaler.py",
+    "scheduler/failure.py", "scheduler/grpc_service.py", "scheduler/kvstore.py",
+    "scheduler/policy_store.py", "scheduler/query_stage_scheduler.py",
+    "scheduler/queue_wal.py", "scheduler/server.py", "scheduler/speculation.py",
+    "scheduler/standalone.py", "scheduler/state.py", "scheduler/task_manager.py",
+    "scheduler/task_status.py",
+    "serde/__init__.py", "serde/arrow_utils.py", "serde/expressions.py",
+    "serde/logical_plan.py", "serde/scheduler_types.py",
+    "shuffle/__init__.py", "shuffle/store.py", "shuffle/transport.py",
+    "shuffle/fetcher.py", "shuffle/writer.py", "shuffle/memory_store.py",
+    "shuffle/delta_store.py",
+    "testing/__init__.py", "testing/faults.py", "utils/diagram.py",
 ]
 # ported, not copied: context.py gains the device, ops/bridge.py gains the
 # device staging (appended after the copied body) and a zigzag identity key
@@ -34,6 +60,34 @@ HOST_COPIES = [
 ALLOWLIST = {
     "context.py", "ops/bridge.py", "exec/operators.py", "exec/window.py",
     "ops/window_compiler.py", "ops/window_kernel.py",
+    # imports its own generated modules package-qualified (a bare
+    # `ballista_pb2` would resolve to the JAX package's through sys.modules)
+    "proto/__init__.py",
+    # unwraps TorchStageExec/TorchWindowExec; the mesh nodes are not ported
+    "serde/physical_plan.py",
+    # the writer's mesh branches go (the mesh is not ported)
+    "shuffle/execution_plans.py",
+    # no mesh rewrite: every shuffle boundary is a writer hop
+    "scheduler/planner.py",
+    # the AQE broadcast rewrite has no mesh gang bodies to skip
+    "scheduler/adaptive.py",
+    # fingerprints the port's device wrappers as the plan they wrap
+    "scheduler/plan_cache.py",
+    # the scheduler's sessions only plan, so they need no CUDA device
+    "scheduler/session_manager.py",
+    # the executor carries a torch device and accelerates on it; a cuda
+    # executor keeps device stages in its own process
+    "executor/executor.py",
+    # passes the device on to the executor
+    "executor/standalone.py",
+    # the task-runner worker builds its executor on device="cpu", no jax
+    "executor/task_runner.py",
+    # BallistaContext(device=...): standalone hands it to every executor
+    "client/context.py",
+    # profiles roll up the port's device stages (TorchStage*, TorchWindow*)
+    "obs/export.py",
+    # apply_jax_platform_env goes (only the JAX package's binaries call it)
+    "utils/__init__.py",
 }
 
 
@@ -75,7 +129,23 @@ def test_static_scan_finds_no_jax_or_reference_import():
 def _normalise(text: str) -> str:
     text = re.sub(r"\barrow_ballista_tpu\b", "arrow_ballista_tpu_torch", text)
     # the copies name the upstream reference without its checkout path
-    return re.sub(r"in /\w+/reference", "in the reference", text)
+    text = re.sub(r"in /\w+/reference", "in the reference", text)
+    return _drop_history_tags(text)
+
+
+_TAG = r"(?:ISSUE|PR) \d+(?:/\d+)?"
+
+
+def _drop_history_tags(text: str) -> str:
+    """The copies leave out the reference's history tags (the issue or
+    change number that introduced a feature), rewording around them."""
+    text = re.sub(r"(?:\n[ \t]*#?)? ?\(" + _TAG + r"(?: [\w ,]*)?\)", "", text)
+    text = re.sub(r"\(" + _TAG + r"(?: [\w ]*)?(?:[;,:]| —) ", "(", text)
+    text = re.sub(r"(?:,|;)\s*" + _TAG + r"\)", ")", text)
+    text = re.sub(r"^" + _TAG + r"'s (\w)", lambda m: "The " + m.group(1), text, flags=re.M)
+    text = re.sub(_TAG + r"'s\b", "the", text)
+    text = re.sub(r" (?:of|in)(\s+)" + _TAG + r" ", r"\1", text)
+    return re.sub(r"\bthe " + _TAG + r"(?=\s)", "the", text)
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES + sorted(ALLOWLIST))
@@ -150,6 +220,100 @@ def test_q1_in_subprocess_loads_no_jax():
     assert "LEAKED []" in r.stdout
 
 
+SUBPROCESS_STANDALONE_Q3 = r"""
+import os, sys, tempfile
+root = sys.argv[1]
+sys.path.insert(0, root)
+tmp = os.path.realpath(tempfile.gettempdir())
+inside = (tmp + os.sep, os.path.realpath(root) + os.sep)  # TMPDIR, the checkout
+outside = []
+
+
+def audit(event, args):
+    # every file or directory this process creates, writes or removes
+    if event == "open" and args[0] is not None and not isinstance(args[0], int):
+        flags = args[2] if isinstance(args[2], int) else 0
+        if not (flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)) and (
+            not args[1] or not set(args[1]) & set("wax+")
+        ):
+            return
+    elif event not in ("os.mkdir", "os.rename", "os.replace", "os.remove",
+                       "os.rmdir", "shutil.rmtree"):
+        return
+    elif isinstance(args[-1], int) and args[-1] >= 0:
+        return  # relative to a directory whose own event was checked
+    path = args[0]
+    if isinstance(path, (str, bytes, os.PathLike)):
+        path = os.path.realpath(os.fsdecode(path))
+        if path != os.devnull and not path.startswith(inside):
+            outside.append((event, path))
+
+
+sys.addaudithook(audit)
+import pyarrow.parquet as pq
+import arrow_ballista_tpu_torch as tbt
+from benchmarks.tpch.datagen import gen_table
+from benchmarks.tpch.queries import QUERIES
+
+d = tempfile.mkdtemp()
+ctx = tbt.BallistaContext.standalone(
+    tbt.BallistaConfig({"ballista.tpu.min_rows": "0",
+                        "ballista.shuffle.partitions": "2"}),
+    num_executors=1, concurrent_tasks=2, device="cpu",
+)
+try:
+    for name in ("lineitem", "orders", "customer"):
+        os.makedirs(os.path.join(d, name))
+        pq.write_table(gen_table(name, 0.01), os.path.join(d, name, "p0.parquet"))
+        ctx.register_parquet(name, os.path.join(d, name))
+    out = ctx.sql(QUERIES[3]).collect()
+    assert out.num_rows == 10, out.num_rows
+finally:
+    ctx.close()
+ref = os.path.join(root, "arrow_ballista_tpu") + os.sep
+leaked = sorted(
+    m for m, mod in list(sys.modules.items())
+    if m == "jax" or m.startswith("jax.")
+    or m == "arrow_ballista_tpu" or m.startswith("arrow_ballista_tpu.")
+    or os.path.abspath(getattr(mod, "__file__", None) or "").startswith(ref)
+)
+print("LEAKED", leaked)
+print("OUTSIDE", sorted(set(outside)))
+print("LEFT_IN_TMPDIR", sorted(os.listdir(tmp)))
+"""
+
+
+@pytest.fixture(scope="module")
+def standalone_q3_run(tmp_path_factory):
+    """One q3 through the port's standalone cluster in a fresh process
+    whose TMPDIR is a directory of its own; its stdout."""
+    tmp = tmp_path_factory.mktemp("standalone-tmpdir")
+    env = dict(os.environ, TMPDIR=str(tmp), PYTHONDONTWRITEBYTECODE="1")
+    r = subprocess.run(
+        [sys.executable, "-c", SUBPROCESS_STANDALONE_Q3, ROOT],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout
+
+
+def test_standalone_q3_in_subprocess_loads_no_jax(standalone_q3_run):
+    """The distributed path loads no jax and no file of the JAX package
+    (a bare ``ballista_pb2`` import would load the JAX package's copy)."""
+    assert "LEAKED []" in standalone_q3_run
+
+
+def test_standalone_cluster_writes_only_under_tmpdir(standalone_q3_run):
+    """The scheduler, executors, shuffle and Flight of a standalone cluster
+    create, write and remove files only under TMPDIR and the checkout (the
+    native partitioner's build): no fixed path that two checkouts or the
+    JAX package's cluster would share.  close() removes the scheduler's
+    directory."""
+    assert "OUTSIDE []" in standalone_q3_run, standalone_q3_run
+    left = [ln for ln in standalone_q3_run.splitlines() if ln.startswith("LEFT_IN_TMPDIR")]
+    assert left and "ballista-scheduler-" not in left[0], standalone_q3_run
+
+
 def test_session_without_cuda_raises(monkeypatch):
     import torch
 
@@ -162,3 +326,19 @@ def test_session_without_cuda_raises(monkeypatch):
     with pytest.raises(ExecutionError):
         tbt.SessionContext(device="cuda")
     assert tbt.SessionContext(device="cpu").device.type == "cpu"
+
+
+def test_standalone_without_cuda_raises(monkeypatch):
+    import torch
+
+    import arrow_ballista_tpu_torch as tbt
+    from arrow_ballista_tpu_torch.errors import ExecutionError
+    from arrow_ballista_tpu_torch.executor.executor import Executor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ExecutionError):
+        tbt.BallistaContext.standalone()
+    with pytest.raises(ExecutionError):
+        tbt.BallistaContext.standalone(device="cuda")
+    with pytest.raises(ExecutionError):
+        Executor(None, "unused")
