@@ -13,6 +13,7 @@
 #include <algorithm>
 #include <vector>
 
+#include "join_probe.h"
 #include "partition_id.h"
 #include "radix_sort.h"
 #include "range_extremum.h"
@@ -291,6 +292,48 @@ void partition_ids_(const at::Tensor& bits, const at::Tensor& nulls,
   launched(partition_id_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
+void join_build_table_(const at::Tensor& bkeys, int64_t kmin, at::Tensor table) {
+  c10::cuda::CUDAGuard guard(table.device());
+  JoinBuildParams p{};
+  p.m = bkeys.size(0);
+  p.bkeys = reinterpret_cast<const long long*>(bkeys.data_ptr<int64_t>());
+  p.kmin = kmin;
+  p.span = table.size(0);
+  p.table = table.data_ptr<int32_t>();
+  launched(join_build_table_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+// Empty tensors stand for null masks and for the form not taken.
+void join_probe_(const at::Tensor& pkey, const at::Tensor& pkey_valid,
+                 const at::Tensor& valid, const at::Tensor& table, int64_t kmin,
+                 const at::Tensor& bkeys, const std::vector<at::Tensor>& bvals,
+                 const std::vector<at::Tensor>& bvalids,
+                 const std::vector<at::Tensor>& out_vals,
+                 const std::vector<at::Tensor>& out_valids, at::Tensor mask) {
+  c10::cuda::CUDAGuard guard(mask.device());
+  TORCH_CHECK((int64_t)bvals.size() <= kJoinMaxCols, "join_probe: build columns");
+  JoinProbeParams p{};
+  p.n = pkey.size(0);
+  p.pkey = reinterpret_cast<const long long*>(pkey.data_ptr<int64_t>());
+  p.pkey_valid = opt<const uint8_t>(pkey_valid);
+  p.valid = opt<const uint8_t>(valid);
+  p.table = opt<const int32_t>(table);
+  p.span = table.numel();
+  p.kmin = kmin;
+  p.bkeys = opt<const long long>(bkeys);
+  p.m = bkeys.numel();
+  p.n_cols = (int)bvals.size();
+  for (int c = 0; c < p.n_cols; ++c) {
+    p.bvals[c] = bvals[c].data_ptr();
+    p.val_bytes[c] = (int)bvals[c].element_size();
+    p.bvalids[c] = opt<const uint8_t>(bvalids[c]);
+    p.out_vals[c] = out_vals[c].data_ptr();
+    p.out_valids[c] = static_cast<uint8_t*>(out_valids[c].data_ptr());
+  }
+  p.mask = static_cast<uint8_t*>(mask.data_ptr());
+  launched(join_probe_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -305,4 +348,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("window_flags", &window_flags_, "partition and peer start flags");
   m.def("window_pack", &window_pack_, "window outputs packed in input order");
   m.def("partition_ids", &partition_ids_, "shuffle partition id of each row");
+  m.def("join_build_table", &join_build_table_, "dense slot table of unique build keys");
+  m.def("join_probe", &join_probe_, "PK-FK probe: gathered build columns and the row mask");
 }

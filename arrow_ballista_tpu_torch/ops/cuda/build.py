@@ -18,6 +18,7 @@ SOURCES = [
     os.path.join(_HERE, "range_extremum.cu"),
     os.path.join(_HERE, "window_epilogue.cu"),
     os.path.join(_HERE, "partition_id.cu"),
+    os.path.join(_HERE, "join_probe.cu"),
     os.path.join(_HERE, "bindings.cpp"),
 ]
 BUILD_DIR = os.path.join(

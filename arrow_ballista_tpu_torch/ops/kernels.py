@@ -8,7 +8,9 @@ the hand-written segment aggregate that folds the masks, reduces per group
 and merges into the running state: the scatter route
 (``ops/cuda/segment_agg.cu``) or, at large capacity on cuda, the sort
 route (``ops/cuda/radix_sort.cu`` + ``ops/cuda/seg_scan.cu``, which the
-window kernel shares).
+window kernel shares).  A join-fused stage first probes the build side on
+the device (``ops/cuda/join_probe.cu``) and folds the misses into the row
+mask.
 
 Design rules:
 * x64 only — f64/i64 device dtypes (the H100 has both); every tensor the
@@ -64,11 +66,13 @@ class LeafSpec:
 
     Kinds: "column" (value + validity), "cpu_expr" (host-evaluated value +
     validity), "column_validity" (validity ONLY — count(col) never needs
-    the values).
+    the values), "join_col" (a build-side column of a folded device join:
+    gathered on the device by :func:`join_probe`, never read from the
+    probe batch).
     """
 
     name: str
-    kind: str  # "column" | "cpu_expr" | "column_validity"
+    kind: str  # "column" | "cpu_expr" | "column_validity" | "join_col"
     col_index: int = -1
     cpu_expr: Optional[pe.PhysicalExpr] = None
 
@@ -499,6 +503,8 @@ def build_env(
 
     env: dict[str, np.ndarray] = {}
     for name, spec in leaves.items():
+        if spec.kind == "join_col":
+            continue  # gathered on the device by the join probe
         if spec.kind == "cpu_expr":
             arr = spec.cpu_expr.evaluate(batch)
             if isinstance(arr, pa.Scalar):
@@ -789,7 +795,7 @@ def states_from_numpy(
 # through count_launch, under a lock.
 LAUNCHES = dict.fromkeys(
     ("segment_agg", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
-     "partition_ids"), 0
+     "partition_ids", "join_build_table", "join_probe"), 0
 )
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -1647,3 +1653,224 @@ def device_partition_ids(
     bits = torch.from_numpy(np.stack([b for b, _ in cols])).to(device)
     nulls = torch.from_numpy(np.stack([m for _, m in cols])).to(device)
     return partition_ids(bits, nulls, n).cpu().numpy()
+
+
+# ------------------------------------------------------- device join (B5)
+JOIN_MAX_COLUMNS = 32  # build columns one probe gathers (join_probe.h)
+_JOIN_VALUE_DTYPES = (F64, I64, torch.bool)  # the bridge's device dtypes
+
+
+def join_build_table_twin(bkeys: torch.Tensor, kmin: int, span: int) -> torch.Tensor:
+    """Plain PyTorch twin of the dense slot-table kernel: int32 ``[span]``
+    holding ``row + 1`` at slot ``bkeys[row] - kmin`` and 0 (no such key)
+    everywhere else (the reference's eager scatter in ``_prepare_build``)."""
+    m = bkeys.shape[0]
+    tbl = torch.zeros(span, dtype=torch.int32, device=bkeys.device)
+    tbl[bkeys - kmin] = torch.arange(1, m + 1, dtype=torch.int32, device=bkeys.device)
+    return tbl
+
+
+def _check_build_args(bkeys, kmin: int, span: int) -> None:
+    """ValueError unless the slot-table kernel takes these inputs (checked
+    before the binding: an exception inside the extension may end the
+    process)."""
+    if not (
+        isinstance(bkeys, torch.Tensor) and bkeys.device.type == "cuda"
+        and bkeys.dtype == I64 and bkeys.dim() == 1 and bkeys.is_contiguous()
+        and 1 <= bkeys.shape[0] < (1 << 31)
+    ):
+        raise ValueError("bkeys must be a contiguous CUDA int64 [m] tensor, 1 <= m < 2^31")
+    if not -(1 << 63) <= kmin < (1 << 63):
+        raise ValueError(f"kmin {kmin} outside int64")
+    if not 1 <= span <= (1 << 31) - 1:
+        raise ValueError(f"table of {span} slots")
+
+
+def join_build_table_cuda(bkeys: torch.Tensor, kmin: int, span: int) -> torch.Tensor:
+    """Launch the hand-written slot-table kernel (ops/cuda/join_probe.cu).
+
+    Replaces the eager ``jnp.zeros(span).at[slots].set(rows)`` scatter of
+    ``arrow_ballista_tpu/ops/stage_compiler.py:_prepare_build`` (B5a).
+    ``bkeys`` are unique, so the scatter has no conflicts; a key outside
+    ``[kmin, kmin + span)`` is skipped.  A failed build or launch raises."""
+    from .cuda.build import load
+
+    kmin, span = int(kmin), int(span)
+    _check_build_args(bkeys, kmin, span)
+    ext = load()
+    out = torch.empty(span, dtype=torch.int32, device=bkeys.device)
+    ext.join_build_table(bkeys, kmin, out)
+    count_launch("join_build_table")
+    return out
+
+
+def join_build_table(bkeys: torch.Tensor, kmin: int, span: int) -> torch.Tensor:
+    """Dense slot table of the unique build keys: the CUDA kernel for CUDA
+    tensors, its plain twin for tensors on the CPU."""
+    if bkeys.device.type == "cpu":
+        return join_build_table_twin(bkeys, kmin, span)
+    return join_build_table_cuda(bkeys, kmin, span)
+
+
+def join_probe_twin(pkey, pkey_valid, valid, bvals, bvalids, table=None, kmin=0,
+                    bkeys=None):
+    """Plain PyTorch twin of the probe kernel (the reference's arithmetic in
+    ``make_join_kernel``).  Returns ``(values, validities, mask)``: each
+    build column gathered at the probe row's build row, its validity ANDed
+    with the match, and ``valid`` (None = every row) ANDed with the match.
+
+    Dense form (``table``): ``rel = pkey - kmin`` in int64, a match where
+    ``0 <= rel < span``, ``table[rel] > 0`` and the key is valid; the build
+    row is ``max(table[clip(rel)] - 1, 0)``.  Sorted form (``bkeys``, sorted
+    unique): the row is ``clip(searchsorted(bkeys, pkey, 'left'), 0, m-1)``,
+    a match where ``bkeys[row] == pkey`` and the key is valid.  Unmatched
+    rows carry the values at that clamped row."""
+    if table is not None:
+        span = table.shape[0]
+        rel = pkey - int(kmin)
+        inb = (rel >= 0) & (rel < span)
+        slot = table[rel.clamp(0, span - 1)]
+        match = inb & (slot > 0)
+        idx = (slot.to(I64) - 1).clamp(min=0)
+    else:
+        m = bkeys.shape[0]
+        idx = torch.searchsorted(bkeys, pkey).clamp(0, max(m - 1, 0))
+        match = bkeys[idx] == pkey
+    if pkey_valid is not None:
+        match = match & pkey_valid
+    vals = [v[idx] for v in bvals]
+    valids = [match if bv is None else bv[idx] & match for bv in bvalids]
+    mask = match if valid is None else valid & match
+    return vals, valids, mask
+
+
+def _check_probe_args(pkey, pkey_valid, valid, bvals, bvalids, table, kmin, bkeys):
+    """ValueError unless the probe kernel takes these inputs (checked before
+    the binding: an exception inside the extension may end the process)."""
+    if not (
+        isinstance(pkey, torch.Tensor) and pkey.device.type == "cuda"
+        and pkey.dtype == I64 and pkey.dim() == 1 and pkey.is_contiguous()
+    ):
+        raise ValueError("pkey must be a contiguous CUDA int64 [n] tensor")
+    device, n = pkey.device, pkey.shape[0]
+    for name, m in (("pkey_valid", pkey_valid), ("valid", valid)):
+        if m is not None:
+            _check_cuda_tensor(m, name, (torch.bool,), n, device)
+    if (table is None) == (bkeys is None):
+        raise ValueError("give exactly one of table (dense) and bkeys (sorted)")
+    if table is not None:
+        if not isinstance(table, torch.Tensor) or table.dim() != 1:
+            raise ValueError("table must be a 1-D tensor")
+        m = table.shape[0]
+        _check_cuda_tensor(table, "table", (torch.int32,), m, device)
+        if m < 1:
+            raise ValueError("empty slot table")
+        if not -(1 << 63) <= int(kmin) < (1 << 63):
+            raise ValueError(f"kmin {kmin} outside int64")
+    else:
+        if not isinstance(bkeys, torch.Tensor) or bkeys.dim() != 1:
+            raise ValueError("bkeys must be a 1-D tensor")
+        m = bkeys.shape[0]
+        _check_cuda_tensor(bkeys, "bkeys", (I64,), m, device)
+        if m < 1:
+            raise ValueError("empty build keys")
+    if len(bvals) != len(bvalids) or len(bvals) > JOIN_MAX_COLUMNS:
+        raise ValueError(f"{len(bvals)} build columns, {len(bvalids)} validities")
+    rows = bvals[0].shape[0] if bvals else 0
+    for c, (v, bv) in enumerate(zip(bvals, bvalids)):
+        if not isinstance(v, torch.Tensor) or v.dim() != 1:
+            raise ValueError(f"build column {c} must be a 1-D tensor")
+        _check_cuda_tensor(v, f"build column {c}", _JOIN_VALUE_DTYPES, rows, device)
+        if bv is not None:
+            _check_cuda_tensor(bv, f"build validity {c}", (torch.bool,), rows, device)
+    if bvals and (rows < 1 or (bkeys is not None and rows != bkeys.shape[0])):
+        raise ValueError(f"build columns of {rows} rows")
+
+
+def join_probe_cuda(pkey, pkey_valid, valid, bvals, bvalids, table=None, kmin=0,
+                    bkeys=None):
+    """Launch the hand-written probe kernel (ops/cuda/join_probe.cu): the
+    dense or the sorted form, with the same outputs as
+    :func:`join_probe_twin`, bit for bit.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:make_join_kernel`` (B5b
+    dense, B5c sorted).  Inputs are checked first (ValueError); a failed
+    build or launch raises — nothing falls back to a library search or to
+    the CPU.  With a dense table, the build rows it holds must index the
+    build columns (the stage builds both from one build side)."""
+    from .cuda.build import load
+
+    bvals, bvalids = list(bvals), list(bvalids)
+    _check_probe_args(pkey, pkey_valid, valid, bvals, bvalids, table, kmin, bkeys)
+    ext = load()
+    n, device = pkey.shape[0], pkey.device
+    empty = torch.empty(0, dtype=torch.bool, device=device)
+    vals = [torch.empty(n, dtype=v.dtype, device=device) for v in bvals]
+    valids = [torch.empty(n, dtype=torch.bool, device=device) for _ in bvals]
+    mask = torch.empty(n, dtype=torch.bool, device=device)
+    ext.join_probe(
+        pkey,
+        empty if pkey_valid is None else pkey_valid,
+        empty if valid is None else valid,
+        torch.empty(0, dtype=torch.int32, device=device) if table is None else table,
+        int(kmin),
+        torch.empty(0, dtype=I64, device=device) if bkeys is None else bkeys,
+        bvals,
+        [empty if bv is None else bv for bv in bvalids],
+        vals, valids, mask,
+    )
+    count_launch("join_probe")
+    return vals, valids, mask
+
+
+def join_probe(pkey, pkey_valid, valid, bvals, bvalids, table=None, kmin=0, bkeys=None):
+    """PK-FK probe of one batch (see :func:`join_probe_twin`): the CUDA
+    kernel for CUDA tensors, its plain twin for tensors on the CPU."""
+    if pkey.device.type == "cpu":
+        return join_probe_twin(pkey, pkey_valid, valid, bvals, bvalids, table, kmin, bkeys)
+    return join_probe_cuda(pkey, pkey_valid, valid, bvals, bvalids, table, kmin, bkeys)
+
+
+def make_join_kernel(inner_fn, flat_names: list[str], join_slots: dict[str, int],
+                     n_build: int, dense: bool = False):
+    """Wrap a stage function with the on-device PK-FK probe join.
+
+    ``join_slots`` maps flat arg NAMES that come from the build side to
+    their index in the build-column lists.  The wrapped signature is::
+
+        fn(seg, valid, *probe_args, pkey, pkey_valid,
+           bkeys, *bvals, *bvalids, state=None)        # sorted form
+        fn(seg, valid, *probe_args, pkey, pkey_valid,
+           table, kmin, *bvals, *bvalids, state=None)  # dense form
+
+    where ``probe_args`` are the batch's tensors for the NON-join flat names
+    (in order) and ``pkey`` is its probe join key (int64).  One
+    :func:`join_probe` gathers the build columns and folds the misses into
+    the row mask, then ``inner_fn`` runs unchanged on the full argument
+    list, so the joined relation is never materialised."""
+    n_probe = sum(1 for n in flat_names if n not in join_slots)
+    head = 4 if dense else 3
+
+    def fn(seg_ids, valid, *args, state=None):
+        probe_args = args[:n_probe]
+        pkey, pkey_valid = args[n_probe:n_probe + 2]
+        if dense:
+            form = dict(table=args[n_probe + 2], kmin=args[n_probe + 3])
+        else:
+            form = dict(bkeys=args[n_probe + 2])
+        bvals = list(args[n_probe + head:n_probe + head + n_build])
+        bvalids = list(args[n_probe + head + n_build:])
+        vals, valids, mask = join_probe(pkey, pkey_valid, valid, bvals, bvalids, **form)
+        full = []
+        it = iter(probe_args)
+        for name in flat_names:
+            j = join_slots.get(name)
+            if j is None:
+                full.append(next(it))
+            elif name.endswith("__valid"):
+                full.append(valids[j])
+            else:
+                full.append(vals[j])
+        return inner_fn(seg_ids, mask, *full, state=state)
+
+    return fn

@@ -1,14 +1,18 @@
 """Device stage compiler: swap eligible subtrees for the CUDA aggregate.
 
 Counterpart of ``arrow_ballista_tpu/ops/stage_compiler.py``: the basic
-route with host group ids, on its scatter or sort reduction.
-``maybe_accelerate`` walks a physical plan and replaces each eligible
-``HashAggregateExec`` (plus its filter/projection chain) with a
+route with host group ids, on its scatter or sort reduction, and the
+device join.  ``maybe_accelerate`` walks a physical plan and replaces each
+eligible ``HashAggregateExec`` (plus its filter/projection chain) with a
 :class:`TorchStageExec`: per batch the host assigns dense group ids, the
 leaf arrays cross to the stage's device, the expression closures run as
 torch ops and the segment-aggregate kernel (or, above the capacity bound
 on cuda, the radix sort and segmented scan) merges the batch into the
 running state; after the last batch ONE fetch brings the state back.
+An inner PK-FK hash join below the aggregate folds into the stage
+(:class:`DeviceJoinSpec`): the build side is collected once on the host,
+and each probe batch joins on the device through the probe kernel (B5),
+whose match folds into the row mask.
 Under a shuffle writer's hint the output also carries each row's
 partition id, computed by the partition-id kernel (B4).
 Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
@@ -16,16 +20,16 @@ Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
 path, gated by the same session config (``ballista.tpu.enable``).
 
 Not ported (the plan keeps the CPU operators, decided at plan time):
-the device join, the keyed high-cardinality route, median,
-count-distinct, corr, the variance family, the column cache and
-whole-stage fusion.  A join below the aggregate runs on the CPU and the
-aggregate above it on the device.
+the keyed high-cardinality route, median, count-distinct, corr, the
+variance family, the column cache and whole-stage fusion.  A join the
+fold declines runs on the CPU below the device aggregate.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Iterator, Optional
 
@@ -50,6 +54,12 @@ from . import kernels as K
 
 class _CapacityExceeded(Exception):
     pass
+
+
+class _JoinIneligible(Exception):
+    """The device join cannot run for THIS data (non-unique build keys, or
+    build columns the bridge cannot ship): re-run with the join on the CPU
+    and only the aggregate on the device."""
 
 
 class _SmallInput(Exception):
@@ -81,6 +91,12 @@ HIGHCARD_RATIO = 0.05
 def _highcard_detect(n_groups: int, n_rows: int) -> bool:
     """Raw groups~rows detector (first data batch)."""
     return n_groups > HIGHCARD_MIN_GROUPS and n_groups > HIGHCARD_RATIO * n_rows
+
+
+# Build-key spans up to this many slots use the dense direct-probe join
+# table ([span] int32, 256 MiB of device memory at the cap) instead of the
+# sorted keys' binary search (the reference's bound).
+_DENSE_JOIN_SPAN_CAP = 1 << 26
 
 
 def _keep_bucket(n_groups: int) -> int:
@@ -275,6 +291,27 @@ def _subst(e: pe.PhysicalExpr, mapping: list[pe.PhysicalExpr]) -> pe.PhysicalExp
 
 
 @dataclasses.dataclass
+class DeviceJoinSpec:
+    """A PK-FK join folded INTO the device stage.
+
+    Scope: inner single-key equi-join with UNIQUE build keys (every TPC-H
+    join).  The build side (the join's left input) is collected once on
+    the host, sorted by key and shipped as [m]-sized tensors (plus a dense
+    slot table when the key span allows); each probe batch joins on the
+    device (``kernels.join_probe``) and the match mask folds into the
+    stage's row mask, so the joined rows feed the aggregate without the
+    join ever being materialised.
+    """
+
+    build: ExecutionPlan  # collected on the host, must have unique keys
+    probe_key: pe.PhysicalExpr  # over the probe (source) schema
+    build_key_index: int  # plain column of the build schema
+    build_cols: list[int]  # build columns the stage reads, virtual order
+    # (group-only build columns resolve on the host at materialize; only
+    # the ones the kernel reads ship to the device — see _join_slots)
+
+
+@dataclasses.dataclass
 class _FusedStage:
     """The flattened eligible subtree, rewritten onto the source schema."""
 
@@ -283,12 +320,16 @@ class _FusedStage:
     group_exprs: list[tuple[pe.PhysicalExpr, str]]
     aggs: list[AggSpec]
     mode: str
+    join: Optional[DeviceJoinSpec] = None
 
 
-def _flatten(agg: HashAggregateExec) -> Optional[_FusedStage]:
-    """Flatten the aggregate's filter/projection chain onto its source.
-    The device join is not ported: a join source stays on the CPU below
-    the device aggregate (the reference's ``fold_join=False`` shape)."""
+def _flatten(
+    agg: HashAggregateExec, fold_join: bool = True
+) -> Optional[_FusedStage]:
+    """Flatten the aggregate's filter/projection chain onto its source,
+    folding an eligible join source into a :class:`DeviceJoinSpec` unless
+    ``fold_join`` is False (then the join stays on the CPU below the
+    device aggregate)."""
     chain: list[ExecutionPlan] = []
     node = agg.input
     while isinstance(node, (FilterExec, ProjectionExec, RenameSchemaExec)):
@@ -318,7 +359,148 @@ def _flatten(agg: HashAggregateExec) -> Optional[_FusedStage]:
         ]
     except ExecutionError:
         return None
-    return _FusedStage(source, filters, group_exprs, aggs, agg.mode)
+    fused = _FusedStage(source, filters, group_exprs, aggs, agg.mode)
+    if fold_join:
+        return _maybe_fold_join(fused) or fused
+    return fused
+
+
+def _cols_used(e: pe.PhysicalExpr, out: set) -> None:
+    if isinstance(e, pe.Col):
+        out.add(e.index)
+    for name in ("left", "right", "expr", "else_expr"):
+        sub = getattr(e, name, None)
+        if sub is not None:
+            _cols_used(sub, out)
+    for name in ("args",):
+        for sub in getattr(e, name, ()) or ():
+            _cols_used(sub, out)
+    if isinstance(e, pe.Case):
+        for w, t in e.whens:
+            _cols_used(w, out)
+            _cols_used(t, out)
+
+
+def _shift_cols(e: pe.PhysicalExpr, remap: dict) -> pe.PhysicalExpr:
+    """Rewrite column indexes through ``remap`` (join schema → probe +
+    virtual build columns)."""
+    mapping = [None] * (max(remap) + 1 if remap else 0)
+    for i, j in remap.items():
+        mapping[i] = pe.Col(j, f"c{j}")
+    return _subst(e, mapping)
+
+
+def _maybe_fold_join(fused: _FusedStage) -> Optional[_FusedStage]:
+    """Fold an eligible HashJoinExec source into a DeviceJoinSpec: an
+    inner, single-key equi-join with no filter, a plain-column build key
+    and integer or date32 keys on both sides.  Build-side group keys must
+    be plain build columns, and the probe key must then be a group key."""
+    from ..exec.joins import HashJoinExec
+
+    join = fused.source
+    if not isinstance(join, HashJoinExec):
+        return None
+    if (
+        join.join_type != "inner"
+        or len(join.on) != 1
+        or join.filter is not None
+    ):
+        return None
+    lkey, rkey = join.on[0]
+    if not isinstance(lkey, pe.Col):
+        return None  # build key must be a plain column (sortable table)
+    probe = join.right
+    left_n = len(join.left.schema)
+    probe_n = len(probe.schema)
+
+    def _int_key(t) -> bool:
+        return pa.types.is_integer(t) or pa.types.is_date32(t)
+
+    # float keys would truncate through the int64 key path and match rows
+    # SQL equality never joins: integer/date keys only
+    if not _int_key(join.left.schema.field(lkey.index).type):
+        return None
+    try:
+        if not _int_key(K._infer_pa_type(rkey, probe.schema)):
+            return None
+    except Exception:
+        return None
+
+    # which join-schema columns does the stage actually read?
+    used: set = set()
+    for f in fused.filters:
+        _cols_used(f, used)
+    for g, _ in fused.group_exprs:
+        _cols_used(g, used)
+    for a in fused.aggs:
+        if a.arg is not None:
+            _cols_used(a.arg, used)
+        if a.arg2 is not None:
+            _cols_used(a.arg2, used)
+
+    build_cols: list[int] = []
+    remap: dict = {}
+    for i in sorted(used):
+        if i >= left_n:
+            remap[i] = i - left_n  # probe side, shifted onto probe schema
+        else:
+            if i not in build_cols:
+                build_cols.append(i)
+            remap[i] = probe_n + build_cols.index(i)
+
+    # group keys on the build side must be PLAIN build columns AND the
+    # probe join key must itself be a group key, so materialize can
+    # resolve them (unique build keys => functional dependency)
+    probe_key = rkey
+    group_has_build = False
+    key_in_groups = False
+    for g, _name in fused.group_exprs:
+        gused: set = set()
+        _cols_used(g, gused)
+        if any(i < left_n for i in gused):
+            if not (isinstance(g, pe.Col) and g.index < left_n):
+                return None
+            group_has_build = True
+        elif (
+            isinstance(g, pe.Col)
+            and g.index >= left_n
+            and isinstance(probe_key, pe.Col)
+            and g.index - left_n == probe_key.index
+        ):
+            key_in_groups = True
+    if group_has_build and not key_in_groups:
+        return None
+
+    try:
+        filters = [_shift_cols(f, remap) for f in fused.filters]
+        group_exprs = [
+            (_shift_cols(g, remap), name) for g, name in fused.group_exprs
+        ]
+        aggs = [
+            dataclasses.replace(
+                a,
+                arg=_shift_cols(a.arg, remap) if a.arg is not None else None,
+                arg2=(
+                    _shift_cols(a.arg2, remap)
+                    if a.arg2 is not None
+                    else None
+                ),
+            )
+            for a in fused.aggs
+        ]
+    except ExecutionError:
+        return None
+
+    return _FusedStage(
+        probe,
+        filters,
+        group_exprs,
+        aggs,
+        fused.mode,
+        join=DeviceJoinSpec(
+            join.left, probe_key, lkey.index, build_cols
+        ),
+    )
 
 
 def _infer_type(e: pe.PhysicalExpr, schema: pa.Schema) -> Optional[pa.DataType]:
@@ -352,7 +534,17 @@ class TorchStageExec(ExecutionPlan):
         self.config = config
         self.device = torch.device(device)
         self._schema = original.schema
-        schema = fused.source.schema
+        # device-join stages compile over a VIRTUAL schema: the probe
+        # schema plus one appended field per referenced build column
+        probe_schema = fused.source.schema
+        if fused.join is not None:
+            schema = pa.schema(
+                list(probe_schema)
+                + [fused.join.build.schema.field(i) for i in fused.join.build_cols]
+            )
+        else:
+            schema = probe_schema
+        self._probe_ncols = len(probe_schema)
 
         compiler = K.TorchExprCompiler(schema)
         # equal arguments lower to ONE closure, which the kernel function
@@ -415,7 +607,78 @@ class TorchStageExec(ExecutionPlan):
         self.leaves = compiler.leaves
         self.capacity = config.tpu_segment_capacity if fused.group_exprs else 1
         self.max_capacity = config.tpu_max_capacity if fused.group_exprs else 1
+
+        # device-join plumbing: leaves over virtual (build-side) columns
+        # are gathered on the device by the join probe, never read from
+        # the probe batch; validity-only leaves and host-evaluated exprs
+        # cannot reference the build side
+        self._join_slots: dict[str, int] = {}
+        if fused.join is not None:
+            for name, spec in self.leaves.items():
+                if spec.kind == "cpu_expr":
+                    used: set = set()
+                    _cols_used(spec.cpu_expr, used)
+                    if any(i >= self._probe_ncols for i in used):
+                        raise K.NotLowerable("host expr over build side")
+                    continue
+                if spec.col_index >= self._probe_ncols:
+                    if spec.kind != "column":
+                        raise K.NotLowerable(f"join leaf kind {spec.kind}")
+                    spec.kind = "join_col"
+                    j = spec.col_index - self._probe_ncols
+                    self._join_slots[name] = j
+                    self._join_slots[f"{name}__valid"] = j
+        # only the build columns the KERNEL reads ship to the device
+        # (group-only build columns resolve on the host at materialize)
+        self._device_build_cols: list[int] = []
+        if fused.join is not None and self._join_slots:
+            device_js = sorted(set(self._join_slots.values()))
+            dense = {j: k for k, j in enumerate(device_js)}
+            self._join_slots = {n: dense[j] for n, j in self._join_slots.items()}
+            self._device_build_cols = [fused.join.build_cols[j] for j in device_js]
         self._flat_names = K.flat_arg_names(self.leaves)
+
+        # group plan: which GROUP BY positions encode on the host and which
+        # resolve from the build table at materialize (functionally
+        # dependent on the probe join key: unique build keys)
+        self._group_plan: list[tuple[str, int]] = []
+        slot = 0
+        for g, _n in fused.group_exprs:
+            if (
+                fused.join is not None
+                and isinstance(g, pe.Col)
+                and g.index >= self._probe_ncols
+            ):
+                self._group_plan.append(("build", g.index - self._probe_ncols))
+            else:
+                self._group_plan.append(("enc", slot))
+                slot += 1
+        self._n_encoded_groups = slot
+        self._enc_group_exprs = [
+            g
+            for (g, _n), (kind, _s) in zip(fused.group_exprs, self._group_plan)
+            if kind == "enc"
+        ]
+        self._jk_slot = self._jk_pos = None
+        if fused.join is not None:
+            pk = fused.join.probe_key
+            for pos, (g, _n) in enumerate(fused.group_exprs):
+                if (
+                    self._group_plan[pos][0] == "enc"
+                    and isinstance(g, pe.Col)
+                    and isinstance(pk, pe.Col)
+                    and g.index == pk.index
+                ):
+                    self._jk_slot = self._group_plan[pos][1]
+                    self._jk_pos = pos
+                    break
+            if any(k == "build" for k, _ in self._group_plan) and (
+                self._jk_slot is None
+            ):
+                raise K.NotLowerable("build group keys without probe key")
+        self._build_state = None  # prepared once per instance
+        self._build_lock = threading.Lock()
+        self._nojoin: Optional[TorchStageExec] = None
         self._kernels: dict = {}
         # (exprs, n_out) installed by a downstream ShuffleWriterExec so
         # the hash-partition ids ride the device instead of the host
@@ -432,16 +695,19 @@ class TorchStageExec(ExecutionPlan):
                     build.load()
                 self.metrics.add("kernel_compiles", 1)
 
-    def _kernel_for(self, capacity: int, n_rows: int):
+    def _kernel_for(self, capacity: int, n_rows: int, dense: bool = False):
         """The per-batch stage function at the given segment capacity, on
         the route :func:`K.segment_algo` picks for this capacity and batch
-        size (scatter, or sort above the bounds on cuda).  Cached per
-        (capacity, route), so a capacity growth builds the next one."""
+        size (scatter, or sort above the bounds on cuda), wrapped in the
+        join probe for a join-fused stage (``dense``: the slot-table form,
+        decided per execution from the prepared build side's key span).
+        Cached per (capacity, route, dense) on this stage, whose closures
+        it holds, so a capacity growth builds the next one."""
         algo = K.segment_algo(capacity, n_rows, self.device)
-        key = (capacity, algo) + K.algo_cache_token()
+        key = (capacity, algo, dense) + K.algo_cache_token()
         kernel = self._kernels.get(key)
         if kernel is None:
-            kernel = self._kernels[key] = K.make_partial_agg_kernel(
+            kernel = K.make_partial_agg_kernel(
                 self._filter_closure,
                 self._arg_closures,
                 self.specs,
@@ -449,6 +715,15 @@ class TorchStageExec(ExecutionPlan):
                 self._flat_names,
                 algo=algo,
             )
+            if self.fused.join is not None:
+                kernel = K.make_join_kernel(
+                    kernel,
+                    self._flat_names,
+                    self._join_slots,
+                    len(self._device_build_cols),
+                    dense=dense,
+                )
+            self._kernels[key] = kernel
         return kernel
 
     @property
@@ -476,13 +751,7 @@ class TorchStageExec(ExecutionPlan):
         new_original = self.original.with_new_children(
             [_replace_leaf(self.original.input, self.fused.source, children[0])]
         )
-        fused = _flatten(new_original)
-        if fused is None:
-            return new_original
-        try:
-            return TorchStageExec(new_original, fused, self.config, self.device)
-        except K.NotLowerable:
-            return new_original
+        return _accelerate_agg(new_original, self.config, self.device) or new_original
 
     def __str__(self) -> str:
         return (
@@ -497,6 +766,12 @@ class TorchStageExec(ExecutionPlan):
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
         try:
             yield from self._execute_device(partition, ctx)
+            return
+        except _JoinIneligible:
+            # non-unique or unshippable build keys: run the join on the
+            # CPU and keep ONLY the aggregate on the device
+            self.metrics.add("join_fallback", 1)
+            yield from self._nojoin_stage().execute(partition, ctx)
             return
         except _SmallInput as si:
             # partition under tpu.min_rows: run the CPU operator path over
@@ -514,6 +789,15 @@ class TorchStageExec(ExecutionPlan):
             # space.  Nothing else goes to the CPU: a device, kernel or
             # bridge failure raises
             self.metrics.add("tpu_fallback", 1)
+            if self.fused.join is not None:
+                # a join-fused stage's group table holds every distinct
+                # PROBE key before the join filters rows; the unfolded
+                # shape (join on the CPU, aggregate on the device over the
+                # joined rows) keys it on the surviving groups only, and
+                # its own execute still falls to the CPU if that overflows
+                self.metrics.add("join_fallback", 1)
+                yield from self._nojoin_stage().execute(partition, ctx)
+                return
             cpu_plan = self.original
         yield from cpu_plan.execute(partition, ctx)
 
@@ -528,10 +812,105 @@ class TorchStageExec(ExecutionPlan):
             ]
         )
 
+    # ------------------------------------------------------- device join
+    def _nojoin_stage(self) -> "TorchStageExec":
+        """Sibling stage with the join UNFOLDED (join on the CPU, aggregate
+        on the device) for data the device join cannot take; it shares
+        this stage's metrics bag."""
+        with self._build_lock:
+            if self._nojoin is None:
+                fused = _flatten(self.original, fold_join=False)
+                nojoin = TorchStageExec(self.original, fused, self.config, self.device)
+                nojoin.metrics = self.metrics
+                self._nojoin = nojoin
+            return self._nojoin
+
+    def _prepare_build(self, ctx: TaskContext):
+        """Collect and sort the build side once per stage instance: device
+        tensors for the probe, host copies of the sorted keys and the build
+        table for group-key resolution at materialize.
+
+        Returns ``("empty",)``, ``("dense", table, bvals, bvalids,
+        sorted_keys, build_table, kmin)`` when the key span fits
+        ``_DENSE_JOIN_SPAN_CAP`` (counted as ``dense_join``), or ``("ok",
+        bkeys, bvals, bvalids, sorted_keys, build_table)``.  Raises
+        :class:`_JoinIneligible` on duplicate keys or build columns the
+        bridge cannot ship."""
+        from .bridge import arrow_to_numpy
+
+        with self._build_lock:
+            if self._build_state is not None:
+                return self._build_state
+            spec = self.fused.join
+            batches = []
+            for p in range(spec.build.output_partitioning().n):
+                for b in spec.build.execute(p, ctx):
+                    ctx.check_cancelled()
+                    if b.num_rows:
+                        batches.append(b)
+            if batches:
+                table = pa.Table.from_batches(batches, schema=spec.build.schema)
+            else:
+                table = spec.build.schema.empty_table()
+            kv, kvalid = arrow_to_numpy(
+                table.column(spec.build_key_index).combine_chunks()
+            )
+            kv = kv.astype(np.int64)
+            if kvalid is not None:
+                table = table.filter(pa.array(kvalid))
+                kv = kv[kvalid]  # null build keys never match an inner join
+            order = np.argsort(kv, kind="stable")
+            kv_sorted = kv[order]
+            if len(kv_sorted) > 1 and bool(np.any(kv_sorted[1:] == kv_sorted[:-1])):
+                raise _JoinIneligible("device join requires unique build keys")
+            table = table.take(pa.array(order))
+
+            if len(kv_sorted) == 0:
+                self._build_state = ("empty",)
+                return self._build_state
+
+            dev = self.device
+            try:
+                bkeys = torch.from_numpy(kv_sorted).to(dev)
+                bvals, bvalids = [], []
+                for ci in self._device_build_cols:
+                    vals, validity = arrow_to_numpy(table.column(ci).combine_chunks())
+                    bvals.append(torch.from_numpy(K.coerce_host_values(vals).copy()).to(dev))
+                    bvalids.append(
+                        None if validity is None
+                        else torch.from_numpy(validity.copy()).to(dev)
+                    )
+            except ExecutionError as e:
+                # unshippable column ranges or types: join on the CPU,
+                # aggregate on the device (not a full CPU fallback)
+                raise _JoinIneligible(str(e)) from e
+            kmin = int(kv_sorted[0])
+            span = int(kv_sorted[-1]) - kmin + 1
+            if span <= _DENSE_JOIN_SPAN_CAP:
+                # dense direct probe: one slot-table read per probe row
+                # instead of a binary search over the sorted keys
+                span_b = max(16, 1 << (span - 1).bit_length())
+                self._build_state = (
+                    "dense", K.join_build_table(bkeys, kmin, span_b), bvals,
+                    bvalids, kv_sorted, table, kmin,
+                )
+                self.metrics.add("dense_join", 1)
+                return self._build_state
+            self._build_state = ("ok", bkeys, bvals, bvalids, kv_sorted, table)
+            return self._build_state
+
     def _execute_device(
         self, partition: int, ctx: TaskContext
     ) -> Iterator[pa.RecordBatch]:
         fused = self.fused
+        build = None
+        if fused.join is not None:
+            with self.metrics.timer("join_build_time_ns"):
+                build = self._prepare_build(ctx)
+            if build[0] == "empty":
+                # inner join against an empty build side: no rows at all
+                yield from self._materialize(None, [], None, 0, ctx, partition)
+                return
         src = fused.source.execute(partition, ctx)
         coalesce = _shuffle_coalesce_rows(self.config)
         if coalesce > 0 and _reads_shuffle(fused.source):
@@ -568,11 +947,14 @@ class TorchStageExec(ExecutionPlan):
         from .bridge import DeviceStaging, make_key_encoder
         from .groups import GroupTable
 
+        # encoders exist only for host-ENCODED group positions (build-side
+        # group keys resolve from the build table at materialize)
         key_encoders = [
             make_key_encoder(self._schema.field(pos).type)
-            for pos in range(len(fused.group_exprs))
+            for pos, (kind, _s) in enumerate(self._group_plan)
+            if kind == "enc"
         ]
-        group_table = GroupTable(max(len(fused.group_exprs), 1))
+        group_table = GroupTable(max(self._n_encoded_groups, 1))
         staging = DeviceStaging(self.device)
         on_cuda = self.device.type == "cuda"
         launches: list = []  # (start, end) CUDA events per batch
@@ -580,6 +962,7 @@ class TorchStageExec(ExecutionPlan):
         state = None
         n_rows_in = 0
         cap = self.capacity
+        dense_join = build is not None and build[0] == "dense"
         self._build_kernels()
         with _closing_on_error(ra), self.metrics.timer("tpu_stage_time_ns"):
             for batch in src:
@@ -606,11 +989,23 @@ class TorchStageExec(ExecutionPlan):
                             # 'gid' and 'device' pin the device route (the
                             # keyed route behind 'device' is not ported, so
                             # the gid table is the device route)
-                            if not (
+                            pinned = (
                                 self.config.tpu_highcard_mode in ("gid", "device")
                                 and first_groups is not None
-                            ):
+                            )
+                            if fused.join is None and not pinned:
                                 raise _HighCardinality([batch], src)
+                            # a fused device join at high cardinality stays
+                            # on the group table while it can fit; but the
+                            # table keys on every distinct PROBE key before
+                            # the join filters, so when batch 1 alone fills
+                            # half the ceiling, bail to the unfolded shape
+                            # now rather than after encoding the stream
+                            if fused.join is not None and (
+                                first_groups is None
+                                or first_groups > self.max_capacity // 2
+                            ):
+                                raise _CapacityExceeded()
                         # first batch: shrink the segment table to the
                         # OBSERVED cardinality (2x headroom)
                         tight = 64
@@ -632,9 +1027,9 @@ class TorchStageExec(ExecutionPlan):
                 else:
                     seg = None  # all rows → group 0
 
-                kernel = self._kernel_for(cap, n)
+                kernel = self._kernel_for(cap, n, dense_join)
                 with self.metrics.timer("bridge_time_ns"):
-                    args = self._kernel_args(batch, n, seg, staging)
+                    args = self._kernel_args(batch, n, seg, staging, build)
                 with self.metrics.timer("device_time_ns"):
                     gid = args.pop()
                     if gid is None:
@@ -668,16 +1063,32 @@ class TorchStageExec(ExecutionPlan):
             host_states, key_encoders, group_table, n_rows_in, ctx, partition
         )
 
-    def _kernel_args(self, batch, n: int, seg, staging) -> list:
-        """The stage function's per-batch tensors on the device, in flat
-        arg order, then the group ids (None for a global aggregate).
-        All-valid companions travel as ``None``: no bytes cross."""
+    def _kernel_args(self, batch, n: int, seg, staging, build=None) -> list:
+        """The stage function's per-batch tensors on the device: the
+        non-join flat args in order, then, for a join-fused stage, the
+        probe key (int64) and its validity, the dense slot table and kmin
+        or the sorted build keys, the build values and their validities;
+        last the group ids (None for a global aggregate).  All-valid
+        companions travel as ``None``: no bytes cross."""
         trivial: set = set()
         env = K.build_env(batch, self.leaves, n, trivial_valid=trivial)
-        host = {nm: (None if nm in trivial else env[nm]) for nm in self._flat_names}
+        names = [nm for nm in self._flat_names if nm not in self._join_slots]
+        host = {nm: (None if nm in trivial else env[nm]) for nm in names}
         host["__gid__"] = seg
+        if build is not None:
+            from .bridge import arrow_to_numpy
+
+            pkv, pk_valid = arrow_to_numpy(_eval_arr(self.fused.join.probe_key, batch))
+            host["__pkey__"] = pkv.astype(np.int64)
+            host["__pkey_valid__"] = pk_valid
         dev = staging.put(host)
-        return [dev[nm] for nm in self._flat_names] + [dev["__gid__"]]
+        args = [dev[nm] for nm in names]
+        if build is not None:
+            args += [dev["__pkey__"], dev["__pkey_valid__"], build[1]]
+            if build[0] == "dense":
+                args.append(build[6])  # kmin
+            args += build[2] + build[3]  # build values, validities
+        return args + [dev["__gid__"]]
 
     def _fetch_states(
         self, state, n_groups: Optional[int] = None
@@ -696,7 +1107,7 @@ class TorchStageExec(ExecutionPlan):
         try:
             return [
                 enc.encode(_eval_arr(g, batch))
-                for (g, _), enc in zip(self.fused.group_exprs, key_encoders)
+                for g, enc in zip(self._enc_group_exprs, key_encoders)
             ]
         except RadixOverflow:
             raise _CapacityExceeded()
@@ -734,9 +1145,41 @@ class TorchStageExec(ExecutionPlan):
         keep = np.nonzero(presence > 0)[0] if fused.group_exprs else np.arange(1)
 
         cols: list[pa.Array] = []
-        for slot in range(len(fused.group_exprs)):
-            codes = group_table.codes_for(keep, slot)
-            cols.append(key_encoders[slot].decode(codes, schema.field(slot).type))
+        jk_positions = None
+        for kind, slot in self._group_plan:
+            field_t = schema.field(len(cols)).type
+            if kind == "enc":
+                codes = group_table.codes_for(keep, slot)
+                cols.append(key_encoders[slot].decode(codes, field_t))
+                continue
+            # build-resolved group key: look the kept groups' probe join
+            # keys up in the sorted host build keys (unique keys: exact)
+            if jk_positions is None:
+                jk_vals = (
+                    key_encoders[self._jk_slot]
+                    .decode(
+                        group_table.codes_for(keep, self._jk_slot),
+                        schema.field(self._jk_pos).type,
+                    )
+                    .cast(pa.int64())
+                    .to_numpy(zero_copy_only=False)
+                    .astype(np.int64)
+                )
+                bkeys_host = self._build_state[4]
+                jk_positions = np.minimum(
+                    np.searchsorted(bkeys_host, jk_vals),
+                    max(len(bkeys_host) - 1, 0),
+                )
+            vals = self._build_state[5].column(fused.join.build_cols[slot]).take(
+                pa.array(jk_positions)
+            )
+            if not vals.type.equals(field_t):
+                import pyarrow.compute as pc
+
+                vals = pc.cast(vals, field_t)
+            cols.append(
+                vals.combine_chunks() if isinstance(vals, pa.ChunkedArray) else vals
+            )
 
         partial = fused.mode == PARTIAL
         i = 0
@@ -839,11 +1282,24 @@ def maybe_accelerate(
         except K.NotLowerable:
             return plan
     if isinstance(plan, HashAggregateExec) and plan.mode in (PARTIAL, SINGLE):
-        fused = _flatten(plan)
-        if fused is None:
-            return plan
-        try:
-            return TorchStageExec(plan, fused, config, device)
-        except K.NotLowerable:
-            return plan
+        return _accelerate_agg(plan, config, device) or plan
     return plan
+
+
+def _accelerate_agg(
+    agg: HashAggregateExec, config: BallistaConfig, device
+) -> Optional[TorchStageExec]:
+    """The device stage of an aggregate, or None when it does not lower.
+    The fold-then-retry ladder: with an eligible join folded first, and
+    if that shape does not lower (a host expression or a validity-only
+    leaf over the build side), with the join on the CPU below it."""
+    for fold in (True, False):
+        fused = _flatten(agg, fold_join=fold)
+        if fused is None:
+            return None
+        try:
+            return TorchStageExec(agg, fused, config, device)
+        except K.NotLowerable:
+            if fused.join is None:
+                return None
+    return None

@@ -32,17 +32,30 @@ Phases; any failure exits non-zero and prints no result line:
               (negative ints, nulls, NaN, ±0.0, float32, date32,
               timestamp): equal to its twin and to the host partitioner
               ``hash_partition_indices``;
+            * ``join_build_table`` and ``join_probe`` (B5) in three forms
+              (dense slot tables of 2^20 and 2^26 slots, sorted keys over a
+              span past 2^26) at n in {2^20, 2^23} probe rows x {0, 1, 3}
+              build columns (f64 with NaN and -0.0, int64, int32 with
+              nulls), probe keys with nulls, misses, keys below kmin and
+              negative keys: bit-identical to the twins;
 4. query  — TPC-H q1 and q6 over ``--sf`` lineitem (``gen_lineitem``'s
             seed, streamed as ``ballista.batch.size`` = 2^23-row batches,
             ``ballista.shuffle.partitions`` = 1) through
             ``SessionContext(device="cuda")``, held against the same session
             with ``ballista.tpu.enable=false`` (the CPU operators);
-5. q3     — TPC-H q3 (BASELINE config #3) the same way: the aggregate above
-            the CPU join must run on the card with no fallback, and its sort
+5. q3     — TPC-H q3 (BASELINE config #3) the same way; its join folds
+            into the device stage, and the route must be the one the
+            reference's capacity rule gives on this data, computed on the
+            host (a bail to the unfolded shape when the probe keys outrun
+            the group table); no CPU fallback either way, and the sort
             route must launch;
-6. window — the per-supplier running revenue / moving average query over
+6. star   — ``bench_suite.py:bench_starjoin``'s star join (6e7 fact rows
+            probing a 1e6-row dimension, ``default_rng(9)``, 2^23-row
+            batches) the same way: the dense device join with no fallback,
+            ``join_probe`` once per batch;
+7. window — the per-supplier running revenue / moving average query over
             the same lineitem: TorchWindowExec against the CPU WindowExec;
-7. distributed — TPC-H q3 and q1 over the parquet files through
+8. distributed — TPC-H q3 and q1 over the parquet files through
             ``BallistaContext.standalone(device="cuda", num_executors=1,
             concurrent_tasks=4)`` (the port's scheduler, executor, shuffle
             and Flight; 8 shuffle partitions, mesh off, the default
@@ -50,16 +63,17 @@ Phases; any failure exits non-zero and prints no result line:
             same cluster with ``ballista.tpu.enable=false``: equal results,
             no fallback, q3's map stage hashing its shuffle ids with
             ``partition_ids`` (equal to the host hash on every batch, the
-            writers' ``device_pid_batches`` above 0) and its aggregate on
-            the sort route;
-8. timing — every kernel at the first shape its main path gave it: the
+            writers' ``device_pid_batches`` above 0), its join stage folded
+            (``join_build_table`` and ``join_probe`` launched, no
+            ``join_fallback``) and its aggregate on the sort route;
+9. timing — every kernel at the first shape its main path gave it: the
             kernel, its twin and, where one PyTorch call computes the same
             function, that call (CUDA events, median of 20 launches),
             beside the least time the card could take (the bytes the call
             must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s).
 
 Launch counts are set to 0 just before each main-path run (q1/q6, q3,
-window, distributed q3 and q1) and read just after; a kernel of that path
+star join, window, distributed q3 and q1) and read just after; a kernel of that path
 that never launched fails the run.  Then one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
 """
@@ -87,6 +101,10 @@ SCAN_ROWS = (1 << 20, 1 << 23)
 PID_ROWS = (1 << 20, 1 << 23)
 PID_COLUMNS = (1, 3)
 PID_PARTITIONS = (1, 7, 200, 1 << 16)
+JOIN_ROWS = (1 << 20, 1 << 23)
+JOIN_COLUMNS = (0, 1, 3)
+JOIN_FORMS = ("dense 2^20", "dense 2^26", "sorted")
+STAR_ROWS, STAR_DIM = 60_000_000, 1_000_000  # bench_suite.py:bench_starjoin
 PARQUET_FILES = 8  # per table (one file for the small ones)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
@@ -100,6 +118,8 @@ KERNELS = {
     "range_extremum": ("range_extremum.cu", "arrow_ballista_tpu/ops/window_kernel.py:128"),
     "window_epilogue": ("window_epilogue.cu", "arrow_ballista_tpu/ops/window_kernel.py:165"),
     "partition_ids": ("partition_id.cu", "arrow_ballista_tpu/ops/kernels.py:2438"),
+    "join_build_table": ("join_probe.cu", "arrow_ballista_tpu/ops/stage_compiler.py:2436"),
+    "join_probe": ("join_probe.cu", "arrow_ballista_tpu/ops/kernels.py:636"),
 }
 
 
@@ -710,6 +730,194 @@ def pid_phase(TK, device) -> dict:
     return times
 
 
+# ------------------------------------------------------- device join (B5)
+def _join_build_keys(form: str, seed: int) -> np.ndarray:
+    """Unique sorted build keys: the star join's dimension keys (span 2^20
+    slots), q3-like order keys (about 1.45M of 60M, 2^26 slots), or keys
+    over a span past the dense cap (the sorted probe)."""
+    if form == "dense 2^20":
+        return np.arange(1, STAR_DIM + 1, dtype=np.int64)
+    rng = np.random.default_rng(seed)
+    lo, span, m = (1, 60_000_000, 1_450_000) if form == "dense 2^26" else (
+        -(1 << 40), 1 << 41, 1_000_000)
+    ends = np.array([lo, lo + span - 1], dtype=np.int64)
+    return np.unique(np.concatenate([ends, rng.integers(lo, lo + span, m)]))
+
+
+def _join_probe_keys(bkeys: np.ndarray, n: int, seed: int):
+    """Probe keys: 70% hits, then misses inside the key range, keys below
+    kmin, negative keys far below it and keys above kmax; 5% null."""
+    rng = np.random.default_rng(seed)
+    kmin, kmax = int(bkeys[0]), int(bkeys[-1])
+    pkey = rng.choice(bkeys, n)
+    pick = rng.random(n)
+    for lo, make in ((0.7, lambda k: rng.integers(kmin, kmax + 1, k)),
+                     (0.8, lambda k: kmin - rng.integers(1, 1000, k)),
+                     (0.85, lambda k: -rng.integers(1, 1 << 50, k)),
+                     (0.9, lambda k: kmax + rng.integers(1, 1 << 20, k))):
+        sel = pick >= lo
+        pkey[sel] = make(int(sel.sum()))
+    return pkey, rng.random(n) >= 0.05
+
+
+def _join_build_cols(m: int, seed: int, device):
+    """Build columns f64 (NaN, -0.0), int64 and int32, the last two with
+    nulls, as the stage ships them (every integer widened to int64);
+    (values, validities)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(-1e6, 1e6, m)
+    f[rng.random(m) < 0.01] = np.nan
+    f[:8:2] = -0.0
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    vals = [t(f), t(rng.integers(-(2**62), 2**62, m)),
+            t(rng.integers(-(2**31), 2**31, m).astype(np.int32).astype(np.int64))]
+    return vals, [None, t(rng.random(m) >= 0.1), t(rng.random(m) >= 0.05)]
+
+
+def _same_probe(a, b) -> bool:
+    import torch
+
+    for x, y in zip(a[0] + a[1] + [a[2]], b[0] + b[1] + [b[2]]):
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _probe_bytes(args, form: dict) -> int:
+    """The least bytes one probe moves: the keys and masks read once, each
+    output written once, and of the table, the sorted keys and the build
+    columns at most one entry per probe row."""
+    pkey, pkey_valid, valid, bvals, bvalids = args
+    n = pkey.numel()
+    total = 8 * n + _nbytes(pkey_valid, valid) + n
+    keys = form.get("table", form.get("bkeys"))
+    total += min(n, keys.numel()) * keys.element_size()
+    for v, bv in zip(bvals, bvalids):
+        rows = min(n, v.numel())
+        total += rows * v.element_size() + (0 if bv is None else rows)
+        total += n * v.element_size() + n
+    return total
+
+
+def _time_probe(TK, args, form: dict) -> dict:
+    """The probe kernel, its twin and the nearest PyTorch yardstick (the
+    sorted form's ``torch.searchsorted``, or the table lookup, then one
+    index per build column)."""
+    import torch
+
+    pkey, pkey_valid, valid, bvals, bvalids = args
+    if "bkeys" in form:
+        bk = form["bkeys"]
+
+        def library():
+            idx = torch.searchsorted(bk, pkey).clamp_(0, bk.numel() - 1)
+            return [v[idx] for v in bvals], bk[idx] == pkey
+    else:
+        tbl, kmin = form["table"], form["kmin"]
+
+        def library():
+            slot = tbl[(pkey - kmin).clamp_(0, tbl.numel() - 1)]
+            idx = (slot.long() - 1).clamp_(min=0)
+            return [v[idx] for v in bvals], slot > 0
+
+    out = dict(rows=pkey.numel(), columns=len(bvals),
+               form="sorted" if "bkeys" in form else f"dense {form['table'].numel()} slots",
+               ms=_median_ms(lambda: TK.join_probe_cuda(*args, **form)),
+               plain_ms=_median_ms(lambda: TK.join_probe_twin(*args, **form), 5),
+               library_ms=_median_ms(library), max_abs_err=0.0)
+    out.update(_bound(_probe_bytes(args, form)))
+    return out
+
+
+def _time_build(TK, bkeys, kmin: int, span: int) -> dict:
+    """The slot-table kernel, its twin and one ``index_put_`` into a zeroed
+    table (slots and row numbers precomputed)."""
+    import torch
+
+    m = bkeys.numel()
+    slots = bkeys - kmin
+    rows = torch.arange(1, m + 1, dtype=torch.int32, device=bkeys.device)
+    out = dict(keys=m, slots=span,
+               ms=_median_ms(lambda: TK.join_build_table_cuda(bkeys, kmin, span)),
+               plain_ms=_median_ms(lambda: TK.join_build_table_twin(bkeys, kmin, span), 5),
+               library_ms=_median_ms(lambda: torch.zeros(
+                   span, dtype=torch.int32, device=bkeys.device).index_put_((slots,), rows)),
+               max_abs_err=0.0)
+    out.update(_bound(8 * m + 4 * span))
+    return out
+
+
+def _checked_build(TK, bkeys, kmin: int, span: int) -> dict:
+    import torch
+
+    runs = [TK.join_build_table_cuda(bkeys, kmin, span) for _ in range(2)]
+    twin = TK.join_build_table_twin(bkeys, kmin, span)
+    torch.cuda.synchronize()
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], twin)):
+        raise AssertionError(f"join_build_table m={bkeys.numel()} span={span}: differs")
+    return _time_build(TK, bkeys, kmin, span)
+
+
+def _checked_probe(TK, captured) -> dict:
+    """A probe the main path made, held against the twin and timed."""
+    args, kw = captured
+    a = dict(zip(("pkey", "pkey_valid", "valid", "bvals", "bvalids", "table", "kmin",
+                  "bkeys"), args), **kw)
+    args = (a["pkey"], a["pkey_valid"], a["valid"], list(a["bvals"]), list(a["bvalids"]))
+    form = (dict(bkeys=a["bkeys"]) if a.get("table") is None
+            else dict(table=a["table"], kmin=a["kmin"]))
+    if not _same_probe(TK.join_probe_cuda(*args, **form), TK.join_probe_twin(*args, **form)):
+        raise AssertionError("join_probe differs from the twin at a main-path shape")
+    return _time_probe(TK, args, form)
+
+
+def join_phase(TK, device) -> tuple[dict, dict]:
+    """join_build_table and join_probe vs their twins in every form."""
+    import torch
+
+    probes, builds = {}, {}
+    for fi, form_name in enumerate(JOIN_FORMS):
+        bk = _join_build_keys(form_name, seed=fi)
+        bkeys = torch.from_numpy(bk).to(device)
+        bvals, bvalids = _join_build_cols(len(bk), seed=fi + 10, device=device)
+        if form_name == "sorted":
+            if int(bk[-1]) - int(bk[0]) + 1 <= 1 << 26:
+                raise AssertionError("the sorted case's span fits the dense cap")
+            form = dict(bkeys=bkeys)
+        else:
+            kmin = int(bk[0])
+            span = max(16, 1 << (int(bk[-1]) - kmin).bit_length())
+            builds[form_name] = t = _checked_build(TK, bkeys, kmin, span)
+            print(f"join_build_table {form_name} keys={len(bk)}: ok (= twin), "
+                  f"ms={t['ms']!r} bound_ms={t['bound_ms']!r} library_ms={t['library_ms']!r}")
+            form = dict(table=TK.join_build_table_cuda(bkeys, kmin, span), kmin=kmin)
+        for n in JOIN_ROWS:
+            pk, pv = _join_probe_keys(bk, n, seed=n + fi)
+            pkey, pkey_valid = torch.from_numpy(pk).to(device), torch.from_numpy(pv).to(device)
+            for n_cols in JOIN_COLUMNS:
+                args = (pkey, pkey_valid, None, bvals[:n_cols], bvalids[:n_cols])
+                runs = [TK.join_probe_cuda(*args, **form) for _ in range(2)]
+                twin = TK.join_probe_twin(*args, **form)
+                torch.cuda.synchronize()
+                if not (_same_probe(runs[0], runs[1]) and _same_probe(runs[0], twin)):
+                    raise AssertionError(
+                        f"join_probe {form_name} n={n} columns={n_cols}: differs")
+                matched = int(runs[0][2].sum())
+                del runs, twin
+                t = _time_probe(TK, args, form)
+                probes[f"{form_name},n={n},columns={n_cols}"] = t
+                print(f"join_probe {form_name} n={n} columns={n_cols}: ok (= twin, "
+                      f"{matched} matched), ms={t['ms']!r} bound_ms={t['bound_ms']!r} "
+                      f"plain_ms={t['plain_ms']!r} library_ms={t['library_ms']!r}")
+            del pkey, pkey_valid
+        del bkeys, bvals, bvalids, form
+    return probes, builds
+
+
 # ------------------------------------------------------------- query phase
 def _tables_equal(a, b, what: str) -> None:
     if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
@@ -816,9 +1024,46 @@ def query_phase(tbt, TK, batches, device) -> dict:
     return out
 
 
+def q3_expected_route(batches, max_capacity: int) -> dict:
+    """The route the reference's rule gives local q3's join-fused stage on
+    these batches, computed on the host.  The stage keys its group table
+    on the distinct probe keys (``l_orderkey`` of the rows that pass
+    ``l_shipdate > 1995-03-15``, batch by batch, before the join filters):
+    it bails to the unfolded shape on the first batch when that batch
+    alone outruns ``max_capacity`` or, groups ~ rows, fills half of it,
+    and on a later batch when the running count outruns the table."""
+    import datetime
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from arrow_ballista_tpu_torch.ops.stage_compiler import _highcard_detect
+
+    cut = pa.scalar(datetime.date(1995, 3, 15))
+    seen = np.empty(0, dtype=np.int64)
+    probed, first = 0, None
+    for b in batches:
+        keys = b.column("l_orderkey").filter(pc.greater(b.column("l_shipdate"), cut))
+        if len(keys) == 0:
+            continue  # the stage skips empty batches
+        distinct = np.unique(keys.to_numpy())
+        if first is None:
+            first = len(distinct)
+            if first > max_capacity or (
+                _highcard_detect(first, len(keys)) and first > max_capacity // 2
+            ):
+                return dict(bail=True, probed=0, first_keys=first, keys=first)
+        seen = np.union1d(seen, distinct)
+        if len(seen) > max_capacity:
+            return dict(bail=True, probed=probed, first_keys=first, keys=len(seen))
+        probed += 1
+    return dict(bail=False, probed=probed, first_keys=first, keys=len(seen))
+
+
 def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
-    """TPC-H q3: the aggregate above the CPU join on the card, against the
-    CPU operators; its sort route must launch."""
+    """TPC-H q3: the join folds into the device stage and routes as the
+    reference's rule says on this data (``q3_expected_route``), against the
+    CPU operators; no CPU fallback, and the sort route must launch."""
     import torch
 
     from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
@@ -843,33 +1088,130 @@ def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
     ctx = session(True)
     plan = ctx.sql(QUERIES[3]).physical_plan()
     stages = _stage_nodes(plan, TorchStageExec)
-    if not stages:
-        raise AssertionError("q3: no TorchStageExec in the plan")
+    if [s.fused.join is not None for s in stages] != [True]:
+        raise AssertionError(f"q3: the join did not fold ({[str(s) for s in stages]})")
+    t0 = time.perf_counter()
+    expect = q3_expected_route(batches, stages[0].max_capacity)
+    print(f"q3: expected route {json.dumps(expect)} (host, s={time.perf_counter() - t0!r})")
     _reset_counts(TK)
     with Capture(TK, "radix_argsort_cuda") as sort, \
-            Capture(TK, "sorted_segment_agg_cuda", keep=_keep_state) as route:
+            Capture(TK, "sorted_segment_agg_cuda", keep=_keep_state) as route, \
+            Capture(TK, "join_build_table_cuda") as build:
         t0 = time.perf_counter()
         got = ctx.execute(plan)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
     launches = dict(TK.LAUNCHES)
     metrics = _stage_metrics(stages)
-    for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
-        if metrics.get(k, 0):
-            raise AssertionError(f"q3: {k}={metrics[k]} ({json.dumps(metrics)})")
+    bail = int(expect["bail"])
+    for k, want_k in (("join_fallback", bail), ("tpu_fallback", bail), ("dense_join", 1),
+                      ("cpu_fallback", 0), ("highcard_fallback", 0)):
+        if metrics.get(k, 0) != want_k:
+            raise AssertionError(f"q3: {k}={metrics.get(k, 0)}, the reference's rule "
+                                 f"gives {want_k} ({json.dumps(metrics)})")
+    if launches["join_probe"] != expect["probed"] or launches["join_build_table"] != 1:
+        raise AssertionError(f"q3: launches {json.dumps(launches)} against {json.dumps(expect)}")
+    if not bail and launches["join_probe"] < 1:
+        raise AssertionError("q3: join_probe never launched")
     for k in ("radix_sort", "seg_scan"):
         if launches[k] < 1:
             raise AssertionError(f"q3: the sort route's {k} never launched")
     _tables_equal(want, got, "q3")
     breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
-        "capacity_growths", "input_rows", "output_rows")}
+        "join_build_time_ns", "capacity_growths", "input_rows", "output_rows")}
     print(
         f"q3: lineitem_rows={n_rows} launches={json.dumps(launches)} "
         f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
-        f"cuda_s={dev_s!r} cpu_s={cpu_s!r} "
+        f"cuda_s={dev_s!r} cpu_s={cpu_s!r} join_fallback={metrics.get('join_fallback', 0)} "
         f"breakdown={json.dumps(breakdown)}"
     )
-    return dict(launches=launches, sort=sort.args, route=route.args)
+    return dict(launches=launches, sort=sort.args, route=route.args, build=build.args)
+
+
+def star_tables():
+    """``bench_suite.py:bench_starjoin``'s tables: STAR_ROWS fact rows whose
+    keys probe a STAR_DIM-row dimension on a unique int64 key (a fifth of
+    them miss), 8 groups."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(9)
+    m, n = STAR_DIM, STAR_ROWS
+    dim = pa.table({
+        "dk": pa.array(np.arange(1, m + 1), pa.int64()),
+        "dv": pa.array(rng.uniform(0.5, 1.5, m)),
+        "dtag": pa.array(rng.integers(0, 25, m), pa.int32()),
+    })
+    fact = pa.table({
+        "fk": pa.array(rng.integers(1, int(m * 1.2), n), pa.int64()),
+        "g": pa.array(rng.integers(0, 8, n), pa.int32()),
+        "v": pa.array(rng.uniform(0, 100, n)),
+    })
+    return dim, fact
+
+
+STAR_SQL = ("select g, sum(v * dv) as s, count(*) as c "
+            "from dim, fact where dk = fk group by g order by g")
+
+
+def star_phase(tbt, TK, device) -> dict:
+    """The star join through ``SessionContext`` on the card (the dense
+    device join, no fallback, ``join_probe`` once per batch) against the
+    CPU operators."""
+    import torch
+
+    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+
+    t0 = time.perf_counter()
+    dim, fact = star_tables()
+    batches = fact.combine_chunks().to_batches(max_chunksize=1 << 23)
+    print(f"star: data s={time.perf_counter() - t0!r} batches={len(batches)}")
+    n_rows = fact.num_rows
+    del fact
+
+    def session(enable: bool):
+        cfg = dict(SETTINGS, **{"ballista.tpu.enable": str(enable).lower()})
+        ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
+        ctx.register_arrow_table("dim", dim)
+        ctx.register_record_batches("fact", [batches])
+        return ctx
+
+    cpu_ctx = session(False)
+    plan = cpu_ctx.sql(STAR_SQL).physical_plan()
+    t0 = time.perf_counter()
+    want = cpu_ctx.execute(plan)
+    cpu_s = time.perf_counter() - t0
+    del cpu_ctx, plan
+
+    ctx = session(True)
+    plan = ctx.sql(STAR_SQL).physical_plan()
+    stages = _stage_nodes(plan, TorchStageExec)
+    if [s.fused.join is not None for s in stages] != [True]:
+        raise AssertionError(f"star: the join did not fold ({[str(s) for s in stages]})")
+    _reset_counts(TK)
+    with Capture(TK, "join_probe_cuda") as probe, Capture(TK, "join_build_table_cuda") as build:
+        t0 = time.perf_counter()
+        got = ctx.execute(plan)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    metrics = _stage_metrics(stages)
+    for k, want_k in (("dense_join", 1), ("join_fallback", 0), ("tpu_fallback", 0),
+                      ("cpu_fallback", 0), ("highcard_fallback", 0)):
+        if metrics.get(k, 0) != want_k:
+            raise AssertionError(f"star: {k}={metrics.get(k, 0)} ({json.dumps(metrics)})")
+    if launches["join_probe"] != len(batches) or launches["join_build_table"] != 1:
+        raise AssertionError(f"star: launches {json.dumps(launches)}, {len(batches)} batches")
+    if launches["segment_agg"] + launches["seg_scan"] < 1:
+        raise AssertionError("star: the aggregate's kernel never launched")
+    _tables_equal(want, got, "star")
+    breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
+        "join_build_time_ns", "input_rows", "output_rows")}
+    print(
+        f"star: fact_rows={n_rows} dim_rows={dim.num_rows} launches={json.dumps(launches)} "
+        f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
+        f"cuda_s={dev_s!r} cpu_s={cpu_s!r} breakdown={json.dumps(breakdown)}"
+    )
+    return dict(launches=launches, probe=probe.args, build=build.args)
 
 
 WINDOW_SQL = """select l_orderkey, l_linenumber,
@@ -1065,7 +1407,9 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
             want, cpu_s, _ = _run_job(ctx, QUERIES[q])
             ctx.sql("SET ballista.tpu.enable = true")
             _reset_counts(TK)
-            with Capture(TK, "partition_ids_cuda") as first, PidCheck(TK) as pids:
+            with Capture(TK, "partition_ids_cuda") as first, PidCheck(TK) as pids, \
+                    Capture(TK, "join_probe_cuda") as probe, \
+                    Capture(TK, "join_build_table_cuda") as build:
                 got, dev_s, metrics = _run_job(ctx, QUERIES[q])
             launches = dict(TK.LAUNCHES)
             stage = metrics.get("TorchStageExec", {})
@@ -1077,13 +1421,18 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
                     raise AssertionError(f"distributed q{q}: {k}={stage[k]}")
             _tables_equal(want, got, f"distributed q{q}")
             hashed = pids.check()
-            need = ("partition_ids", "radix_sort", "seg_scan") if q == 3 else ("segment_agg",)
+            need = ("partition_ids", "radix_sort", "seg_scan", "join_probe",
+                    "join_build_table") if q == 3 else ("segment_agg",)
             for k in need:
                 if launches[k] < 1:
                     raise AssertionError(f"distributed q{q}: {k} never launched")
+            if q == 3 and (stage.get("join_fallback", 0) or stage.get("dense_join", 0) < 1):
+                raise AssertionError(f"distributed q3: the join stage did not fold on the "
+                                     f"dense route ({json.dumps(stage)})")
             if q == 3 and writer.get("device_pid_batches", 0) < 1:
                 raise AssertionError("distributed q3: the writers hashed no batch on the card")
-            breakdown = {k: stage.get(k, 0) for k in BREAKDOWN + ("input_rows", "output_rows")}
+            breakdown = {k: stage.get(k, 0) for k in BREAKDOWN + (
+                "join_build_time_ns", "dense_join", "join_fallback", "input_rows", "output_rows")}
             print(
                 f"distributed q{q}: lineitem_rows={lineitem_rows} "
                 f"launches={json.dumps(launches)} "
@@ -1094,7 +1443,8 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
                 f"repart_time_ns={writer.get('repart_time_ns', 0)} "
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
-            out[q] = dict(launches=launches, pids=first.args)
+            out[q] = dict(launches=launches, pids=first.args, probe=probe.args,
+                          build=build.args)
     finally:
         ctx.close()
     return out
@@ -1285,6 +1635,7 @@ def run(opts, device) -> list:
     scan_times, rx_times, epilogue_times = scan_phase(TK, WK, device)
     scan_err = max(t["max_abs_err"] for t in scan_times.values())
     pid_times = pid_phase(TK, device)
+    probe_times, build_times = join_phase(TK, device)
     print(f"kernel phase: ok s={time.perf_counter() - t0!r}")
 
     batches = lineitem_batches(lineitem)
@@ -1292,11 +1643,12 @@ def run(opts, device) -> list:
     queries = query_phase(tbt, TK, batches, device)
     q3 = q3_phase(tbt, TK, batches, orders, customer, device)
     del orders, customer
+    star = star_phase(tbt, TK, device)
     window = window_phase(tbt, TK, WK, batches, device)
     del batches
     with parquet:
         dist = distributed_phase(tbt, TK, parquet.name, lineitem_rows, device)
-    runs = [queries[1], queries[6], q3, window, dist[3], dist[1]]
+    runs = [queries[1], queries[6], q3, star, window, dist[3], dist[1]]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["args"]) for q, r in queries.items()}
@@ -1309,11 +1661,17 @@ def run(opts, device) -> list:
     flags_shape = _time_flags(WK, window["flags"])
     (pid_bits, pid_nulls, pid_n), _ = dist[3]["pids"]
     pid_shape = _time_pids(TK, pid_bits, pid_nulls, pid_n)
+    probe_shapes = {"star": _checked_probe(TK, star["probe"]),
+                    "distributed q3": _checked_probe(TK, dist[3]["probe"])}
+    build_shapes = {name: _checked_build(TK, *r["build"][0])
+                    for name, r in (("star", star), ("q3", q3), ("distributed q3", dist[3]))}
     for name, t in [*shapes.items(), *(("radix_sort " + k, v) for k, v in sort_shapes.items()),
                     *(("seg_scan " + k, v) for k, v in scan_shapes.items()),
                     ("range_extremum window", rx_shape), ("window_pack window", pack_shape),
                     ("window_flags window", flags_shape),
-                    ("partition_ids distributed q3", pid_shape)]:
+                    ("partition_ids distributed q3", pid_shape),
+                    *(("join_probe " + k, v) for k, v in probe_shapes.items()),
+                    *(("join_build_table " + k, v) for k, v in build_shapes.items())]:
         print(f"timing {name}: {json.dumps(t)}")
 
     entries = [
@@ -1332,6 +1690,10 @@ def run(opts, device) -> list:
                kernel_phase=epilogue_times),
         _entry("partition_ids", pid_shape, launches["partition_ids"], 0.0,
                kernel_phase=pid_times),
+        _entry("join_build_table", build_shapes["star"], launches["join_build_table"], 0.0,
+               shapes=build_shapes, kernel_phase=build_times),
+        _entry("join_probe", probe_shapes["star"], launches["join_probe"], 0.0,
+               shapes=probe_shapes, kernel_phase=probe_times),
     ]
 
     return entries

@@ -447,3 +447,119 @@ def test_partition_ids_kernel_rejects_bad_input(cuda):
         TK.partition_ids_cuda(bits, nulls, (1 << 16) + 1)
     with pytest.raises(ValueError, match="n_out"):
         TK.partition_ids_cuda(bits, nulls, 0)
+
+
+def _join_case(n, m, device, seed=0, span_cap=None):
+    """Unique sorted build keys (negatives included; span past 2^26 when
+    ``span_cap`` is None); probe keys that hit, miss, fall below kmin,
+    above kmax or far negative, with nulls; build columns f64 (NaN,
+    -0.0), int64, bool, two of them with nulls."""
+    rng = np.random.default_rng(seed)
+    hi = (1 << 28) if span_cap is None else span_cap
+    bkeys = np.unique(rng.integers(-5000, hi, m * 2))[:m].astype(np.int64)
+    pick = rng.random(n)
+    pkey = np.where(pick < 0.6, rng.choice(bkeys, n), rng.integers(-5000, hi, n))
+    low = pick > 0.9
+    pkey[low] = rng.integers(-(2**40), -5001, int(low.sum()))
+    pkey[:4] = [bkeys[0] - 1, bkeys[-1] + 1, bkeys[0], bkeys[-1]]
+    f = rng.uniform(-1e3, 1e3, len(bkeys))
+    f[rng.random(len(bkeys)) < 0.02] = np.nan
+    f[:2] = [-0.0, -0.0]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    bvals = [t(f), t(rng.integers(2**53, 2**60, len(bkeys))), t(rng.random(len(bkeys)) < 0.5)]
+    bvalids = [t(rng.random(len(bkeys)) >= 0.1), None, t(rng.random(len(bkeys)) >= 0.2)]
+    return (t(bkeys), t(pkey), t(rng.random(n) >= 0.05), t(rng.random(n) >= 0.1),
+            bvals, bvalids)
+
+
+def _same_words(a, b) -> bool:
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return torch.equal(a, b)
+
+
+def test_join_build_table_matches_twin(cuda):
+    bkeys = _join_case(10, 200_000, cuda, seed=3, span_cap=1 << 22)[0]
+    kmin = int(bkeys[0])
+    span = 1 << (int(bkeys[-1]) - kmin).bit_length()
+    runs = [TK.join_build_table_cuda(bkeys, kmin, span) for _ in range(2)]
+    twin = TK.join_build_table_twin(bkeys, kmin, span)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], twin)
+
+
+@pytest.mark.parametrize("n_cols", [0, 1, 3])
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "sorted"])
+def test_join_probe_matches_twin(cuda, dense, n_cols):
+    n = 1_000_003
+    bkeys, pkey, pkey_valid, valid, bvals, bvalids = _join_case(
+        n, 100_000, cuda, seed=n_cols, span_cap=(1 << 24) if dense else None)
+    bvals, bvalids = bvals[:n_cols], bvalids[:n_cols]
+    if dense:
+        kmin = int(bkeys[0])
+        span = 1 << (int(bkeys[-1]) - kmin).bit_length()
+        form = dict(table=TK.join_build_table_cuda(bkeys, kmin, span), kmin=kmin)
+    else:
+        form = dict(bkeys=bkeys)
+    runs = [TK.join_probe_cuda(pkey, pkey_valid, valid, bvals, bvalids, **form)
+            for _ in range(2)]
+    twin = TK.join_probe_twin(pkey, pkey_valid, valid, bvals, bvalids, **form)
+    torch.cuda.synchronize()
+    for got in runs:
+        flat_got, flat_twin = got[0] + got[1] + [got[2]], twin[0] + twin[1] + [twin[2]]
+        assert all(_same_words(a, b) for a, b in zip(flat_got, flat_twin))
+    assert 0 < int(runs[0][2].sum()) < n
+
+
+def test_join_probe_rejects_bad_input(cuda):
+    bkeys, pkey, pkey_valid, valid, bvals, bvalids = _join_case(1000, 100, cuda)
+    with pytest.raises(ValueError, match="pkey"):
+        TK.join_probe_cuda(pkey.int(), pkey_valid, valid, bvals, bvalids, bkeys=bkeys)
+    with pytest.raises(ValueError, match="exactly one"):
+        TK.join_probe_cuda(pkey, pkey_valid, valid, bvals, bvalids)
+    with pytest.raises(ValueError, match="build column 0"):  # a column left on the host
+        TK.join_probe_cuda(pkey, pkey_valid, valid, [bvals[0].cpu()] + bvals[1:], bvalids,
+                           bkeys=bkeys)
+    with pytest.raises(ValueError, match="build validity 2"):
+        TK.join_probe_cuda(pkey, pkey_valid, valid, bvals, bvalids[:2] + [bvalids[2][:5]],
+                           bkeys=bkeys)
+    with pytest.raises(ValueError, match="build columns of"):  # rows != build keys
+        TK.join_probe_cuda(pkey, pkey_valid, valid, [v[:50] for v in bvals],
+                           [None] * 3, bkeys=bkeys)
+    with pytest.raises(ValueError, match="bkeys"):
+        TK.join_build_table_cuda(bkeys.int(), 0, 1 << 10)
+    with pytest.raises(ValueError, match="slots"):
+        TK.join_build_table_cuda(bkeys, int(bkeys[0]), 0)
+
+
+def test_star_join_on_cuda_matches_cpu_operators(cuda):
+    rng = np.random.default_rng(9)
+    m, n = 10_000, 500_000
+    dim = pa.table({"dk": pa.array(np.arange(1, m + 1), pa.int64()),
+                    "dv": pa.array(rng.uniform(0.5, 1.5, m))})
+    fact = pa.table({"fk": pa.array(rng.integers(1, int(m * 1.2), n), pa.int64()),
+                     "g": pa.array(rng.integers(0, 8, n), pa.int32()),
+                     "v": pa.array(rng.uniform(0, 100, n))})
+    sql = ("select g, sum(v * dv) as s, count(*) as c "
+           "from dim, fact where dk = fk group by g order by g")
+    out = []
+    for enable in ("false", "true"):
+        ctx = tbt.SessionContext(
+            tbt.BallistaConfig({"ballista.tpu.enable": enable, "ballista.tpu.min_rows": "0",
+                                "ballista.shuffle.partitions": "1"}),
+            device=cuda,
+        )
+        ctx.register_arrow_table("dim", dim)
+        ctx.register_arrow_table("fact", fact)
+        before = TK.LAUNCHES["join_probe"]
+        out.append(ctx.sql(sql).collect())
+        if enable == "true":
+            assert TK.LAUNCHES["join_probe"] > before
+    a, b = out
+    assert a.num_rows == b.num_rows == 8
+    for name in a.schema.names:
+        for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
+            if isinstance(x, float):
+                assert y == pytest.approx(x, rel=1e-9)
+            else:
+                assert x == y
