@@ -14,6 +14,7 @@
 #include <vector>
 
 #include "join_probe.h"
+#include "keyed.h"
 #include "partition_id.h"
 #include "radix_sort.h"
 #include "range_extremum.h"
@@ -334,6 +335,130 @@ void join_probe_(const at::Tensor& pkey, const at::Tensor& pkey_valid,
   launched(join_probe_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
+// Key codes and the sort operand of one batch; empty tensors stand for
+// null masks and validities.
+void key_encode_(int64_t n, const std::vector<at::Tensor>& masks, at::Tensor inv,
+                 const std::vector<int64_t>& kinds,
+                 const std::vector<int64_t>& in_types,
+                 const std::vector<at::Tensor>& values,
+                 const std::vector<at::Tensor>& valids,
+                 const std::vector<at::Tensor>& outs) {
+  c10::cuda::CUDAGuard guard(inv.device());
+  TORCH_CHECK(masks.size() == 3, "key_encode: three masks");
+  TORCH_CHECK((int64_t)kinds.size() <= kKeyedMaxKeys, "key_encode: keys");
+  KeyEncodeParams p{};
+  p.n = n;
+  for (int j = 0; j < 3; ++j) p.masks[j] = opt<const uint8_t>(masks[j]);
+  p.inv = inv.data_ptr<int32_t>();
+  p.n_keys = (int)kinds.size();
+  for (int k = 0; k < p.n_keys; ++k) {
+    p.kind[k] = (int8_t)kinds[k];
+    p.in_type[k] = (int8_t)in_types[k];
+    p.values[k] = values[k].data_ptr();
+    p.valid[k] = opt<const uint8_t>(valids[k]);
+    p.out[k] = reinterpret_cast<long long*>(outs[k].data_ptr<int64_t>());
+  }
+  launched(key_encode_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+void keyed_gids_(const at::Tensor& perm, const at::Tensor& inv,
+                 const std::vector<at::Tensor>& keys, at::Tensor s2,
+                 at::Tensor gid_in, const std::vector<at::Tensor>& sk,
+                 at::Tensor starts, at::Tensor counts, at::Tensor block) {
+  c10::cuda::CUDAGuard guard(perm.device());
+  TORCH_CHECK((int64_t)keys.size() <= kKeyedMaxKeys, "keyed_gids: keys");
+  KeyedGidsParams p{};
+  p.n = perm.size(0);
+  p.perm = perm.data_ptr<int32_t>();
+  p.inv = inv.data_ptr<int32_t>();
+  p.n_keys = (int)keys.size();
+  for (int k = 0; k < p.n_keys; ++k) {
+    p.keys[k] = keys[k].data_ptr();
+    p.key_bytes[k] = (int)keys[k].element_size();
+    p.sk[k] = k < (int)sk.size() ? sk[k].data_ptr() : nullptr;
+  }
+  p.s2 = opt<int32_t>(s2);
+  p.gid_in = opt<int32_t>(gid_in);
+  p.starts = starts.data_ptr<int32_t>();
+  p.counts = reinterpret_cast<long long*>(counts.data_ptr<int64_t>());
+  p.n_blocks = keyed_gids_blocks(p.n);
+  p.block = reinterpret_cast<long long*>(block.data_ptr<int64_t>());
+  launched(keyed_gids_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+void keyed_keys_(const std::vector<at::Tensor>& sk, const at::Tensor& starts,
+                 int64_t n_groups, at::Tensor out) {
+  c10::cuda::CUDAGuard guard(out.device());
+  TORCH_CHECK((int64_t)sk.size() <= kKeyedMaxKeys, "keyed_keys: keys");
+  KeyedKeysParams p{};
+  p.n = sk.empty() ? 0 : sk[0].size(0);
+  p.capacity = out.size(1);
+  p.n_groups = n_groups;
+  p.n_keys = (int)sk.size();
+  for (int k = 0; k < p.n_keys; ++k) {
+    p.sk[k] = sk[k].data_ptr();
+    p.key_bytes[k] = (int)sk[k].element_size();
+  }
+  p.starts = starts.data_ptr<int32_t>();
+  p.out = reinterpret_cast<long long*>(out.data_ptr<int64_t>());
+  launched(keyed_keys_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+void keyed_median_(const at::Tensor& perm, const at::Tensor& argnull,
+                   const at::Tensor& ohi, const at::Tensor& olo,
+                   const at::Tensor& starts, const at::Tensor& counts,
+                   at::Tensor out) {
+  c10::cuda::CUDAGuard guard(out.device());
+  KeyedMedianParams p{};
+  p.n = perm.size(0);
+  p.capacity = out.size(1);
+  p.perm = perm.data_ptr<int32_t>();
+  p.argnull = argnull.data_ptr<int32_t>();
+  p.ohi = ohi.data_ptr<int32_t>();
+  p.olo = olo.data_ptr<int32_t>();
+  p.starts = starts.data_ptr<int32_t>();
+  p.counts = reinterpret_cast<const long long*>(counts.data_ptr<int64_t>());
+  p.out = reinterpret_cast<long long*>(out.data_ptr<int64_t>());
+  launched(keyed_median_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+void corr_mask_(const at::Tensor& x, const at::Tensor& xvalid,
+                const at::Tensor& y, const at::Tensor& yvalid, at::Tensor m) {
+  c10::cuda::CUDAGuard guard(m.device());
+  CorrMaskParams p{};
+  p.n = m.size(0);
+  p.x = x.data_ptr();
+  p.x_i64 = x.scalar_type() == at::kLong ? 1 : 0;
+  p.xvalid = opt<const uint8_t>(xvalid);
+  p.y = y.data_ptr();
+  p.y_i64 = y.scalar_type() == at::kLong ? 1 : 0;
+  p.yvalid = opt<const uint8_t>(yvalid);
+  p.m = static_cast<uint8_t*>(m.data_ptr());
+  launched(corr_mask_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+void corr_center_(const at::Tensor& s2, const at::Tensor& perm,
+                  const at::Tensor& x, const at::Tensor& y, const at::Tensor& m,
+                  const at::Tensor& moments, at::Tensor xy, at::Tensor xx,
+                  at::Tensor yy) {
+  c10::cuda::CUDAGuard guard(xy.device());
+  CorrCenterParams p{};
+  p.n = perm.size(0);
+  p.capacity = moments.size(1);
+  p.s2 = s2.data_ptr<int32_t>();
+  p.perm = perm.data_ptr<int32_t>();
+  p.x = x.data_ptr();
+  p.x_i64 = x.scalar_type() == at::kLong ? 1 : 0;
+  p.y = y.data_ptr();
+  p.y_i64 = y.scalar_type() == at::kLong ? 1 : 0;
+  p.m = static_cast<const uint8_t*>(m.data_ptr());
+  p.moments = reinterpret_cast<const long long*>(moments.data_ptr<int64_t>());
+  p.xy = xy.data_ptr<double>();
+  p.xx = xx.data_ptr<double>();
+  p.yy = yy.data_ptr<double>();
+  launched(corr_center_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -350,4 +475,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("partition_ids", &partition_ids_, "shuffle partition id of each row");
   m.def("join_build_table", &join_build_table_, "dense slot table of unique build keys");
   m.def("join_probe", &join_probe_, "PK-FK probe: gathered build columns and the row mask");
+  m.def("key_encode", &key_encode_, "keyed route: key codes and the sort operand");
+  m.def("keyed_gids", &keyed_gids_, "keyed route: group ids of the sorted rows");
+  m.def("keyed_keys", &keyed_keys_, "keyed route: each group's key codes");
+  m.def("keyed_median", &keyed_median_, "keyed route: per-group median and distinct count");
+  m.def("corr_mask", &corr_mask_, "keyed corr: pairwise-valid rows");
+  m.def("corr_center", &corr_center_, "keyed corr: centred products");
 }

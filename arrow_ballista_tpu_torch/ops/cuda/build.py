@@ -19,6 +19,10 @@ SOURCES = [
     os.path.join(_HERE, "window_epilogue.cu"),
     os.path.join(_HERE, "partition_id.cu"),
     os.path.join(_HERE, "join_probe.cu"),
+    os.path.join(_HERE, "keyed_gids.cu"),
+    os.path.join(_HERE, "keyed_finish.cu"),
+    os.path.join(_HERE, "keyed_median.cu"),
+    os.path.join(_HERE, "keyed_corr.cu"),
     os.path.join(_HERE, "bindings.cpp"),
 ]
 BUILD_DIR = os.path.join(

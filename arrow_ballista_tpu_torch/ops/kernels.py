@@ -10,7 +10,11 @@ and merges into the running state: the scatter route
 route (``ops/cuda/radix_sort.cu`` + ``ops/cuda/seg_scan.cu``, which the
 window kernel shares).  A join-fused stage first probes the build side on
 the device (``ops/cuda/join_probe.cu``) and folds the misses into the row
-mask.
+mask.  The keyed route assigns group ids on the device instead of the
+host: key encode and group ids (``ops/cuda/keyed_gids.cu``) around the
+radix sort, the segmented scan into the state and the key gather
+(``keyed_finish.cu``), and the median (``keyed_median.cu``) and corr
+(``keyed_corr.cu``) passes over the same sort.
 
 Design rules:
 * x64 only — f64/i64 device dtypes (the H100 has both); every tensor the
@@ -66,13 +70,14 @@ class LeafSpec:
 
     Kinds: "column" (value + validity), "cpu_expr" (host-evaluated value +
     validity), "column_validity" (validity ONLY — count(col) never needs
-    the values), "join_col" (a build-side column of a folded device join:
-    gathered on the device by :func:`join_probe`, never read from the
-    probe batch).
+    the values), "column_ord_pair" (the value as an order-preserving
+    (hi, lo) int32 pair + validity: the keyed median's sort operand),
+    "join_col" (a build-side column of a folded device join: gathered on
+    the device by :func:`join_probe`, never read from the probe batch).
     """
 
     name: str
-    kind: str  # "column" | "cpu_expr" | "column_validity" | "join_col"
+    kind: str  # "column" | "cpu_expr" | "column_validity" | "column_ord_pair" | "join_col"
     col_index: int = -1
     cpu_expr: Optional[pe.PhysicalExpr] = None
 
@@ -153,6 +158,21 @@ class TorchExprCompiler:
 
         def run(env: dict):
             return None, env[vname]
+
+        return run
+
+    def ord_pair_column(self, e: pe.Col) -> TorchClosure:
+        """Leaf that ships a numeric column as an order-preserving (hi, lo)
+        int32 pair (``bridge.to_u64_order`` of its f64 value, split by
+        ``bridge.split_u64_i32``): lexicographic integer order is the f64
+        order, so the keyed median sorts it and decodes the middle rows
+        exactly."""
+        name = f"col_{e.index}__ordpair"
+        self.leaves[name] = LeafSpec(name, "column_ord_pair", col_index=e.index)
+        vname = f"{name}__valid"
+
+        def run(env: dict):
+            return (env[f"{name}__ohi"], env[f"{name}__olo"]), env[vname]
 
         return run
 
@@ -410,6 +430,17 @@ class TorchExprCompiler:
         raise NotLowerable(f"node {type(e).__name__}")
 
 
+def square_closure(closure: TorchClosure) -> TorchClosure:
+    """x² in float64 (the variance family's second moment)."""
+
+    def run(env: dict):
+        v, valid = closure(env)
+        v = v.to(F64)
+        return v * v, valid
+
+    return run
+
+
 def _merge_valid(a, b):
     if a is None:
         return b
@@ -528,6 +559,15 @@ def build_env(
             if trivial_valid is not None:
                 trivial_valid.add(f"{name}__valid")
         env[f"{name}__valid"] = _pad(validity, n_padded)
+        if spec.kind == "column_ord_pair":
+            from .bridge import split_u64_i32, to_u64_order
+
+            # the f64 VALUE is encoded (integers cast exactly below 2^53);
+            # consumers decode through bridge.order_decode_f64
+            ohi, olo = split_u64_i32(to_u64_order(values.astype(np.float64)))
+            env[f"{name}__ohi"] = _pad(ohi, n_padded)
+            env[f"{name}__olo"] = _pad(olo, n_padded)
+            continue
         env[name] = _pad(coerce_host_values(values), n_padded)
     return env
 
@@ -560,6 +600,8 @@ def flat_arg_names(leaves: dict[str, LeafSpec]) -> list[str]:
     for n, spec in leaves.items():
         if spec.kind == "column_validity":
             out.append(f"{n}__valid")
+        elif spec.kind == "column_ord_pair":
+            out.extend([f"{n}__ohi", f"{n}__olo", f"{n}__valid"])
         else:
             out.extend([n, f"{n}__valid"])
     return out
@@ -795,7 +837,8 @@ def states_from_numpy(
 # through count_launch, under a lock.
 LAUNCHES = dict.fromkeys(
     ("segment_agg", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
-     "partition_ids", "join_build_table", "join_probe"), 0
+     "partition_ids", "join_build_table", "join_probe", "key_encode", "keyed_gids",
+     "keyed_finish", "keyed_median", "keyed_corr"), 0
 )
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -1428,33 +1471,12 @@ def _column(x: Optional[torch.Tensor], n: int, dtype, device):
     return x.to(dtype).contiguous()
 
 
-def make_partial_agg_kernel(
-    filter_closure: Optional[TorchClosure],
-    arg_closures: list[Optional[TorchClosure]],
-    specs: list[KernelAggSpec],
-    capacity: int,
-    flat_names: list[str],
-    algo: str = "scatter",
-):
-    """Build the fused filter → project → segment-aggregate function.
-
-    Returns ``fn(seg_ids, valid, *leaf_arrays, state=None) -> state``: the
-    expression closures run as torch ops on the arrays' device, then one
-    :func:`segment_agg` folds the masks, reduces every aggregate per group
-    and merges into ``state`` (a fresh identity state when None), which is
-    returned.  Per-agg state layout is :func:`state_fields` — sum/avg →
-    (sum, n), min/max → (value, n), count/count_star → (n,) — and the last
-    row is presence, the count of mask-passing rows per group.
-
-    The field layout is fixed here, once: aggregates whose argument is the
-    SAME closure object and dtype share one kernel column, and each distinct
-    closure runs once per batch.  ``algo`` picks the reduction route
-    (:func:`segment_algo`): "scatter" (:func:`segment_agg`) or "sort"
-    (:func:`sorted_segment_agg`); both merge into the same state.
-    """
-    if algo not in ("scatter", "sort"):
-        raise ValueError(f"agg algorithm {algo!r}")
-    reduce = sorted_segment_agg if algo == "sort" else segment_agg
+def _agg_layout(specs: list[KernelAggSpec], arg_closures: list):
+    """The state-field layout of ``specs``, fixed once per stage function:
+    ``(closures, columns, ops, cols)``.  Aggregates whose argument is the
+    SAME closure object and dtype share one kernel column (``columns``
+    holds (closure index, dtype)); ``ops``/``cols`` give each state field's
+    reduction and column, presence last."""
     closures: list[TorchClosure] = []  # distinct argument closures
     columns: list[tuple[int, Optional[torch.dtype]]] = []  # (closure, dtype)
     ops: list[int] = []
@@ -1493,25 +1515,62 @@ def make_partial_agg_kernel(
         cols.extend([j, j])
     ops.append(OP_COUNT)  # presence
     cols.append(-1)
+    return closures, columns, ops, cols
+
+
+def _eval_layout(env: dict, n: int, device, filter_closure, closures, columns):
+    """Run the filter and the argument closures over one batch's env:
+    ``(pred, pvalid, values, valids)``, each a [n] tensor or None."""
+    env[DEVICE] = device
+    pred = pvalid = None
+    if filter_closure is not None:
+        p, pv = filter_closure(env)
+        pred = _column(p, n, torch.bool, device)
+        pvalid = _column(pv, n, torch.bool, device)
+    evaluated = [c(env) for c in closures]
+    values = [
+        None if dtype is None else _column(evaluated[k][0], n, dtype, device)
+        for k, dtype in columns
+    ]
+    valids = [_column(evaluated[k][1], n, torch.bool, device) for k, _ in columns]
+    return pred, pvalid, values, valids
+
+
+def make_partial_agg_kernel(
+    filter_closure: Optional[TorchClosure],
+    arg_closures: list[Optional[TorchClosure]],
+    specs: list[KernelAggSpec],
+    capacity: int,
+    flat_names: list[str],
+    algo: str = "scatter",
+):
+    """Build the fused filter → project → segment-aggregate function.
+
+    Returns ``fn(seg_ids, valid, *leaf_arrays, state=None) -> state``: the
+    expression closures run as torch ops on the arrays' device, then one
+    :func:`segment_agg` folds the masks, reduces every aggregate per group
+    and merges into ``state`` (a fresh identity state when None), which is
+    returned.  Per-agg state layout is :func:`state_fields` — sum/avg →
+    (sum, n), min/max → (value, n), count/count_star → (n,) — and the last
+    row is presence, the count of mask-passing rows per group.
+
+    The field layout is fixed here, once (:func:`_agg_layout`), and each
+    distinct closure runs once per batch.  ``algo`` picks the reduction
+    route (:func:`segment_algo`): "scatter" (:func:`segment_agg`) or "sort"
+    (:func:`sorted_segment_agg`); both merge into the same state.
+    """
+    if algo not in ("scatter", "sort"):
+        raise ValueError(f"agg algorithm {algo!r}")
+    reduce = sorted_segment_agg if algo == "sort" else segment_agg
+    closures, columns, ops, cols = _agg_layout(specs, arg_closures)
 
     def fn(seg_ids, valid, *arrays, state=None):
         device = seg_ids.device
         n = seg_ids.shape[0]
         env = dict(zip(flat_names, arrays))
-        env[DEVICE] = device
-        pred = pvalid = None
-        if filter_closure is not None:
-            p, pv = filter_closure(env)
-            pred = _column(p, n, torch.bool, device)
-            pvalid = _column(pv, n, torch.bool, device)
-        evaluated = [c(env) for c in closures]
-        values = [
-            None if dtype is None else _column(evaluated[k][0], n, dtype, device)
-            for k, dtype in columns
-        ]
-        valids = [
-            _column(evaluated[k][1], n, torch.bool, device) for k, _ in columns
-        ]
+        pred, pvalid, values, valids = _eval_layout(
+            env, n, device, filter_closure, closures, columns
+        )
         if state is None:
             state = init_states(specs, capacity, device)
         return reduce(seg_ids, valid, pred, pvalid, values, valids, ops, cols, state)
@@ -1873,4 +1932,687 @@ def make_join_kernel(inner_fn, flat_names: list[str], join_slots: dict[str, int]
                 full.append(vals[j])
         return inner_fn(seg_ids, mask, *full, state=state)
 
+    return fn
+
+
+# ------------------------------------------------- keyed route (B7-B10)
+# The keyed aggregation: the host never assigns group ids.  Per batch the
+# prep runs the filter (and the join probe) and the key encode kernel
+# (B7a) turns the raw key columns into codes and the inverted row mask
+# into the sort's major key; those buffer on the device.  At the end of
+# the stream ONE stable radix sort (K1) orders the rows by (not mask,
+# *codes), the gid kernel (B7b) numbers the groups from key changes, K2
+# reduces every aggregate into the state with its epilogue, and the
+# finish kernel (B8) gathers each group's key codes into the fetch.
+# Median and count distinct (B9) and corr (B10) run their own passes over
+# the same sort.  Counterpart of ``arrow_ballista_tpu/ops/kernels.py``'s
+# device_encode_keys, _keyed_sort_fn, keyed_finish_kernel,
+# keyed_median_kernel and keyed_corr_kernel.
+KEY_KINDS = {"ident": 1, "bool": 2, "f32": 3, "f64": 4}  # keyed_gids.h
+KEY_IN_TYPES = {torch.int32: 0, I64: 1, torch.float32: 2, F64: 3, torch.bool: 4}
+KEYED_MAX_KEYS = 16
+INT32_MAX = (1 << 31) - 1
+IDENT_KEY_LIMIT = 1 << 61  # bridge.IdentityKeyEncoder's 62-bit code bound
+
+
+def key_host_values(kind: str, values: np.ndarray) -> np.ndarray:
+    """A raw key column as one of the dtypes the encode kernel reads:
+    int32 or int64 for ``ident``, bool, float32 or float64."""
+    if kind == "bool":
+        return values.astype(bool, copy=False)
+    if kind == "f32":
+        return values.astype(np.float32, copy=False)
+    if kind == "f64":
+        return values.astype(np.float64, copy=False)
+    if values.dtype.kind in "iu" and values.dtype.itemsize < 4:
+        return values.astype(np.int32)
+    if values.dtype in (np.dtype(np.int32), np.dtype(np.int64)):
+        return values
+    if values.dtype.kind == "u" and values.dtype.itemsize == 8 and len(values) and (
+        values.max() > np.iinfo(np.int64).max
+    ):
+        raise ExecutionError("uint64 group key exceeds the int64 range")
+    return values.astype(np.int64)
+
+
+def key_encode_reference(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
+    """Plain twin of the key encode kernel.  ``keys[k]`` is ``(codes,)`` for
+    kind ``code`` (host-encoded codes pass through) or ``(values,
+    validity-or-None)`` for a device kind; ``masks`` are the row masks
+    (None = all rows) whose AND keeps a row.  Returns ``(inv, codes)``:
+    the int32 sort operand ``not mask`` and one int64 code column per
+    device kind, bit-identical to ``encoder.encode`` of the port's host
+    encoders (``ident``: the zigzag image, null 0; ``bool``: null 0, False
+    1, True 2; ``f32``/``f64``: the raw bit pattern, null the reserved NaN
+    of ``FLOAT32_NULL_BITS``/``FLOAT64_NULL_BITS``)."""
+    m = None
+    for x in masks:
+        if x is not None:
+            m = x if m is None else m & x
+    if m is None:
+        inv = torch.zeros(n, dtype=torch.int32, device=device)
+    else:
+        inv = torch.logical_not(m).to(torch.int32)
+    codes = []
+    for kind, ops in zip(kinds, keys):
+        if kind == "code":
+            codes.append(ops[0])
+            continue
+        v, ok = ops
+        if kind == "ident":
+            v = v.to(I64)
+            c = torch.where(v >= 0, 2 * v + 1, -2 * v)
+            null = 0
+        elif kind == "bool":
+            c = v.to(I64) + 1
+            null = 0
+        elif kind == "f32":
+            c = v.to(torch.float32).view(torch.int32).to(I64)
+            null = FLOAT32_NULL_BITS
+        elif kind == "f64":
+            c = v.to(F64).view(I64)
+            null = FLOAT64_NULL_BITS
+        else:
+            raise ValueError(f"key kind {kind!r}")
+        if ok is not None:
+            c = torch.where(ok, c, torch.full_like(c, null))
+        codes.append(c)
+    return inv, codes
+
+
+def _check_encode_args(kinds, keys, masks, n: int, device) -> None:
+    if device.type != "cuda" or not 0 <= n < (1 << 31):
+        raise ValueError("key_encode runs on CUDA tensors, n < 2^31")
+    if len(kinds) != len(keys) or len(kinds) > KEYED_MAX_KEYS:
+        raise ValueError(f"key_encode: {len(kinds)} kinds, {len(keys)} keys")
+    for i, m in enumerate(masks):
+        if m is not None:
+            _check_cuda_tensor(m, f"mask {i}", (torch.bool,), n, device)
+    for k, (kind, ops) in enumerate(zip(kinds, keys)):
+        if kind == "code":
+            _check_cuda_tensor(ops[0], f"key {k} codes", (torch.int32, I64), n, device)
+            continue
+        if kind not in KEY_KINDS or len(ops) != 2:
+            raise ValueError(f"key {k}: kind {kind!r}")
+        v, ok = ops
+        want = {"ident": (torch.int32, I64), "bool": (torch.bool,),
+                "f32": (torch.float32,), "f64": (F64,)}[kind]
+        _check_cuda_tensor(v, f"key {k} values", want, n, device)
+        if ok is not None:
+            _check_cuda_tensor(ok, f"key {k} validity", (torch.bool,), n, device)
+
+
+def key_encode_cuda(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
+    """Launch the hand-written key encode kernel (ops/cuda/keyed_gids.cu),
+    the same outputs as :func:`key_encode_reference`, bit for bit.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:device_encode_keys`` (B7)
+    inside the keyed prep; the row mask folds into the sort operand in the
+    same pass."""
+    from .cuda.build import load
+
+    # "cuda" names the current card: compare with the tensors' own device
+    device = torch.empty(0, device=device).device
+    masks = tuple(masks)
+    _check_encode_args(kinds, keys, masks, n, device)
+    if len(masks) > 3:
+        raise ValueError("key_encode: at most 3 masks")
+    ext = load()
+    empty = torch.empty(0, dtype=torch.bool, device=device)
+    inv = torch.empty(n, dtype=torch.int32, device=device)
+    dev_kinds, dev_vals, dev_valids, dev_out, codes = [], [], [], [], []
+    for kind, ops in zip(kinds, keys):
+        if kind == "code":
+            codes.append(ops[0])
+            continue
+        out = torch.empty(n, dtype=I64, device=device)
+        dev_kinds.append(KEY_KINDS[kind])
+        dev_vals.append(ops[0])
+        dev_valids.append(empty if ops[1] is None else ops[1])
+        dev_out.append(out)
+        codes.append(out)
+    padded = list(masks) + [None] * (3 - len(masks))
+    ext.key_encode(
+        n, [empty if m is None else m for m in padded], inv, dev_kinds,
+        [KEY_IN_TYPES[v.dtype] for v in dev_vals], dev_vals, dev_valids, dev_out,
+    )
+    count_launch("key_encode")
+    return inv, codes
+
+
+def key_encode(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
+    """Sort operands of one batch: the CUDA kernel on a CUDA device, its
+    plain twin on the CPU."""
+    if torch.device(device).type == "cpu":
+        return key_encode_reference(kinds, keys, masks, n, device)
+    return key_encode_cuda(kinds, keys, masks, n, device)
+
+
+def keyed_gids_reference(perm: torch.Tensor, inv: torch.Tensor, keys: list) -> dict:
+    """Plain twin of the gid kernel: over rows sorted by ``perm``, a group
+    starts at each valid row (``inv`` 0) whose keys differ from the row
+    before (row 0 always differs).  Returns ``s2`` (each sorted row's group
+    id, ``INT32_MAX`` for masked rows), ``gid_in`` (the same ids in input
+    row order), ``sk`` (the keys in sorted order), ``starts`` ([n + 1]:
+    each group's first sorted row, then at ``n_groups`` the count of valid
+    rows; the rest 0) and ``counts`` ([2] int64: groups, valid rows)."""
+    n, device = perm.shape[0], perm.device
+    p = perm.long()
+    sk = [k[p] for k in keys]
+    valid = inv[p] == 0
+    first = torch.ones(n, dtype=torch.bool, device=device)
+    if n > 1 and sk:
+        diff = torch.zeros(n - 1, dtype=torch.bool, device=device)
+        for k in sk:
+            diff |= k[1:] != k[:-1]
+        first[1:] = diff
+    flag = first & valid
+    gid = torch.cumsum(flag.to(I64), 0) - 1
+    s2 = torch.where(valid, gid, torch.full_like(gid, INT32_MAX)).to(torch.int32)
+    gid_in = torch.empty(n, dtype=torch.int32, device=device)
+    gid_in[p] = s2
+    n_groups, n_valid = int(flag.sum()), int(valid.sum())
+    starts = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    starts[:n_groups] = torch.nonzero(flag).flatten().to(torch.int32)
+    starts[n_groups] = n_valid
+    counts = torch.tensor([n_groups, n_valid], dtype=I64, device=device)
+    return dict(s2=s2, gid_in=gid_in, sk=sk, starts=starts, counts=counts)
+
+
+GIDS_TILE = 2048  # rows per block (keyed_gids.h: kGidsTile)
+
+
+def _check_gids_args(perm, inv, keys) -> None:
+    device = perm.device
+    n = perm.shape[0] if perm.dim() == 1 else -1
+    if device.type != "cuda" or not 0 <= n < (1 << 31):
+        raise ValueError("keyed_gids runs on CUDA tensors, n < 2^31")
+    _check_cuda_tensor(perm, "perm", (torch.int32,), n, device)
+    _check_cuda_tensor(inv, "inv", (torch.int32,), n, device)
+    if len(keys) > KEYED_MAX_KEYS:
+        raise ValueError(f"keyed_gids: {len(keys)} keys")
+    for k, key in enumerate(keys):
+        _check_cuda_tensor(key, f"key {k}", (torch.int32, I64), n, device)
+
+
+def keyed_gids_cuda(perm: torch.Tensor, inv: torch.Tensor, keys: list,
+                    sorted_outputs: bool = True) -> dict:
+    """Launch the hand-written gid kernel (ops/cuda/keyed_gids.cu): key
+    changes over the sorted rows, group ids by a block prefix count, the
+    same outputs as :func:`keyed_gids_reference` (``starts`` past
+    ``n_groups`` is not written).  With ``sorted_outputs`` False only
+    ``starts`` and ``counts`` are written (the median's pass).
+
+    Replaces the boundary and cumsum half of ``arrow_ballista_tpu/ops/
+    kernels.py:_keyed_sort_fn`` (B7); the sort itself is K1."""
+    from .cuda.build import load
+
+    _check_gids_args(perm, inv, keys)
+    ext = load()
+    n, device = perm.shape[0], perm.device
+    empty32 = torch.empty(0, dtype=torch.int32, device=device)
+    if sorted_outputs:
+        s2 = torch.empty(n, dtype=torch.int32, device=device)
+        gid_in = torch.empty(n, dtype=torch.int32, device=device)
+        sk = [torch.empty(n, dtype=k.dtype, device=device) for k in keys]
+    else:
+        s2 = gid_in = None
+        sk = []
+    starts = torch.empty(n + 1, dtype=torch.int32, device=device)
+    counts = torch.empty(2, dtype=I64, device=device)
+    blocks = max(1, -(-n // GIDS_TILE))
+    ext.keyed_gids(
+        perm, inv, list(keys), empty32 if s2 is None else s2,
+        empty32 if gid_in is None else gid_in, sk, starts, counts,
+        torch.empty(2 * blocks, dtype=I64, device=device),
+    )
+    count_launch("keyed_gids")
+    return dict(s2=s2, gid_in=gid_in, sk=sk, starts=starts, counts=counts)
+
+
+def keyed_gids(perm: torch.Tensor, inv: torch.Tensor, keys: list) -> dict:
+    """Group ids of the sorted rows: the CUDA kernel for CUDA tensors, its
+    plain twin for tensors on the CPU."""
+    if perm.device.type == "cpu":
+        return keyed_gids_reference(perm, inv, keys)
+    return keyed_gids_cuda(perm, inv, keys)
+
+
+def keyed_sort(inv: torch.Tensor, keys: list) -> tuple:
+    """The keyed route's sort: K1 orders the rows by ``(inv, *keys)`` (masked
+    rows last, ties in row order), then the gid kernel numbers the groups.
+    Returns ``(perm, gids, n_groups)``; ``n_groups`` is the one number the
+    host reads before it sizes the finish."""
+    perm = radix_argsort([inv] + list(keys))
+    gids = keyed_gids(perm, inv, keys)
+    return perm, gids, int(gids["counts"][0].item())
+
+
+def keyed_keys_reference(sk: list, starts: torch.Tensor, n_groups: int,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the finish kernel's key gather: ``out[k][g]`` is group
+    g's key code (its first sorted row's ``sk[k]``) for g < ``n_groups``,
+    else 0."""
+    cap = out.shape[1]
+    g = torch.arange(cap, device=out.device)
+    live = g < n_groups
+    at = starts[torch.clamp(g, max=max(n_groups - 1, 0))].long()
+    for k, key in enumerate(sk):
+        if key.shape[0] == 0:
+            out[k] = 0
+            continue
+        vals = key[torch.clamp(at, max=key.shape[0] - 1)].to(I64)
+        out[k] = torch.where(live, vals, torch.zeros_like(vals))
+    return out
+
+
+def keyed_keys_cuda(sk: list, starts: torch.Tensor, n_groups: int,
+                    out: torch.Tensor) -> torch.Tensor:
+    """Launch the finish kernel's key gather (ops/cuda/keyed_finish.cu)."""
+    from .cuda.build import load
+
+    device = out.device
+    n = sk[0].shape[0] if sk else 0
+    if device.type != "cuda" or out.dtype != I64 or out.dim() != 2 or (
+        not out.is_contiguous() or out.shape[0] != len(sk)
+    ):
+        raise ValueError("out must be a contiguous CUDA int64 [n_keys, capacity]")
+    if not 0 <= n_groups <= min(n, out.shape[1]):
+        raise ValueError(f"n_groups {n_groups} for {n} rows, capacity {out.shape[1]}")
+    _check_cuda_tensor(starts, "starts", (torch.int32,), n + 1, device)
+    for k, key in enumerate(sk):
+        _check_cuda_tensor(key, f"sorted key {k}", (torch.int32, I64), n, device)
+    load().keyed_keys(list(sk), starts, int(n_groups), out)
+    count_launch("keyed_finish")
+    return out
+
+
+def _scan_into_state_reference(columns, field_col, ops, state, n, perm, key):
+    """Twin of K2's sorted-aggregate epilogue: every segment's totals (a
+    segment is a run of equal ``key[perm[r]]``, non-decreasing) merge into
+    ``state`` at the segment's key when it is below the capacity."""
+    capacity = state.shape[1]
+    if n == 0:
+        return state
+    scanned = seg_scan_reference(columns, n, perm=perm, key=key)
+    s2 = key if perm is None else key[perm.long()]
+    bounds = torch.searchsorted(
+        s2.to(I64), torch.arange(capacity + 1, dtype=I64, device=s2.device)
+    )
+    present = (bounds[1:] - bounds[:-1]) > 0
+    last = torch.clamp(bounds[1:] - 1, 0, max(n - 1, 0))
+    totals = [s[last] for s in scanned]
+    return _emit_scan_outs(totals, field_col, ops, state, present)
+
+
+def _scan_into_state_cuda(columns, field_col, ops, state, n, perm, key):
+    """K2 with its sorted-aggregate epilogue into ``state`` (the card's
+    form of :func:`_scan_into_state_reference`)."""
+    if n == 0:
+        return state
+    _check_scan_args(columns, n, perm, None, key, None, state.device)
+    _launch_scan(columns, n, perm, None, key, None, False, [None] * len(columns),
+                 state, field_col, ops)
+    return state
+
+
+def _finish_packed(specs: list, ops: list, gids: dict, capacity: int, device):
+    """The finish's output with every state row at its identity."""
+    flags = _field_flags(specs)
+    if len(ops) != len(flags):
+        raise ValueError(f"{len(ops)} ops for {len(flags)} state fields")
+    words = torch.tensor([_ident_bits(r, i) for r, i in flags], dtype=I64).to(device)
+    packed = torch.empty((len(flags) + len(gids["sk"]), capacity), dtype=I64, device=device)
+    packed[:len(flags)] = words[:, None]
+    return packed, len(flags)
+
+
+def keyed_finish_reference(specs, columns, field_col, ops, perm, gids, n_groups: int,
+                           capacity: int) -> torch.Tensor:
+    """Plain twin of :func:`keyed_finish_cuda`: the segmented scan's twin
+    into the state rows, the key gather's twin into the key rows."""
+    packed, n_state = _finish_packed(specs, ops, gids, capacity, perm.device)
+    _scan_into_state_reference(columns, field_col, ops, packed[:n_state], perm.shape[0],
+                               perm, gids["gid_in"])
+    keyed_keys_reference(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    return packed
+
+
+def keyed_finish_cuda(specs, columns, field_col, ops, perm, gids, n_groups: int,
+                      capacity: int) -> torch.Tensor:
+    """The keyed route's finish on the card: ``[n_fields + n_keys,
+    capacity]`` int64, the state rows (presence last, floats as their bits)
+    and then each group's key codes, fetched by the host in ONE copy.  K2
+    reduces the scan columns through ``perm`` segmented by
+    ``gids["gid_in"]`` straight into the state rows; the finish kernel
+    (ops/cuda/keyed_finish.cu) gathers the key rows.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:keyed_finish_kernel`` (B8)."""
+    packed, n_state = _finish_packed(specs, ops, gids, capacity, perm.device)
+    _scan_into_state_cuda(columns, field_col, ops, packed[:n_state], perm.shape[0],
+                          perm, gids["gid_in"])
+    if gids["sk"]:
+        keyed_keys_cuda(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    return packed
+
+
+def keyed_finish(specs, columns, field_col, ops, perm, gids, n_groups: int,
+                 capacity: int) -> torch.Tensor:
+    """The keyed finish: the CUDA kernels for CUDA tensors, the twins for
+    tensors on the CPU."""
+    if perm.device.type == "cpu":
+        return keyed_finish_reference(specs, columns, field_col, ops, perm, gids,
+                                      n_groups, capacity)
+    return keyed_finish_cuda(specs, columns, field_col, ops, perm, gids, n_groups,
+                             capacity)
+
+
+def unpack_keyed_host(specs: list, packed: np.ndarray, n_keys: int) -> tuple:
+    """Host inverse of :func:`keyed_finish`'s pack: (state arrays with
+    presence last, one int64 key-code array per key)."""
+    flags = [f for spec in specs for f in state_is_int(spec)] + [True]
+    states = [
+        row if is_int else row.view(np.float64)
+        for row, is_int in zip(packed[: len(flags)], flags)
+    ]
+    keys = [packed[len(flags) + k].astype(np.int64) for k in range(n_keys)]
+    return states, keys
+
+
+def merge_keyed_host(specs: list, per_chunk: list) -> tuple:
+    """Merge keyed chunk results BY KEY on the host (numpy, vectorised).
+
+    ``per_chunk``: ``(states, key_codes, n_groups)`` of each flushed block,
+    as :func:`unpack_keyed_host` returns them.  The merge is [distinct]-
+    sized: the per-row work stayed on the device.  Returns (merged states
+    with presence last, merged key-code arrays, n_groups)."""
+    live = [(s, k, n) for s, k, n in per_chunk if n > 0]
+    if not live:
+        empty = [np.zeros(0, dtype=np.int64) for _ in per_chunk[0][0]]
+        return empty, [np.zeros(0, np.int64) for _ in per_chunk[0][1]], 0
+    n_keys = len(live[0][1])
+    keys = [np.concatenate([k[j][:n] for _s, k, n in live]) for j in range(n_keys)]
+    states = [
+        np.concatenate([s[i][:n] for s, _k, n in live])
+        for i in range(len(live[0][0]))
+    ]
+    order = np.lexsort(tuple(reversed(keys)))
+    keys = [k[order] for k in keys]
+    states = [s[order] for s in states]
+    n_rows = len(keys[0])
+    newflag = np.zeros(n_rows, dtype=bool)
+    newflag[:1] = True
+    for k in keys:
+        newflag[1:] |= k[1:] != k[:-1]
+    starts = np.flatnonzero(newflag)
+    out_keys = [k[starts] for k in keys]
+
+    def reduceat(a, role):
+        if role == "min":
+            if a.dtype.kind == "f":
+                return _host_fold(np.minimum, a, starts)
+            return np.minimum.reduceat(a, starts)
+        if role == "max":
+            if a.dtype.kind == "f":
+                return _host_fold(np.maximum, a, starts)
+            return np.maximum.reduceat(a, starts)
+        return np.add.reduceat(a, starts)
+
+    out: list[np.ndarray] = []
+    i = 0
+    for spec in specs:
+        for role in state_fields(spec):
+            out.append(reduceat(states[i], role))
+            i += 1
+    out.append(np.add.reduceat(states[-1], starts))  # presence
+    return out, out_keys, len(starts)
+
+
+def _host_fold(fold, a: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """Per-segment f64 min/max with jnp's rules: NaN propagates (numpy's
+    reduceat does that), -0.0 orders below +0.0."""
+    r = fold.reduceat(a, starts)
+    zero = r == 0
+    if zero.any():
+        is_min = fold is np.minimum
+        sign = np.signbit(a) if is_min else ~np.signbit(a)
+        hit = np.add.reduceat(((a == 0) & sign).astype(np.int64), starts) > 0
+        r = np.where(zero & hit, -0.0 if is_min else 0.0, r)
+    return r
+
+
+# ---------------------------------------------------- keyed median (B9)
+def keyed_median_reference(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tensor:
+    """Plain twin of the median kernel, the arithmetic of the reference's
+    ``keyed_median_kernel``: one sort by (inv, *keys, arg-null, ohi, olo),
+    group ids from key changes among valid rows, a doubled segment id
+    ``gid * 2 + null`` whose bounds give each group's first row and valid
+    count; per group the order pairs at the two middle rows, the valid
+    count and the count of distinct values (run starts).  Returns
+    ``[6, capacity]`` int64: hi@lo, lo@lo, hi@hi, lo@hi, count, distinct."""
+    n, device = inv.shape[0], inv.device
+    argnull = (
+        torch.zeros(n, dtype=torch.int32, device=device) if ovalid is None
+        else torch.logical_not(ovalid).to(torch.int32)
+    )
+    perm = radix_argsort_reference([inv] + list(keys) + [argnull, ohi, olo]).long()
+    out = torch.zeros((6, capacity), dtype=I64, device=device)
+    if n == 0:
+        return out
+    sk = [k[perm] for k in keys]
+    snull, shi, slo = argnull[perm], ohi[perm].to(I64), olo[perm].to(I64)
+    valid = inv[perm] == 0
+    diff = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=device)
+    for k in sk:
+        diff |= k[1:] != k[:-1]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=device), diff])
+    gid = torch.cumsum((first & valid).to(I64), 0) - 1
+    s2 = torch.where(valid, gid * 2 + snull.to(I64), torch.full_like(gid, INT32_MAX))
+    bounds = torch.searchsorted(s2, torch.arange(2 * capacity + 1, dtype=I64, device=device))
+    start = bounds[0::2][:capacity]
+    end_valid = bounds[1::2]
+    cnt = end_valid - start
+    lo_idx = torch.clamp(start + torch.div(cnt - 1, 2, rounding_mode="floor"), 0, n - 1)
+    hi_idx = torch.clamp(start + torch.div(cnt, 2, rounding_mode="floor"), 0, n - 1)
+    vdiff = (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])
+    runfirst = torch.cat([torch.ones(1, dtype=torch.bool, device=device), diff | vdiff])
+    dflag = runfirst & valid & (snull == 0)
+    cum0 = torch.cat([torch.zeros(1, dtype=I64, device=device),
+                      torch.cumsum(dflag.to(I64), 0)])
+    distinct = cum0[end_valid] - cum0[start]
+    for r, v in enumerate((shi[lo_idx], slo[lo_idx], shi[hi_idx], slo[hi_idx], cnt, distinct)):
+        out[r] = v
+    return out
+
+
+def keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tensor:
+    """The median and count distinct on the card: K1 sorts by (inv, *keys,
+    arg-null, ohi, olo), the gid kernel finds each group's first row, and
+    the median kernel (ops/cuda/keyed_median.cu, one block per group) reads
+    the valid count, the two middle order pairs and the distinct run
+    starts.  Same output as :func:`keyed_median_reference`, bit for bit.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:keyed_median_kernel`` (B9)."""
+    from .cuda.build import load
+
+    device, n = inv.device, inv.shape[0]
+    if device.type != "cuda" or capacity < 1:
+        raise ValueError("keyed_median runs on CUDA tensors, capacity >= 1")
+    for name, t in (("ohi", ohi), ("olo", olo), ("inv", inv)):
+        _check_cuda_tensor(t, name, (torch.int32,), n, device)
+    if ovalid is not None:
+        _check_cuda_tensor(ovalid, "ovalid", (torch.bool,), n, device)
+    argnull = (
+        torch.zeros(n, dtype=torch.int32, device=device) if ovalid is None
+        else torch.logical_not(ovalid).to(torch.int32)
+    )
+    perm = radix_argsort_cuda([inv] + list(keys) + [argnull, ohi, olo])
+    gids = keyed_gids_cuda(perm, inv, list(keys), sorted_outputs=False)
+    out = torch.empty((6, capacity), dtype=I64, device=device)
+    if n == 0:
+        return out.zero_()
+    load().keyed_median(perm, argnull, ohi, olo, gids["starts"], gids["counts"], out)
+    count_launch("keyed_median")
+    return out
+
+
+def keyed_median(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tensor:
+    """Per-group median and distinct count of one argument: the CUDA
+    kernels for CUDA tensors, the twin for tensors on the CPU."""
+    if inv.device.type == "cpu":
+        return keyed_median_reference(inv, keys, ohi, olo, ovalid, capacity)
+    return keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity)
+
+
+# ------------------------------------------------------- keyed corr (B10)
+def _corr_pass1_columns(x, y, m):
+    return [
+        ScanColumn(SS_COUNT, OP_ADD_I64, valid=m),
+        ScanColumn(SS_VALUES, OP_ADD_F64, values=x, valid=m),
+        ScanColumn(SS_VALUES, OP_ADD_F64, values=y, valid=m),
+    ]
+
+
+def corr_center_reference(s2, perm, x, y, m, moments):
+    """Plain twin of the centring kernel: per sorted row of a live group,
+    x and y minus their group means (``moments`` rows n, Σx, Σy), and the
+    products x'y', x'², y'² (0 where the pair is not valid)."""
+    cap = moments.shape[1]
+    n_pair = moments[0]
+    nf = torch.clamp(n_pair, min=1).to(F64)
+    mx, my = moments[1].view(F64) / nf, moments[2].view(F64) / nf
+    g = torch.clamp(s2.long(), 0, cap - 1)
+    p = perm.long()
+    xs, ys, ms = x[p].to(F64), y[p].to(F64), m[p]
+    xc, yc = xs - mx[g], ys - my[g]
+    zero = torch.zeros_like(xc)
+    return [torch.where(ms, xc * yc, zero), torch.where(ms, xc * xc, zero),
+            torch.where(ms, yc * yc, zero)]
+
+
+def keyed_corr_reference(s2, perm, gid_in, x, xvalid, y, yvalid, capacity: int):
+    """Plain twin of the corr kernels, the arithmetic of the reference's
+    ``keyed_corr_kernel`` (x64): over pairwise-valid rows (neither argument
+    null nor NaN), pass 1 sums n, Σx, Σy per group; the group means centre
+    each row; pass 2 sums Σx'y', Σx'², Σy'².  Returns ``[4, capacity]``
+    int64: Σx'y', Σx'², Σy'² (f64 bits), n."""
+    n, device = perm.shape[0], perm.device
+    m = torch.ones(n, dtype=torch.bool, device=device)
+    for ok in (xvalid, yvalid):
+        if ok is not None:
+            m = m & ok
+    if x.is_floating_point():
+        m = m & ~torch.isnan(x)
+    if y.is_floating_point():
+        m = m & ~torch.isnan(y)
+    buf = torch.zeros((6, capacity), dtype=I64, device=device)
+    ops1 = [OP_ADD_I64, OP_ADD_F64, OP_ADD_F64]
+    _scan_into_state_reference(_corr_pass1_columns(x, y, m), [0, 1, 2], ops1,
+                               buf[3:6], n, perm, gid_in)
+    prods = corr_center_reference(s2, perm, x, y, m, buf[3:6])
+    cols2 = [ScanColumn(SS_VALUES, OP_ADD_F64, values=v) for v in prods]
+    _scan_into_state_reference(cols2, [0, 1, 2], [OP_ADD_F64] * 3, buf[0:3], n,
+                               None, s2)
+    return buf[:4].clone()
+
+
+def keyed_corr_cuda(s2, perm, gid_in, x, xvalid, y, yvalid, capacity: int):
+    """Corr moments on the card: the pairwise mask and the centring pass are
+    hand-written (ops/cuda/keyed_corr.cu), both passes' sums are K2 with
+    its state epilogue.  Same layout as :func:`keyed_corr_reference`.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:keyed_corr_kernel`` (B10)."""
+    from .cuda.build import load
+
+    device, n = perm.device, perm.shape[0]
+    if device.type != "cuda" or capacity < 1:
+        raise ValueError("keyed_corr runs on CUDA tensors, capacity >= 1")
+    for name, t in (("s2", s2), ("perm", perm), ("gid_in", gid_in)):
+        _check_cuda_tensor(t, name, (torch.int32,), n, device)
+    for name, t in (("x", x), ("y", y)):
+        _check_cuda_tensor(t, name, (F64, I64), n, device)
+    for name, t in (("xvalid", xvalid), ("yvalid", yvalid)):
+        if t is not None:
+            _check_cuda_tensor(t, name, (torch.bool,), n, device)
+    buf = torch.zeros((6, capacity), dtype=I64, device=device)
+    if n == 0:
+        return buf[:4].clone()
+    ext = load()
+    empty = torch.empty(0, dtype=torch.bool, device=device)
+    m = torch.empty(n, dtype=torch.bool, device=device)
+    ext.corr_mask(x, empty if xvalid is None else xvalid, y,
+                  empty if yvalid is None else yvalid, m)
+    count_launch("keyed_corr")
+    ops1 = [OP_ADD_I64, OP_ADD_F64, OP_ADD_F64]
+    _scan_into_state_cuda(_corr_pass1_columns(x, y, m), [0, 1, 2], ops1, buf[3:6], n,
+                          perm, gid_in)
+    prods = [torch.empty(n, dtype=F64, device=device) for _ in range(3)]
+    ext.corr_center(s2, perm, x, y, m, buf[3:6], prods[0], prods[1], prods[2])
+    count_launch("keyed_corr")
+    cols2 = [ScanColumn(SS_VALUES, OP_ADD_F64, values=v) for v in prods]
+    _scan_into_state_cuda(cols2, [0, 1, 2], [OP_ADD_F64] * 3, buf[0:3], n, None, s2)
+    return buf[:4].clone()
+
+
+def keyed_corr(s2, perm, gid_in, x, xvalid, y, yvalid, capacity: int):
+    """Per-group centred corr moments: the CUDA kernels for CUDA tensors,
+    the twins for tensors on the CPU."""
+    if perm.device.type == "cpu":
+        return keyed_corr_reference(s2, perm, gid_in, x, xvalid, y, yvalid, capacity)
+    return keyed_corr_cuda(s2, perm, gid_in, x, xvalid, y, yvalid, capacity)
+
+
+# ------------------------------------------------------- keyed prep (B7)
+@dataclass
+class KeyedBatch:
+    """One batch's buffered operands on the device: the sort operand
+    ``inv`` (int32, 1 = the row is dropped), the key codes, the scan
+    columns' values and validities (None = absent or all valid) and the
+    raw extras of the median and corr passes."""
+
+    inv: torch.Tensor
+    codes: list
+    values: list
+    valids: list
+    extras: list
+
+    @property
+    def nbytes(self) -> int:
+        ts = [self.inv, *self.codes, *self.values, *self.valids, *self.extras]
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def make_keyed_prep_kernel(
+    filter_closure: Optional[TorchClosure],
+    arg_closures: list,
+    specs: list[KernelAggSpec],
+    flat_names: list[str],
+    key_kinds: tuple,
+    extra_names: tuple = (),
+):
+    """Per-batch half of the keyed aggregation (the reference's
+    ``make_keyed_prep_kernel``).
+
+    ``fn(keys, valid, *leaf_arrays, state=None) -> KeyedBatch``: the filter
+    and argument closures run as torch ops (B3, as in the basic route),
+    then :func:`key_encode` derives the key codes and the sort operand
+    from ``keys`` (per key ``(codes,)`` for kind ``code``, else ``(values,
+    validity)``) and the row masks.  ``keys`` rides the group-id slot, so
+    :func:`make_join_kernel` wraps this function unchanged; ``state`` is
+    accepted for that signature and ignored.  ``extra_names`` are env
+    arrays buffered raw for the median and corr passes.  The keyed route
+    always has at least one group key."""
+    closures, columns, ops, cols = _agg_layout(specs, arg_closures)
+
+    def fn(keys, valid, *arrays, state=None):
+        env = dict(zip(flat_names, arrays))
+        n, device = keys[0][0].shape[0], keys[0][0].device
+        pred, pvalid, values, valids = _eval_layout(
+            env, n, device, filter_closure, closures, columns
+        )
+        inv, codes = key_encode(key_kinds, tuple(keys), (valid, pred, pvalid), n, device)
+        extras = [env[nm] for nm in extra_names]
+        return KeyedBatch(inv, list(codes), values, valids, extras)
+
+    fn.layout = (columns, ops, cols)
     return fn

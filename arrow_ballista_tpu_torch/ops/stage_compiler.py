@@ -1,8 +1,9 @@
 """Device stage compiler: swap eligible subtrees for the CUDA aggregate.
 
 Counterpart of ``arrow_ballista_tpu/ops/stage_compiler.py``: the basic
-route with host group ids, on its scatter or sort reduction, and the
-device join.  ``maybe_accelerate`` walks a physical plan and replaces each
+route with host group ids, on its scatter or sort reduction, the keyed
+route with device group ids, and the device join.  ``maybe_accelerate``
+walks a physical plan and replaces each
 eligible ``HashAggregateExec`` (plus its filter/projection chain) with a
 :class:`TorchStageExec`: per batch the host assigns dense group ids, the
 leaf arrays cross to the stage's device, the expression closures run as
@@ -15,14 +16,21 @@ and each probe batch joins on the device through the probe kernel (B5),
 whose match folds into the row mask.
 Under a shuffle writer's hint the output also carries each row's
 partition id, computed by the partition-id kernel (B4).
+The keyed route (:meth:`TorchStageExec._run_keyed`) takes a stage whose
+groups ~ rows under ``ballista.tpu.highcard_mode=device``, and every
+stage with median, count distinct or corr: raw key columns cross to the
+device, the key encode kernel (B7) codes them per batch, and at the end
+of the stream one radix sort orders the buffered rows by key, the gid
+kernel numbers the groups, the segmented scan reduces every aggregate and
+the finish kernel (B8) gathers the group keys into one fetch; the median
+(B9) and corr (B10) passes reuse that sort.
 Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
 (``ops/window_compiler.py``).  Everything else stays on the CPU operator
 path, gated by the same session config (``ballista.tpu.enable``).
 
 Not ported (the plan keeps the CPU operators, decided at plan time):
-the keyed high-cardinality route, median, count-distinct, corr, the
-variance family, the column cache and whole-stage fusion.  A join the
-fold declines runs on the CPU below the device aggregate.
+udafs, the column cache and whole-stage fusion.  A join the fold
+declines runs on the CPU below the device aggregate.
 """
 
 from __future__ import annotations
@@ -82,10 +90,80 @@ class _HighCardinality(Exception):
         self.tail = tail
 
 
-# groups~rows detector bounds (the reference's builtin routing defaults;
-# no H100 routing grid exists yet)
+class _KeyedRoute(Exception):
+    """Control flow: route the stage to the device-KEYED aggregation.
+    Carries the consumed batch with its host key codes (None when the keys
+    encode on the device), the still-live source iterator, the key
+    encoders and the prefetch pump."""
+
+    def __init__(self, batches: list, tail, key_encoders, ra):
+        super().__init__("keyed aggregate")
+        self.batches = batches  # [(RecordBatch, code arrays or None)]
+        self.tail = tail
+        self.key_encoders = key_encoders
+        self.ra = ra
+
+
+class _KeyedFallback(Exception):
+    """The keyed route cannot take THIS data: keys that cannot ship (a
+    float key holding the reserved null pattern), or a median/corr stage
+    whose buffer outgrew ``tpu.keyed_buffer_mb`` (order statistics cannot
+    merge chunks).  The partition re-runs on the CPU operators."""
+
+
+class _VarianceGuard(Exception):
+    """A variance's Σx² - (Σx)²/n cancelled past the digits its f64 moments
+    carry: only the CPU operators can answer; the partition re-runs there."""
+
+
+class _TrackingIter:
+    """Iterator wrapper recording whether any item was yielded: a keyed
+    fallback replays the buffered batches and chains the tail when the
+    live source was never touched."""
+
+    def __init__(self, it):
+        self._it = iter(it)
+        self.consumed = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = next(self._it)
+        self.consumed = True
+        return item
+
+
+class _KeyedGroups:
+    """GroupTable-shaped view over DEVICE-assigned groups: the fetched
+    unique key codes (gid order is key-sorted order) serve the ``n_groups``
+    / ``codes_for`` surface ``_materialize`` reads."""
+
+    def __init__(self, key_codes: list, n_groups: int):
+        self._codes = key_codes
+        self.n_groups = n_groups
+
+    def codes_for(self, gids: np.ndarray, key: int) -> np.ndarray:
+        return self._codes[key][gids]
+
+
+# groups~rows detector bounds and the 'auto' keyed switch: the reference's
+# builtin routing defaults (ops/routing.py; no H100 routing grid exists yet)
 HIGHCARD_MIN_GROUPS = 1 << 16
 HIGHCARD_RATIO = 0.05
+KEYED_ROUTE_AUTO = False
+
+
+def keyed_route_wanted(config) -> bool:
+    """Does groups~rows route to the device-KEYED path in this config?
+    'device' pins it, 'cpu' and 'gid' never take it, 'auto' follows
+    ``KEYED_ROUTE_AUTO``."""
+    mode = config.tpu_highcard_mode
+    if mode == "device":
+        return True
+    if mode in ("cpu", "gid"):
+        return False
+    return KEYED_ROUTE_AUTO
 
 
 def _highcard_detect(n_groups: int, n_rows: int) -> bool:
@@ -214,11 +292,11 @@ def _closing_on_error(ra: Optional[_ReadAhead]):
     """Stop the prefetch pump when the device stage aborts (a
     _CapacityExceeded re-run on the CPU, or an error): a re-run opens a
     FRESH source iterator, so the old pump must not keep reading the
-    abandoned one.  _HighCardinality passes through untouched — its
-    replay keeps consuming this same iterator."""
+    abandoned one.  _HighCardinality and _KeyedRoute pass through
+    untouched — their replay keeps consuming this same iterator."""
     try:
         yield
-    except _HighCardinality:
+    except (_HighCardinality, _KeyedRoute):
         raise
     except BaseException:
         if ra is not None:
@@ -573,9 +651,60 @@ class TorchStageExec(ExecutionPlan):
                     raise K.NotLowerable(a.func)
                 pending[idx] = (K.KernelAggSpec("count_star", False), None)
                 continue
+            if a.func in ("median", "count_distinct"):
+                # the keyed route's sorted-argument pass: each group's valid
+                # values ascending by their order pair, the two middle rows
+                # gathered (median) and the value runs counted (distinct);
+                # the stage is forced onto that route
+                if fused.mode == PARTIAL:
+                    raise K.NotLowerable(f"{a.func} is single-stage")
+                if not fused.group_exprs:
+                    raise K.NotLowerable(f"global {a.func} stays on the CPU")
+                if not isinstance(a.arg, pe.Col):
+                    raise K.NotLowerable(f"{a.func} over expression")
+                at = schema.field(a.arg.index).type
+                ok = pa.types.is_floating(at) or pa.types.is_integer(at)
+                if a.func == "count_distinct":
+                    ok = ok or pa.types.is_date(at)
+                if not ok:
+                    raise K.NotLowerable(f"{a.func} over {at}")
+                compiler.ord_pair_column(a.arg)
+                pending[idx] = ("median" if a.func == "median" else "cdist",
+                                a.arg.index)
+                continue
+            if a.func == "corr":
+                # Pearson r on the keyed route, centred per group; a null or
+                # NaN in either argument drops the row pairwise
+                if fused.mode == PARTIAL:
+                    raise K.NotLowerable("corr is single-stage")
+                if not fused.group_exprs:
+                    raise K.NotLowerable("global corr stays on the CPU")
+                for e in (a.arg, a.arg2):
+                    if not isinstance(e, pe.Col):
+                        raise K.NotLowerable("corr over expression")
+                    at = schema.field(e.index).type
+                    if not (pa.types.is_floating(at) or pa.types.is_integer(at)):
+                        raise K.NotLowerable(f"corr over {at}")
+                    compiler._leaf_column(e)
+                pending[idx] = ("corr", a.arg.index, a.arg2.index)
+                continue
+            if a.func in ("stddev", "stddev_pop", "var", "var_pop"):
+                # Σx and Σx² (each with its count) on either route; the host
+                # finishes (Σx² - (Σx)²/n) / (n - ddof) behind a
+                # conditioning guard.  The reference forces its sort route
+                # only in x32 (compensated sums), so x64 routes as usual
+                if fused.mode == PARTIAL:
+                    raise K.NotLowerable("variance family is single-stage")
+                c = lower(a.arg)
+                parts = [
+                    (K.KernelAggSpec("sum", True), c),
+                    (K.KernelAggSpec("sum", True), K.square_closure(c)),
+                ]
+                pending[idx] = ("var", 0 if a.func.endswith("_pop") else 1,
+                                a.func.startswith("stddev"), parts)
+                continue
             if a.func not in ("count", "sum", "avg", "min", "max"):
-                # median, count_distinct, corr, the variance family,
-                # udaf:*: not ported — reject at PLAN time
+                # udaf:* and anything unknown: rejected at PLAN time
                 raise K.NotLowerable(a.func)
             if a.func == "count" and isinstance(a.arg, pe.Col):
                 count_cols.append((idx, a.arg))
@@ -598,8 +727,47 @@ class TorchStageExec(ExecutionPlan):
             else:
                 closure = compiler.validity_only(colarg)
             pending[idx] = (K.KernelAggSpec("count", True), closure)
-        self.specs: list[K.KernelAggSpec] = [s for s, _ in pending]
-        self._arg_closures = [c for _, c in pending]
+        # per-OUTPUT entries become kernel specs plus an emission plan (a
+        # variance expands into two sums; median, count distinct and corr
+        # read the keyed route's post-sort passes)
+        specs: list[K.KernelAggSpec] = []
+        arg_closures: list = []
+        emit: list[tuple] = []
+        self._median_cols: list[int] = []
+        self._corr_cols: list[int] = []
+        self._corr_pairs: list[tuple] = []
+        for entry in pending:
+            tag = entry[0] if isinstance(entry[0], str) else None
+            if tag == "var":
+                _, ddof, use_sqrt, parts = entry
+                emit.append(("var", len(specs), len(specs) + 1, ddof, use_sqrt))
+                for spec, closure in parts:
+                    specs.append(spec)
+                    arg_closures.append(closure)
+            elif tag in ("median", "cdist"):
+                if entry[1] not in self._median_cols:
+                    self._median_cols.append(entry[1])
+                emit.append((tag, self._median_cols.index(entry[1])))
+            elif tag == "corr":
+                slots = []
+                for ci in entry[1:]:
+                    if ci not in self._corr_cols:
+                        self._corr_cols.append(ci)
+                    slots.append(self._corr_cols.index(ci))
+                # r is symmetric: corr(x, y) and corr(y, x) share one pass
+                pair = tuple(sorted(slots))
+                if pair not in self._corr_pairs:
+                    self._corr_pairs.append(pair)
+                emit.append(("corr", self._corr_pairs.index(pair)))
+            else:
+                emit.append(("plain", len(specs)))
+                specs.append(entry[0])
+                arg_closures.append(entry[1])
+        self._emit = emit
+        # median, count distinct and corr need the keyed route's buffers
+        self._needs_keyed = bool(self._median_cols or self._corr_pairs)
+        self.specs: list[K.KernelAggSpec] = specs
+        self._arg_closures = arg_closures
         self._filter_closure = filter_closure
         n_fields = sum(len(K.state_fields(s)) for s in self.specs) + 1
         if n_fields > K.MAX_FIELDS or len(self.specs) > K.MAX_COLUMNS:
@@ -607,6 +775,7 @@ class TorchStageExec(ExecutionPlan):
         self.leaves = compiler.leaves
         self.capacity = config.tpu_segment_capacity if fused.group_exprs else 1
         self.max_capacity = config.tpu_max_capacity if fused.group_exprs else 1
+        self.keyed_buffer_bytes = config.tpu_keyed_buffer_mb << 20
 
         # device-join plumbing: leaves over virtual (build-side) columns
         # are gathered on the device by the join probe, never read from
@@ -779,6 +948,38 @@ class TorchStageExec(ExecutionPlan):
             # OUTSIDE this try so real CPU errors propagate
             self.metrics.add("cpu_fallback", 1)
             cpu_plan = self._replay(si.batches)
+        except _KeyedRoute as kr:
+            # device-keyed aggregation; only the data-dependent exits
+            # (cardinality past tpu.max_capacity, keys that cannot ship,
+            # the median/corr buffer budget, the variance guard) hand the
+            # partition to the CPU operators.  A device error raises
+            self.metrics.add("keyed_path", 1)
+            tail = _TrackingIter(kr.tail)
+            try:
+                host_states, groups, n_rows_in, aux = self._run_keyed(
+                    kr.batches, tail, kr.key_encoders, ctx
+                )
+                out_batches = list(self._materialize(
+                    host_states, kr.key_encoders, groups, n_rows_in, ctx,
+                    partition, aux=aux,
+                ))
+            except (_CapacityExceeded, _KeyedFallback, _VarianceGuard):
+                self.metrics.add("tpu_fallback", 1)
+                if not tail.consumed:
+                    # the live source was never touched: replay the
+                    # buffered batches and chain the tail (no re-scan)
+                    cpu_plan = self._replay([b for b, _ in kr.batches], tail)
+                else:
+                    if kr.ra is not None:
+                        kr.ra.close()
+                    cpu_plan = self.original
+                yield from cpu_plan.execute(partition, ctx)
+                return
+            yield from out_batches
+            return
+        except _VarianceGuard:
+            self.metrics.add("tpu_fallback", 1)
+            cpu_plan = self.original
         except _HighCardinality as hc:
             # groups ~ rows: hand the stage to the CPU hash aggregate,
             # replaying the consumed batch + chaining the live source
@@ -972,8 +1173,20 @@ class TorchStageExec(ExecutionPlan):
                 n_rows_in += n
 
                 if fused.group_exprs:
+                    if state is None:
+                        # keyed-pinned stages whose keys encode on the
+                        # device route BEFORE any host group encode: the
+                        # raw key columns cross the bridge and
+                        # key_encode_time_ns stays about 0
+                        fast = self._keyed_fast_encoders()
+                        if fast is not None:
+                            raise _KeyedRoute([(batch, None)], src, fast, ra)
                     with self.metrics.timer("key_encode_time_ns"):
                         codes = self._encode_codes(batch, key_encoders)
+                    if state is None and self._needs_keyed:
+                        # median, count distinct and corr live on the keyed
+                        # route at any cardinality
+                        raise _KeyedRoute([(batch, codes)], src, key_encoders, ra)
                     if state is None:
                         try:
                             with self.metrics.timer("key_encode_time_ns"):
@@ -986,11 +1199,12 @@ class TorchStageExec(ExecutionPlan):
                         if first_groups is None or _highcard_detect(
                             first_groups, n
                         ):
-                            # 'gid' and 'device' pin the device route (the
-                            # keyed route behind 'device' is not ported, so
-                            # the gid table is the device route)
+                            if keyed_route_wanted(self.config):
+                                raise _KeyedRoute([(batch, codes)], src,
+                                                  key_encoders, ra)
+                            # 'gid' pins the group table while it fits
                             pinned = (
-                                self.config.tpu_highcard_mode in ("gid", "device")
+                                self.config.tpu_highcard_mode == "gid"
                                 and first_groups is not None
                             )
                             if fused.join is None and not pinned:
@@ -1063,18 +1277,23 @@ class TorchStageExec(ExecutionPlan):
             host_states, key_encoders, group_table, n_rows_in, ctx, partition
         )
 
-    def _kernel_args(self, batch, n: int, seg, staging, build=None) -> list:
+    def _kernel_args(self, batch, n: int, seg, staging, build=None, keys=None):
         """The stage function's per-batch tensors on the device: the
         non-join flat args in order, then, for a join-fused stage, the
         probe key (int64) and its validity, the dense slot table and kmin
         or the sorted build keys, the build values and their validities;
         last the group ids (None for a global aggregate).  All-valid
-        companions travel as ``None``: no bytes cross."""
+        companions travel as ``None``: no bytes cross.  With ``keys`` (the
+        keyed route's per-key host operand tuples) they cross in the same
+        staging and ``(args, device key tuples)`` is returned."""
         trivial: set = set()
         env = K.build_env(batch, self.leaves, n, trivial_valid=trivial)
         names = [nm for nm in self._flat_names if nm not in self._join_slots]
         host = {nm: (None if nm in trivial else env[nm]) for nm in names}
         host["__gid__"] = seg
+        for k, ops in enumerate(keys or ()):
+            for j, a in enumerate(ops):
+                host[f"__key{k}_{j}__"] = a
         if build is not None:
             from .bridge import arrow_to_numpy
 
@@ -1088,7 +1307,276 @@ class TorchStageExec(ExecutionPlan):
             if build[0] == "dense":
                 args.append(build[6])  # kmin
             args += build[2] + build[3]  # build values, validities
-        return args + [dev["__gid__"]]
+        args.append(dev["__gid__"])
+        if keys is None:
+            return args
+        return args, [
+            tuple(dev[f"__key{k}_{j}__"] for j in range(len(ops)))
+            for k, ops in enumerate(keys)
+        ]
+
+    # ---------------------------------------------------- keyed aggregate
+    def _key_kinds_for(self, key_encoders) -> tuple:
+        """Per-encoded-key device-encode kind ("code" = host encode, the
+        dictionary handoff), from the encoder instances in play so code
+        spaces never mix across batches."""
+        from .bridge import BoolKeyEncoder, FloatKeyEncoder, IdentityKeyEncoder
+
+        if not self.config.tpu_device_encode:
+            return tuple("code" for _ in key_encoders)
+        kinds = []
+        for enc in key_encoders:
+            if isinstance(enc, IdentityKeyEncoder):
+                kinds.append("ident")
+            elif isinstance(enc, BoolKeyEncoder):
+                kinds.append("bool")
+            elif isinstance(enc, FloatKeyEncoder):
+                kinds.append(enc.kind)
+            else:
+                kinds.append("code")
+        return tuple(kinds)
+
+    def _keyed_fast_encoders(self) -> Optional[list]:
+        """Encoder set of the PRE-ENCODE keyed path, or None when this stage
+        takes the host-encode routing: the stage is pinned keyed (median,
+        count distinct or corr, or ``highcard_mode=device``), device encode
+        is on and at least one key has a device kind.  The port's identity
+        codes are zigzag images, so negative keys need no precheck (the
+        reference's value+1 codes send them back to its host route)."""
+        cfg = self.config
+        if not cfg.tpu_device_encode:
+            return None
+        if not (self._needs_keyed or cfg.tpu_highcard_mode == "device"):
+            return None
+        from .bridge import device_key_encoder
+
+        encs, kinds = [], []
+        for pos, (kind, _s) in enumerate(self._group_plan):
+            if kind != "enc":
+                continue
+            enc, k = device_key_encoder(self._schema.field(pos).type, "x64")
+            encs.append(enc)
+            kinds.append(k)
+        if not encs or all(k is None for k in kinds):
+            return None
+        return encs
+
+    def _keyed_key_ops(self, batch, kinds, key_encoders, codes) -> list:
+        """Per-key host operands of one batch: ``(codes,)`` for kind "code"
+        (``codes`` reuses the routing batch's host codes), else the RAW key
+        column as ``(values, validity-or-None)``.  A key the device cannot
+        code raises: an identity key of magnitude 2^61 or more needs a wider
+        code (:class:`_CapacityExceeded`, as the host encoder's
+        RadixOverflow), and a float key holding the reserved null pattern
+        has no code (:class:`_KeyedFallback`)."""
+        from .bridge import arrow_to_numpy
+
+        ops: list = []
+        for slot, (kind, enc) in enumerate(zip(kinds, key_encoders)):
+            g = self._enc_group_exprs[slot]
+            if kind == "code":
+                if codes is not None and codes[slot] is not None:
+                    c = codes[slot]
+                else:
+                    with self.metrics.timer("key_encode_time_ns"):
+                        c = self._encode_codes_one(slot, enc, batch)
+                ops.append((c,))
+                continue
+            vals, valid = arrow_to_numpy(_eval_arr(g, batch))
+            vals = K.key_host_values(kind, vals)
+            if kind == "ident":
+                if len(vals) and (
+                    int(vals.max()) >= K.IDENT_KEY_LIMIT
+                    or int(vals.min()) <= -K.IDENT_KEY_LIMIT
+                ):
+                    raise _CapacityExceeded()
+            elif kind in ("f32", "f64"):
+                bits = vals.view(np.int32 if kind == "f32" else np.int64)
+                null = K.FLOAT32_NULL_BITS if kind == "f32" else K.FLOAT64_NULL_BITS
+                hit = bits == null
+                if valid is not None:
+                    hit &= valid
+                if bool(np.any(hit)):
+                    raise _KeyedFallback(
+                        "float group key collides with the reserved null pattern"
+                    )
+            ops.append((vals, valid))
+        return ops
+
+    def _encode_codes_one(self, slot: int, enc, batch) -> np.ndarray:
+        """One key's host codes; a code past the group table's 62 bits is a
+        capacity fallback."""
+        from .groups import RadixOverflow
+
+        try:
+            return enc.encode(_eval_arr(self._enc_group_exprs[slot], batch))
+        except RadixOverflow:
+            raise _CapacityExceeded()
+
+    def _median_extra_names(self) -> tuple:
+        """Env names of the median/count-distinct and corr argument leaves,
+        buffered raw through the keyed prep for the post-sort passes."""
+        out: list[str] = []
+        for ci in self._median_cols:
+            base = f"col_{ci}__ordpair"
+            out.extend([f"{base}__ohi", f"{base}__olo", f"{base}__valid"])
+        for ci in self._corr_cols:
+            out.extend([f"col_{ci}", f"col_{ci}__valid"])
+        return tuple(out)
+
+    def _keyed_prep(self, kinds: tuple, dense: bool = False):
+        """The keyed route's per-batch function (cached per key kinds and
+        join form), wrapped in the join probe for a join-fused stage."""
+        key = ("keyed_prep", kinds, dense)
+        fn = self._kernels.get(key)
+        if fn is None:
+            fn = K.make_keyed_prep_kernel(
+                self._filter_closure, self._arg_closures, self.specs,
+                self._flat_names, kinds, extra_names=self._median_extra_names(),
+            )
+            layout = fn.layout
+            if self.fused.join is not None:
+                fn = K.make_join_kernel(
+                    fn, self._flat_names, self._join_slots,
+                    len(self._device_build_cols), dense=dense,
+                )
+                fn.layout = layout
+            self._kernels[key] = fn
+        return fn
+
+    def _run_keyed(self, first: list, src, key_encoders, ctx: TaskContext):
+        """Device-keyed aggregation: per batch the filter (and the join
+        probe) and the key encode run on the device and the masked scan
+        columns buffer there beside the key codes; at the end of the stream
+        ONE radix sort assigns group ids from key changes, one segmented
+        scan reduces every aggregate, and one packed fetch returns the
+        states and the unique key codes.  Past ``keyed_buffer_bytes`` the
+        buffered block is reduced now and the blocks merge by key on the
+        host at the end (``merge_keyed_host``).
+
+        Returns ``(host_states, _KeyedGroups, n_rows_in, aux)``, ``aux``
+        holding the median and corr passes' packed results; raises
+        :class:`_CapacityExceeded` past tpu.max_capacity and
+        :class:`_KeyedFallback` for data the route cannot take."""
+        from .bridge import DeviceStaging
+
+        build = None
+        if self.fused.join is not None:
+            # prepared by the _execute_device run that raised _KeyedRoute
+            build = self._prepare_build(ctx)
+        kinds = self._key_kinds_for(key_encoders)
+        prep = self._keyed_prep(kinds, dense=build is not None and build[0] == "dense")
+        staging = DeviceStaging(self.device)
+        self._build_kernels()
+        buf: list = []
+        chunks: list = []
+        buffered = 0
+        n_rows_in = 0
+        device_kinds = any(k != "code" for k in kinds)
+
+        def flush():
+            nonlocal buf, buffered
+            if not buf:
+                return
+            if self._median_cols or self._corr_pairs:
+                # order statistics need every row in ONE sort: refuse the
+                # unbounded buffer before the device runs out of memory
+                raise _KeyedFallback("keyed buffer budget exceeded by median/corr")
+            states, key_codes, n_groups, _post = self._keyed_reduce(buf, prep)
+            chunks.append((states, key_codes, n_groups))
+            self.metrics.add("keyed_chunks", 1)
+            buf, buffered = [], 0
+
+        def feed(batch, codes):
+            nonlocal buffered
+            n = batch.num_rows
+            host_keys = self._keyed_key_ops(batch, kinds, key_encoders, codes)
+            with self.metrics.timer("bridge_time_ns"):
+                args, keys = self._kernel_args(batch, n, None, staging, build,
+                                               keys=host_keys)
+            args.pop()  # no host group ids on this route
+            if device_kinds:
+                self.metrics.add("device_encode_batches", 1)
+            with self.metrics.timer("device_time_ns"):
+                out = prep(keys, None, *args)
+            buf.append(out)
+            buffered += out.nbytes
+            if self.keyed_buffer_bytes and buffered >= self.keyed_buffer_bytes:
+                flush()
+
+        with self.metrics.timer("tpu_stage_time_ns"):
+            for batch, codes in first:
+                n_rows_in += batch.num_rows
+                feed(batch, codes)
+            for batch in src:
+                if batch.num_rows == 0:
+                    continue
+                n_rows_in += batch.num_rows
+                feed(batch, None)
+
+            if chunks:
+                flush()
+                with self.metrics.timer("keyed_merge_time_ns"):
+                    merged, merged_keys, n_groups = K.merge_keyed_host(
+                        self.specs, chunks
+                    )
+                if n_groups > self.max_capacity:
+                    raise _CapacityExceeded()
+                return (merged, _KeyedGroups(merged_keys, n_groups), n_rows_in,
+                        {"median": [], "corr": []})
+
+            states, key_codes, n_groups, post = self._keyed_reduce(buf, prep)
+            inv, codes, extras, perm, gids, cap = post
+            med_results: list = []
+            corr_results: list = []
+            with self.metrics.timer("device_time_ns"):
+                for j in range(len(self._median_cols)):
+                    ohi, olo, ovalid = extras[3 * j:3 * j + 3]
+                    med = K.keyed_median(inv, codes, ohi, olo, ovalid, cap)
+                    med_results.append(med.cpu().numpy())
+                base = 3 * len(self._median_cols)
+                for sx, sy in self._corr_pairs:
+                    x, xv = extras[base + 2 * sx:base + 2 * sx + 2]
+                    y, yv = extras[base + 2 * sy:base + 2 * sy + 2]
+                    packed = K.keyed_corr(gids["s2"], perm, gids["gid_in"],
+                                          x, xv, y, yv, cap)
+                    corr_results.append(packed.cpu().numpy())
+        aux = {"median": med_results, "corr": corr_results}
+        return states, _KeyedGroups(key_codes, n_groups), n_rows_in, aux
+
+    def _keyed_reduce(self, buf: list, prep):
+        """ONE sort + segmented scan + packed fetch over the buffered
+        batches.  Returns ``(host_states, key_codes, n_groups, post)`` with
+        ``post = (inv, codes, extras, perm, gids, cap)`` for the median and
+        corr passes; raises :class:`_CapacityExceeded` past
+        tpu.max_capacity."""
+        columns_layout, ops, cols = prep.layout
+        n_keys = self._n_encoded_groups
+        with self.metrics.timer("device_time_ns"):
+            lengths = [b.inv.shape[0] for b in buf]
+
+            def field(get) -> Optional[torch.Tensor]:
+                return _concat([get(b) for b in buf], lengths)
+
+            inv = field(lambda b: b.inv)
+            codes = [field(lambda b, k=k: b.codes[k]) for k in range(n_keys)]
+            values = [field(lambda b, c=c: b.values[c])
+                      for c in range(len(columns_layout))]
+            valids = [field(lambda b, c=c: b.valids[c])
+                      for c in range(len(columns_layout))]
+            extras = [field(lambda b, e=e: b.extras[e])
+                      for e in range(len(self._median_extra_names()))]
+            perm, gids, n_groups = K.keyed_sort(inv, codes)
+        if n_groups > self.max_capacity:
+            raise _CapacityExceeded()
+        cap = max(64, 1 << (max(n_groups, 1) - 1).bit_length())
+        columns, field_col = K._build_scan_plan(values, valids, ops, cols)
+        with self.metrics.timer("device_time_ns"):
+            packed = K.keyed_finish(self.specs, columns, field_col, ops, perm, gids,
+                                    n_groups, cap)
+            host = packed.cpu().numpy()
+        states, key_codes = K.unpack_keyed_host(self.specs, host, n_keys)
+        return states, key_codes, n_groups, (inv, codes, extras, perm, gids, cap)
 
     def _fetch_states(
         self, state, n_groups: Optional[int] = None
@@ -1102,15 +1590,10 @@ class TorchStageExec(ExecutionPlan):
 
     def _encode_codes(self, batch, key_encoders) -> list[np.ndarray]:
         """Per-key dictionary/identity code arrays for one batch."""
-        from .groups import RadixOverflow
-
-        try:
-            return [
-                enc.encode(_eval_arr(g, batch))
-                for g, enc in zip(self._enc_group_exprs, key_encoders)
-            ]
-        except RadixOverflow:
-            raise _CapacityExceeded()
+        return [
+            self._encode_codes_one(slot, enc, batch)
+            for slot, enc in enumerate(key_encoders)
+        ]
 
     def _assign_gids(self, code_arrays: list, group_table) -> np.ndarray:
         from .groups import RadixOverflow
@@ -1126,9 +1609,11 @@ class TorchStageExec(ExecutionPlan):
     # ------------------------------------------------------- materialize
     def _materialize(
         self, host_states, key_encoders, group_table, n_rows_in,
-        ctx: TaskContext, partition: int,
+        ctx: TaskContext, partition: int, aux=None,
     ) -> Iterator[pa.RecordBatch]:
-        """Build the output batch from the fetched numpy state arrays."""
+        """Build the output batch from the fetched numpy state arrays (and,
+        on the keyed route, ``aux``: the median and corr passes' packed
+        results)."""
         fused = self.fused
         schema = self._schema
 
@@ -1182,11 +1667,83 @@ class TorchStageExec(ExecutionPlan):
             )
 
         partial = fused.mode == PARTIAL
-        i = 0
+        # state-field offset of each kernel spec in the host arrays
+        offs: list[int] = []
+        off = 0
         for spec in self.specs:
+            offs.append(off)
+            off += len(K.state_fields(spec))
+
+        def typed(arr: pa.Array) -> pa.Array:
+            field_t = schema.field(len(cols)).type
+            if arr.type.equals(field_t):
+                return arr
+            import pyarrow.compute as pc
+
+            return pc.cast(arr, field_t, safe=False)
+
+        for entry in self._emit:
+            tag = entry[0]
+            if tag in ("median", "cdist", "corr") and aux is None:
+                raise ExecutionError(f"{tag} requires the keyed route")
+            if tag == "corr":
+                pkd = aux["corr"][entry[1]]
+                sxy = pkd[0][keep].view(np.float64)
+                sxx = pkd[1][keep].view(np.float64)
+                syy = pkd[2][keep].view(np.float64)
+                n_arr = pkd[3][keep]
+                empty = (n_arr < 2) | (sxx <= 0) | (syy <= 0)
+                with np.errstate(all="ignore"):
+                    r = sxy / np.sqrt(sxx * syy)
+                r = np.where(empty, 0.0, r)
+                cols.append(typed(pa.array(r, pa.float64(), mask=empty)))
+                continue
+            if tag == "cdist":
+                cd = aux["median"][entry[1]][5][keep].astype(np.int64)
+                cols.append(typed(pa.array(cd, pa.int64())))
+                continue
+            if tag == "median":
+                from .bridge import order_decode_f64
+
+                med = aux["median"][entry[1]]
+                empty = med[4][keep] == 0
+                va = order_decode_f64(
+                    np.where(empty, 0, med[0][keep]).astype(np.int32),
+                    np.where(empty, 0, med[1][keep]).astype(np.int32),
+                )
+                vb = order_decode_f64(
+                    np.where(empty, 0, med[2][keep]).astype(np.int32),
+                    np.where(empty, 0, med[3][keep]).astype(np.int32),
+                )
+                cols.append(typed(pa.array((va + vb) / 2.0, pa.float64(), mask=empty)))
+                continue
+            if tag == "var":
+                _, si, qi, ddof, use_sqrt = entry
+                s_v = host[offs[si]][keep].astype(np.float64)
+                n_arr = host[offs[si] + 1][keep]
+                q_v = host[offs[qi]][keep].astype(np.float64)
+                n_f = n_arr.astype(np.float64)
+                empty = n_arr < (ddof + 1)
+                with np.errstate(all="ignore"):
+                    var = (q_v - s_v * s_v / np.maximum(n_f, 1.0)) / np.maximum(
+                        n_f - ddof, 1.0
+                    )
+                    m2 = q_v / np.maximum(n_f, 1.0)
+                # conditioning guard: when the subtraction consumed more
+                # digits than f64 moments carry (var below 1e-8 of the mean
+                # square, a constant column included), only the exact CPU
+                # operators can answer
+                live = (~empty) & (m2 > 0)
+                if bool(np.any(live & (var < m2 * 1e-8))):
+                    raise _VarianceGuard()
+                var = np.where(var < 0, 0.0, var)
+                out_v = np.sqrt(var) if use_sqrt else var
+                cols.append(typed(pa.array(out_v, pa.float64(), mask=empty)))
+                continue
+            spec = self.specs[entry[1]]
+            i = offs[entry[1]]
             if spec.func in ("count", "count_star"):
                 cols.append(pa.array(host[i][keep], pa.int64()))
-                i += 1
                 continue
             field_t = schema.field(len(cols)).type
             n_arr = host[i + 1][keep]
@@ -1195,13 +1752,11 @@ class TorchStageExec(ExecutionPlan):
                 # integer states stay INT end-to-end (an f64 round-trip
                 # would round int64 values above 2^53)
                 vals = np.where(empty, 0, host[i][keep]).astype(np.int64)
-                i += 2
                 if pa.types.is_date32(field_t):
                     vals = vals.astype("datetime64[D]")
                 cols.append(pa.array(vals, field_t, mask=empty))
                 continue
             v = host[i][keep].astype(np.float64)
-            i += 2
             if spec.func == "avg":
                 if partial:
                     cols.append(pa.array(v, pa.float64()))
@@ -1236,6 +1791,23 @@ class TorchStageExec(ExecutionPlan):
                     schema=schema.append(pa.field(SHUFFLE_PID_COLUMN, pa.int32())),
                 )
         yield out
+
+
+def _concat(parts: list, lengths: list) -> Optional[torch.Tensor]:
+    """One buffered field over every batch: None when every batch has None,
+    else the batches' tensors joined, where a None part (an all-valid mask)
+    stands for all-true of its batch's length."""
+    if all(p is None for p in parts):
+        return None
+    like = next(p for p in parts if p is not None)
+    if any(p is None for p in parts):
+        if like.dtype != torch.bool:
+            raise ValueError("a buffered value column is missing from a batch")
+        parts = [
+            torch.ones(n, dtype=torch.bool, device=like.device) if p is None else p
+            for p, n in zip(parts, lengths)
+        ]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _eval_arr(e: pe.PhysicalExpr, batch: pa.RecordBatch) -> pa.Array:

@@ -53,9 +53,19 @@ Phases; any failure exits non-zero and prints no result line:
             probing a 1e6-row dimension, ``default_rng(9)``, 2^23-row
             batches) the same way: the dense device join with no fallback,
             ``join_probe`` once per batch;
-7. window — the per-supplier running revenue / moving average query over
-            the same lineitem: TorchWindowExec against the CPU WindowExec;
-8. distributed — TPC-H q3 and q1 over the parquet files through
+7. keyed  — the keyed route (B7-B10): TPC-H q3 again with
+            ``ballista.tpu.highcard_mode=device`` and a
+            ``tpu.keyed_buffer_mb`` of ``Q3_KEYED_BUFFER_MB`` (the fold kept,
+            one probe per batch, the buffer flushed into chunks merged on
+            the host), and the h2o groupby questions q6 (median, stddev),
+            q9 (corr²) and q10 (sum, count by six keys, about one group a
+            row, pinned keyed) over db-benchmark's G1_1e7_1e2 table
+            (``benchmarks/h2o``'s ``gen_groupby``, seed 42), each against
+            the CPU operators with its route asserted from the metrics;
+8. window — the per-supplier running revenue / moving average query over
+            lineitem's first ``WINDOW_BATCHES`` batches: TorchWindowExec
+            against the CPU WindowExec;
+9. distributed — TPC-H q3 and q1 over the parquet files through
             ``BallistaContext.standalone(device="cuda", num_executors=1,
             concurrent_tasks=4)`` (the port's scheduler, executor, shuffle
             and Flight; 8 shuffle partitions, mesh off, the default
@@ -66,14 +76,14 @@ Phases; any failure exits non-zero and prints no result line:
             writers' ``device_pid_batches`` above 0), its join stage folded
             (``join_build_table`` and ``join_probe`` launched, no
             ``join_fallback``) and its aggregate on the sort route;
-9. timing — every kernel at the first shape its main path gave it: the
+10. timing — every kernel at the first shape its main path gave it: the
             kernel, its twin and, where one PyTorch call computes the same
             function, that call (CUDA events, median of 20 launches),
             beside the least time the card could take (the bytes the call
             must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s).
 
-Launch counts are set to 0 just before each main-path run (q1/q6, q3,
-star join, window, distributed q3 and q1) and read just after; a kernel of that path
+Launch counts are set to 0 just before each main-path run (q1/q6, q3, keyed q3,
+h2o q6/q9/q10, star join, window, distributed q3 and q1) and read just after; a kernel of that path
 that never launched fails the run.  Then one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
 """
@@ -105,6 +115,15 @@ JOIN_ROWS = (1 << 20, 1 << 23)
 JOIN_COLUMNS = (0, 1, 3)
 JOIN_FORMS = ("dense 2^20", "dense 2^26", "sorted")
 STAR_ROWS, STAR_DIM = 60_000_000, 1_000_000  # bench_suite.py:bench_starjoin
+WINDOW_BATCHES = 2  # the window leg reads lineitem's first 2 batches (2^24 rows)
+H2O_ROWS, H2O_K = 10_000_000, 100  # db-benchmark's G1_1e7_1e2_0_0
+H2O_LEGS = (  # (question, session settings)
+    ("q6", {}),
+    ("q9", {}),
+    ("q10", {"ballista.tpu.highcard_mode": "device",
+             "ballista.tpu.max_capacity": str(1 << 24)}),
+)
+Q3_KEYED_BUFFER_MB = 400  # flushes q3's keyed buffer into chunks at SF10
 PARQUET_FILES = 8  # per table (one file for the small ones)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
@@ -120,6 +139,11 @@ KERNELS = {
     "partition_ids": ("partition_id.cu", "arrow_ballista_tpu/ops/kernels.py:2438"),
     "join_build_table": ("join_probe.cu", "arrow_ballista_tpu/ops/stage_compiler.py:2436"),
     "join_probe": ("join_probe.cu", "arrow_ballista_tpu/ops/kernels.py:636"),
+    "key_encode": ("keyed_gids.cu", "arrow_ballista_tpu/ops/kernels.py:1769"),
+    "keyed_gids": ("keyed_gids.cu", "arrow_ballista_tpu/ops/kernels.py:1821"),
+    "keyed_finish": ("keyed_finish.cu", "arrow_ballista_tpu/ops/kernels.py:1886"),
+    "keyed_median": ("keyed_median.cu", "arrow_ballista_tpu/ops/kernels.py:1582"),
+    "keyed_corr": ("keyed_corr.cu", "arrow_ballista_tpu/ops/kernels.py:1949"),
 }
 
 
@@ -1125,7 +1149,157 @@ def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
         f"cuda_s={dev_s!r} cpu_s={cpu_s!r} join_fallback={metrics.get('join_fallback', 0)} "
         f"breakdown={json.dumps(breakdown)}"
     )
-    return dict(launches=launches, sort=sort.args, route=route.args, build=build.args)
+    return dict(launches=launches, sort=sort.args, route=route.args, build=build.args,
+                want=want)
+
+
+# ------------------------------------------------------------- keyed route
+KEYED_CAPTURES = ("key_encode_cuda", "keyed_sort", "keyed_finish_cuda",
+                  "keyed_median_cuda", "keyed_corr_cuda")
+KEYED_KERNELS = ("key_encode", "radix_sort", "keyed_gids", "seg_scan", "keyed_finish")
+
+
+def _keyed_run(TK, ctx, plan, stages, what: str):
+    """One main-path run of a keyed stage: counts zeroed just before, the
+    keyed wrappers' first calls captured, the counts and metrics read
+    just after."""
+    import contextlib
+
+    import torch
+
+    _reset_counts(TK)
+    with contextlib.ExitStack() as stack:
+        caps = {name: stack.enter_context(Capture(TK, name)) for name in KEYED_CAPTURES}
+        t0 = time.perf_counter()
+        got = ctx.execute(plan)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    metrics = _stage_metrics(stages)
+    for k in KEYED_KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"{what}: {k} never launched ({json.dumps(launches)})")
+    return got, dev_s, launches, metrics, {k: c.args for k, c in caps.items()}
+
+
+def _sorted_close(a, b, what: str) -> None:
+    """_tables_close after sorting both by every non-float column."""
+    import pyarrow as pa
+
+    key = [(c, "ascending") for c in a.column_names
+           if not pa.types.is_floating(a.schema.field(c).type)]
+    _tables_close(a.sort_by(key), b.sort_by(key), what)
+
+
+def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device) -> dict:
+    """TPC-H q3 on the keyed route (``highcard_mode=device``): the identity
+    group key encodes on the device, so the reference's rule routes the
+    stage keyed at its first batch and keeps the fold; the probe runs once
+    per batch inside the keyed prep, and ``Q3_KEYED_BUFFER_MB`` flushes the
+    buffer into chunks that merge on the host.  Against the CPU leg of the
+    q3 phase."""
+    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+    from benchmarks.tpch.queries import QUERIES
+
+    n_rows = sum(b.num_rows for b in batches)
+    cfg = dict(SETTINGS, **{"ballista.tpu.highcard_mode": "device",
+                            "ballista.tpu.keyed_buffer_mb": str(Q3_KEYED_BUFFER_MB)})
+    ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
+    ctx.register_record_batches("lineitem", [batches])
+    ctx.register_arrow_table("orders", orders)
+    ctx.register_arrow_table("customer", customer)
+    plan = ctx.sql(QUERIES[3]).physical_plan()
+    stages = _stage_nodes(plan, TorchStageExec)
+    if [s.fused.join is not None for s in stages] != [True]:
+        raise AssertionError(f"q3 keyed: the join did not fold ({[str(s) for s in stages]})")
+    expect = dict(keyed_path=1, dense_join=1, join_fallback=0, tpu_fallback=0,
+                  cpu_fallback=0, highcard_fallback=0,
+                  probed=sum(1 for b in batches if b.num_rows))
+    got, dev_s, launches, metrics, caps = _keyed_run(TK, ctx, plan, stages, "q3 keyed")
+    for k, want_k in expect.items():
+        if k != "probed" and metrics.get(k, 0) != want_k:
+            raise AssertionError(f"q3 keyed: {k}={metrics.get(k, 0)}, the reference's rule "
+                                 f"gives {want_k} ({json.dumps(metrics)})")
+    if launches["join_probe"] != expect["probed"] or launches["join_build_table"] != 1:
+        raise AssertionError(f"q3 keyed: launches {json.dumps(launches)} against "
+                             f"{json.dumps(expect)}")
+    if metrics.get("keyed_chunks", 0) < 2 or metrics.get("keyed_merge_time_ns", 0) <= 0:
+        raise AssertionError(f"q3 keyed: the buffer never flushed ({json.dumps(metrics)})")
+    _tables_equal(want, got, "q3 keyed")
+    breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
+        "join_build_time_ns", "keyed_chunks", "keyed_merge_time_ns",
+        "device_encode_batches", "input_rows", "output_rows")}
+    print(
+        f"q3 keyed: lineitem_rows={n_rows} expected={json.dumps(expect)} "
+        f"launches={json.dumps(launches)} cuda_rows_per_s={n_rows / dev_s!r} "
+        f"cuda_s={dev_s!r} breakdown={json.dumps(breakdown)}"
+    )
+    return dict(launches=launches, caps=caps)
+
+
+def h2o_phase(tbt, TK, device) -> dict:
+    """db-benchmark's groupby questions q6, q9 and q10 over G1_1e7_1e2 on
+    the keyed route, each against the CPU operators: q6 and q9 take it for
+    their median and corr at any cardinality, q10 because
+    ``highcard_mode=device`` pins it.  Every leg must report
+    ``keyed_path`` 1, no fallback and device-encoded batches; q6's int32
+    keys encode on the device only (``key_encode_time_ns`` 0), q9's string
+    key is host-coded."""
+    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+    from benchmarks.h2o.__main__ import QUESTIONS, gen_groupby
+
+    sqls = {q: sql for q, _name, sql in QUESTIONS}
+    t0 = time.perf_counter()
+    x = gen_groupby(H2O_ROWS, H2O_K, seed=42)
+    batches = x.combine_chunks().to_batches(max_chunksize=1 << 23)
+    print(f"h2o: G1_1e7_1e2 rows={x.num_rows} batches={len(batches)} "
+          f"s={time.perf_counter() - t0!r}")
+    del x
+    out = {}
+    for q, extra in H2O_LEGS:
+        def session(enable: bool):
+            cfg = dict(SETTINGS, **extra, **{"ballista.tpu.enable": str(enable).lower()})
+            ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
+            ctx.register_record_batches("x", [batches])
+            return ctx
+
+        cpu_ctx = session(False)
+        plan = cpu_ctx.sql(sqls[q]).physical_plan()
+        t0 = time.perf_counter()
+        want = cpu_ctx.execute(plan)
+        cpu_s = time.perf_counter() - t0
+        del cpu_ctx, plan
+        ctx = session(True)
+        plan = ctx.sql(sqls[q]).physical_plan()
+        stages = _stage_nodes(plan, TorchStageExec)
+        if len(stages) != 1:
+            raise AssertionError(f"h2o {q}: {len(stages)} device stages")
+        got, dev_s, launches, metrics, caps = _keyed_run(TK, ctx, plan, stages, f"h2o {q}")
+        for k, want_k in (("keyed_path", 1), ("tpu_fallback", 0), ("cpu_fallback", 0),
+                          ("highcard_fallback", 0)):
+            if metrics.get(k, 0) != want_k:
+                raise AssertionError(f"h2o {q}: {k}={metrics.get(k, 0)} ({json.dumps(metrics)})")
+        if metrics.get("device_encode_batches", 0) < 1:
+            raise AssertionError(f"h2o {q}: no batch encoded its keys on the device")
+        if q == "q6" and metrics.get("key_encode_time_ns", 0) != 0:
+            raise AssertionError(f"h2o q6: host key encode {metrics['key_encode_time_ns']} ns")
+        need = {"q6": "keyed_median", "q9": "keyed_corr"}.get(q)
+        if need and launches[need] < 1:
+            raise AssertionError(f"h2o {q}: {need} never launched")
+        t0 = time.perf_counter()
+        _sorted_close(want, got, f"h2o {q}")
+        cmp_s = time.perf_counter() - t0
+        breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
+            "device_encode_batches", "input_rows", "output_rows")}
+        print(
+            f"h2o {q}: rows={H2O_ROWS} groups={got.num_rows} launches={json.dumps(launches)} "
+            f"cuda_rows_per_s={H2O_ROWS / dev_s!r} cpu_rows_per_s={H2O_ROWS / cpu_s!r} "
+            f"cuda_s={dev_s!r} cpu_s={cpu_s!r} compare_s={cmp_s!r} "
+            f"breakdown={json.dumps(breakdown)}"
+        )
+        out[q] = dict(launches=launches, caps=caps)
+        del want, got, ctx, plan, stages
+    return out
 
 
 def star_tables():
@@ -1228,12 +1402,18 @@ def _tables_close(a, b, what: str) -> None:
     """Vectorised _tables_equal for large results, row by row in the
     order both legs produce (a window keeps its input order): floats
     within REL with NaN matching NaN, all else exact."""
+    import pyarrow as pa
     import pyarrow.compute as pc
 
     if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
         raise AssertionError(f"{what}: shape {a.shape} vs {b.shape}")
     for name in a.schema.names:
         x, y = a.column(name), b.column(name)
+        if not (pa.types.is_integer(x.type) or pa.types.is_floating(x.type)
+                or pa.types.is_boolean(x.type) or pa.types.is_temporal(x.type)):
+            if not x.equals(y):  # strings: exact
+                raise AssertionError(f"{what}.{name}: values differ")
+            continue
         xv = np.asarray(pc.is_valid(x))
         if not np.array_equal(xv, np.asarray(pc.is_valid(y))):
             raise AssertionError(f"{what}.{name}: null positions differ")
@@ -1516,6 +1696,172 @@ def time_shape(TK, captured) -> dict:
     )
 
 
+# ------------------------------------------------- keyed route timing
+def _words_close(got, twin, f64_rows=()) -> float:
+    """Raise unless two int64 word tensors agree: rows in ``f64_rows`` as
+    f64 within REL (NaN matching NaN), every other row bit for bit.
+    Returns the largest absolute difference of the f64 rows."""
+    g, t = got.cpu().numpy(), twin.cpu().numpy()
+    if g.shape != t.shape:
+        raise AssertionError(f"shape {g.shape} vs {t.shape}")
+    worst = 0.0
+    for r in range(g.shape[0]):
+        if r in f64_rows:
+            gf, tf = g[r].view(np.float64), t[r].view(np.float64)
+            if not np.array_equal(np.isnan(gf), np.isnan(tf)):
+                raise AssertionError(f"row {r}: NaN positions differ")
+            ok = ~np.isnan(tf)
+            diff = np.abs(gf[ok] - tf[ok])
+            if diff.size:
+                worst = max(worst, float(diff.max()))
+            if np.any(diff > REL * np.abs(tf[ok])):
+                raise AssertionError(f"row {r}: off by {diff.max()}")
+        elif not np.array_equal(g[r], t[r]):
+            raise AssertionError(f"row {r}: words differ")
+    return worst
+
+
+def _time_key_encode(TK, captured) -> dict:
+    (kinds, keys, masks, n, device), _ = captured
+    got, twin = TK.key_encode_cuda(*captured[0]), TK.key_encode_reference(*captured[0])
+    import torch
+
+    if not torch.equal(got[0], twin[0]) or not all(
+            torch.equal(a, b) for a, b in zip(got[1], twin[1])):
+        raise AssertionError("key_encode differs from the twin at a main-path shape")
+    ms = _median_ms(lambda: TK.key_encode_cuda(*captured[0]))
+    plain = _median_ms(lambda: TK.key_encode_reference(*captured[0]), 5)
+    dev = [(k, o) for k, o in zip(kinds, keys) if k != "code"]
+    read = _nbytes(*masks) + sum(_nbytes(*o) for _k, o in dev)
+    out = dict(rows=n, keys=list(kinds), ms=ms, plain_ms=plain, library_ms=None,
+               library="none: coding several key kinds and folding three masks is no "
+                       "one PyTorch call", max_abs_err=0.0)
+    out.update(_bound(read + 4 * n + 8 * n * len(dev)))
+    return out
+
+
+def _time_keyed_sort(TK, captured) -> dict:
+    """K1 + the gid kernel (the reference's _keyed_sort_fn) against their
+    twins; the yardstick is torch.unique(dim=0, return_inverse=True) over
+    the stacked operands, the same group ids from one call."""
+    import torch
+
+    (inv, keys), _ = captured
+    keys = list(keys)
+    perm = TK.radix_argsort_cuda([inv] + keys)
+    got = TK.keyed_gids_cuda(perm, inv, keys)
+    twin_perm = TK.radix_argsort_reference([inv] + keys)
+    twin = TK.keyed_gids_reference(twin_perm, inv, keys)
+    ng = int(twin["counts"][0])
+    if not (torch.equal(perm, twin_perm) and torch.equal(got["counts"], twin["counts"])
+            and torch.equal(got["s2"], twin["s2"])
+            and torch.equal(got["gid_in"], twin["gid_in"])
+            and all(torch.equal(a, b) for a, b in zip(got["sk"], twin["sk"]))
+            and torch.equal(got["starts"][:ng + 1], twin["starts"][:ng + 1])):
+        raise AssertionError("keyed sort differs from the twin at a main-path shape")
+
+    def kernel():
+        p = TK.radix_argsort_cuda([inv] + keys)
+        TK.keyed_gids_cuda(p, inv, keys)
+
+    def plain():
+        TK.keyed_gids_reference(TK.radix_argsort_reference([inv] + keys), inv, keys)
+
+    n = inv.numel()
+    stacked = torch.stack([inv.long()] + [k.long() for k in keys], dim=1)
+    library = _median_ms(lambda: torch.unique(stacked, dim=0, return_inverse=True), 5)
+    out = dict(rows=n, keys=len(keys), groups=ng, ms=_median_ms(kernel),
+               plain_ms=_median_ms(plain, 5), library_ms=library,
+               radix_passes=TK.radix_sort_pass_count([inv] + keys), max_abs_err=0.0)
+    out.update(_bound(_nbytes(inv, *keys) + 12 * n + _nbytes(*keys) + 4 * (ng + 1)))
+    return out
+
+
+def _time_keyed_finish(TK, captured) -> dict:
+    """K2 into the state rows + the key gather against the twins; the
+    yardstick is one index_add_ of the f64 sum columns by group id."""
+    import torch
+
+    args, _ = captured
+    specs, columns, field_col, ops, perm, gids, ng, cap = args
+    got = TK.keyed_finish_cuda(*args)
+    twin = TK.keyed_finish_reference(*args)
+    f64 = {f for f, op in enumerate(ops) if op == TK.OP_ADD_F64}
+    err = _words_close(got, twin, f64)
+    n = perm.numel()
+    sums = [c for c in columns if c.op == TK.OP_ADD_F64]
+    library = None
+    if sums:
+        gid = gids["gid_in"].long()
+        g = torch.where(gid < cap, gid, torch.full_like(gid, cap))
+        V = torch.stack([c.values.double() if c.valid is None
+                         else torch.where(c.valid, c.values.double(), 0.0) for c in sums], 1)
+        acc = torch.zeros(cap + 1, V.shape[1], dtype=torch.float64, device=V.device)
+        library = _median_ms(lambda: acc.index_add_(0, g, V))
+    read = 8 * n + sum(_nbytes(c.values, c.valid) for c in columns)
+    read += 8 * len(gids["sk"]) * ng + 4 * ng
+    out = dict(rows=n, capacity=cap, groups=ng, fields=len(ops),
+               ms=_median_ms(lambda: TK.keyed_finish_cuda(*args)),
+               plain_ms=_median_ms(lambda: TK.keyed_finish_reference(*args), 5),
+               library_ms=library, max_abs_err=err)
+    out.update(_bound(read + _nbytes(got)))
+    return out
+
+
+def _time_keyed_median(TK, captured) -> dict:
+    import torch
+
+    args, _ = captured
+    got, twin = TK.keyed_median_cuda(*args), TK.keyed_median_reference(*args)
+    if not torch.equal(got, twin):
+        raise AssertionError("keyed_median differs from the twin at a main-path shape")
+    inv, keys, ohi, olo, ovalid, cap = args
+    out = dict(rows=inv.numel(), keys=len(keys), capacity=cap,
+               ms=_median_ms(lambda: TK.keyed_median_cuda(*args)),
+               plain_ms=_median_ms(lambda: TK.keyed_median_reference(*args), 5),
+               library_ms=None,
+               library="none: torch.median has no segmented form; a per-group median "
+                       "is this sort and gather",
+               max_abs_err=0.0)
+    out.update(_bound(_nbytes(inv, *keys, ohi, olo, ovalid) + _nbytes(got)))
+    return out
+
+
+def _time_keyed_corr(TK, captured) -> dict:
+    args, _ = captured
+    got, twin = TK.keyed_corr_cuda(*args), TK.keyed_corr_reference(*args)
+    err = _words_close(got, twin, (0, 1, 2))
+    s2, perm, gid_in, x, xv, y, yv, cap = args
+    n = perm.numel()
+    out = dict(rows=n, capacity=cap, ms=_median_ms(lambda: TK.keyed_corr_cuda(*args)),
+               plain_ms=_median_ms(lambda: TK.keyed_corr_reference(*args), 5),
+               library_ms=None,
+               library="none: torch.corrcoef takes one dense matrix, not a "
+                       "correlation per group of sorted rows",
+               max_abs_err=err)
+    out.update(_bound(_nbytes(s2, perm, gid_in, x, xv, y, yv) + _nbytes(got),
+                      f64_ops=14 * n))
+    return out
+
+
+def keyed_timing(TK, legs: dict) -> dict:
+    """B7-B10 at each keyed leg's first main-path call: checked against
+    the twins, timed, beside their bounds."""
+    out: dict = {}
+    for leg, r in legs.items():
+        caps = r["caps"]
+        for name, fn, cap in (("key_encode", _time_key_encode, "key_encode_cuda"),
+                              ("keyed_gids", _time_keyed_sort, "keyed_sort"),
+                              ("keyed_finish", _time_keyed_finish, "keyed_finish_cuda"),
+                              ("keyed_median", _time_keyed_median, "keyed_median_cuda"),
+                              ("keyed_corr", _time_keyed_corr, "keyed_corr_cuda")):
+            if caps.get(cap) is not None:
+                t = fn(TK, caps[cap])
+                out.setdefault(name, {})[leg] = t
+                print(f"timing {name} {leg}: {json.dumps(t)}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def _entry(name: str, head: dict, launches: int, err: float, **extra) -> dict:
     source, replaces = KERNELS[name]
@@ -1642,13 +1988,15 @@ def run(opts, device) -> list:
     del lineitem
     queries = query_phase(tbt, TK, batches, device)
     q3 = q3_phase(tbt, TK, batches, orders, customer, device)
+    q3k = q3_keyed_phase(tbt, TK, batches, orders, customer, q3.pop("want"), device)
     del orders, customer
+    h2o = h2o_phase(tbt, TK, device)
     star = star_phase(tbt, TK, device)
-    window = window_phase(tbt, TK, WK, batches, device)
+    window = window_phase(tbt, TK, WK, batches[:WINDOW_BATCHES], device)
     del batches
     with parquet:
         dist = distributed_phase(tbt, TK, parquet.name, lineitem_rows, device)
-    runs = [queries[1], queries[6], q3, star, window, dist[3], dist[1]]
+    runs = [queries[1], queries[6], q3, q3k, *h2o.values(), star, window, dist[3], dist[1]]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["args"]) for q, r in queries.items()}
@@ -1665,6 +2013,8 @@ def run(opts, device) -> list:
                     "distributed q3": _checked_probe(TK, dist[3]["probe"])}
     build_shapes = {name: _checked_build(TK, *r["build"][0])
                     for name, r in (("star", star), ("q3", q3), ("distributed q3", dist[3]))}
+    keyed = keyed_timing(TK, {"h2o q6": h2o["q6"], "h2o q9": h2o["q9"],
+                              "h2o q10": h2o["q10"], "q3 keyed": q3k})
     for name, t in [*shapes.items(), *(("radix_sort " + k, v) for k, v in sort_shapes.items()),
                     *(("seg_scan " + k, v) for k, v in scan_shapes.items()),
                     ("range_extremum window", rx_shape), ("window_pack window", pack_shape),
@@ -1695,6 +2045,13 @@ def run(opts, device) -> list:
         _entry("join_probe", probe_shapes["star"], launches["join_probe"], 0.0,
                shapes=probe_shapes, kernel_phase=probe_times),
     ]
+    for name, head in (("key_encode", "h2o q10"), ("keyed_gids", "h2o q10"),
+                       ("keyed_finish", "h2o q10"), ("keyed_median", "h2o q6"),
+                       ("keyed_corr", "h2o q9")):
+        shapes_k = keyed[name]
+        entries.append(_entry(name, shapes_k[head], launches[name],
+                              max(t["max_abs_err"] for t in shapes_k.values()),
+                              shapes=shapes_k))
 
     return entries
 

@@ -563,3 +563,176 @@ def test_star_join_on_cuda_matches_cpu_operators(cuda):
                 assert y == pytest.approx(x, rel=1e-9)
             else:
                 assert x == y
+
+
+# ------------------------------------------------ keyed route (B7-B10)
+def _keyed_case(n, device, seed=0, n_keys=2):
+    """Seeded sort operands: a mask, int32 and int64 key codes, an f64
+    argument with nulls, NaN and duplicates as its order pair, and an
+    int64 one."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    inv = t((rng.random(n) < 0.2).astype(np.int32))
+    keys = [t(rng.integers(0, 5000, n).astype(np.int32)),
+            t(rng.integers(-3, 3, n).astype(np.int64))][:n_keys]
+    v = np.round(rng.normal(0, 50, n), 2)
+    v[::97] = np.nan
+    v[::89] = -0.0
+    from arrow_ballista_tpu_torch.ops.bridge import split_u64_i32, to_u64_order
+
+    ohi, olo = split_u64_i32(to_u64_order(v))
+    return dict(inv=inv, keys=keys, v=t(v), ohi=t(ohi), olo=t(olo),
+                valid=t(rng.random(n) > 0.1), w=t(rng.integers(1, 16, n)),
+                wvalid=t(rng.random(n) > 0.05))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 2049, 300_001])
+def test_key_encode_matches_twin(cuda, n):
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    f = rng.normal(size=n)
+    f[::7] = -0.0
+    kinds = ("ident", "ident", "bool", "f32", "f64", "code")
+    keys = (
+        (t(rng.integers(-(2**60), 2**60, n)), t(rng.random(n) > 0.1)),
+        (t(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)), None),
+        (t(rng.random(n) > 0.5), t(rng.random(n) > 0.2)),
+        (t(f.astype(np.float32)), t(rng.random(n) > 0.2)),
+        (t(f), None),
+        (t(rng.integers(0, 99, n).astype(np.int32)),),
+    )
+    masks = (t(rng.random(n) > 0.1), None, t(rng.random(n) > 0.3))
+    runs = [TK.key_encode_cuda(kinds, keys, masks, n, cuda) for _ in range(2)]
+    twin = TK.key_encode_reference(kinds, keys, masks, n, cuda)
+    torch.cuda.synchronize()
+    for inv, codes in runs:
+        assert torch.equal(inv, twin[0])
+        for a, b in zip(codes, twin[1]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 2048, 2049, 300_001])
+@pytest.mark.parametrize("n_keys", [1, 2])
+def test_keyed_gids_matches_twin(cuda, n, n_keys):
+    c = _keyed_case(n, cuda, seed=n, n_keys=n_keys)
+    perm = TK.radix_argsort_cuda([c["inv"]] + c["keys"])
+    got = TK.keyed_gids_cuda(perm, c["inv"], c["keys"])
+    twin = TK.keyed_gids_reference(perm, c["inv"], c["keys"])
+    torch.cuda.synchronize()
+    assert torch.equal(got["counts"], twin["counts"])
+    ng = int(twin["counts"][0])
+    for k in ("s2", "gid_in"):
+        assert torch.equal(got[k], twin[k]), k
+    for a, b in zip(got["sk"], twin["sk"]):
+        assert torch.equal(a, b)
+    assert torch.equal(got["starts"][:ng + 1], twin["starts"][:ng + 1])
+
+
+def test_keyed_finish_matches_twin(cuda):
+    n = 500_000
+    c = _keyed_case(n, cuda, seed=5)
+    specs = [TK.KernelAggSpec("count_star", False), TK.KernelAggSpec("sum", True),
+             TK.KernelAggSpec("min", True), TK.KernelAggSpec("max", True, int_minmax=True)]
+    ops = [TK.OP_COUNT, TK.OP_ADD_F64, TK.OP_COUNT, TK.OP_MIN_F64, TK.OP_COUNT,
+           TK.OP_MAX_I64, TK.OP_COUNT, TK.OP_COUNT]
+    cols = [-1, 0, 0, 0, 0, 1, 1, -1]
+    columns, field_col = TK._build_scan_plan([c["v"], c["w"]], [c["valid"], c["wvalid"]],
+                                             ops, cols)
+    perm, gids, ng = TK.keyed_sort(c["inv"], c["keys"])
+    cap = 1 << (ng - 1).bit_length()
+    got = TK.keyed_finish(specs, columns, field_col, ops, perm, gids, ng, cap)
+    twin_g = TK.keyed_gids_reference(perm, c["inv"], c["keys"])
+    twin = TK.keyed_finish_reference(specs, columns, field_col, ops, perm, twin_g, ng, cap)
+    flags = TK._field_flags(specs)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), twin.cpu().numpy()
+    for f, op in enumerate(ops):
+        if op in (TK.OP_ADD_F64,):
+            np.testing.assert_allclose(g[f].view(np.float64), w[f].view(np.float64),
+                                       rtol=1e-9, atol=0)
+        else:
+            assert np.array_equal(g[f], w[f]), f
+    assert np.array_equal(g[len(flags):], w[len(flags):])
+
+
+@pytest.mark.parametrize("cap_extra", [1, 4])
+def test_keyed_median_matches_twin(cuda, cap_extra):
+    n = 400_000
+    c = _keyed_case(n, cuda, seed=11)
+    _perm, _gids, ng = TK.keyed_sort(c["inv"], c["keys"])
+    cap = (1 << (ng - 1).bit_length()) * cap_extra
+    runs = [TK.keyed_median_cuda(c["inv"], c["keys"], c["ohi"], c["olo"], c["valid"], cap)
+            for _ in range(2)]
+    twin = TK.keyed_median_reference(c["inv"], c["keys"], c["ohi"], c["olo"], c["valid"],
+                                     cap)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], twin)
+
+
+@pytest.mark.parametrize("ints", [False, True])
+def test_keyed_corr_matches_twin(cuda, ints):
+    n = 400_000
+    c = _keyed_case(n, cuda, seed=13)
+    perm, gids, ng = TK.keyed_sort(c["inv"], c["keys"])
+    cap = 1 << (ng - 1).bit_length()
+    x = c["w"] if ints else c["v"]
+    y = (c["w"] * 3 + 1) if ints else c["v"] * 0.5 + c["w"].double()
+    args = (gids["s2"], perm, gids["gid_in"], x, c["valid"], y, c["wvalid"], cap)
+    runs = [TK.keyed_corr_cuda(*args) for _ in range(2)]
+    twin = TK.keyed_corr_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    g, w = runs[0].cpu().numpy(), twin.cpu().numpy()
+    assert np.array_equal(g[3], w[3])
+    for r in range(3):
+        np.testing.assert_allclose(g[r].view(np.float64), w[r].view(np.float64),
+                                   rtol=1e-9, atol=0)
+
+
+def test_keyed_kernels_reject_bad_input(cuda):
+    c = _keyed_case(1000, cuda)
+    with pytest.raises(ValueError, match="key 0 values"):
+        TK.key_encode_cuda(("ident",), ((c["v"], None),), (), 1000, cuda)
+    with pytest.raises(ValueError, match="inv"):
+        TK.keyed_gids_cuda(torch.zeros(1000, dtype=torch.int32, device=cuda),
+                           c["inv"].long(), c["keys"])
+    with pytest.raises(ValueError, match="ohi"):
+        TK.keyed_median_cuda(c["inv"], c["keys"], c["ohi"].long(), c["olo"], None, 64)
+    with pytest.raises(ValueError, match="x must"):
+        TK.keyed_corr_cuda(c["inv"], c["inv"], c["inv"], c["v"].float(), None, c["v"],
+                           None, 64)
+
+
+@pytest.mark.parametrize("sql", [
+    "select k, sum(v) as s, count(*) as c, min(w) as mn from t group by k",
+    "select k, median(v) as md, count(distinct w) as cd, stddev(v) as sd, "
+    "corr(v, w) as r from t group by k",
+])
+def test_keyed_stage_on_cuda_matches_cpu_operators(cuda, sql):
+    rng = np.random.default_rng(21)
+    n = 300_000
+    t = pa.table({"k": pa.array(rng.integers(-50_000, 50_000, n)),
+                  "v": pa.array(rng.uniform(0, 100, n), mask=rng.random(n) < 0.05),
+                  "w": pa.array(rng.integers(0, 1000, n))})
+    out = []
+    for enable in ("false", "true"):
+        ctx = tbt.SessionContext(
+            tbt.BallistaConfig({"ballista.tpu.enable": enable, "ballista.tpu.min_rows": "0",
+                                "ballista.tpu.highcard_mode": "device",
+                                "ballista.shuffle.partitions": "1"}),
+            device=cuda,
+        )
+        ctx.register_arrow_table("t", t)
+        before = dict(TK.LAUNCHES)
+        out.append(ctx.sql(sql).collect().sort_by([("k", "ascending")]))
+        if enable == "true":
+            for k in ("key_encode", "keyed_gids", "keyed_finish"):
+                assert TK.LAUNCHES[k] > before[k], k
+    a, b = out
+    assert a.num_rows == b.num_rows
+    for name in a.schema.names:
+        for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
+            if isinstance(x, float) and y is not None:
+                assert y == pytest.approx(x, rel=1e-9)
+            else:
+                assert x == y

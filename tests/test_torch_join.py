@@ -619,10 +619,10 @@ def test_distributed_join_stage_folds(clusters, query):
 
 
 def test_highcard_mode_device_keeps_the_group_table():
-    """A divergence (ROADMAP C): with ``ballista.tpu.highcard_mode=device``
-    a join-fused stage at high cardinality takes the reference's keyed
-    route, which the port does not have; the port stays on its group
-    table under the same capacity rule.  Same answer, no fallback."""
+    """With ``ballista.tpu.highcard_mode=device`` a join-fused stage whose
+    group key encodes on the device takes the keyed route in both packages
+    and keeps the fold: the probe runs inside the keyed prep, no fallback,
+    the same answer as the CPU operators."""
     n, hi, m = 200_000, 150_000, 100_000
     rng = np.random.default_rng(9)
     dim = pa.table({"dk": pa.array(np.arange(1, m + 1), pa.int64()),
@@ -647,7 +647,9 @@ def test_highcard_mode_device_keeps_the_group_table():
     (port, pm), (jax_, jm), (want, _) = out
     _assert_equal(port, want, "port")
     _assert_equal(jax_, want, "jax")
-    assert jm.get("keyed_path", 0) == 1, jm
-    assert "keyed_path" not in pm and pm.get("dense_join", 0) == 1, pm
-    for k in ROUTE_KEYS[1:]:
-        assert pm.get(k, 0) == 0, (k, pm)
+    for metrics in (pm, jm):
+        assert metrics.get("keyed_path", 0) == 1, metrics
+        assert metrics.get("dense_join", 0) == 1, metrics
+        assert metrics.get("device_encode_batches", 0) >= 1, metrics
+        for k in ROUTE_KEYS[1:]:
+            assert metrics.get(k, 0) == 0, (k, metrics)

@@ -292,19 +292,28 @@ def test_narrow_types_min_max_and_dates():
 
 
 def test_unported_aggregates_stay_on_cpu_operators():
-    """median / variance / count distinct are not ported: planning keeps
-    the CPU operators, and the answer matches."""
+    """Median, the variance family and count distinct are ported: grouped,
+    each plans a device stage exactly where the JAX package plans one (the
+    keyed route for median and count distinct); their global forms are not
+    lowered by either package and stay on the CPU operators.  Every answer
+    matches the CPU operators'."""
     rng = np.random.default_rng(4)
     tbl = pa.table(
         {"g": pa.array(rng.integers(0, 5, 500)), "v": pa.array(rng.normal(0, 1, 500))}
     )
     for agg in ("median(v)", "stddev(v)", "count(distinct v)"):
-        sql = f"select g, {agg} as x from t group by g order by g"
-        cpu, port = _jax(False), _port()
-        for c in (cpu, port):
-            c.register_arrow_table("t", tbl)
-        assert "TorchStageExec" not in port.sql(sql).explain()
-        _assert_tables_equal(cpu.sql(sql).collect(), port.sql(sql).collect())
+        for sql, lowered in (
+            (f"select g, {agg} as x from t group by g order by g", True),
+            (f"select {agg} as x from t", agg == "stddev(v)"),
+        ):
+            cpu, jax_dev, port = _jax(False), _jax(True), _port()
+            for c in (cpu, jax_dev, port):
+                c.register_arrow_table("t", tbl)
+            assert ("TorchStageExec" in port.sql(sql).explain()) == lowered, sql
+            assert ("TpuStageExec" in jax_dev.sql(sql).explain()) == lowered, sql
+            want = cpu.sql(sql).collect()
+            _assert_tables_equal(want, port.sql(sql).collect())
+            _assert_tables_equal(want, jax_dev.sql(sql).collect())
 
 
 # -------------------------------------------------- capacity and routing
