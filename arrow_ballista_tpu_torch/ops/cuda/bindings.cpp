@@ -11,6 +11,8 @@
 #include <torch/extension.h>
 
 #include <algorithm>
+#include <cstring>
+#include <utility>
 #include <vector>
 
 #include "join_probe.h"
@@ -20,6 +22,7 @@
 #include "range_extremum.h"
 #include "seg_scan.h"
 #include "segment_agg.h"
+#include "segment_agg_entries.h"
 #include "window_epilogue.h"
 
 namespace {
@@ -38,24 +41,28 @@ const bool* mask_ptr(const at::Tensor& t, int64_t n, const at::Device& dev,
   return t.data_ptr<bool>();
 }
 
-void segment_agg(const at::Tensor& gid, const at::Tensor& tail,
-                 const at::Tensor& pred, const at::Tensor& pvalid,
-                 const std::vector<at::Tensor>& values,
-                 const std::vector<at::Tensor>& valids,
-                 const std::vector<int64_t>& ops,
-                 const std::vector<int64_t>& cols, at::Tensor state) {
-  TORCH_CHECK(state.is_cuda(), "state must be a CUDA tensor");
-  const at::Device dev = state.device();
-  c10::cuda::CUDAGuard guard(dev);
-  TORCH_CHECK(state.scalar_type() == at::kLong && state.dim() == 2 &&
-                  state.is_contiguous(),
-              "state must be contiguous int64 [n_fields, capacity]");
-  const int64_t nf = state.size(0);
-  const int64_t cap = state.size(1);
-  TORCH_CHECK(nf >= 1 && nf <= kSegAggMaxFields, "n_fields ", nf);
-  TORCH_CHECK(cap >= 1, "capacity ", cap);
-  TORCH_CHECK((int64_t)ops.size() == nf && (int64_t)cols.size() == nf,
-              "one op and one column per state field");
+// The one-batch kernel's row chunks for n rows: ~4 chunks per SM, each at
+// least one pass of the CTA's warps, and no more chunk partials than the
+// scratch budget holds.  Returns {chunks, rows per chunk}.
+std::pair<int64_t, int64_t> seg_agg_chunking(int64_t n, int64_t nf, int64_t cap) {
+  const int64_t sms = at::cuda::getCurrentDeviceProperties()->multiProcessorCount;
+  const int64_t min_rows = 32 * kSegAggWarps;
+  int64_t rows = std::max<int64_t>(min_rows, (n + 4 * sms - 1) / (4 * sms));
+  int64_t chunks = std::max<int64_t>(1, (n + rows - 1) / rows);
+  const int64_t max_chunks =
+      std::max<int64_t>(1, std::min<int64_t>(65535, kScratchBudget / (nf * cap * 8)));
+  if (chunks > max_chunks) {
+    chunks = max_chunks;
+    rows = (n + chunks - 1) / chunks;
+  }
+  return {chunks, rows};
+}
+
+// Fills a descriptor's per-row pointers from one entry's tensors.
+void seg_agg_rows(SegAggParams& p, const at::Tensor& gid, const at::Tensor& tail,
+                  const at::Tensor& pred, const at::Tensor& pvalid,
+                  const std::vector<at::Tensor>& values,
+                  const std::vector<at::Tensor>& valids, const at::Device& dev) {
   TORCH_CHECK(gid.device() == dev && gid.scalar_type() == at::kInt &&
                   gid.dim() == 1 && gid.is_contiguous(),
               "gid must be contiguous int32 [n] on ", dev);
@@ -63,13 +70,16 @@ void segment_agg(const at::Tensor& gid, const at::Tensor& tail,
   const int64_t n_cols = (int64_t)values.size();
   TORCH_CHECK(n_cols == (int64_t)valids.size() && n_cols <= kSegAggMaxCols,
               "columns ", n_cols);
-
-  SegAggParams p{};
+  p.n = n;
   p.gid = gid.data_ptr<int32_t>();
   p.tail = mask_ptr(tail, n, dev, "tail");
   p.pred = mask_ptr(pred, n, dev, "pred");
   p.pvalid = mask_ptr(pvalid, n, dev, "pvalid");
   TORCH_CHECK(p.pvalid == nullptr || p.pred != nullptr, "pvalid without pred");
+  for (int64_t c = 0; c < kSegAggMaxCols; ++c) {
+    p.values[c] = nullptr;
+    p.valids[c] = nullptr;
+  }
   for (int64_t c = 0; c < n_cols; ++c) {
     const at::Tensor& v = values[c];
     p.valids[c] = mask_ptr(valids[c], n, dev, "validity");
@@ -81,6 +91,20 @@ void segment_agg(const at::Tensor& gid, const at::Tensor& tail,
                 "value column must be contiguous [", n, "]");
     p.values[c] = v.data_ptr();
   }
+}
+
+// Fills a descriptor's fields (ops, cols, n_fields, capacity, tile) from
+// the state; the field ops must match the entry's columns.
+void seg_agg_fields(SegAggParams& p, const std::vector<at::Tensor>& values,
+                    const std::vector<int64_t>& ops,
+                    const std::vector<int64_t>& cols, const at::Tensor& state) {
+  const int64_t nf = state.size(0);
+  const int64_t cap = state.size(1);
+  const int64_t n_cols = (int64_t)values.size();
+  TORCH_CHECK(nf >= 1 && nf <= kSegAggMaxFields, "n_fields ", nf);
+  TORCH_CHECK(cap >= 1, "capacity ", cap);
+  TORCH_CHECK((int64_t)ops.size() == nf && (int64_t)cols.size() == nf,
+              "one op and one column per state field");
   for (int64_t f = 0; f < nf; ++f) {
     const int64_t op = ops[f];
     const int64_t c = cols[f];
@@ -96,31 +120,113 @@ void segment_agg(const at::Tensor& gid, const at::Tensor& tail,
     p.cols[f] = (int8_t)c;
   }
   p.n_fields = (int)nf;
-  p.n = n;
   p.capacity = cap;
   p.tile = (int)std::min<int64_t>(cap, kSmemBudget / (kSegAggWarps * nf * 8));
   TORCH_CHECK(p.tile >= 1, "state too wide for shared memory");
+}
 
-  // ~4 chunks per SM, each at least one pass of the CTA's warps, and no
-  // more chunk partials than the scratch budget holds
-  const int64_t sms = at::cuda::getCurrentDeviceProperties()->multiProcessorCount;
-  const int64_t min_rows = 32 * kSegAggWarps;
-  int64_t rows = std::max<int64_t>(min_rows, (n + 4 * sms - 1) / (4 * sms));
-  int64_t chunks = std::max<int64_t>(1, (n + rows - 1) / rows);
-  const int64_t max_chunks =
-      std::max<int64_t>(1, std::min<int64_t>(65535, kScratchBudget / (nf * cap * 8)));
-  if (chunks > max_chunks) {
-    chunks = max_chunks;
-    rows = (n + chunks - 1) / chunks;
-  }
+void check_state(const at::Tensor& state) {
+  TORCH_CHECK(state.is_cuda(), "state must be a CUDA tensor");
+  TORCH_CHECK(state.scalar_type() == at::kLong && state.dim() == 2 &&
+                  state.is_contiguous(),
+              "state must be contiguous int64 [n_fields, capacity]");
+}
+
+void segment_agg(const at::Tensor& gid, const at::Tensor& tail,
+                 const at::Tensor& pred, const at::Tensor& pvalid,
+                 const std::vector<at::Tensor>& values,
+                 const std::vector<at::Tensor>& valids,
+                 const std::vector<int64_t>& ops,
+                 const std::vector<int64_t>& cols, at::Tensor state) {
+  check_state(state);
+  const at::Device dev = state.device();
+  c10::cuda::CUDAGuard guard(dev);
+  SegAggParams p{};
+  seg_agg_rows(p, gid, tail, pred, pvalid, values, valids, dev);
+  seg_agg_fields(p, values, ops, cols, state);
+  const auto [chunks, rows] = seg_agg_chunking(p.n, p.n_fields, p.capacity);
   p.n_chunks = (int)chunks;
   p.rows_per_chunk = rows;
-  at::Tensor partial = at::empty({chunks, nf, cap}, state.options());
+  at::Tensor partial = at::empty({chunks, state.size(0), state.size(1)}, state.options());
   // int64_t is `long` here, the kernel's words `long long`: same width
   p.partial = reinterpret_cast<long long*>(partial.data_ptr<int64_t>());
   p.state = reinterpret_cast<long long*>(state.data_ptr<int64_t>());
 
   C10_CUDA_CHECK(segment_agg_launch(&p, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Every entry folded into one state, in entry order: the chunk table of
+// all entries (each cut by the one-batch rule for its own rows) and the
+// entry descriptors cross to the device in one copy; the table runs in
+// rounds whose chunk partials fit the scratch budget (and the grid's
+// 65535 rows), each round a pass 1 and a pass 2.
+void segment_agg_entries_(const std::vector<at::Tensor>& gids,
+                          const std::vector<at::Tensor>& tails,
+                          const std::vector<at::Tensor>& preds,
+                          const std::vector<at::Tensor>& pvalids,
+                          const std::vector<std::vector<at::Tensor>>& values,
+                          const std::vector<std::vector<at::Tensor>>& valids,
+                          const std::vector<int64_t>& ops,
+                          const std::vector<int64_t>& cols, at::Tensor state) {
+  check_state(state);
+  const at::Device dev = state.device();
+  c10::cuda::CUDAGuard guard(dev);
+  const size_t n_entries = gids.size();
+  TORCH_CHECK(n_entries >= 1 && tails.size() == n_entries &&
+                  preds.size() == n_entries && pvalids.size() == n_entries &&
+                  values.size() == n_entries && valids.size() == n_entries,
+              "one gid, tail, pred, pvalid, values and valids per entry");
+  std::vector<SegAggParams> entries(n_entries);
+  std::vector<SegAggChunk> chunks;
+  const int64_t nf = state.size(0);
+  const int64_t cap = state.size(1);
+  for (size_t e = 0; e < n_entries; ++e) {
+    SegAggParams& p = entries[e];
+    p = SegAggParams{};
+    seg_agg_rows(p, gids[e], tails[e], preds[e], pvalids[e], values[e], valids[e], dev);
+    seg_agg_fields(p, values[e], ops, cols, state);
+    if (p.n == 0) continue;  // the one-batch kernel launches nothing
+    const auto [n_chunks, rows] = seg_agg_chunking(p.n, nf, cap);
+    for (int64_t k = 0; k < n_chunks; ++k) {
+      SegAggChunk c{};
+      c.r0 = k * rows;
+      c.r1 = std::min<int64_t>(p.n, c.r0 + rows);
+      c.entry = (int)e;
+      chunks.push_back(c);
+    }
+  }
+  if (chunks.empty()) return;
+
+  // rounds: consecutive chunks whose partials fit the scratch budget
+  const int64_t chunk_bytes = nf * cap * 8;
+  const int64_t per_round =
+      std::max<int64_t>(1, std::min<int64_t>(65535, kScratchBudget / chunk_bytes));
+  const int64_t total = (int64_t)chunks.size();
+  const int64_t widest = std::min<int64_t>(per_round, total);
+
+  const size_t table_bytes =
+      n_entries * sizeof(SegAggParams) + chunks.size() * sizeof(SegAggChunk);
+  std::vector<uint8_t> host(table_bytes);
+  std::memcpy(host.data(), entries.data(), n_entries * sizeof(SegAggParams));
+  std::memcpy(host.data() + n_entries * sizeof(SegAggParams), chunks.data(),
+              chunks.size() * sizeof(SegAggChunk));
+  at::Tensor table = at::from_blob(host.data(), {(int64_t)table_bytes},
+                                   at::TensorOptions().dtype(at::kByte))
+                         .to(dev);  // a blocking copy: `host` may go after it
+  const auto* d_entries = reinterpret_cast<const SegAggParams*>(table.data_ptr());
+  const auto* d_chunks = reinterpret_cast<const SegAggChunk*>(
+      static_cast<const uint8_t*>(table.data_ptr()) + n_entries * sizeof(SegAggParams));
+
+  at::Tensor partial = at::empty({widest, nf, cap}, state.options());
+  SegAggParams common = entries[0];
+  common.partial = reinterpret_cast<long long*>(partial.data_ptr<int64_t>());
+  common.state = reinterpret_cast<long long*>(state.data_ptr<int64_t>());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  for (int64_t first = 0; first < total; first += per_round) {
+    common.n_chunks = (int)std::min<int64_t>(per_round, total - first);
+    C10_CUDA_CHECK(segment_agg_entries_launch(&common, d_entries, d_chunks, first, stream));
+  }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -464,6 +570,8 @@ void corr_center_(const at::Tensor& s2, const at::Tensor& perm,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("segment_agg", &segment_agg,
         "segment aggregate of one batch merged into the running state");
+  m.def("segment_agg_entries", &segment_agg_entries_,
+        "every retained entry's segment aggregate folded into one state");
   m.def("radix_sort_plan", &radix_sort_plan_,
         "byte histograms and the pass plan of a stable multi-key argsort");
   m.def("radix_sort_passes", &radix_sort_passes_,

@@ -13,6 +13,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "segment_agg.cu"),
+    os.path.join(_HERE, "segment_agg_entries.cu"),
     os.path.join(_HERE, "radix_sort.cu"),
     os.path.join(_HERE, "seg_scan.cu"),
     os.path.join(_HERE, "range_extremum.cu"),

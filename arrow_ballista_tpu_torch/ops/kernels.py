@@ -14,7 +14,11 @@ mask.  The keyed route assigns group ids on the device instead of the
 host: key encode and group ids (``ops/cuda/keyed_gids.cu``) around the
 radix sort, the segmented scan into the state and the key gather
 (``keyed_finish.cu``), and the median (``keyed_median.cu``) and corr
-(``keyed_corr.cu``) passes over the same sort.
+(``keyed_corr.cu``) passes over the same sort.  A stage that retains its
+batches (the column cache, whole-stage fusion) folds them all in one
+multi-entry launch of the segment aggregate
+(``ops/cuda/segment_agg_entries.cu``), bit-identical to one launch per
+batch.
 
 Design rules:
 * x64 only — f64/i64 device dtypes (the H100 has both); every tensor the
@@ -836,7 +840,7 @@ def states_from_numpy(
 # An executor runs several task threads against one card, so a count goes
 # through count_launch, under a lock.
 LAUNCHES = dict.fromkeys(
-    ("segment_agg", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
+    ("segment_agg", "segment_agg_entries", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
      "partition_ids", "join_build_table", "join_probe", "key_encode", "keyed_gids",
      "keyed_finish", "keyed_median", "keyed_corr"), 0
 )
@@ -1034,6 +1038,71 @@ def segment_agg(gid, tail, pred, pvalid, values, valids, ops, cols, state):
     return segment_agg_cuda(
         gid, tail, pred, pvalid, values, valids, ops, cols, state
     )
+
+
+def segment_agg_entries_reference(
+    entries: list, ops: list[int], cols: list[int], state: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch twin of the multi-entry segment aggregate: the
+    one-batch twin over ``entries`` in order, each entry a ``(gid, tail,
+    pred, pvalid, values, valids)`` tuple as :func:`segment_agg` takes
+    them, all folded into ``state`` in place."""
+    for gid, tail, pred, pvalid, values, valids in entries:
+        segment_agg_reference(gid, tail, pred, pvalid, values, valids, ops, cols, state)
+    return state
+
+
+def segment_agg_entries_cuda(
+    entries: list, ops: list[int], cols: list[int], state: torch.Tensor
+) -> torch.Tensor:
+    """Launch the hand-written multi-entry segment aggregate
+    (``ops/cuda/segment_agg_entries.cu``): every entry folded into
+    ``state`` in one call, bit-identical to one :func:`segment_agg_cuda`
+    launch per entry in entry order.
+
+    Replaces ``arrow_ballista_tpu/ops/stage_compiler.py:_run_fused`` and
+    ``_fused_for`` (the per-entry kernel, ``combine_states`` and
+    ``pack_states`` in one program).  Every entry's inputs are checked
+    first (ValueError); a failed build or launch raises, and nothing
+    falls back to the one-batch kernel or the twin."""
+    from .cuda.build import load
+
+    if not entries:
+        raise ValueError("segment_agg_entries: no entries")
+    for gid, tail, pred, pvalid, values, valids in entries:
+        _check_cuda_args(gid, tail, pred, pvalid, values, valids, ops, cols, state)
+    ext = load()
+    empty = torch.empty(0, dtype=torch.bool, device=state.device)
+
+    def opt(x):
+        return empty if x is None else x
+
+    ext.segment_agg_entries(
+        [e[0] for e in entries],
+        [opt(e[1]) for e in entries],
+        [opt(e[2]) for e in entries],
+        [opt(e[3]) for e in entries],
+        [[opt(v) for v in e[4]] for e in entries],
+        [[opt(v) for v in e[5]] for e in entries],
+        list(ops),
+        list(cols),
+        state,
+    )
+    count_launch("segment_agg_entries")
+    return state
+
+
+def segment_agg_entries(entries: list, ops: list[int], cols: list[int], state):
+    """Every entry's segment aggregate folded into ``state``: the CUDA
+    kernel for CUDA tensors, its plain twin for tensors on the CPU."""
+    for _gid, _tail, _pred, _pvalid, values, valids in entries:
+        if len(values) != len(valids) or len(values) > MAX_COLUMNS:
+            raise ValueError(f"segment_agg_entries: {len(values)} columns")
+    if len(ops) != len(cols) or len(ops) != state.shape[0] or len(ops) > MAX_FIELDS:
+        raise ValueError(f"segment_agg_entries: {len(ops)} fields")
+    if state.device.type == "cpu":
+        return segment_agg_entries_reference(entries, ops, cols, state)
+    return segment_agg_entries_cuda(entries, ops, cols, state)
 
 
 # ------------------------------------------------------- algorithm choice
@@ -1578,6 +1647,35 @@ def make_partial_agg_kernel(
     return fn
 
 
+def make_entries_agg_kernel(
+    filter_closure: Optional[TorchClosure],
+    arg_closures: list[Optional[TorchClosure]],
+    specs: list[KernelAggSpec],
+    capacity: int,
+    flat_names: list[str],
+):
+    """The multi-entry counterpart of :func:`make_partial_agg_kernel` (its
+    scatter route): ``fn(entries) -> state`` over retained ``(gid, tail,
+    leaf arrays)`` entries runs the expression closures of every entry,
+    then ONE :func:`segment_agg_entries` folds all of them into a fresh
+    identity state at ``capacity``.  The closures' outputs of every entry
+    are alive together until that call returns."""
+    closures, columns, ops, cols = _agg_layout(specs, arg_closures)
+
+    def fn(entries: list) -> torch.Tensor:
+        rows = []
+        for gid, tail, arrays in entries:
+            env = dict(zip(flat_names, arrays))
+            pred, pvalid, values, valids = _eval_layout(
+                env, gid.shape[0], gid.device, filter_closure, closures, columns
+            )
+            rows.append((gid, tail, pred, pvalid, values, valids))
+        state = init_states(specs, capacity, entries[0][0].device)
+        return segment_agg_entries(rows, ops, cols, state)
+
+    return fn
+
+
 # ------------------------------------------------ shuffle partition ids (B4)
 PID_MAX_PARTITIONS = 1 << 16  # the reference's bound for the device hash
 _HASH_MUL = 0x9E3779B97F4A7C15  # the host partitioner's multiplier
@@ -1712,6 +1810,35 @@ def device_partition_ids(
     bits = torch.from_numpy(np.stack([b for b, _ in cols])).to(device)
     nulls = torch.from_numpy(np.stack([m for _, m in cols])).to(device)
     return partition_ids(bits, nulls, n).cpu().numpy()
+
+
+def pid_key_bits(arrays: list, width: int, device) -> Optional[tuple]:
+    """``(bits, nulls)`` of the decoded group keys ``arrays`` (one pa.Array
+    per hint key, in hint order), each row padded with zeros to ``width``:
+    the partition-id kernel's operands on ``device``, or None when a key
+    has no device hash."""
+    bits = np.zeros((len(arrays), width), dtype=np.int64)
+    nulls = np.zeros((len(arrays), width), dtype=bool)
+    for k, arr in enumerate(arrays):
+        prep = _pid_bits(arr)
+        if prep is None:
+            return None
+        bits[k, :len(arr)], nulls[k, :len(arr)] = prep
+    return torch.from_numpy(bits).to(device), torch.from_numpy(nulls).to(device)
+
+
+def fetch_states_with_pids(
+    state: torch.Tensor, keep: int, bits: torch.Tensor, nulls: torch.Tensor, n_out: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """ONE device→host copy of the first ``keep`` state columns plus one row
+    of partition ids (:func:`partition_ids` over ``bits``/``nulls``, whose
+    width is that ``keep``, capped at the capacity): ``(states, pids)``."""
+    keep = min(keep, state.shape[1])
+    buf = torch.empty((state.shape[0] + 1, keep), dtype=I64, device=state.device)
+    buf[:-1] = state[:, :keep]
+    buf[-1] = partition_ids(bits, nulls, n_out)
+    host = buf.cpu().numpy()
+    return host[:-1], host[-1]
 
 
 # ------------------------------------------------------- device join (B5)

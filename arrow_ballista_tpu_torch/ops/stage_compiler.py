@@ -24,13 +24,25 @@ of the stream one radix sort orders the buffered rows by key, the gid
 kernel numbers the groups, the segmented scan reduces every aggregate and
 the finish kernel (B8) gathers the group keys into one fetch; the median
 (B9) and corr (B10) passes reuse that sort.
+A join-free basic-route stage over a scan retains its batches instead
+of folding each on arrival (``ballista.tpu.cache_columns``, on by
+default): each batch's group ids and leaf tensors stay on the device as
+one entry, and after the stream the multi-entry kernel (B13a) folds every
+entry at the final capacity into one state, fetched once; the entries go
+into the device column cache (``ops/device_cache.py``) under the scan's
+provider, so a repeated query replays them with no scan, no host encode
+and no bridge (``cache_hits``).  Under ``ballista.tpu.whole_stage_fusion``
+(``ops/fusion.py``) any such stage retains its batches for that one run,
+and the shuffle partition ids of its groups ride the same fetch
+(``fused_pid_in_kernel``).  Past ``_FUSED_MAX_ENTRIES`` entries, or at a
+capacity that takes the sort route, the entries run one launch each.
 Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
 (``ops/window_compiler.py``).  Everything else stays on the CPU operator
 path, gated by the same session config (``ballista.tpu.enable``).
 
 Not ported (the plan keeps the CPU operators, decided at plan time):
-udafs, the column cache and whole-stage fusion.  A join the fold
-declines runs on the CPU below the device aggregate.
+udafs.  A join the fold declines runs on the CPU below the device
+aggregate.
 """
 
 from __future__ import annotations
@@ -152,6 +164,22 @@ class _KeyedGroups:
 HIGHCARD_MIN_GROUPS = 1 << 16
 HIGHCARD_RATIO = 0.05
 KEYED_ROUTE_AUTO = False
+
+
+# Whole-stage fusion bounds (ballista.tpu.whole_stage_fusion): the
+# reference's builtin routing defaults (its fusion_max_ops and
+# fusion_min_rows), constants until a cuda routing table exists; tests
+# override them as they override the reference's.
+_FUSION_MAX_OPS = 8
+_FUSION_MIN_ROWS = 2048
+
+
+# The single-dispatch runner folds at most this many retained entries in
+# one multi-entry launch; past it each entry runs its own one-batch launch
+# into one state.  The cap is the reference's (which it set for its
+# compiler's unroll); it stays until the cuda routing grid measures where
+# the multi-entry launch stops paying on the card.
+_FUSED_MAX_ENTRIES = 32
 
 
 def keyed_route_wanted(config) -> bool:
@@ -910,6 +938,44 @@ class TorchStageExec(ExecutionPlan):
         and a kernel or build error raises."""
         self._shuffle_hint = (list(exprs), int(n_out))
 
+    def _fused_pid_spec(self):
+        """``(slots, n_out)`` when the shuffle pid column can be derived in
+        the fused run, else None.
+
+        Eligible exactly when every hint key is a host-encoded group column
+        with a device-hashable type: the group table then holds every kept
+        group's key codes when the run starts, so decoding them feeds the
+        same partition-id kernel the post-materialize hash would run, over
+        identical values, hence bit-identical pids, fetched with the state
+        in one copy.  ``slots`` is ``[(enc_slot, out_pos), ...]`` in
+        hint-key order (the hash combine is order-sensitive)."""
+        hint = self._shuffle_hint
+        if hint is None or not self.fused.group_exprs:
+            return None
+        exprs, n_out = hint
+        if not exprs or n_out <= 0 or n_out > K.PID_MAX_PARTITIONS:
+            return None
+        slots = []
+        for e in exprs:
+            if not isinstance(e, pe.Col) or not (
+                0 <= e.index < len(self._group_plan)
+            ):
+                return None
+            kind, slot = self._group_plan[e.index]
+            if kind != "enc":
+                return None
+            t = self._schema.field(e.index).type
+            if not (
+                pa.types.is_integer(t)
+                or pa.types.is_floating(t)
+                or pa.types.is_boolean(t)
+                or pa.types.is_date(t)
+                or pa.types.is_timestamp(t)
+            ):
+                return None
+            slots.append((slot, e.index))
+        return slots, n_out
+
     def output_partitioning(self) -> Partitioning:
         return self.fused.source.output_partitioning()
 
@@ -1100,9 +1166,34 @@ class TorchStageExec(ExecutionPlan):
             self._build_state = ("ok", bkeys, bvals, bvalids, kv_sorted, table)
             return self._build_state
 
+    def _cache_key(self, ctx: TaskContext):
+        """(provider, signature) when the stage source is a cacheable scan."""
+        if not ctx.config.tpu_cache_columns:
+            return None
+        from ..exec.operators import ScanExec
+
+        node = self.fused.source
+        while isinstance(node, RenameSchemaExec):
+            node = node.children()[0]
+        if not isinstance(node, ScanExec):
+            return None
+        # leaf col_index values are scan-relative, so the signature must pin
+        # the scan's actual column identity (projection / schema names) or
+        # two queries over different columns of the same provider collide
+        source_cols = ",".join(self.fused.source.schema.names)
+        sig = "|".join(
+            [f"{s.kind}:{s.col_index}:{s.cpu_expr}" for s in self.leaves.values()]
+            + [str(g) for g, _ in self.fused.group_exprs]
+            + [f"proj={node.projection}", f"cols={source_cols}"]
+            + [str(ctx.batch_size), f"cap={self.capacity}", "x64"]
+        )
+        return node.provider, sig
+
     def _execute_device(
         self, partition: int, ctx: TaskContext
     ) -> Iterator[pa.RecordBatch]:
+        from . import device_cache
+
         fused = self.fused
         build = None
         if fused.join is not None:
@@ -1112,6 +1203,52 @@ class TorchStageExec(ExecutionPlan):
                 # inner join against an empty build side: no rows at all
                 yield from self._materialize(None, [], None, 0, ctx, partition)
                 return
+        # the device column cache keys on scan inputs; join stages add
+        # build-side state and keyed stages buffer raw keys, so both skip it
+        ck = (
+            self._cache_key(ctx)
+            if fused.join is None and not self._needs_keyed
+            else None
+        )
+        # whole-stage fusion plan (ballista.tpu.whole_stage_fusion; off by
+        # default, which leaves the launches unchanged): when every compute
+        # op lands in segment 0 the batches are retained and the stage runs
+        # as ONE multi-entry launch even without a cache key, with the
+        # shuffle pid row fetched beside the state when the pid op fused too
+        fuse_pid = False
+        fusion_retain = False
+        if (
+            fused.join is None
+            and not self._needs_keyed
+            and self.config.tpu_whole_stage_fusion
+        ):
+            from .fusion import plan_segments, stage_ops
+
+            fplan = plan_segments(stage_ops(self), _FUSION_MAX_OPS)
+            self.metrics.add("fused_segments", len(fplan.segments))
+            self.metrics.add("fused_ops_per_dispatch", fplan.max_segment_ops)
+            fusion_retain = fplan.compute_fused()
+            fuse_pid = fplan.pid_fused()
+        if ck is not None:
+            cached = device_cache.get(ck[0], partition, ck[1])
+            if cached is not None:
+                # no scan, no host encode, no bridge: the retained device
+                # entries and group ids replay through the fused runner
+                entries, key_encoders, group_table, n_rows_in, cap = cached
+                with self.metrics.timer("tpu_stage_time_ns"):
+                    with self.metrics.timer("device_time_ns"):
+                        host_states, pids = self._run_fused(
+                            entries, cap,
+                            group_table if fused.group_exprs else None,
+                            key_encoders, fuse_pid,
+                        )
+                self.metrics.add("cache_hits", 1)
+                yield from self._materialize(
+                    host_states, key_encoders, group_table, n_rows_in, ctx,
+                    partition, fused_pids=pids,
+                )
+                return
+
         src = fused.source.execute(partition, ctx)
         coalesce = _shuffle_coalesce_rows(self.config)
         if coalesce > 0 and _reads_shuffle(fused.source):
@@ -1157,10 +1294,14 @@ class TorchStageExec(ExecutionPlan):
         ]
         group_table = GroupTable(max(self._n_encoded_groups, 1))
         staging = DeviceStaging(self.device)
-        on_cuda = self.device.type == "cuda"
-        launches: list = []  # (start, end) CUDA events per batch
+        launches: list = []  # (start, end) CUDA events per launch
+        # cache-eligible and fusion-retaining stages keep each batch's
+        # device tensors and run them all after the stream
+        retain = ck is not None or fusion_retain
+        entries: list = []
 
         state = None
+        fused_pids = None
         n_rows_in = 0
         cap = self.capacity
         dense_join = build is not None and build[0] == "dense"
@@ -1171,9 +1312,10 @@ class TorchStageExec(ExecutionPlan):
                     continue
                 n = batch.num_rows
                 n_rows_in += n
+                first = state is None and not entries
 
                 if fused.group_exprs:
-                    if state is None:
+                    if first:
                         # keyed-pinned stages whose keys encode on the
                         # device route BEFORE any host group encode: the
                         # raw key columns cross the bridge and
@@ -1183,11 +1325,11 @@ class TorchStageExec(ExecutionPlan):
                             raise _KeyedRoute([(batch, None)], src, fast, ra)
                     with self.metrics.timer("key_encode_time_ns"):
                         codes = self._encode_codes(batch, key_encoders)
-                    if state is None and self._needs_keyed:
+                    if first and self._needs_keyed:
                         # median, count distinct and corr live on the keyed
                         # route at any cardinality
                         raise _KeyedRoute([(batch, codes)], src, key_encoders, ra)
-                    if state is None:
+                    if first:
                         try:
                             with self.metrics.timer("key_encode_time_ns"):
                                 seg = self._assign_gids(codes, group_table)
@@ -1241,41 +1383,154 @@ class TorchStageExec(ExecutionPlan):
                 else:
                     seg = None  # all rows → group 0
 
-                kernel = self._kernel_for(cap, n, dense_join)
                 with self.metrics.timer("bridge_time_ns"):
                     args = self._kernel_args(batch, n, seg, staging, build)
                 with self.metrics.timer("device_time_ns"):
                     gid = args.pop()
                     if gid is None:
                         gid = torch.zeros(n, dtype=torch.int32, device=self.device)
-                    if on_cuda:
-                        start = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        start.record()
-                        state = kernel(gid, None, *args, state=state)
-                        end.record()
-                        launches.append((start, end))
-                    else:
-                        t0 = time.perf_counter_ns()
-                        state = kernel(gid, None, *args, state=state)
-                        self.metrics.add(
-                            "tpu_execute_ns", time.perf_counter_ns() - t0
-                        )
+                    if retain:
+                        # a retained tensor must own its memory: on the
+                        # CPU a staged tensor aliases its numpy array (on
+                        # cuda the copy out of the pinned buffer is fresh)
+                        if self.device.type == "cpu":
+                            gid = gid.clone()
+                            args = [None if a is None else a.clone() for a in args]
+                        entries.append((gid, None, args))
+                        continue
+                    kernel = self._kernel_for(cap, n, dense_join)
+                    state = self._timed(
+                        launches,
+                        lambda: kernel(gid, None, *args, state=state),
+                    )
 
             # the fetch waits for every launch, so the device timer covers
             # queue + compute + result copy
             with self.metrics.timer("device_time_ns"):
-                host_states = self._fetch_states(
-                    state, group_table.n_groups if fused.group_exprs else None
-                )
-            for start, end in launches:
-                self.metrics.add(
-                    "tpu_execute_ns", int(start.elapsed_time(end) * 1e6)
-                )
+                if entries:
+                    host_states, fused_pids = self._run_fused(
+                        entries, cap,
+                        group_table if fused.group_exprs else None,
+                        key_encoders, fuse_pid,
+                        # below the amortization floor the retained entries
+                        # stream instead (the cache path always fuses)
+                        stream=ck is None and n_rows_in < _FUSION_MIN_ROWS,
+                    )
+                else:
+                    host_states = self._fetch_states(
+                        state, group_table.n_groups if fused.group_exprs else None
+                    )
+            self._add_launch_times(launches)
 
+        if ck is not None and entries:
+            device_cache.put(
+                ck[0], partition, ck[1],
+                (entries, key_encoders, group_table, n_rows_in, cap),
+            )
         yield from self._materialize(
-            host_states, key_encoders, group_table, n_rows_in, ctx, partition
+            host_states, key_encoders, group_table, n_rows_in, ctx, partition,
+            fused_pids=fused_pids,
         )
+
+    def _timed(self, launches: list, call):
+        """Run one kernel call: timed by CUDA events appended to
+        ``launches`` on cuda (read after the fetch), by the host clock into
+        ``tpu_execute_ns`` on the CPU."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter_ns()
+            out = call()
+            self.metrics.add("tpu_execute_ns", time.perf_counter_ns() - t0)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call()
+        end.record()
+        launches.append((start, end))
+        return out
+
+    def _add_launch_times(self, launches: list) -> None:
+        for start, end in launches:
+            self.metrics.add("tpu_execute_ns", int(start.elapsed_time(end) * 1e6))
+
+    def _entries_kernel(self, capacity: int):
+        """The multi-entry stage function at ``capacity`` (cached)."""
+        key = ("entries", capacity)
+        fn = self._kernels.get(key)
+        if fn is None:
+            fn = K.make_entries_agg_kernel(
+                self._filter_closure, self._arg_closures, self.specs, capacity,
+                self._flat_names,
+            )
+            self._kernels[key] = fn
+        return fn
+
+    def _run_fused(
+        self, entries: list, cap: int, group_table, key_encoders, fuse_pid: bool,
+        stream: bool = False,
+    ) -> tuple:
+        """ONE multi-entry launch over the retained entries at the final
+        capacity, then ONE fetch of the kept groups' states (with the
+        shuffle pid row beside them when ``fuse_pid`` and the hint keys
+        allow): ``(host_states, pids or None)``.
+
+        Past ``_FUSED_MAX_ENTRIES``, under ``stream``, or when the final
+        capacity takes the sort route (B13a is a scatter-route kernel;
+        counted as ``fused_streamed``), each entry runs its own one-batch
+        launch into one state instead.  A failed launch raises: nothing
+        re-runs the entries another way."""
+        if self.fused.join is not None:
+            # cache- and fusion-retained stages are join-free; a join-fused
+            # stage's kernel needs the build side, which entries do not hold
+            raise ExecutionError("the fused runner takes join-free stages only")
+        launches: list = []
+        n_groups = group_table.n_groups if group_table is not None else None
+        sort_route = any(
+            K.segment_algo(cap, gid.shape[0], self.device) != "scatter"
+            for gid, _tail, _args in entries
+        )
+        if sort_route:
+            self.metrics.add("fused_streamed", 1)
+        if stream or sort_route or len(entries) > _FUSED_MAX_ENTRIES:
+            state = None
+            for gid, tail, args in entries:
+                kernel = self._kernel_for(cap, gid.shape[0])
+                state = self._timed(
+                    launches, lambda: kernel(gid, tail, *args, state=state)
+                )
+            host_states = self._fetch_states(state, n_groups)
+            self._add_launch_times(launches)
+            return host_states, None
+        keep = None if n_groups is None else _keep_bucket(n_groups)
+        pid = None
+        spec = self._fused_pid_spec() if fuse_pid and n_groups is not None else None
+        if spec is not None:
+            # the group table is complete: every group's hint-key values
+            # decode now and their ids ride the same fetch as the state
+            slots, n_out = spec
+            arrays = [
+                key_encoders[slot].decode(
+                    group_table.codes_for(np.arange(n_groups), slot),
+                    self._schema.field(pos).type,
+                )
+                for slot, pos in slots
+            ]
+            bits = K.pid_key_bits(arrays, min(keep, cap), self.device)
+            if bits is not None:
+                pid = (bits, n_out)
+        fn = self._entries_kernel(cap)
+        state = self._timed(launches, lambda: fn(entries))
+        self.metrics.add("fused_dispatches", 1)
+        if pid is None:
+            host_states = self._fetch_states(state, n_groups)
+            pids = None
+        else:
+            (bits, nulls), n_out = pid
+            packed, pids = K.fetch_states_with_pids(state, keep, bits, nulls, n_out)
+            host_states = K.unpack_host(self.specs, packed)
+            self.metrics.add("fused_pid_in_kernel", 1)
+        self._add_launch_times(launches)
+        return host_states, pids
 
     def _kernel_args(self, batch, n: int, seg, staging, build=None, keys=None):
         """The stage function's per-batch tensors on the device: the
@@ -1609,11 +1864,12 @@ class TorchStageExec(ExecutionPlan):
     # ------------------------------------------------------- materialize
     def _materialize(
         self, host_states, key_encoders, group_table, n_rows_in,
-        ctx: TaskContext, partition: int, aux=None,
+        ctx: TaskContext, partition: int, aux=None, fused_pids=None,
     ) -> Iterator[pa.RecordBatch]:
         """Build the output batch from the fetched numpy state arrays (and,
         on the keyed route, ``aux``: the median and corr passes' packed
-        results)."""
+        results; after a fused run with the pid fused, ``fused_pids``: the
+        partition id of every group slot)."""
         fused = self.fused
         schema = self._schema
 
@@ -1781,7 +2037,13 @@ class TorchStageExec(ExecutionPlan):
         self.metrics.add("input_rows", n_rows_in)
         hint = self._shuffle_hint
         if hint is not None and out.num_rows:
-            pids = K.device_partition_ids(out, hint[0], hint[1], self.device)
+            if fused_pids is not None:
+                # derived in the fused run over every group slot: the kept
+                # groups' ids, bit-identical to the separate kernel's (the
+                # same decoded key values through the same hash)
+                pids = fused_pids[:n_groups][keep]
+            else:
+                pids = K.device_partition_ids(out, hint[0], hint[1], self.device)
             if pids is not None:
                 from ..exec.operators import SHUFFLE_PID_COLUMN
 

@@ -32,6 +32,10 @@ Phases; any failure exits non-zero and prints no result line:
               (negative ints, nulls, NaN, ±0.0, float32, date32,
               timestamp): equal to its twin and to the host partitioner
               ``hash_partition_indices``;
+            * ``segment_agg_entries`` (B13a) at E in {1, 8, 32} entries
+              (2^22 rows each for E <= 8, 2^19 for 32, the last entry
+              shorter; q1's own entries are timed in the query phase) x capacity in {1, 64, 4096, 2^16}: bit-identical to
+              E ``segment_agg`` launches in entry order, equal to its twin;
             * ``join_build_table`` and ``join_probe`` (B5) in three forms
               (dense slot tables of 2^20 and 2^26 slots, sorted keys over a
               span past 2^26) at n in {2^20, 2^23} probe rows x {0, 1, 3}
@@ -42,7 +46,14 @@ Phases; any failure exits non-zero and prints no result line:
             seed, streamed as ``ballista.batch.size`` = 2^23-row batches,
             ``ballista.shuffle.partitions`` = 1) through
             ``SessionContext(device="cuda")``, held against the same session
-            with ``ballista.tpu.enable=false`` (the CPU operators);
+            with ``ballista.tpu.enable=false`` (the CPU operators), each
+            three ways: ``ballista.tpu.cache_columns=false`` (one
+            ``segment_agg`` launch per batch), cold with the column cache
+            (one ``segment_agg_entries`` launch, ``cache_hits`` 0, equal bit
+            for bit to the cache-off run) and warm on the same session (a
+            cache hit: no scan, ``key_encode_time_ns`` and
+            ``bridge_time_ns`` 0, equal bit for bit to the cold run), with
+            the peak device memory and ``device_cache.stats()`` after each;
 5. q3     — TPC-H q3 (BASELINE config #3) the same way; its join folds
             into the device stage, and the route must be the one the
             reference's capacity rule gives on this data, computed on the
@@ -76,15 +87,25 @@ Phases; any failure exits non-zero and prints no result line:
             writers' ``device_pid_batches`` above 0), its join stage folded
             (``join_build_table`` and ``join_probe`` launched, no
             ``join_fallback``) and its aggregate on the sort route;
-10. timing — every kernel at the first shape its main path gave it: the
+10. fusion — db-benchmark's h2o groupby q4 (mean v1:v3 by id4) over
+            G1_1e7_1e2 written as parquet files, through the standalone
+            cluster with ``ballista.tpu.whole_stage_fusion=true`` and
+            2^16-row batches (20 a map task, under the 32-entry cap),
+            against the same cluster with ``tpu.enable=false``: equal
+            results, no fallback, ``fused_dispatches`` and
+            ``fused_pid_in_kernel`` above 0, and every output batch's
+            partition ids equal to the host partitioner's;
+11. timing — every kernel at the first shape its main path gave it: the
             kernel, its twin and, where one PyTorch call computes the same
             function, that call (CUDA events, median of 20 launches),
             beside the least time the card could take (the bytes the call
             must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s).
 
-Launch counts are set to 0 just before each main-path run (q1/q6, q3, keyed q3,
-h2o q6/q9/q10, star join, window, distributed q3 and q1) and read just after; a kernel of that path
-that never launched fails the run.  Then one ``{"kernels": [...]}`` line and, last,
+Launch counts are set to 0 just before each main-path run (q1/q6 three ways
+each, q3, keyed q3, h2o q6/q9/q10, star join, window, distributed q3 and q1,
+the fusion leg) and read just after; a kernel of that path that never
+launched fails the run.  ``segment_agg_entries`` is timed at the cold q1
+run's shape beside its twin and one ``segment_agg`` launch per entry.  Then one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
 """
 
@@ -132,6 +153,8 @@ CUDA_DIR = "arrow_ballista_tpu_torch/ops/cuda/"
 # name -> (source, the JAX function it replaces)
 KERNELS = {
     "segment_agg": ("segment_agg.cu", "arrow_ballista_tpu/ops/kernels.py:1158"),
+    "segment_agg_entries": ("segment_agg_entries.cu",
+                            "arrow_ballista_tpu/ops/stage_compiler.py:2573"),
     "radix_sort": ("radix_sort.cu", "arrow_ballista_tpu/ops/window_kernel.py:165"),
     "seg_scan": ("seg_scan.cu", "arrow_ballista_tpu/ops/kernels.py:1051"),
     "range_extremum": ("range_extremum.cu", "arrow_ballista_tpu/ops/window_kernel.py:128"),
@@ -304,6 +327,81 @@ def kernel_phase(TK, device) -> tuple[float, dict, dict]:
                 del b6, b1, s6
             del args, runs, twin, state
     return worst, times, sorted_times
+
+
+ENTRY_COUNTS = (1, 8, 32)
+ENTRY_CAPACITIES = (1, 64, 4096, 1 << 16)
+ENTRY_ROWS = {1: 1 << 22, 8: 1 << 22, 32: 1 << 19}  # rows per entry (the last shorter)
+
+
+def _entries_bytes(rows, state) -> int:
+    """Bytes one multi-entry call must move: every entry's gid, masks and
+    columns read once, the state read and written once."""
+    total = 2 * state.numel() * 8
+    for gid, tail, pred, pvalid, values, valids in rows:
+        n = gid.numel()
+        total += 4 * n + sum(0 if m is None else n for m in (tail, pred, pvalid, *valids))
+        total += sum(0 if v is None else 8 * n for v in values)
+    return total
+
+
+def _b1_loop(TK, rows, ops, cols, state):
+    for r in rows:
+        TK.segment_agg_cuda(*r, ops, cols, state)
+    return state
+
+
+def entries_check(TK, rows, ops, cols, state0, reps: int = 20) -> dict:
+    """The multi-entry kernel on ``rows`` against one B1 launch per entry
+    (bit-identical, two runs bit-identical too) and against its twin (f64
+    sums within REL, all else exact); its ms per call beside the twin's,
+    the B1 loop's and the bound.  No single PyTorch call computes it."""
+    import torch
+
+    runs = [TK.segment_agg_entries_cuda(rows, ops, cols, state0.clone()) for _ in range(2)]
+    loop = _b1_loop(TK, rows, ops, cols, state0.clone())
+    twin = TK.segment_agg_entries_reference(rows, ops, cols, state0.clone())
+    torch.cuda.synchronize()
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("segment_agg_entries: two runs differ")
+    if not torch.equal(runs[0], loop):
+        raise AssertionError("segment_agg_entries: differs from one B1 launch per entry")
+    err = compare_states(TK, runs[0], twin, ops)
+    k_state = runs[0]
+    ms = _median_ms(lambda: TK.segment_agg_entries_cuda(rows, ops, cols, k_state), reps)
+    loop_ms = _median_ms(lambda: _b1_loop(TK, rows, ops, cols, loop), reps)
+    plain = _median_ms(lambda: TK.segment_agg_entries_reference(rows, ops, cols, twin),
+                       min(reps, 5))
+    n = sum(r[0].numel() for r in rows)
+    out = dict(entries=len(rows), rows=n, capacity=state0.shape[1], fields=len(ops),
+               max_abs_err=err, ms=ms, b1_loop_ms=loop_ms, plain_ms=plain,
+               library_ms=None)
+    out.update(_bound(_entries_bytes(rows, state0), f64_ops=n * len(ops)))
+    return out
+
+
+def entries_phase(TK, device) -> tuple[float, dict]:
+    """segment_agg_entries over E entries x capacity: bit-identical to E B1
+    launches, equal to its twin; returns the largest sum error and each
+    case's times."""
+    specs, ops, cols = _fields(TK)
+    worst, times = 0.0, {}
+    for e in ENTRY_COUNTS:
+        for cap in ENTRY_CAPACITIES:
+            n = ENTRY_ROWS[e]
+            sizes = [n] * (e - 1) + [n - n // 3 - 17]  # ragged: the last entry shorter
+            rows = []
+            for j, size in enumerate(sizes):
+                d = _inputs(size, cap, seed=1000 * e + cap + j, device=device)
+                rows.append((d["gid"], d["tail"], d["pred"], d["pvalid"],
+                             d["values"], d["valids"]))
+            t = entries_check(TK, rows, ops, cols, TK.init_states(specs, cap, device),
+                              reps=5)
+            worst = max(worst, t["max_abs_err"])
+            times[f"entries={e},capacity={cap}"] = t
+            print(f"segment_agg_entries entries={e} capacity={cap}: ok {json.dumps(t)}")
+            del rows
+    return worst, times
 
 
 # ------------------------------------------------ sort, scan and windows
@@ -997,54 +1095,107 @@ BREAKDOWN = ("tpu_stage_time_ns", "bridge_time_ns", "key_encode_time_ns",
              "device_time_ns", "tpu_compile_ns", "tpu_execute_ns")
 
 
+# the three runs of each cache leg: (name, session settings)
+CACHE_RUNS = (
+    ("cache_off", {"ballista.tpu.cache_columns": "false"}),
+    ("cold", {}),
+    ("warm", {}),
+)
+
+
+def _keep_entries(args):
+    """A multi-entry call's arguments, its state (changed in place) copied."""
+    return args[:-1] + (args[-1].clone(),)
+
+
 def query_phase(tbt, TK, batches, device) -> dict:
+    """q1 and q6 three ways each against the CPU operators: the column cache
+    off (one B1 launch per batch), cold with it on (the batches retained,
+    then one multi-entry launch) and warm (a cache hit: no scan, no host
+    encode, no bridge).  Warm is bit-identical to cold, and cold to the
+    cache-off run (the same fold order at the same capacity)."""
     import torch
 
+    from arrow_ballista_tpu_torch.exec.operators import ScanExec
+    from arrow_ballista_tpu_torch.ops import device_cache
     from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
     from benchmarks.tpch.queries import QUERIES
 
     n_rows = sum(b.num_rows for b in batches)
 
-    def session(enable: bool):
-        cfg = dict(SETTINGS, **{"ballista.tpu.enable": str(enable).lower()})
+    def session(enable: bool, extra: dict):
+        cfg = dict(SETTINGS, **extra, **{"ballista.tpu.enable": str(enable).lower()})
         ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
         ctx.register_record_batches("lineitem", [batches])
         return ctx
 
     out = {}
     for q in (1, 6):
-        cpu_ctx = session(False)
+        cpu_ctx = session(False, {})
         plan = cpu_ctx.sql(QUERIES[q]).physical_plan()
         t0 = time.perf_counter()
         want = cpu_ctx.execute(plan)
         cpu_s = time.perf_counter() - t0
+        del cpu_ctx, plan
+        print(f"q{q}: cpu_rows_per_s={n_rows / cpu_s!r} cpu_s={cpu_s!r}")
 
-        ctx = session(True)
-        plan = ctx.sql(QUERIES[q]).physical_plan()
-        stages = _stage_nodes(plan, TorchStageExec)
-        if not stages:
-            raise AssertionError(f"q{q}: no TorchStageExec in the plan")
-        _reset_counts(TK)
-        with Capture(TK, "segment_agg", keep=_keep_state) as first:
-            t0 = time.perf_counter()
-            got = ctx.execute(plan)
-            torch.cuda.synchronize()
-            dev_s = time.perf_counter() - t0
-        launches = dict(TK.LAUNCHES)
-        if launches["segment_agg"] < 1:
-            raise AssertionError(f"q{q}: the kernel never launched")
-        metrics = _stage_metrics(stages)
-        for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
-            if metrics.get(k, 0):
-                raise AssertionError(f"q{q}: {k}={metrics[k]}")
-        _tables_equal(want, got, f"q{q}")
-        breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN}
-        print(
-            f"q{q}: rows={n_rows} launches={json.dumps(launches)} "
-            f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
-            f"cuda_s={dev_s!r} cpu_s={cpu_s!r} breakdown={json.dumps(breakdown)}"
-        )
-        out[q] = dict(launches=launches, args=first.args)
+        results, runs = {}, {}
+        ctx = None
+        for name, extra in CACHE_RUNS:
+            if name != "warm":  # warm reuses the cold run's session and table
+                ctx = session(True, extra)
+            plan = ctx.sql(QUERIES[q]).physical_plan()
+            stages = _stage_nodes(plan, TorchStageExec)
+            scans = _stage_nodes(plan, ScanExec)
+            if not stages:
+                raise AssertionError(f"q{q} {name}: no TorchStageExec in the plan")
+            _reset_counts(TK)
+            torch.cuda.reset_peak_memory_stats()
+            with Capture(TK, "segment_agg", keep=_keep_state) as b1, \
+                    Capture(TK, "segment_agg_entries", keep=_keep_entries) as multi:
+                t0 = time.perf_counter()
+                got = ctx.execute(plan)
+                torch.cuda.synchronize()
+                dev_s = time.perf_counter() - t0
+            launches = dict(TK.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            metrics = _stage_metrics(stages)
+            for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
+                if metrics.get(k, 0):
+                    raise AssertionError(f"q{q} {name}: {k}={metrics[k]}")
+            _tables_equal(want, got, f"q{q} {name}")
+            if name == "cache_off":
+                if launches["segment_agg"] < 1 or launches["segment_agg_entries"]:
+                    raise AssertionError(f"q{q} cache off: launches {json.dumps(launches)}")
+            else:
+                if launches["segment_agg_entries"] != 1 or launches["segment_agg"]:
+                    raise AssertionError(f"q{q} {name}: launches {json.dumps(launches)}")
+                hits = metrics.get("cache_hits", 0)
+                if (name == "cold") != (hits == 0) or metrics.get("fused_dispatches", 0) != 1:
+                    raise AssertionError(f"q{q} {name}: {json.dumps(metrics)}")
+            if name == "warm":
+                scanned = sum(s.metrics.to_dict().get("output_rows", 0) for s in scans)
+                for k in ("key_encode_time_ns", "bridge_time_ns"):
+                    if metrics.get(k, 0):
+                        raise AssertionError(f"q{q} warm: {k}={metrics[k]}")
+                if scanned:
+                    raise AssertionError(f"q{q} warm: the scan read {scanned} rows")
+                if not got.equals(results["cold"]):
+                    raise AssertionError(f"q{q}: warm differs from cold")
+            if name == "cold" and not got.equals(results["cache_off"]):
+                raise AssertionError(f"q{q}: cold differs from the cache-off run")
+            results[name] = got
+            breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + ("cache_hits", "fused_dispatches")}
+            print(
+                f"q{q} {name}: rows={n_rows} launches={json.dumps(launches)} "
+                f"cuda_rows_per_s={n_rows / dev_s!r} cuda_s={dev_s!r} cpu_s={cpu_s!r} "
+                f"peak_device_bytes={peak} breakdown={json.dumps(breakdown)} "
+                f"device_cache={json.dumps(device_cache.stats())}"
+            )
+            runs[name] = dict(launches=launches, args=b1.args, entries=multi.args)
+            del plan, stages, scans
+        del ctx, results, want
+        out[q] = runs
     return out
 
 
@@ -1237,7 +1388,19 @@ def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device) -> dict:
     return dict(launches=launches, caps=caps)
 
 
-def h2o_phase(tbt, TK, device) -> dict:
+def h2o_batches() -> list:
+    """db-benchmark's G1_1e7_1e2 table in 2^23-row batches."""
+    from benchmarks.h2o.__main__ import gen_groupby
+
+    t0 = time.perf_counter()
+    x = gen_groupby(H2O_ROWS, H2O_K, seed=42)
+    batches = x.combine_chunks().to_batches(max_chunksize=1 << 23)
+    print(f"h2o: G1_1e7_1e2 rows={x.num_rows} batches={len(batches)} "
+          f"s={time.perf_counter() - t0!r}")
+    return batches
+
+
+def h2o_phase(tbt, TK, batches, device) -> dict:
     """db-benchmark's groupby questions q6, q9 and q10 over G1_1e7_1e2 on
     the keyed route, each against the CPU operators: q6 and q9 take it for
     their median and corr at any cardinality, q10 because
@@ -1246,15 +1409,9 @@ def h2o_phase(tbt, TK, device) -> dict:
     keys encode on the device only (``key_encode_time_ns`` 0), q9's string
     key is host-coded."""
     from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
-    from benchmarks.h2o.__main__ import QUESTIONS, gen_groupby
+    from benchmarks.h2o.__main__ import QUESTIONS
 
     sqls = {q: sql for q, _name, sql in QUESTIONS}
-    t0 = time.perf_counter()
-    x = gen_groupby(H2O_ROWS, H2O_K, seed=42)
-    batches = x.combine_chunks().to_batches(max_chunksize=1 << 23)
-    print(f"h2o: G1_1e7_1e2 rows={x.num_rows} batches={len(batches)} "
-          f"s={time.perf_counter() - t0!r}")
-    del x
     out = {}
     for q, extra in H2O_LEGS:
         def session(enable: bool):
@@ -1612,7 +1769,8 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
             if q == 3 and writer.get("device_pid_batches", 0) < 1:
                 raise AssertionError("distributed q3: the writers hashed no batch on the card")
             breakdown = {k: stage.get(k, 0) for k in BREAKDOWN + (
-                "join_build_time_ns", "dense_join", "join_fallback", "input_rows", "output_rows")}
+                "join_build_time_ns", "dense_join", "join_fallback", "input_rows", "output_rows",
+                "cache_hits", "fused_dispatches")}
             print(
                 f"distributed q{q}: lineitem_rows={lineitem_rows} "
                 f"launches={json.dumps(launches)} "
@@ -1628,6 +1786,124 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
     finally:
         ctx.close()
     return out
+
+
+FUSION_SETTINGS = {  # the fusion leg's cluster
+    "ballista.shuffle.partitions": "8",
+    "ballista.mesh.enable": "false",
+    "ballista.tpu.whole_stage_fusion": "true",
+    # each map task reads one parquet file of 1.25M rows: 20 batches of
+    # 2^16 rows, under the fused runner's 32-entry cap, so no task streams
+    "ballista.batch.size": str(1 << 16),
+}
+
+
+class FusedPidCheck:
+    """Wraps ``TorchStageExec._materialize`` to keep every output batch that
+    carries the shuffle pid column, with its stage's hint and whether the
+    ids came from the fused run; ``check`` holds each against the host
+    partitioner."""
+
+    def __enter__(self):
+        from arrow_ballista_tpu_torch.exec.operators import SHUFFLE_PID_COLUMN
+        from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+
+        self.cls, self.seen = TorchStageExec, []
+        inner = self.inner = TorchStageExec._materialize
+        seen = self.seen
+
+        def hook(stage, *args, **kwargs):
+            for b in inner(stage, *args, **kwargs):
+                if SHUFFLE_PID_COLUMN in b.schema.names:
+                    seen.append((b, stage._shuffle_hint,
+                                 kwargs.get("fused_pids") is not None))
+                yield b
+
+        TorchStageExec._materialize = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._materialize = self.inner
+
+    def check(self) -> tuple[int, int]:
+        """(rows checked, batches whose ids came from the fused run)."""
+        import pyarrow as pa
+
+        from arrow_ballista_tpu_torch.exec.operators import hash_partition_indices
+
+        rows = fused = 0
+        for b, (exprs, n), was_fused in self.seen:
+            keys = pa.RecordBatch.from_arrays(
+                b.columns[:-1], schema=pa.schema(list(b.schema)[:-1]))
+            want = hash_partition_indices(keys, exprs, n)
+            if not np.array_equal(np.asarray(b.column(b.num_columns - 1)), want):
+                raise AssertionError("fused partition ids differ from the host hash")
+            rows += b.num_rows
+            fused += int(was_fused)
+        return rows, fused
+
+
+def fusion_phase(tbt, TK, h2o_batches, root: str, device) -> dict:
+    """h2o groupby q4 (mean v1:v3 by id4) over G1_1e7_1e2 in PARQUET_FILES
+    parquet files through the port's standalone cluster with
+    ``whole_stage_fusion`` on, against the same cluster with
+    ``tpu.enable=false``: equal results, no fallback, every map task one
+    multi-entry launch with its partition ids in the same fetch, each id
+    equal to the host partitioner's."""
+    import pyarrow as pa
+
+    from benchmarks.h2o.__main__ import QUESTIONS
+
+    sql = {q: text for q, _name, text in QUESTIONS}["q4"]
+    x = pa.Table.from_batches(h2o_batches)
+    t0 = time.perf_counter()
+    write_parquet({"x": x}, root)
+    print(f"fusion: G1_1e7_1e2 rows={x.num_rows} as {PARQUET_FILES} parquet files "
+          f"s={time.perf_counter() - t0!r}")
+    n_rows = x.num_rows
+    del x
+    ctx = tbt.BallistaContext.standalone(
+        tbt.BallistaConfig(dict(FUSION_SETTINGS)), num_executors=1,
+        concurrent_tasks=4, device=device,
+    )
+    try:
+        ctx.register_parquet("x", os.path.join(root, "x"))
+        ctx.sql("SET ballista.tpu.enable = false")
+        want, cpu_s, _ = _run_job(ctx, sql)
+        ctx.sql("SET ballista.tpu.enable = true")
+        _reset_counts(TK)
+        with FusedPidCheck() as pids:
+            got, dev_s, metrics = _run_job(ctx, sql)
+        launches = dict(TK.LAUNCHES)
+        stage = metrics.get("TorchStageExec", {})
+        if stage.get("input_rows", 0) != n_rows:
+            raise AssertionError(f"fusion q4: the device stages read {stage.get('input_rows', 0)} "
+                                 f"of {n_rows} rows ({json.dumps(metrics)})")
+        for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback", "fused_streamed"):
+            if stage.get(k, 0):
+                raise AssertionError(f"fusion q4: {k}={stage[k]}")
+        for k in ("fused_dispatches", "fused_pid_in_kernel"):
+            if stage.get(k, 0) < 1:
+                raise AssertionError(f"fusion q4: {k}={stage.get(k, 0)} ({json.dumps(stage)})")
+        for k in ("segment_agg_entries", "partition_ids"):
+            if launches[k] < 1:
+                raise AssertionError(f"fusion q4: {k} never launched")
+        _sorted_close(want, got, "fusion q4")
+        hashed, fused_batches = pids.check()
+        if fused_batches < 1:
+            raise AssertionError("fusion q4: no output batch took its ids from the fused run")
+        breakdown = {k: stage.get(k, 0) for k in BREAKDOWN + (
+            "fused_segments", "fused_ops_per_dispatch", "fused_dispatches",
+            "fused_pid_in_kernel", "cache_hits", "input_rows", "output_rows")}
+        print(
+            f"fusion q4: rows={n_rows} groups={got.num_rows} launches={json.dumps(launches)} "
+            f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
+            f"cuda_s={dev_s!r} cpu_s={cpu_s!r} pid_rows_checked={hashed} "
+            f"fused_pid_batches={fused_batches} breakdown={json.dumps(breakdown)}"
+        )
+    finally:
+        ctx.close()
+    return dict(launches=launches)
 
 
 # ------------------------------------------------------------ timing phase
@@ -1977,6 +2253,7 @@ def run(opts, device) -> list:
 
     t0 = time.perf_counter()
     kernel_err, kernel_times, sorted_times = kernel_phase(TK, device)
+    entries_err, entries_times = entries_phase(TK, device)
     sort_times = sort_phase(TK, device)
     scan_times, rx_times, epilogue_times = scan_phase(TK, WK, device)
     scan_err = max(t["max_abs_err"] for t in scan_times.values())
@@ -1987,19 +2264,33 @@ def run(opts, device) -> list:
     batches = lineitem_batches(lineitem)
     del lineitem
     queries = query_phase(tbt, TK, batches, device)
+    # the multi-entry kernel at the cold runs' shapes, timed now so that
+    # the captured entries (every closure output of the query) go early
+    entry_shapes = {}
+    for q, r in queries.items():
+        (rows, ops, cols, state0), _ = r["cold"].pop("entries")
+        r["warm"].pop("entries")
+        entry_shapes[f"q{q}"] = entries_check(TK, rows, ops, cols, state0)
+        print(f"timing segment_agg_entries q{q} cold: {json.dumps(entry_shapes[f'q{q}'])}")
+        del rows, state0
     q3 = q3_phase(tbt, TK, batches, orders, customer, device)
     q3k = q3_keyed_phase(tbt, TK, batches, orders, customer, q3.pop("want"), device)
     del orders, customer
-    h2o = h2o_phase(tbt, TK, device)
+    g1 = h2o_batches()
+    h2o = h2o_phase(tbt, TK, g1, device)
     star = star_phase(tbt, TK, device)
     window = window_phase(tbt, TK, WK, batches[:WINDOW_BATCHES], device)
     del batches
     with parquet:
         dist = distributed_phase(tbt, TK, parquet.name, lineitem_rows, device)
-    runs = [queries[1], queries[6], q3, q3k, *h2o.values(), star, window, dist[3], dist[1]]
+    with tempfile.TemporaryDirectory(prefix="g1-parquet-") as g1_root:
+        fusion = fusion_phase(tbt, TK, g1, g1_root, device)
+    del g1
+    runs = [*queries[1].values(), *queries[6].values(), q3, q3k, *h2o.values(), star,
+            window, dist[3], dist[1], fusion]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
-    shapes = {f"q{q}": time_shape(TK, r["args"]) for q, r in queries.items()}
+    shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
     sort_shapes = {"q3": _checked_sort(TK, q3["sort"]),
                    "window": _checked_sort(TK, window["sort"])}
     route = _time_sort_route(TK, q3["route"])
@@ -2028,6 +2319,10 @@ def run(opts, device) -> list:
         _entry("segment_agg", shapes["q1"], launches["segment_agg"],
                max([kernel_err] + [s["max_abs_err"] for s in shapes.values()]),
                shapes=shapes, kernel_phase=kernel_times, sort_route=sorted_times),
+        _entry("segment_agg_entries", entry_shapes["q1"], launches["segment_agg_entries"],
+               max([entries_err] + [t["max_abs_err"] for t in entry_shapes.values()]),
+               b1_loop_ms=entry_shapes["q1"]["b1_loop_ms"], shapes=entry_shapes,
+               kernel_phase=entries_times),
         _entry("radix_sort", sort_shapes["q3"], launches["radix_sort"], 0.0,
                shapes=sort_shapes, kernel_phase=sort_times),
         _entry("seg_scan", scan_shapes["window"], launches["seg_scan"],

@@ -100,29 +100,38 @@ def test_segment_agg_kernel_rejects_bad_input(cuda):
                             valids, _OPS, _COLS, state)
 
 
+# (device on, cache_columns, the kernel that must launch): the CPU
+# operators, the per-batch B1 path with the column cache off, and the
+# default path, whose retained batches fold in one multi-entry launch
+_RUNS = (("false", "true", None), ("true", "false", "segment_agg"),
+         ("true", "true", "segment_agg_entries"))
+
+
 @pytest.mark.parametrize("q", [1, 6])
 def test_tpch_on_cuda_matches_cpu_operators(cuda, q):
     lineitem = gen_lineitem(0.05)
     out = []
-    for enable in ("false", "true"):
+    for enable, cache, kernel in _RUNS:
         ctx = tbt.SessionContext(
             tbt.BallistaConfig({"ballista.tpu.enable": enable,
+                                "ballista.tpu.cache_columns": cache,
                                 "ballista.tpu.min_rows": "0"}),
             device=cuda,
         )
         ctx.register_arrow_table("lineitem", lineitem, partitions=2)
-        before = TK.LAUNCHES["segment_agg"]
+        before = dict(TK.LAUNCHES)
         out.append(ctx.sql(QUERIES[q]).collect())
-        if enable == "true":
-            assert TK.LAUNCHES["segment_agg"] > before
-    a, b = out
-    assert a.num_rows == b.num_rows
-    for name in a.schema.names:
-        for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
-            if isinstance(x, float):
-                assert y == pytest.approx(x, rel=1e-9)
-            else:
-                assert x == y
+        if kernel is not None:
+            assert TK.LAUNCHES[kernel] > before[kernel], kernel
+    a = out[0]
+    for b in out[1:]:
+        assert a.num_rows == b.num_rows
+        for name in a.schema.names:
+            for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
+                if isinstance(x, float):
+                    assert y == pytest.approx(x, rel=1e-9)
+                else:
+                    assert x == y
 
 
 def _stage_table():
@@ -153,25 +162,112 @@ def _stage_table():
 def test_stage_on_cuda_matches_cpu_operators(cuda, sql):
     tbl = _stage_table()
     out = []
-    for enable in ("false", "true"):
+    for enable, cache, kernel in _RUNS:
         ctx = tbt.SessionContext(
             tbt.BallistaConfig({"ballista.tpu.enable": enable,
+                                "ballista.tpu.cache_columns": cache,
                                 "ballista.tpu.min_rows": "0"}),
             device=cuda,
         )
         ctx.register_arrow_table("t", tbl, partitions=2)
-        before = TK.LAUNCHES["segment_agg"]
+        before = dict(TK.LAUNCHES)
         out.append(ctx.sql(sql).collect())
-        if enable == "true":
-            assert TK.LAUNCHES["segment_agg"] > before
-    a, b = out
-    assert a.num_rows == b.num_rows == 100
-    for name in a.schema.names:
-        for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
-            if isinstance(x, float):
-                assert y == pytest.approx(x, rel=1e-9)
-            else:
-                assert x == y
+        if kernel is not None:
+            assert TK.LAUNCHES[kernel] > before[kernel], kernel
+    a = out[0]
+    for b in out[1:]:
+        assert a.num_rows == b.num_rows == 100
+        for name in a.schema.names:
+            for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
+                if isinstance(x, float):
+                    assert y == pytest.approx(x, rel=1e-9)
+                else:
+                    assert x == y
+
+
+# ------------------------------------- multi-entry segment aggregate (B13a)
+def _entries(n_entries, cap, device, seed):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 300_000, n_entries)
+    sizes[0] = 300_000  # at least one entry cut into many chunks
+    return [_inputs(int(n), cap, device, seed=seed + j) for j, n in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("cap", [1, 64, 4096, 1 << 16])
+@pytest.mark.parametrize("n_entries", [1, 8, 32])
+def test_segment_agg_entries_matches_b1_launches_and_twin(cuda, n_entries, cap):
+    """One multi-entry launch is bit-identical to one B1 launch per entry in
+    entry order (two runs bit-identical too), and equals the twin within
+    rel 1e-9 (f64 sums) and exactly elsewhere."""
+    entries = _entries(n_entries, cap, cuda, seed=n_entries * 31 + cap)
+    runs = []
+    for _ in range(2):
+        state = TK.init_states(_SPECS, cap, cuda)
+        runs.append(TK.segment_agg_entries_cuda(entries, _OPS, _COLS, state))
+    loop = TK.init_states(_SPECS, cap, cuda)
+    for e in entries:
+        TK.segment_agg_cuda(*e, _OPS, _COLS, loop)
+    twin = TK.segment_agg_entries_reference(entries, _OPS, _COLS,
+                                            TK.init_states(_SPECS, cap, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], loop)
+    k, t = runs[0].cpu().numpy(), twin.cpu().numpy()
+    for f, op in enumerate(_OPS):
+        if op == TK.OP_ADD_F64:
+            np.testing.assert_allclose(k[f].view(np.float64), t[f].view(np.float64),
+                                       rtol=1e-9, atol=0)
+        else:
+            np.testing.assert_array_equal(k[f], t[f])
+
+
+def test_segment_agg_entries_rejects_bad_input(cuda):
+    entries = _entries(3, 4, cuda, seed=3)
+    state = TK.init_states(_SPECS, 4, cuda)
+    with pytest.raises(ValueError, match="no entries"):
+        TK.segment_agg_entries_cuda([], _OPS, _COLS, state)
+    bad = list(entries[1])
+    bad[0] = bad[0].long()
+    with pytest.raises(ValueError, match="gid"):
+        TK.segment_agg_entries_cuda([entries[0], tuple(bad)], _OPS, _COLS, state)
+    bad = list(entries[2])
+    bad[2] = bad[2].cpu()
+    with pytest.raises(ValueError, match="pred"):
+        TK.segment_agg_entries_cuda([entries[0], tuple(bad)], _OPS, _COLS, state)
+
+
+def test_cache_hit_on_cuda_equals_the_cold_run(cuda):
+    """q1 twice on one session: the warm run replays the retained entries
+    (a cache hit, no host encode, no bridge) through the same multi-entry
+    launch, and its answer is bit-identical to the cold run's."""
+    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+
+    ctx = tbt.SessionContext(
+        tbt.BallistaConfig({"ballista.tpu.min_rows": "0",
+                            "ballista.batch.size": "65536"}),
+        device=cuda,
+    )
+    ctx.register_arrow_table("lineitem", gen_lineitem(0.05), partitions=2)
+    out, metrics = [], []
+    for _ in range(2):
+        plan = ctx.sql(QUERIES[1]).physical_plan()
+        before = TK.LAUNCHES["segment_agg_entries"]
+        out.append(ctx.execute(plan))
+        assert TK.LAUNCHES["segment_agg_entries"] > before
+        m: dict = {}
+        stack = [plan]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, TorchStageExec):
+                for k, v in node.metrics.to_dict().items():
+                    m[k] = m.get(k, 0) + v
+            stack.extend(node.children())
+        metrics.append(m)
+    assert metrics[0].get("cache_hits", 0) == 0
+    assert metrics[1].get("cache_hits", 0) >= 1
+    assert metrics[1].get("key_encode_time_ns", 0) == 0
+    assert metrics[1].get("bridge_time_ns", 0) == 0
+    assert out[0].equals(out[1])
 
 
 # ------------------------------------------------- sort, scan, windows

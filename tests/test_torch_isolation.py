@@ -48,6 +48,7 @@ HOST_COPIES = [
     "shuffle/fetcher.py", "shuffle/writer.py", "shuffle/memory_store.py",
     "shuffle/delta_store.py",
     "testing/__init__.py", "testing/faults.py", "utils/diagram.py",
+    "ops/fusion.py",
 ]
 # ported, not copied: context.py gains the device, ops/bridge.py gains the
 # device staging (appended after the copied body) and a zigzag identity key
@@ -88,6 +89,16 @@ ALLOWLIST = {
     "obs/export.py",
     # apply_jax_platform_env goes (only the JAX package's binaries call it)
     "utils/__init__.py",
+    # the executor binary gains --device (default cuda, raising at start
+    # without a card) and drops apply_jax_platform_env
+    "executor/__main__.py",
+    # the scheduler binary drops apply_jax_platform_env and the REST API
+    # and FlightSQL front-ends (not ported: asking for them exits), and
+    # its default work dir is a fresh one under TMPDIR
+    "scheduler/__main__.py",
+    # the column cache counts torch tensors and states its budget as a
+    # plain number (the reference sizes it against a TPU's memory)
+    "ops/device_cache.py",
 }
 
 

@@ -371,7 +371,10 @@ def test_kernel_failure_raises_without_cpu_fallback(monkeypatch):
     def broken(*args, **kwargs):
         raise ExecutionError("kernel failed")
 
+    # the one-batch kernel (cache off) and the multi-entry kernel (the
+    # default column cache's fused run) alike
     monkeypatch.setattr(TK, "segment_agg", broken)
+    monkeypatch.setattr(TK, "segment_agg_entries", broken)
     ctx = _port()
     _register_tpch(ctx)
     plan = ctx.sql(QUERIES[6]).physical_plan()
