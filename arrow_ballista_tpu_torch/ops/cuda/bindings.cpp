@@ -15,6 +15,7 @@
 #include <utility>
 #include <vector>
 
+#include "expr_eval.h"
 #include "join_probe.h"
 #include "keyed.h"
 #include "partition_id.h"
@@ -565,9 +566,53 @@ void corr_center_(const at::Tensor& s2, const at::Tensor& perm,
   launched(corr_center_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
+// One launch of the expression program: ``words`` holds the code (32-byte
+// rows) and then the IN tables, on the card; ``inputs`` the env tensor of
+// each input slot and ``outputs`` each store's tensor, an empty tensor
+// standing for an absent validity or an output not written.  The Python
+// wrapper (ops/kernels.py:expr_eval_cuda) validates the program and
+// checks every tensor first.
+void expr_eval_(const at::Tensor& words, int64_t n_instr, int64_t n_regs,
+                const std::vector<at::Tensor>& inputs,
+                const std::vector<at::Tensor>& outputs, int64_t n) {
+  const at::Device dev = words.device();
+  c10::cuda::CUDAGuard guard(dev);
+  TORCH_CHECK(words.is_cuda() && words.scalar_type() == at::kLong &&
+                  words.dim() == 1 && words.is_contiguous(),
+              "expr_eval: code must be a contiguous int64 CUDA tensor");
+  TORCH_CHECK(n_instr >= 1 && n_instr <= kExprMaxInstr && n_regs >= 0 &&
+                  n_regs <= n_instr && words.size(0) >= 4 * n_instr,
+              "expr_eval: code size");
+  TORCH_CHECK(inputs.size() <= (size_t)kExprMaxInputs &&
+                  outputs.size() <= (size_t)kExprMaxOutputs,
+              "expr_eval: too many slots");
+  ExprEvalParams p{};
+  const int64_t* w = words.data_ptr<int64_t>();
+  p.code = reinterpret_cast<const ExprInstr*>(w);
+  p.consts = reinterpret_cast<const long long*>(w + 4 * n_instr);
+  p.n = n;
+  p.n_instr = (int)n_instr;
+  p.n_regs = (int)n_regs;
+  for (size_t i = 0; i < inputs.size(); ++i) {
+    const at::Tensor& x = inputs[i];
+    TORCH_CHECK(x.numel() == 0 || (x.device() == dev && x.is_contiguous()),
+                "expr_eval: input on another device");
+    p.in[i] = x.numel() ? x.data_ptr() : nullptr;
+  }
+  for (size_t i = 0; i < outputs.size(); ++i) {
+    const at::Tensor& x = outputs[i];
+    TORCH_CHECK(x.numel() == 0 || (x.device() == dev && x.is_contiguous()),
+                "expr_eval: output on another device");
+    p.out[i] = x.numel() ? x.data_ptr() : nullptr;
+  }
+  launched(expr_eval_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("expr_eval", &expr_eval_,
+        "the expression program (filter, aggregate arguments) over one batch");
   m.def("segment_agg", &segment_agg,
         "segment aggregate of one batch merged into the running state");
   m.def("segment_agg_entries", &segment_agg_entries_,

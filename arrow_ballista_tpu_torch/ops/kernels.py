@@ -2,8 +2,10 @@
 
 Counterpart of ``arrow_ballista_tpu/ops/kernels.py`` for one CUDA device.
 The eligible stage subtree (filter → project → partial aggregate) runs per
-batch as torch elementwise ops on the stage's device (the expression
-closures, which XLA inlined into one program on the reference) followed by
+batch as one launch of the hand-written expression kernel
+(``ops/cuda/expr_eval.cu``: the filter and arguments compiled once into a
+register program from the expression closures, which XLA inlined into one
+program on the reference) followed by
 the hand-written segment aggregate that folds the masks, reduces per group
 and merges into the running state: the scatter route
 (``ops/cuda/segment_agg.cu``) or, at large capacity on cuda, the sort
@@ -114,13 +116,108 @@ def _const(value, dtype: torch.dtype) -> Callable[[dict], torch.Tensor]:
     return get
 
 
+@dataclass(frozen=True)
+class ExprNode:
+    """The typed twin of one lowered closure, which :class:`ExprProgram`
+    compiles: ``op`` (an :data:`EXPR_OPS` name before linearisation, or
+    "div"/"mod" resolved to their int or float form here), the static
+    value dtype (bool, int64 or float64; None for a validity-only leaf),
+    the argument nodes and a constant: a leaf's (value, validity) env
+    names, a literal's int64 bit pattern, an IN list's (dtype, bit
+    patterns), whether a CASE has an ELSE, or an "error" node's message
+    (an operation torch refuses, raised when the program is built, where
+    the closure raises when it runs).  Equal nodes compute equal values."""
+
+    op: str
+    dtype: Optional[torch.dtype]
+    args: tuple = ()
+    const: object = None
+
+
+def _with_node(closure: TorchClosure, node: ExprNode) -> TorchClosure:
+    closure.node = node
+    return closure
+
+
+def _bits(value, dtype: torch.dtype) -> int:
+    """The int64 bit pattern of a literal of ``dtype``."""
+    if dtype == F64:
+        return int(np.array(value, np.float64).view(np.int64))
+    return int(value)
+
+
+_BINARY_OPS = {
+    "=": "eq", "<>": "ne", "<": "lt", "<=": "le", ">": "gt", ">=": "ge",
+    "+": "add", "-": "sub", "*": "mul",
+}
+_ARITH = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}
+_BOOL_OPS = ("and", "or", "not", "is_null", "is_not_null",
+             "eq", "ne", "lt", "le", "gt", "ge")
+
+
+def _node(op: str, *closures) -> ExprNode:
+    """The node of an operation over the closures' nodes, its dtype decided
+    as the closure's torch calls decide it."""
+    args = tuple(c.node for c in closures)
+    err = next((a for a in args if a.op == "error"), None)
+    if err is not None:
+        return err
+    if op in _BOOL_OPS:
+        return ExprNode(op, torch.bool, args)
+    if op in ("div", "mod"):  # both int64 (bool is not): truncating / floor
+        ints = all(a.dtype == I64 for a in args)
+        return ExprNode(f"{op}_int" if ints else f"{op}_f", I64 if ints else F64, args)
+    if op in ("add", "sub", "mul", "neg"):
+        zeros = [torch.zeros((), dtype=a.dtype) for a in args]
+        try:
+            if op == "neg":
+                dtype = (-zeros[0]).dtype
+            else:
+                dtype = _ARITH[op](*_numeric_align(*zeros)).dtype
+        except RuntimeError as exc:  # bool - bool, -bool
+            return ExprNode("error", None, args, str(exc))
+        return ExprNode(op, dtype, args)
+    return ExprNode(op, F64, args)  # the float functions, power, round, square
+
+
+def _in_node(f: TorchClosure, items, all_int: bool, negated: bool) -> ExprNode:
+    """IN / NOT IN: the table in the dtype the closure compares in."""
+    child = f.node
+    if child.op == "error":
+        return child
+    try:
+        if all_int:
+            table = torch.tensor(list(items), dtype=I64)
+            if child.dtype != I64:
+                table = table.to(F64)
+        else:
+            table = torch.tensor([_to_num(i) for i in items], dtype=F64)
+    except (RuntimeError, OverflowError) as exc:
+        return ExprNode("error", None, (child,), str(exc))
+    bits = tuple(table.view(I64).tolist())
+    return ExprNode("not_in" if negated else "in", torch.bool, (child,),
+                    (table.dtype, bits))
+
+
+def _cast_node(child: ExprNode, dt: torch.dtype) -> ExprNode:
+    """CAST as :func:`_cast` does it: float → int64 saturates, a cast to the
+    same dtype is the value itself, the rest is ``.to``."""
+    if child.op == "error" or dt == child.dtype:
+        return child
+    if dt == I64 and child.dtype == F64:
+        return ExprNode("cast_i64", I64, (child,))
+    return ExprNode("convert", dt, (child,))
+
+
 class TorchExprCompiler:
     """Lower PhysicalExpr trees to torch closures over a shared leaf env.
 
     Counterpart of the reference's ``JaxExprCompiler``: any subtree that
     cannot lower (LIKE, string functions, …) but whose OUTPUT is
     device-friendly becomes a ``cpu_expr`` leaf evaluated by pyarrow per
-    batch and shipped beside the raw columns.
+    batch and shipped beside the raw columns.  Every closure carries its
+    typed :class:`ExprNode` (``closure.node``), which a stage compiles into
+    an :class:`ExprProgram`; the closures are the program's specification.
     """
 
     def __init__(self, schema: pa.Schema):
@@ -152,7 +249,7 @@ class TorchExprCompiler:
         def run(env: dict):
             return env[name], env[vname]
 
-        return run
+        return _with_node(run, ExprNode("leaf", _pa_to_torch_dtype(t), (), (name, vname)))
 
     def validity_only(self, e: pe.Col) -> TorchClosure:
         """Leaf that ships ONLY the validity mask of a column (count(col))."""
@@ -163,7 +260,7 @@ class TorchExprCompiler:
         def run(env: dict):
             return None, env[vname]
 
-        return run
+        return _with_node(run, ExprNode("leaf", None, (), (None, vname)))
 
     def ord_pair_column(self, e: pe.Col) -> TorchClosure:
         """Leaf that ships a numeric column as an order-preserving (hi, lo)
@@ -196,7 +293,9 @@ class TorchExprCompiler:
         def run(env: dict):
             return env[name], env[vname]
 
-        return run
+        return _with_node(
+            run, ExprNode("leaf", _pa_to_torch_dtype(out_t), (), (name, vname))
+        )
 
     def _lower_or_leaf(self, e: pe.PhysicalExpr) -> TorchClosure:
         try:
@@ -214,18 +313,22 @@ class TorchExprCompiler:
             if v is None:
                 raise NotLowerable("null literal")
             if isinstance(v, bool):
-                const = _const(v, torch.bool)
+                dtype, value = torch.bool, v
             elif isinstance(v, int):
                 if not -(2**63) <= v < 2**63:
                     raise NotLowerable(f"int literal {v} exceeds i64")
-                const = _const(v, I64)
+                dtype, value = I64, v
             elif isinstance(v, float):
-                const = _const(v, F64)
+                dtype, value = F64, v
             elif _is_date(v):
-                const = _const(_days(v), I64)
+                dtype, value = I64, _days(v)
             else:
                 raise NotLowerable(f"literal {v!r}")
-            return lambda env: (const(env), None)
+            const = _const(value, dtype)
+            return _with_node(
+                lambda env: (const(env), None),
+                ExprNode("lit", dtype, (), _bits(value, dtype)),
+            )
 
         if isinstance(e, pe.Binary):
             op = e.op
@@ -243,7 +346,7 @@ class TorchExprCompiler:
                         return torch.logical_and(lv, rv), None
                     return torch.logical_or(lv, rv), None
 
-                return run_bool
+                return _with_node(run_bool, _node(op.lower(), lf, rf))
             lf, rf = self._lower(e.left), self._lower(e.right)
             fns = {
                 "=": torch.eq, "<>": torch.ne, "<": torch.lt,
@@ -259,25 +362,17 @@ class TorchExprCompiler:
                     lv, rv = _numeric_align(lv, rv)
                     return f(lv, rv), _merge_valid(lval, rval)
 
-                return run_bin
+                return _with_node(run_bin, _node(_BINARY_OPS[op], lf, rf))
             if op == "/":
 
                 def run_div(env, lf=lf, rf=rf):
                     lv, lval = lf(env)
                     rv, rval = rf(env)
                     if _is_int(lv) and _is_int(rv):
-                        # SQL / Arrow integer division truncates toward
-                        # zero with the zero divisor guarded (the
-                        # reference's lax.div); `//` would floor
-                        lv, rv = lv.to(I64), rv.to(I64)
-                        rv_safe = torch.where(rv == 0, torch.ones_like(rv), rv)
-                        return (
-                            torch.div(lv, rv_safe, rounding_mode="trunc"),
-                            _merge_valid(lval, rval),
-                        )
+                        return _trunc_div(lv, rv), _merge_valid(lval, rval)
                     return lv.to(F64) / rv.to(F64), _merge_valid(lval, rval)
 
-                return run_div
+                return _with_node(run_div, _node("div", lf, rf))
             if op == "%":
 
                 def run_mod(env, lf=lf, rf=rf):
@@ -285,7 +380,7 @@ class TorchExprCompiler:
                     rv, rval = rf(env)
                     return _floor_mod(lv, rv), _merge_valid(lval, rval)
 
-                return run_mod
+                return _with_node(run_mod, _node("mod", lf, rf))
             raise NotLowerable(f"binary op {op}")
 
         if isinstance(e, pe.Not):
@@ -296,7 +391,7 @@ class TorchExprCompiler:
                 v = v if val is None else torch.logical_and(v, val)
                 return torch.logical_not(v), None
 
-            return run_not
+            return _with_node(run_not, _node("not", f))
 
         if isinstance(e, pe.Negative):
             f = self._lower(e.expr)
@@ -305,7 +400,7 @@ class TorchExprCompiler:
                 v, val = f(env)
                 return -v, val
 
-            return run_neg
+            return _with_node(run_neg, _node("neg", f))
 
         if isinstance(e, pe.IsNull):
             f = self._lower_or_leaf(e.expr)
@@ -319,7 +414,9 @@ class TorchExprCompiler:
                     return (torch.logical_not(out) if negated else out), None
                 return (val if negated else torch.logical_not(val)), None
 
-            return run_isnull
+            return _with_node(
+                run_isnull, _node("is_not_null" if negated else "is_null", f)
+            )
 
         if isinstance(e, pe.InList):
             f = self._lower(e.expr)
@@ -351,7 +448,7 @@ class TorchExprCompiler:
                     m = torch.logical_not(m)
                 return m, val
 
-            return run_in
+            return _with_node(run_in, _in_node(f, items, all_int, negated))
 
         if isinstance(e, pe.Case):
             whens = [
@@ -382,7 +479,12 @@ class TorchExprCompiler:
                     acc_val = torch.where(c, tv, acc_val)
                 return acc, acc_val
 
-            return run_case
+            args = tuple(g.node for pair in whens for g in pair)
+            if else_f is not None:
+                args += (else_f.node,)
+            return _with_node(
+                run_case, ExprNode("case", out_dtype, args, else_f is not None)
+            )
 
         if isinstance(e, pe.Cast):
             f = self._lower(e.expr)
@@ -392,7 +494,7 @@ class TorchExprCompiler:
                 v, val = f(env)
                 return _cast(v, dt), val
 
-            return run_cast
+            return _with_node(run_cast, _cast_node(f.node, dt))
 
         if isinstance(e, pe.ScalarFn):
             mapping = {
@@ -409,7 +511,7 @@ class TorchExprCompiler:
                     v, val = f(env)
                     return fn(v.to(F64)), val
 
-                return run_fn
+                return _with_node(run_fn, _node(e.fname, f))
             if e.fname == "power" and len(e.args) == 2:
                 a = self._lower(e.args[0])
                 b = self._lower(e.args[1])
@@ -419,7 +521,7 @@ class TorchExprCompiler:
                     bv, bval = b(env)
                     return torch.pow(av.to(F64), bv.to(F64)), _merge_valid(aval, bval)
 
-                return run_pow
+                return _with_node(run_pow, _node("power", a, b))
             if e.fname == "round":
                 f = self._lower(e.args[0])
 
@@ -428,7 +530,7 @@ class TorchExprCompiler:
                     # half-to-even, as jnp.round
                     return torch.round(v.to(F64)), val
 
-                return run_round
+                return _with_node(run_round, _node("round", f))
             raise NotLowerable(f"scalar fn {e.fname}")
 
         raise NotLowerable(f"node {type(e).__name__}")
@@ -442,7 +544,7 @@ def square_closure(closure: TorchClosure) -> TorchClosure:
         v = v.to(F64)
         return v * v, valid
 
-    return run
+    return _with_node(run, _node("square", closure))
 
 
 def _merge_valid(a, b):
@@ -465,13 +567,25 @@ def _numeric_align(lv, rv):
     return lv.to(I64), rv.to(I64)
 
 
+def _trunc_div(lv: torch.Tensor, rv: torch.Tensor) -> torch.Tensor:
+    """SQL / Arrow integer ``/``: truncates toward zero (``//`` would
+    floor) with a zero divisor guarded, as the reference's ``lax.div``;
+    ``x / -1`` is the wrapping negation, so ``INT64_MIN / -1`` is
+    ``INT64_MIN`` as in XLA (the CPU's division traps there)."""
+    lv, rv = lv.to(I64), rv.to(I64)
+    neg1 = rv == -1
+    rv_safe = torch.where((rv == 0) | neg1, torch.ones_like(rv), rv)
+    return torch.where(neg1, -lv, torch.div(lv, rv_safe, rounding_mode="trunc"))
+
+
 def _floor_mod(lv: torch.Tensor, rv: torch.Tensor) -> torch.Tensor:
     """``jnp.mod``: floor modulo; an integer zero divisor gives 0 (torch
-    raises on the CPU and returns garbage on CUDA, so it is guarded)."""
+    raises on the CPU and returns garbage on CUDA, so it is guarded), and
+    so does -1 (``INT64_MIN % -1`` traps on the CPU)."""
     if _is_int(lv) and _is_int(rv):
         lv, rv = lv.to(I64), rv.to(I64)
         zero = rv == 0
-        r = torch.remainder(lv, torch.where(zero, torch.ones_like(rv), rv))
+        r = torch.remainder(lv, torch.where(zero | (rv == -1), torch.ones_like(rv), rv))
         return torch.where(zero, torch.zeros_like(r), r)
     return torch.remainder(lv.to(F64), rv.to(F64))
 
@@ -840,7 +954,7 @@ def states_from_numpy(
 # An executor runs several task threads against one card, so a count goes
 # through count_launch, under a lock.
 LAUNCHES = dict.fromkeys(
-    ("segment_agg", "segment_agg_entries", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
+    ("expr_eval", "segment_agg", "segment_agg_entries", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
      "partition_ids", "join_build_table", "join_probe", "key_encode", "keyed_gids",
      "keyed_finish", "keyed_median", "keyed_corr"), 0
 )
@@ -1587,9 +1701,476 @@ def _agg_layout(specs: list[KernelAggSpec], arg_closures: list):
     return closures, columns, ops, cols
 
 
-def _eval_layout(env: dict, n: int, device, filter_closure, closures, columns):
-    """Run the filter and the argument closures over one batch's env:
-    ``(pred, pvalid, values, valids)``, each a [n] tensor or None."""
+# ------------------------------------------------ expression program (B3)
+# A stage function's filter and distinct aggregate arguments compile, once,
+# into one linear register program: register i holds instruction i's value
+# (64 bits) and validity bit, equal subtrees share one register, and store
+# instructions after the last register write the outputs.  One launch of
+# ops/cuda/expr_eval.cu evaluates it for every row of a batch: the
+# counterpart of the reference's JaxExprCompiler closures, which XLA inlines
+# into its aggregate program.  The closures stay as the lowering's
+# specification: expr_program_reference, the plain twin, runs the program
+# op by op with the closures' own torch calls.
+
+# Opcodes, in the order of expr_eval.h's ExprOp.
+EXPR_OPS = (
+    "leaf", "lit", "null", "convert", "cast_i64", "and", "or", "not",
+    "eq", "ne", "lt", "le", "gt", "ge", "add", "sub", "mul",
+    "div_int", "div_f", "mod_int", "mod_f", "neg", "is_null", "is_not_null",
+    "in", "not_in", "select", "abs", "sqrt", "exp", "ln", "log10", "log2",
+    "ceil", "floor", "sin", "cos", "tan", "signum", "round", "power", "square",
+    "store_value", "store_valid",
+)
+_EXPR_OP = {name: i for i, name in enumerate(EXPR_OPS)}
+DT_BOOL, DT_I64, DT_F64 = 0, 1, 2  # expr_eval.h: ExprDtype
+_DT_CODE = {torch.bool: DT_BOOL, I64: DT_I64, F64: DT_F64}
+_DT_TORCH = (torch.bool, I64, F64)
+EXPR_MAX_INPUTS = 96  # expr_eval.h: kExprMaxInputs
+EXPR_MAX_OUTPUTS = 72  # kExprMaxOutputs
+EXPR_MAX_INSTR = 1024  # kExprMaxInstr
+EXPR_SMEM_LIMIT = 232448  # shared memory one CTA can use on sm_90
+_CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
+        "gt": torch.gt, "ge": torch.ge}
+_UNARY_F64 = {
+    "abs": torch.abs, "sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log,
+    "log10": torch.log10, "log2": torch.log2, "ceil": torch.ceil,
+    "floor": torch.floor, "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "signum": _sign, "round": torch.round,
+}
+# registers each op reads (a; a, b; a, b, c)
+_ARITY = dict.fromkeys(EXPR_OPS, 1)
+_ARITY.update(dict.fromkeys(("leaf", "lit", "null"), 0))
+_ARITY.update(dict.fromkeys(("and", "or", "add", "sub", "mul", "div_int", "div_f",
+                             "mod_int", "mod_f", "power", *_CMP), 2))
+_ARITY["select"] = 3
+# operand and result dtypes fixed by the op (-1: read from the row)
+_FIXED_IN = {"div_int": DT_I64, "mod_int": DT_I64, "div_f": DT_F64, "mod_f": DT_F64,
+             "cast_i64": DT_F64, "power": DT_F64, "square": DT_F64,
+             **dict.fromkeys(_UNARY_F64, DT_F64)}
+_FIXED_OUT = {"div_int": DT_I64, "mod_int": DT_I64, "cast_i64": DT_I64,
+              "store_valid": DT_BOOL, "in": DT_BOOL, "not_in": DT_BOOL,
+              **dict.fromkeys(_BOOL_OPS, DT_BOOL),
+              **dict.fromkeys(("div_f", "mod_f", "power", "square", *_UNARY_F64), DT_F64)}
+# ops whose result has no validity (NULL folds into the value)
+_NO_VALIDITY = ("lit", "and", "or", "not", "is_null", "is_not_null")
+
+
+def _validity(rows, leaf_valid) -> list[bool]:
+    """Per register of ``rows``: whether it carries a validity, a leaf's
+    as ``leaf_valid(its validity slot)`` says; a CASE always does, NULL
+    folds into the value of the boolean connectives and IS NULL, and the
+    rest carry their operands'."""
+    out: list[bool] = []
+    for op, _, _, a, b, c, _ in rows:
+        name = EXPR_OPS[op]
+        if name == "leaf":
+            out.append(leaf_valid(b))
+        elif name in ("null", "select"):
+            out.append(True)
+        elif name in _NO_VALIDITY:
+            out.append(False)
+        else:
+            out.append(any(out[r] for r in (a, b, c)[:_ARITY[name]]))
+    return out
+
+
+def _closure_node(closure) -> ExprNode:
+    node = getattr(closure, "node", None)
+    if not isinstance(node, ExprNode):
+        raise ValueError("closure has no expression node")
+    return node
+
+
+class ExprProgram:
+    """A stage function's filter and aggregate arguments as one register
+    program (kernel B3), built and validated once.
+
+    ``code`` is an int64 [n_instr, 7] table of (op, result dtype, operand
+    dtype, a, b, c, imm): rows [0, n_regs) compute register i from
+    registers a, b, c (a leaf reads input slots a (value, -1 for none) and
+    b (validity); an IN list reads ``consts[b:b + c]``; a literal's value
+    is imm), the store rows after them write register a to output slot b.
+    Only the registers some store needs are kept.  ``inputs`` names the
+    env entry of each input slot; ``stores`` gives each output slot's
+    (kind, register, dtype code); ``outputs`` is the map of
+    :func:`expr_eval`'s results (pred, pvalid, then values[j] and
+    valids[j] per kernel column), each None, ``("value", reg, dtype code,
+    slot)``, ``("valid", reg, slot)`` or ``("input", slot, dtype code)``:
+    the env tensor itself (a leaf asked for in its own dtype, or its
+    validity, as :func:`_column` passes them through).  ``source`` keeps
+    the ``(filter closure, closures, columns)`` it was compiled from."""
+
+    def __init__(self, filter_closure, closures: list, columns: list):
+        self._rows: list[list[int]] = []
+        self._regs: dict = {}
+        self._consts: list[int] = []
+        self.inputs: list[str] = []
+        self.source = (filter_closure, list(closures), list(columns))
+        regs = [self._emit(_closure_node(c)) for c in closures]
+        pred = None if filter_closure is None else self._emit(_closure_node(filter_closure))
+        may_be_valid = _validity(self._rows, lambda slot: True)
+        slots: dict = {}
+
+        def value(reg: int, dtype) -> tuple:
+            op, dt, _, a = self._rows[reg][:4]
+            want = _DT_CODE[dtype]
+            if EXPR_OPS[op] == "leaf" and a >= 0 and dt == want:
+                return ("input", a, want)
+            return ("value", reg, want, slots.setdefault(("value", reg, want), len(slots)))
+
+        def valid(reg: int):
+            if not may_be_valid[reg]:
+                return None
+            row = self._rows[reg]
+            if EXPR_OPS[row[0]] == "leaf":
+                return ("input", row[4], DT_BOOL)
+            return ("valid", reg, slots.setdefault(("valid", reg, DT_BOOL), len(slots)))
+
+        outputs = [None, None] if pred is None else [value(pred, torch.bool), valid(pred)]
+        outputs += [None if dt is None else value(regs[k], dt) for k, dt in columns]
+        outputs += [valid(regs[k]) for k, _ in columns]
+        rows, renum = self._live(self._rows, [reg for _, reg, _ in slots])
+        stores = [(kind, renum[reg], dt) for kind, reg, dt in slots]
+        outputs = [o if o is None or o[0] == "input" else (o[0], renum[o[1]], *o[2:])
+                   for o in outputs]
+        n_regs = len(rows)
+        for slot, (kind, reg, dt) in enumerate(stores):
+            rows.append([_EXPR_OP[f"store_{kind}"], dt, -1, reg, slot, -1, 0])
+        self._init(np.asarray(rows, np.int64).reshape(-1, 7),
+                   np.asarray(self._consts, np.int64), n_regs, stores, outputs)
+        del self._rows, self._regs, self._consts
+
+    @classmethod
+    def from_parts(cls, code, consts, inputs, n_regs, stores, outputs) -> "ExprProgram":
+        """A program from its tables, validated (ValueError when malformed)."""
+        self = cls.__new__(cls)
+        self.inputs = list(inputs)
+        self.source = None
+        self._init(np.asarray(code, np.int64), np.asarray(consts, np.int64),
+                   n_regs, list(stores), list(outputs))
+        return self
+
+    def _init(self, code, consts, n_regs, stores, outputs) -> None:
+        self.code = code
+        self.consts = consts
+        self.n_regs = int(n_regs)
+        self.stores = stores
+        self.outputs = outputs
+        self._device: dict = {}
+        self._lock = threading.Lock()
+        self.validate()
+        self.code.setflags(write=False)
+        self.consts.setflags(write=False)
+
+    # ------------------------------------------------------------ build
+    def _row(self, op: str, dt: int, in_dt: int = -1, a: int = -1, b: int = -1,
+             c: int = -1, imm: int = 0) -> int:
+        self._rows.append([_EXPR_OP[op], dt, in_dt, a, b, c, imm])
+        return len(self._rows) - 1
+
+    def _slot(self, name: str) -> int:
+        if name not in self.inputs:
+            self.inputs.append(name)
+        return self.inputs.index(name)
+
+    def _dt(self, reg: int) -> int:
+        return self._rows[reg][1]
+
+    def _emit(self, node: ExprNode) -> int:
+        reg = self._regs.get(node)
+        if reg is not None:
+            return reg
+        op = node.op
+        if op == "error":
+            raise RuntimeError(node.const)
+        if op == "case":
+            reg = self._emit_case(node)
+        elif op == "leaf":
+            value, valid = node.const
+            dt = DT_BOOL if node.dtype is None else _DT_CODE[node.dtype]
+            reg = self._row("leaf", dt, -1, -1 if value is None else self._slot(value),
+                            self._slot(valid))
+        elif op == "lit":
+            reg = self._row("lit", _DT_CODE[node.dtype], imm=node.const)
+        else:
+            a, b, c = ([self._emit(x) for x in node.args] + [-1, -1])[:3]
+            dt = _DT_CODE[node.dtype]
+            if op in ("in", "not_in"):
+                table_dtype, bits = node.const
+                b, c = len(self._consts), len(bits)
+                self._consts.extend(bits)
+                in_dt = _DT_CODE[table_dtype]
+            elif op in _CMP:  # torch promotes bool < int64 < float64
+                in_dt = max(self._dt(a), self._dt(b))
+            elif op in ("add", "sub", "mul", "neg"):
+                in_dt = dt
+            elif op == "convert":
+                in_dt = self._dt(a)
+            else:
+                in_dt = _FIXED_IN.get(op, -1)
+            reg = self._row(op, dt, in_dt, a, b, c)
+        self._regs[node] = reg
+        return reg
+
+    def _emit_case(self, node: ExprNode) -> int:
+        """CASE as the closure folds it: the ELSE (or a NULL) first, then
+        one select per WHEN, last to first."""
+        dt = _DT_CODE[node.dtype]
+        args = list(node.args)
+        if node.const:
+            acc = self._emit(args.pop())
+            if self._dt(acc) != dt:
+                acc = self._row("convert", dt, self._dt(acc), acc)
+        else:
+            acc = self._row("null", dt)
+        for w, t in reversed(list(zip(args[0::2], args[1::2]))):
+            cond, then = self._emit(w), self._emit(t)
+            acc = self._row("select", dt, -1, cond, then, acc)
+        return acc
+
+    @staticmethod
+    def _live(rows, roots) -> tuple:
+        """The rows the ``roots`` registers need, in order, their register
+        operands renumbered: ``(rows, old register -> new)``."""
+        live = [False] * len(rows)
+        for r in roots:
+            live[r] = True
+        for i in range(len(rows) - 1, -1, -1):
+            if live[i]:
+                op, _, _, a, b, c, _ = rows[i]
+                for r in (a, b, c)[:_ARITY[EXPR_OPS[op]]]:
+                    live[r] = True
+        renum: dict = {}
+        out = []
+        for i, row in enumerate(rows):
+            if live[i]:
+                renum[i] = len(out)
+                row = list(row)
+                k = _ARITY[EXPR_OPS[row[0]]]
+                row[3:3 + k] = [renum[r] for r in row[3:3 + k]]
+                out.append(row)
+        return out, renum
+
+    # -------------------------------------------------------- validation
+    def validate(self) -> None:
+        """Raise ValueError unless every row, slot and output is well
+        formed; nothing malformed reaches a launch.  A program whose tables
+        are the ones last validated (the arrays are read-only) passes at
+        once."""
+        key = (id(self.code), id(self.consts), id(self.inputs), id(self.stores),
+               id(self.outputs), self.n_regs)
+        if getattr(self, "_valid_key", None) == key:
+            return
+        code = self.code
+        if code.dtype != np.int64 or code.ndim != 2 or code.shape[1] != 7:
+            raise ValueError("expr program: code must be int64 [n_instr, 7]")
+        if self.consts.dtype != np.int64 or self.consts.ndim != 1:
+            raise ValueError("expr program: consts must be int64 [n]")
+        n_regs, n_in = self.n_regs, len(self.inputs)
+        if not 0 <= n_regs <= len(code):
+            raise ValueError(f"expr program: {n_regs} registers")
+        rows = code.tolist()
+        seen: set = set()
+        for i, (op, dt, in_dt, a, b, c, _imm) in enumerate(rows):
+            if not 0 <= op < len(EXPR_OPS):
+                raise ValueError(f"expr program: row {i}: opcode {op}")
+            name = EXPR_OPS[op]
+            where = f"expr program: row {i} ({name})"
+            if name.startswith("store_") != (i >= n_regs):
+                raise ValueError(f"{where}: out of place")
+            if dt not in (DT_BOOL, DT_I64, DT_F64) or dt != _FIXED_OUT.get(name, dt):
+                raise ValueError(f"{where}: result dtype {dt}")
+            for r in (a, b, c)[:_ARITY[name]]:
+                if not 0 <= r < min(i, n_regs):
+                    raise ValueError(f"{where}: register {r}")
+            fixed = _FIXED_IN.get(name)
+            if fixed is not None and in_dt != fixed:
+                raise ValueError(f"{where}: operand dtype {in_dt}")
+            if name == "leaf" and not (-1 <= a < n_in and 0 <= b < n_in):
+                raise ValueError(f"{where}: input slots {a}, {b}")
+            if name in ("in", "not_in") and (
+                in_dt not in (DT_I64, DT_F64) or b < 0 or c < 0
+                or b + c > len(self.consts)
+            ):
+                raise ValueError(f"{where}: table {b}+{c} of {len(self.consts)}")
+            if name in (*_CMP, "convert") and in_dt not in (DT_BOOL, DT_I64, DT_F64):
+                raise ValueError(f"{where}: operand dtype {in_dt}")
+            if name in ("add", "sub", "mul", "neg") and (
+                in_dt != dt or (dt == DT_BOOL and name in ("sub", "neg"))
+            ):
+                raise ValueError(f"{where}: dtype {dt}")
+            if name == "select" and rows[c][1] != dt:
+                raise ValueError(f"{where}: ELSE dtype {rows[c][1]}")
+            if name.startswith("store_"):
+                if not 0 <= b < len(self.stores) or tuple(self.stores[b]) != (name[6:], a, dt):
+                    raise ValueError(f"{where}: output slot {b}")
+                if b in seen:
+                    raise ValueError(f"{where}: output slot {b} stored twice")
+                seen.add(b)
+        if len(seen) != len(self.stores):
+            raise ValueError("expr program: an output slot is never stored")
+        for out in self.outputs:
+            if out is None:
+                continue
+            if out[0] == "input":
+                if not (0 <= out[1] < n_in and out[2] in (DT_BOOL, DT_I64, DT_F64)):
+                    raise ValueError(f"expr program: output {out}")
+                continue
+            kind, reg, slot = out[0], out[1], out[-1]
+            dt = out[2] if kind == "value" else DT_BOOL
+            if not (0 <= slot < len(self.stores)
+                    and tuple(self.stores[slot]) == (kind, reg, dt)):
+                raise ValueError(f"expr program: output {out} is not stored")
+        self._regs_rows = rows[:n_regs]
+        # (slot, dtype, may be None) of every input a leaf reads or an
+        # output passes on: what the kernel's wrapper checks each batch
+        leaves = [r for r in self._regs_rows if EXPR_OPS[r[0]] == "leaf"]
+        self._reads = [(r[3], r[1], False) for r in leaves if r[3] >= 0]
+        self._reads += [(r[4], DT_BOOL, True) for r in leaves]
+        self._reads += [(o[1], o[2], self.inputs[o[1]].endswith("__valid"))
+                        for o in self.outputs if o is not None and o[0] == "input"]
+        self._valid_key = key
+
+    # ---------------------------------------------------------- runtime
+    def presence(self, inputs: list) -> list[bool]:
+        """Per register: whether its validity is present for this batch's
+        inputs (a leaf's env validity None is absent), as the closures'
+        ``_merge_valid`` would leave it."""
+        return _validity(self._regs_rows, lambda slot: inputs[slot] is not None)
+
+    def constant(self, key, value, dtype, device) -> torch.Tensor:
+        """A 0-d (or table) constant on ``device``, made once, as
+        :func:`_const` makes the closures' constants."""
+        k = (key, torch.device(device))
+        t = self._device.get(k)
+        if t is None:
+            t = self._device.setdefault(k, torch.tensor(value, dtype=dtype).to(device))
+        return t
+
+    def device_words(self, device) -> torch.Tensor:
+        """The code (as expr_eval.h's 32-byte ExprInstr rows, the operand
+        registers' dtypes packed beside the opcode) and the constants in
+        one int64 tensor on ``device``, copied once."""
+        k = ("words", torch.device(device))
+        t = self._device.get(k)
+        if t is None:
+            with self._lock:
+                t = self._device.get(k)
+                if t is None:
+                    n = len(self.code)
+                    rows = np.zeros((n, 8), np.int32)
+                    rows[:, :6] = self.code[:, :6]
+                    for i, (op, _, _, *regs) in enumerate(self.code[:, :6].tolist()):
+                        for j, r in enumerate(regs[:_ARITY[EXPR_OPS[op]]]):
+                            rows[i, 0] |= int(self.code[r, 1]) << (8 * (j + 1))
+                    rows[:, 6:] = np.ascontiguousarray(self.code[:, 6]).view(np.int32).reshape(n, 2)
+                    words = np.concatenate([rows.view(np.int64).reshape(-1), self.consts])
+                    t = self._device[k] = torch.from_numpy(words).to(device)
+        return t
+
+    def layout(self, get) -> tuple:
+        """``(pred, pvalid, values, valids)`` from ``get(output)``."""
+        outs = [None if o is None else get(o) for o in self.outputs]
+        k = (len(outs) - 2) // 2
+        return outs[0], outs[1], outs[2:2 + k], outs[2 + k:]
+
+
+def _fold_valid(v: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """A boolean operand with NULL as false (the closures' Kleene fold)."""
+    return v if valid is None else torch.logical_and(v, valid)
+
+
+def expr_program_reference(program: ExprProgram, env: dict, n: int, device) -> tuple:
+    """Plain PyTorch twin of the expression kernel: the program run row by
+    row with the closures' own torch calls (so bit for bit what the
+    closures give on the same device), each output laid out by
+    :func:`_column` as the stage functions always did.  Returns ``(pred,
+    pvalid, values, valids)``."""
+    program.validate()
+    vals: list = []
+    valids: list = []
+    for i, (op, dt, in_dt, a, b, c, imm) in enumerate(program.code[: program.n_regs].tolist()):
+        name = EXPR_OPS[op]
+        dtype = _DT_TORCH[dt]
+        val = None
+        if name == "leaf":
+            v = None if a < 0 else env[program.inputs[a]]
+            val = env[program.inputs[b]]
+        elif name == "lit":
+            value = np.int64(imm).view(np.float64).item() if dt == DT_F64 else imm
+            v = program.constant(i, bool(value) if dt == DT_BOOL else value, dtype, device)
+        elif name == "null":
+            v = program.constant(i, 0, dtype, device)
+            val = program.constant("false", False, torch.bool, device)
+        elif name in ("and", "or"):
+            f = torch.logical_and if name == "and" else torch.logical_or
+            v = f(_fold_valid(vals[a], valids[a]), _fold_valid(vals[b], valids[b]))
+        elif name == "not":
+            v = torch.logical_not(_fold_valid(vals[a], valids[a]))
+        elif name in ("is_null", "is_not_null"):
+            negated = name == "is_not_null"
+            if valids[a] is None:
+                v = program.constant("false", False, torch.bool, device)
+                v = torch.logical_not(v) if negated else v
+            else:
+                v = valids[a] if negated else torch.logical_not(valids[a])
+        elif name in ("in", "not_in"):
+            table = program.constant(("table", i), program.consts[b:b + c].tolist(), I64, device)
+            lhs = vals[a].to(_DT_TORCH[in_dt])
+            m = torch.eq(lhs.reshape(-1, 1), table.view(lhs.dtype)[None, :]).any(dim=1)
+            v, val = (torch.logical_not(m) if name == "not_in" else m), valids[a]
+        elif name == "select":
+            cond, cval = vals[a], valids[a]
+            cond = cond.to(torch.bool) if cval is None else torch.logical_and(cond, cval)
+            true = program.constant("true", True, torch.bool, device)
+            v = torch.where(cond, vals[b].to(dtype), vals[c])
+            val = torch.where(cond, true if valids[b] is None else valids[b],
+                              true if valids[c] is None else valids[c])
+        else:
+            x = vals[a]
+            y = vals[b] if _ARITY[name] == 2 else None
+            if name in _CMP or name in _ARITH:
+                v = (_CMP.get(name) or _ARITH[name])(*_numeric_align(x, y))
+            elif name == "div_int":
+                v = _trunc_div(x, y)
+            elif name == "div_f":
+                v = x.to(F64) / y.to(F64)
+            elif name in ("mod_int", "mod_f"):
+                v = _floor_mod(x, y)
+            elif name == "power":
+                v = torch.pow(x.to(F64), y.to(F64))
+            elif name == "neg":
+                v = -x
+            elif name == "convert":
+                v = x.to(dtype)
+            elif name == "cast_i64":
+                v = _cast(x, I64)
+            elif name == "square":
+                x = x.to(F64)
+                v = x * x
+            else:
+                v = _UNARY_F64[name](x.to(F64))
+            val = valids[a] if y is None else _merge_valid(valids[a], valids[b])
+        vals.append(v)
+        valids.append(val)
+
+    def get(out):
+        if out[0] == "input":
+            return _column(env[program.inputs[out[1]]], n, _DT_TORCH[out[2]], device)
+        if out[0] == "value":
+            return _column(vals[out[1]], n, _DT_TORCH[out[2]], device)
+        return _column(valids[out[1]], n, torch.bool, device)
+
+    return program.layout(get)
+
+
+def closures_layout(program: ExprProgram, env: dict, n: int, device) -> tuple:
+    """The lowering's specification: the closures ``program`` was compiled
+    from, run as torch ops over ``env`` and laid out as
+    :func:`expr_program_reference` lays its registers out (the tests and
+    the smoke hold the twin and the kernel against it)."""
+    filter_closure, closures, columns = program.source
+    env = dict(env)
     env[DEVICE] = device
     pred = pvalid = None
     if filter_closure is not None:
@@ -1605,6 +2186,79 @@ def _eval_layout(env: dict, n: int, device, filter_closure, closures, columns):
     return pred, pvalid, values, valids
 
 
+def _check_expr_args(program: ExprProgram, inputs: list, n: int, device) -> None:
+    """Raise ValueError unless the program fits the kernel (instructions,
+    input and output slots, shared memory at 32 threads a CTA) and every
+    input slot holds what its leaf reads: a contiguous [n] tensor on
+    ``device`` of the leaf's dtype, a validity bool or None.  Checked here,
+    before the binding, like every kernel's inputs."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"expr_eval: device {dev} is not CUDA")
+    n_instr = len(program.code)
+    smem = n_instr * 32 + program.n_regs * 32 * 9
+    if (n_instr > EXPR_MAX_INSTR or smem > EXPR_SMEM_LIMIT
+            or len(inputs) > EXPR_MAX_INPUTS or len(program.stores) > EXPR_MAX_OUTPUTS):
+        raise ValueError(
+            f"expr_eval: {n_instr} instructions, {program.n_regs} registers, "
+            f"{len(inputs)} inputs, {len(program.stores)} outputs exceed the kernel"
+        )
+
+    def bad(x, dtype) -> bool:
+        return (not isinstance(x, torch.Tensor) or x.device.type != dev.type
+                or (dev.index is not None and x.device.index != dev.index)
+                or x.dtype != dtype or tuple(x.shape) != (n,) or not x.is_contiguous())
+
+    for slot, dt, optional in program._reads:
+        x = inputs[slot]
+        if not (optional and x is None) and bad(x, _DT_TORCH[dt]):
+            raise ValueError(f"expr_eval: {program.inputs[slot]} must be contiguous "
+                             f"{_DT_TORCH[dt]} [{n}] on {dev}")
+
+
+def expr_eval_cuda(program: ExprProgram, env: dict, n: int, device) -> tuple:
+    """Launch the hand-written expression kernel (``ops/cuda/expr_eval.cu``):
+    one launch writes every output the program computes for the batch's
+    ``n`` rows; a leaf asked for in its own dtype is the env tensor itself,
+    and a validity that no input carries stays None.  Returns ``(pred,
+    pvalid, values, valids)``.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:JaxExprCompiler`` (the
+    closures XLA inlines into the aggregate program).  The program and the
+    inputs are checked first (ValueError); a failed build or launch raises,
+    and nothing falls back to the twin or the closures.  A program that
+    computes nothing (every output an env tensor) launches nothing."""
+    from .cuda.build import load
+
+    program.validate()
+    inputs = [env[name] for name in program.inputs]
+    _check_expr_args(program, inputs, n, device)
+    present = program.presence(inputs)
+    outs = [
+        torch.empty(n, dtype=_DT_TORCH[dt], device=device)
+        if kind == "value" or present[reg] else None
+        for kind, reg, dt in program.stores
+    ]
+    if n and any(t is not None for t in outs):
+        empty = torch.empty(0, dtype=torch.bool, device=device)
+        load().expr_eval(
+            program.device_words(device), len(program.code), program.n_regs,
+            [empty if t is None else t for t in inputs],
+            [empty if t is None else t for t in outs], n,
+        )
+        count_launch("expr_eval")
+    return program.layout(lambda out: inputs[out[1]] if out[0] == "input" else outs[out[-1]])
+
+
+def expr_eval(program: ExprProgram, env: dict, n: int, device) -> tuple:
+    """The stage's filter and argument columns over one batch's env, as
+    ``(pred, pvalid, values, valids)`` (each a [n] tensor or None): the CUDA
+    kernel on a CUDA device, its plain twin on the CPU."""
+    if torch.device(device).type == "cpu":
+        return expr_program_reference(program, env, n, device)
+    return expr_eval_cuda(program, env, n, device)
+
+
 def make_partial_agg_kernel(
     filter_closure: Optional[TorchClosure],
     arg_closures: list[Optional[TorchClosure]],
@@ -1616,7 +2270,8 @@ def make_partial_agg_kernel(
     """Build the fused filter → project → segment-aggregate function.
 
     Returns ``fn(seg_ids, valid, *leaf_arrays, state=None) -> state``: the
-    expression closures run as torch ops on the arrays' device, then one
+    expression program (:func:`expr_eval`, one launch) computes the mask
+    and the argument columns on the arrays' device, then one
     :func:`segment_agg` folds the masks, reduces every aggregate per group
     and merges into ``state`` (a fresh identity state when None), which is
     returned.  Per-agg state layout is :func:`state_fields` — sum/avg →
@@ -1624,7 +2279,7 @@ def make_partial_agg_kernel(
     row is presence, the count of mask-passing rows per group.
 
     The field layout is fixed here, once (:func:`_agg_layout`), and each
-    distinct closure runs once per batch.  ``algo`` picks the reduction
+    distinct argument is one column.  ``algo`` picks the reduction
     route (:func:`segment_algo`): "scatter" (:func:`segment_agg`) or "sort"
     (:func:`sorted_segment_agg`); both merge into the same state.
     """
@@ -1632,14 +2287,13 @@ def make_partial_agg_kernel(
         raise ValueError(f"agg algorithm {algo!r}")
     reduce = sorted_segment_agg if algo == "sort" else segment_agg
     closures, columns, ops, cols = _agg_layout(specs, arg_closures)
+    program = ExprProgram(filter_closure, closures, columns)
 
     def fn(seg_ids, valid, *arrays, state=None):
         device = seg_ids.device
         n = seg_ids.shape[0]
         env = dict(zip(flat_names, arrays))
-        pred, pvalid, values, valids = _eval_layout(
-            env, n, device, filter_closure, closures, columns
-        )
+        pred, pvalid, values, valids = expr_eval(program, env, n, device)
         if state is None:
             state = init_states(specs, capacity, device)
         return reduce(seg_ids, valid, pred, pvalid, values, valids, ops, cols, state)
@@ -1656,19 +2310,18 @@ def make_entries_agg_kernel(
 ):
     """The multi-entry counterpart of :func:`make_partial_agg_kernel` (its
     scatter route): ``fn(entries) -> state`` over retained ``(gid, tail,
-    leaf arrays)`` entries runs the expression closures of every entry,
+    leaf arrays)`` entries runs the expression program over every entry,
     then ONE :func:`segment_agg_entries` folds all of them into a fresh
-    identity state at ``capacity``.  The closures' outputs of every entry
+    identity state at ``capacity``.  The program's outputs of every entry
     are alive together until that call returns."""
     closures, columns, ops, cols = _agg_layout(specs, arg_closures)
+    program = ExprProgram(filter_closure, closures, columns)
 
     def fn(entries: list) -> torch.Tensor:
         rows = []
         for gid, tail, arrays in entries:
             env = dict(zip(flat_names, arrays))
-            pred, pvalid, values, valids = _eval_layout(
-                env, gid.shape[0], gid.device, filter_closure, closures, columns
-            )
+            pred, pvalid, values, valids = expr_eval(program, env, gid.shape[0], gid.device)
             rows.append((gid, tail, pred, pvalid, values, valids))
         state = init_states(specs, capacity, entries[0][0].device)
         return segment_agg_entries(rows, ops, cols, state)
@@ -2721,7 +3374,8 @@ def make_keyed_prep_kernel(
     ``make_keyed_prep_kernel``).
 
     ``fn(keys, valid, *leaf_arrays, state=None) -> KeyedBatch``: the filter
-    and argument closures run as torch ops (B3, as in the basic route),
+    and arguments run through the expression program (B3, as in the basic
+    route),
     then :func:`key_encode` derives the key codes and the sort operand
     from ``keys`` (per key ``(codes,)`` for kind ``code``, else ``(values,
     validity)``) and the row masks.  ``keys`` rides the group-id slot, so
@@ -2730,13 +3384,12 @@ def make_keyed_prep_kernel(
     arrays buffered raw for the median and corr passes.  The keyed route
     always has at least one group key."""
     closures, columns, ops, cols = _agg_layout(specs, arg_closures)
+    program = ExprProgram(filter_closure, closures, columns)
 
     def fn(keys, valid, *arrays, state=None):
         env = dict(zip(flat_names, arrays))
         n, device = keys[0][0].shape[0], keys[0][0].device
-        pred, pvalid, values, valids = _eval_layout(
-            env, n, device, filter_closure, closures, columns
-        )
+        pred, pvalid, values, valids = expr_eval(program, env, n, device)
         inv, codes = key_encode(key_kinds, tuple(keys), (valid, pred, pvalid), n, device)
         extras = [env[nm] for nm in extra_names]
         return KeyedBatch(inv, list(codes), values, valids, extras)

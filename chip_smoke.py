@@ -36,6 +36,14 @@ Phases; any failure exits non-zero and prints no result line:
               (2^22 rows each for E <= 8, 2^19 for 32, the last entry
               shorter; q1's own entries are timed in the query phase) x capacity in {1, 64, 4096, 2^16}: bit-identical to
               E ``segment_agg`` launches in entry order, equal to its twin;
+            * ``expr_eval`` (B3) over a seeded grid of 2^20 rows, one
+              expression for every opcode (nulls, NaN, ±0.0, ±inf,
+              subnormals, int64 past 2^53, INT64_MIN, zero and -1
+              divisors): two kernel runs, the twin and the closures the
+              program was compiled from, all bit-identical; after the
+              query phase the same at q1's and q6's own programs over
+              their first batch's 2^20 and 2^23 rows, each with the
+              closures' ms beside the kernel's;
             * ``join_build_table`` and ``join_probe`` (B5) in three forms
               (dense slot tables of 2^20 and 2^26 slots, sorted keys over a
               span past 2^26) at n in {2^20, 2^23} probe rows x {0, 1, 3}
@@ -104,7 +112,10 @@ Phases; any failure exits non-zero and prints no result line:
 Launch counts are set to 0 just before each main-path run (q1/q6 three ways
 each, q3, keyed q3, h2o q6/q9/q10, star join, window, distributed q3 and q1,
 the fusion leg) and read just after; a kernel of that path that never
-launched fails the run.  ``segment_agg_entries`` is timed at the cold q1
+launched fails the run.  ``expr_eval`` launches on every leg whose stage
+computes a filter or an argument (one a batch or entry); h2o q9 and q10,
+whose programs pass bare columns through, and the window leg launch it
+no time.  ``segment_agg_entries`` is timed at the cold q1
 run's shape beside its twin and one ``segment_agg`` launch per entry.  Then one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
 """
@@ -152,6 +163,7 @@ REL = 1e-9
 CUDA_DIR = "arrow_ballista_tpu_torch/ops/cuda/"
 # name -> (source, the JAX function it replaces)
 KERNELS = {
+    "expr_eval": ("expr_eval.cu", "arrow_ballista_tpu/ops/kernels.py:122"),
     "segment_agg": ("segment_agg.cu", "arrow_ballista_tpu/ops/kernels.py:1158"),
     "segment_agg_entries": ("segment_agg_entries.cu",
                             "arrow_ballista_tpu/ops/stage_compiler.py:2573"),
@@ -1152,7 +1164,8 @@ def query_phase(tbt, TK, batches, device) -> dict:
             _reset_counts(TK)
             torch.cuda.reset_peak_memory_stats()
             with Capture(TK, "segment_agg", keep=_keep_state) as b1, \
-                    Capture(TK, "segment_agg_entries", keep=_keep_entries) as multi:
+                    Capture(TK, "segment_agg_entries", keep=_keep_entries) as multi, \
+                    Capture(TK, "expr_eval_cuda", keep=_keep_expr_call) as expr:
                 t0 = time.perf_counter()
                 got = ctx.execute(plan)
                 torch.cuda.synchronize()
@@ -1164,9 +1177,13 @@ def query_phase(tbt, TK, batches, device) -> dict:
                 if metrics.get(k, 0):
                     raise AssertionError(f"q{q} {name}: {k}={metrics[k]}")
             _tables_equal(want, got, f"q{q} {name}")
+            _check_expr_launches(launches, f"q{q} {name}")
             if name == "cache_off":
                 if launches["segment_agg"] < 1 or launches["segment_agg_entries"]:
                     raise AssertionError(f"q{q} cache off: launches {json.dumps(launches)}")
+                if launches["expr_eval"] != launches["segment_agg"]:
+                    raise AssertionError(f"q{q} cache off: one expr_eval a batch: "
+                                         f"{json.dumps(launches)}")
             else:
                 if launches["segment_agg_entries"] != 1 or launches["segment_agg"]:
                     raise AssertionError(f"q{q} {name}: launches {json.dumps(launches)}")
@@ -1192,7 +1209,8 @@ def query_phase(tbt, TK, batches, device) -> dict:
                 f"peak_device_bytes={peak} breakdown={json.dumps(breakdown)} "
                 f"device_cache={json.dumps(device_cache.stats())}"
             )
-            runs[name] = dict(launches=launches, args=b1.args, entries=multi.args)
+            runs[name] = dict(launches=launches, args=b1.args, entries=multi.args,
+                              expr=expr.args)
             del plan, stages, scans
         del ctx, results, want
         out[q] = runs
@@ -1288,6 +1306,7 @@ def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
         raise AssertionError(f"q3: launches {json.dumps(launches)} against {json.dumps(expect)}")
     if not bail and launches["join_probe"] < 1:
         raise AssertionError("q3: join_probe never launched")
+    _check_expr_launches(launches, "q3")
     for k in ("radix_sort", "seg_scan"):
         if launches[k] < 1:
             raise AssertionError(f"q3: the sort route's {k} never launched")
@@ -1374,6 +1393,7 @@ def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device) -> dict:
     if launches["join_probe"] != expect["probed"] or launches["join_build_table"] != 1:
         raise AssertionError(f"q3 keyed: launches {json.dumps(launches)} against "
                              f"{json.dumps(expect)}")
+    _check_expr_launches(launches, "q3 keyed")
     if metrics.get("keyed_chunks", 0) < 2 or metrics.get("keyed_merge_time_ns", 0) <= 0:
         raise AssertionError(f"q3 keyed: the buffer never flushed ({json.dumps(metrics)})")
     _tables_equal(want, got, "q3 keyed")
@@ -1443,6 +1463,9 @@ def h2o_phase(tbt, TK, batches, device) -> dict:
         need = {"q6": "keyed_median", "q9": "keyed_corr"}.get(q)
         if need and launches[need] < 1:
             raise AssertionError(f"h2o {q}: {need} never launched")
+        # q6's stddev squares v3; q9 (corr) and q10 (sums of bare columns)
+        # pass env tensors through
+        _check_expr_launches(launches, f"h2o {q}", computes=q == "q6")
         t0 = time.perf_counter()
         _sorted_close(want, got, f"h2o {q}")
         cmp_s = time.perf_counter() - t0
@@ -1534,6 +1557,9 @@ def star_phase(tbt, TK, device) -> dict:
         raise AssertionError(f"star: launches {json.dumps(launches)}, {len(batches)} batches")
     if launches["segment_agg"] + launches["seg_scan"] < 1:
         raise AssertionError("star: the aggregate's kernel never launched")
+    _check_expr_launches(launches, "star")
+    if launches["expr_eval"] != len(batches):
+        raise AssertionError(f"star: expr_eval {launches['expr_eval']}, {len(batches)} batches")
     _tables_equal(want, got, "star")
     breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
         "join_build_time_ns", "input_rows", "output_rows")}
@@ -1636,6 +1662,7 @@ def window_phase(tbt, TK, WK, batches, device) -> dict:
     for k in ("radix_sort", "seg_scan", "range_extremum", "window_epilogue"):
         if launches[k] < 1:
             raise AssertionError(f"window: {k} never launched")
+    _check_expr_launches(launches, "window", computes=False)  # no aggregate prologue
     t0 = time.perf_counter()
     _tables_close(want, got, "window")
     print(f"window: equal to the CPU WindowExec, compared in s={time.perf_counter() - t0!r}")
@@ -1763,6 +1790,7 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
             for k in need:
                 if launches[k] < 1:
                     raise AssertionError(f"distributed q{q}: {k} never launched")
+            _check_expr_launches(launches, f"distributed q{q}")
             if q == 3 and (stage.get("join_fallback", 0) or stage.get("dense_join", 0) < 1):
                 raise AssertionError(f"distributed q3: the join stage did not fold on the "
                                      f"dense route ({json.dumps(stage)})")
@@ -1888,6 +1916,7 @@ def fusion_phase(tbt, TK, h2o_batches, root: str, device) -> dict:
         for k in ("segment_agg_entries", "partition_ids"):
             if launches[k] < 1:
                 raise AssertionError(f"fusion q4: {k} never launched")
+        _check_expr_launches(launches, "fusion q4")  # v1, v2 widen from int32
         _sorted_close(want, got, "fusion q4")
         hashed, fused_batches = pids.check()
         if fused_batches < 1:
@@ -1904,6 +1933,295 @@ def fusion_phase(tbt, TK, h2o_batches, root: str, device) -> dict:
     finally:
         ctx.close()
     return dict(launches=launches)
+
+
+# --------------------------------------------------- expression program (B3)
+EXPR_GRID_ROWS = 1 << 20  # the opcode grid's rows
+EXPR_QUERY_ROWS = (1 << 20, 1 << 23)  # q1's and q6's own programs
+EXPR_SEED = 17
+I64_MIN, I64_MAX = -(2**63), 2**63 - 1
+
+
+def expr_grid_batch(n: int, seed: int = EXPR_SEED):
+    """A seeded batch for the expression grid: int64 ``i`` (past 2^53,
+    INT64_MIN and INT64_MAX), int64 divisors ``j`` (0, ±1, INT64_MIN),
+    float64 ``x`` and ``y`` (NaN, ±0.0, ±inf, subnormals, halves, the
+    int64 range's edges), bool ``b``, date32 ``d`` and int32 ``k`` (never
+    null); a tenth of every other column is null."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    inf, nan = float("inf"), float("nan")
+
+    def pick(pool, rand):
+        take = rng.random(n) < 0.4
+        out = np.array(rand)
+        out[take] = rng.choice(np.asarray(pool, out.dtype), int(take.sum()))
+        return out
+
+    def nulls():
+        return rng.random(n) < 0.1
+
+    ints = [0, 1, -1, 7, -7, 2**53 + 1, -(2**53) - 1, I64_MIN, I64_MAX, I64_MIN + 1]
+    divisors = [0, 0, -1, -1, 1, 2, -2, 3, I64_MIN, I64_MAX]
+    floats = [0.0, -0.0, nan, inf, -inf, 5e-324, -2.2250738585072014e-308, 0.5, 1.5,
+              2.5, -0.5, -2.5, 1e300, -1e300, 2.0**63, -(2.0**63), 9.3e18, -9.3e18,
+              2.0**53 + 2, 1.0, -1.0]
+    small = [0.0, -0.0, nan, inf, -1.0, 2.0, 0.5, -3.0, 1e-310, 3.0]
+    days = [0, -5, 9000, 10471, 10472]
+    return pa.RecordBatch.from_pydict({
+        "i": pa.array(pick(ints, rng.integers(-10**6, 10**6, n)), pa.int64(), mask=nulls()),
+        "j": pa.array(pick(divisors, rng.integers(-50, 50, n)), pa.int64(), mask=nulls()),
+        "x": pa.array(pick(floats, rng.normal(0, 100, n)), pa.float64(), mask=nulls()),
+        "y": pa.array(pick(small, rng.normal(0, 10, n)), pa.float64(), mask=nulls()),
+        "b": pa.array(rng.random(n) < 0.5, pa.bool_(), mask=nulls()),
+        "d": pa.array(pick(days, rng.integers(8000, 11000, n)).astype(np.int32),
+                      pa.date32(), mask=nulls()),
+        "k": pa.array(rng.integers(-5, 6, n).astype(np.int32), pa.int32()),
+    })
+
+
+def expr_grid_cases() -> dict:
+    """name -> ``build(pe, col)``: an expression for every lowering branch
+    and opcode over :func:`expr_grid_batch`'s columns (``col(name)`` is the
+    column), built from either package's expression module."""
+    import datetime
+
+    import pyarrow as pa
+
+    day, epoch = datetime.date(1998, 9, 2), datetime.date(1970, 1, 1)
+
+    def term(pe, col, t):
+        if isinstance(t, str):
+            return col(t)
+        return t(pe, col) if callable(t) else pe.Lit(t)
+
+    def binary(op, l, r):
+        return lambda pe, col: pe.Binary(term(pe, col, l), op, term(pe, col, r))
+
+    def fn(name, *args):
+        return lambda pe, col: pe.ScalarFn(name, tuple(term(pe, col, a) for a in args))
+
+    def unary(kind, arg, *rest):
+        return lambda pe, col: getattr(pe, kind)(term(pe, col, arg), *rest)
+
+    def case(whens, other, out):
+        return lambda pe, col: pe.Case(
+            tuple((term(pe, col, w), term(pe, col, t)) for w, t in whens),
+            None if other is None else term(pe, col, other), out)
+
+    cases = {
+        "lit_only": binary("+", 3, 4),
+        "and": binary("AND", binary(">", "i", 0), binary("<", "x", 1.0)),
+        "or": binary("OR", binary("=", "j", 0), binary(">=", "y", 2.0)),
+        "and_bool_leaf": binary("AND", "b", binary("<", "i", "j")),
+        "not": unary("Not", binary(">", "x", 0.0)),
+        "not_bool_leaf": unary("Not", "b"),
+        "eq_int": binary("=", "i", "j"),
+        "ne_float": binary("<>", "x", "y"),
+        "lt_int_float": binary("<", "i", "x"),
+        "le_bool_int": binary("<=", "b", "k"),
+        "gt_lit": binary(">", "x", 1.5),
+        "ge_date": binary(">=", "d", day),
+        "eq_bool": binary("=", "b", binary(">", "x", 0.0)),
+        "add_int_overflow": binary("+", "i", "j"),
+        "sub_int": binary("-", "i", "j"),
+        "mul_int_overflow": binary("*", "i", "j"),
+        "add_float": binary("+", "x", "y"),
+        "sub_float": binary("-", "x", "y"),
+        "mul_float": binary("*", "x", "y"),
+        "add_int_float": binary("+", "i", "x"),
+        "mul_int32": binary("*", "k", "i"),
+        "add_bool_bool": binary("+", "b", binary("<", "x", "y")),
+        "mul_bool_bool": binary("*", "b", binary(">", "i", 0)),
+        "add_bool_int": binary("+", "b", "j"),
+        "date_plus_int": binary("+", "d", 1),
+        "div_int": binary("/", "i", "j"),
+        "div_float": binary("/", "x", "y"),
+        "div_int_float": binary("/", "i", "y"),
+        "div_bool_int": binary("/", "b", "j"),
+        "mod_int": binary("%", "i", "j"),
+        "mod_float": binary("%", "x", "y"),
+        "mod_int_float": binary("%", "j", "y"),
+        "neg_int": unary("Negative", "i"),
+        "neg_float": unary("Negative", "x"),
+        "neg_int32": unary("Negative", "k"),
+        "is_null": unary("IsNull", "x"),
+        "is_not_null": unary("IsNull", "i", True),
+        "is_null_never_null": unary("IsNull", "k"),
+        "is_null_lit": unary("IsNull", 1),
+        "in_int": unary("InList", "i", (2**53 + 1, 7, -7, I64_MIN, 0)),
+        "in_float": unary("InList", "x", (0.5, -0.0, 2.5, 1e300)),
+        "not_in_int_items_float_column": unary("InList", "x", (1, -1, 0), True),
+        "in_date": unary("InList", "d", (day, epoch)),
+        "not_in_bool": unary("InList", "b", (1,), True),
+        "case_else": case([(binary(">", "i", 0), "x"), (binary("=", "j", 0), 1.0)],
+                          "y", pa.float64()),
+        "case_no_else": case([(binary(">", "j", 1), "i")], None, pa.int64()),
+        "case_int_then_float_out": case([("b", "i")], "x", pa.float64()),
+        "case_bool": case([(binary(">", "x", 0.0), "b")], binary("<", "i", 0), pa.bool_()),
+        "case_int_condition": case([("j", 1.0)], 0.0, pa.float64()),
+        "case_nested": case([(unary("IsNull", "i"),
+                              case([(binary(">", "x", 0.0), 1)], 2, pa.int64()))],
+                            "j", pa.int64()),
+        "cast_float_int": unary("Cast", "x", pa.int64()),
+        "cast_int_float": unary("Cast", "i", pa.float64()),
+        "cast_int_bool": unary("Cast", "j", pa.bool_()),
+        "cast_float_bool": unary("Cast", "x", pa.bool_()),
+        "cast_bool_int": unary("Cast", "b", pa.int64()),
+        "cast_date_float": unary("Cast", "d", pa.float64()),
+        "power": fn("power", "x", "y"),
+        "power_int_lit": fn("power", "i", 2),
+        "round": fn("round", "x"),
+        "abs_int": fn("abs", "i"),
+        "signum_small": fn("signum", "y"),
+        "q1_charge": binary("*", binary("*", "x", binary("-", 1, "y")), binary("+", 1, "y")),
+        # past 64 registers: the kernel keeps validity bytes in shared memory
+        "wide_program": _wide_sum,
+    }
+    for name in ("abs", "sqrt", "exp", "ln", "log10", "log2", "ceil", "floor",
+                 "sin", "cos", "tan", "signum"):
+        cases[f"fn_{name}"] = fn(name, "x")
+    return cases
+
+
+def _wide_sum(pe, col):
+    """x + y*1 + y*2 + ... + y*39: 119 registers."""
+    e = col("x")
+    for k in range(1, 40):
+        e = pe.Binary(e, "+", pe.Binary(col("y"), "*", pe.Lit(float(k))))
+    return e
+
+
+def expr_case(TK, tpe, schema, build):
+    """``(program, leaves)`` of one grid case over ``schema``: its value
+    and validity as the one kernel column of a program with no filter."""
+    comp = TK.TorchExprCompiler(schema)
+    closure = comp._lower_or_leaf(
+        build(tpe, lambda name: tpe.Col(schema.get_field_index(name), name)))
+    return TK.ExprProgram(None, [closure], [(0, closure.node.dtype)]), comp.leaves
+
+
+def expr_env(TK, batch, leaves, device) -> dict:
+    """The leaves' tensors on ``device`` as a stage ships them: a validity
+    with no null is None."""
+    import torch
+
+    trivial: set = set()
+    host = TK.build_env(batch, leaves, batch.num_rows, trivial_valid=trivial)
+    return {k: None if k in trivial else torch.from_numpy(np.array(v)).to(device)
+            for k, v in host.items()}
+
+
+def expr_diff(a, b):
+    """None when two ``(pred, pvalid, values, valids)`` results are
+    bit-identical (None where None, dtypes, every bit), else what differs
+    (the rows, and the distance in units in the last place for f64)."""
+    import torch
+
+    def flat(out):
+        pred, pvalid, values, valids = out
+        return [pred, pvalid, *values, *valids]
+
+    for k, (x, y) in enumerate(zip(flat(a), flat(b))):
+        if (x is None) != (y is None):
+            return f"output {k}: {type(x).__name__} against {type(y).__name__}"
+        if x is None:
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return f"output {k}: {x.dtype}{tuple(x.shape)} against {y.dtype}{tuple(y.shape)}"
+        xw = (x.view(torch.int64) if x.dtype == torch.float64 else x).cpu().numpy()
+        yw = (y.view(torch.int64) if y.dtype == torch.float64 else y).cpu().numpy()
+        bad = np.nonzero(xw != yw)[0]
+        if bad.size:
+            msg = (f"output {k} ({x.dtype}): {bad.size} rows differ, rows "
+                   f"{bad[:4].tolist()}: {xw[bad[:4]].tolist()} against {yw[bad[:4]].tolist()}")
+            if x.dtype == torch.float64:
+                ulps = np.abs(xw[bad].astype(np.float64) - yw[bad].astype(np.float64))
+                msg += f", up to {ulps.max()!r} ulp"
+            return msg
+    return None
+
+
+def _expr_bytes(TK, program, env: dict, n: int) -> int:
+    """Bytes the program must move: each input read once, each output it
+    computes written once (8 bytes a value, 1 a bool or validity)."""
+    inputs = [env[name] for name in program.inputs]
+    present = program.presence(inputs)
+    read = {s for op, _, _, a, b, *_ in program.code[: program.n_regs].tolist()
+            if TK.EXPR_OPS[op] == "leaf" for s in (a, b) if s >= 0}
+    total = sum(n * inputs[s].element_size() for s in read if inputs[s] is not None)
+    for kind, reg, dt in program.stores:
+        if kind == "value":
+            total += n * (1 if dt == TK.DT_BOOL else 8)
+        elif present[reg]:
+            total += n
+    return total
+
+
+def expr_check(TK, program, env: dict, n: int, device, what: str) -> dict:
+    """One program: two kernel runs, the twin and the closures it was
+    compiled from, all bit-identical; then the ms of each (median of 20)
+    beside the byte bound."""
+    runs = [TK.expr_eval_cuda(program, env, n, device) for _ in range(2)]
+    twin = TK.expr_program_reference(program, env, n, device)
+    closures = TK.closures_layout(program, env, n, device)
+    for other, label in ((runs[1], "a second kernel run"), (twin, "the twin"),
+                         (closures, "the closures")):
+        diff = expr_diff(runs[0], other)
+        if diff is not None:
+            raise AssertionError(f"expr_eval {what}: kernel against {label}: {diff}")
+    ms = _median_ms(lambda: TK.expr_eval_cuda(program, env, n, device))
+    plain = _median_ms(lambda: TK.expr_program_reference(program, env, n, device))
+    closures_ms = _median_ms(lambda: TK.closures_layout(program, env, n, device))
+    moved = _expr_bytes(TK, program, env, n)
+    return dict(rows=n, instructions=len(program.code), registers=program.n_regs,
+                bytes=moved, max_abs_err=0.0, ms=ms, plain_ms=plain,
+                closures_ms=closures_ms, library_ms=None, **_bound(moved))
+
+
+def expr_grid_phase(TK, device) -> dict:
+    """Every grid case at ``EXPR_GRID_ROWS`` rows: kernel, twin and closures
+    bit-identical (:func:`expr_check`)."""
+    from arrow_ballista_tpu_torch.exec import expressions as tpe
+
+    batch = expr_grid_batch(EXPR_GRID_ROWS)
+    out = {}
+    for name, build in expr_grid_cases().items():
+        program, leaves = expr_case(TK, tpe, batch.schema, build)
+        if not program.stores:
+            raise AssertionError(f"expr_eval grid {name}: the program computes nothing")
+        out[name] = expr_check(TK, program, expr_env(TK, batch, leaves, device),
+                               batch.num_rows, device, f"grid {name}")
+    return out
+
+
+def expr_query_check(TK, captured: dict, device) -> dict:
+    """q1's and q6's own programs, at the first batch their cache-off run
+    gave them, over its first 2^20 rows and all 2^23."""
+    out = {}
+    for q, ((program, env, n, _dev), _) in captured.items():
+        for rows in sorted({min(r, n) for r in EXPR_QUERY_ROWS}):
+            cut = {k: None if v is None else v[:rows] for k, v in env.items()}
+            out[f"q{q} {rows}"] = expr_check(TK, program, cut, rows, device,
+                                             f"q{q} at {rows} rows")
+    return out
+
+
+def _keep_expr_call(args):
+    """An expression call's (program, env, n, device), the env copied."""
+    program, env, n, device = args
+    return (program, dict(env), n, device)
+
+
+def _check_expr_launches(launches: dict, what: str, computes: bool = True) -> None:
+    """``expr_eval`` launched on a leg whose stage programs compute an
+    output, and not at all on one whose every output is an env tensor."""
+    n = launches.get("expr_eval", 0)
+    if computes and n < 1:
+        raise AssertionError(f"{what}: expr_eval never launched: {json.dumps(launches)}")
+    if not computes and n:
+        raise AssertionError(f"{what}: expr_eval launched {n} times on pass-through programs")
 
 
 # ------------------------------------------------------------ timing phase
@@ -2259,11 +2577,20 @@ def run(opts, device) -> list:
     scan_err = max(t["max_abs_err"] for t in scan_times.values())
     pid_times = pid_phase(TK, device)
     probe_times, build_times = join_phase(TK, device)
+    t1 = time.perf_counter()
+    expr_grid = expr_grid_phase(TK, device)
+    print(f"expr_eval grid: {len(expr_grid)} cases bit-identical to the twin and the "
+          f"closures s={time.perf_counter() - t1!r}")
     print(f"kernel phase: ok s={time.perf_counter() - t0!r}")
 
     batches = lineitem_batches(lineitem)
     del lineitem
     queries = query_phase(tbt, TK, batches, device)
+    expr_shapes = expr_query_check(
+        TK, {q: r["cache_off"].pop("expr") for q, r in queries.items()}, device)
+    for r in queries.values():
+        for run_ in r.values():
+            run_.pop("expr", None)
     # the multi-entry kernel at the cold runs' shapes, timed now so that
     # the captured entries (every closure output of the query) go early
     entry_shapes = {}
@@ -2312,10 +2639,20 @@ def run(opts, device) -> list:
                     ("window_flags window", flags_shape),
                     ("partition_ids distributed q3", pid_shape),
                     *(("join_probe " + k, v) for k, v in probe_shapes.items()),
-                    *(("join_build_table " + k, v) for k, v in build_shapes.items())]:
+                    *(("join_build_table " + k, v) for k, v in build_shapes.items()),
+                    *(("expr_eval " + k, v) for k, v in expr_shapes.items())]:
         print(f"timing {name}: {json.dumps(t)}")
 
+    for name, t in expr_grid.items():
+        print(f"timing expr_eval grid {name}: {json.dumps(t)}")
+    # q1's largest shape (2^23 rows; a smaller --sf has a shorter first batch)
+    expr_head = max((t for k, t in expr_shapes.items() if k.startswith("q1 ")),
+                    key=lambda t: t["rows"])
     entries = [
+        _entry("expr_eval", expr_head, launches["expr_eval"], 0.0,
+               closures_ms=expr_head["closures_ms"], shapes=expr_shapes,
+               kernel_phase={k: {f: t[f] for f in ("ms", "plain_ms", "closures_ms", "bound_ms")}
+                             for k, t in expr_grid.items()}),
         _entry("segment_agg", shapes["q1"], launches["segment_agg"],
                max([kernel_err] + [s["max_abs_err"] for s in shapes.values()]),
                shapes=shapes, kernel_phase=kernel_times, sort_route=sorted_times),

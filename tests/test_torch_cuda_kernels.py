@@ -832,3 +832,170 @@ def test_keyed_stage_on_cuda_matches_cpu_operators(cuda, sql):
                 assert y == pytest.approx(x, rel=1e-9)
             else:
                 assert x == y
+
+
+# ------------------------------------------------ expression program (B3)
+import chip_smoke as SMOKE  # noqa: E402  (the grid the smoke holds on the card)
+from arrow_ballista_tpu_torch.exec import expressions as tpe  # noqa: E402
+
+_GRID_ROWS = 300_001  # not a multiple of a CTA: ragged last block
+
+
+@pytest.fixture(scope="module")
+def grid_batch():
+    return SMOKE.expr_grid_batch(_GRID_ROWS)
+
+
+@pytest.mark.parametrize("name", sorted(SMOKE.expr_grid_cases()))
+def test_expr_eval_grid_matches_twin(cuda, grid_batch, name):
+    """Every opcode's case: two kernel runs, the twin and the closures it
+    was compiled from, bit for bit (NaN payloads, -0.0, validity)."""
+    program, leaves = SMOKE.expr_case(TK, tpe, grid_batch.schema,
+                                      SMOKE.expr_grid_cases()[name])
+    env = SMOKE.expr_env(TK, grid_batch, leaves, cuda)
+    n = grid_batch.num_rows
+    before = TK.LAUNCHES["expr_eval"]
+    runs = [TK.expr_eval_cuda(program, env, n, cuda) for _ in range(2)]
+    assert TK.LAUNCHES["expr_eval"] == before + 2
+    for other in (runs[1], TK.expr_program_reference(program, env, n, cuda),
+                  TK.closures_layout(program, env, n, cuda)):
+        assert SMOKE.expr_diff(runs[0], other) is None, SMOKE.expr_diff(runs[0], other)
+
+
+def test_expr_eval_int64_edges_match_torch_on_the_card(cuda):
+    """INT64_MIN / -1 and % -1, which the twin guards, give what torch's
+    own CUDA kernels give unguarded."""
+    a = torch.tensor([SMOKE.I64_MIN, 7, -7, 2**62], dtype=torch.int64, device=cuda)
+    b = torch.tensor([-1, -1, -1, -1], dtype=torch.int64, device=cuda)
+    assert torch.equal(TK._trunc_div(a, b), torch.div(a, b, rounding_mode="trunc"))
+    assert torch.equal(TK._floor_mod(a, b), torch.remainder(a, b))
+    assert TK._trunc_div(a, b)[0].item() == SMOKE.I64_MIN
+
+
+def _stage_program(cuda, q):
+    """q's stage program and its first batch's env on the card, captured
+    from a cache-off run through the port's session."""
+    ctx = tbt.SessionContext(
+        tbt.BallistaConfig({"ballista.tpu.cache_columns": "false",
+                            "ballista.tpu.min_rows": "0"}), device=cuda)
+    ctx.register_arrow_table("lineitem", gen_lineitem(0.05), partitions=1)
+    seen = []
+    inner = TK.expr_eval_cuda
+
+    def hook(program, env, n, device):
+        seen.append((program, dict(env), n))
+        return inner(program, env, n, device)
+
+    TK.expr_eval_cuda = hook
+    try:
+        ctx.sql(QUERIES[q]).collect()
+    finally:
+        TK.expr_eval_cuda = inner
+    assert seen, f"q{q}: expr_eval never called"
+    return seen[0]
+
+
+@pytest.mark.parametrize("q", [1, 6])
+def test_expr_eval_tpch_programs_match_twin(cuda, q):
+    program, env, n = _stage_program(cuda, q)
+    assert program.stores, "q1 and q6 compute their filter and arguments"
+    got = TK.expr_eval_cuda(program, env, n, cuda)
+    for other in (TK.expr_eval_cuda(program, env, n, cuda),
+                  TK.expr_program_reference(program, env, n, cuda),
+                  TK.closures_layout(program, env, n, cuda)):
+        assert SMOKE.expr_diff(got, other) is None, SMOKE.expr_diff(got, other)
+
+
+def test_expr_eval_square_empty_batch_and_threads(cuda, grid_batch):
+    """The variance family's square, a batch of no rows (no launch), and
+    four threads launching different programs on one card at once."""
+    import threading
+
+    comp = TK.TorchExprCompiler(grid_batch.schema)
+    x = comp._lower(tpe.Col(grid_batch.schema.get_field_index("x"), "x"))
+    square = TK.ExprProgram(None, [TK.square_closure(x)], [(0, torch.float64)])
+    env = SMOKE.expr_env(TK, grid_batch, comp.leaves, cuda)
+    n = grid_batch.num_rows
+    assert SMOKE.expr_diff(TK.expr_eval_cuda(square, env, n, cuda),
+                           TK.expr_program_reference(square, env, n, cuda)) is None
+    empty = {k: None if v is None else v[:0] for k, v in env.items()}
+    before = TK.LAUNCHES["expr_eval"]
+    pred, pvalid, values, valids = TK.expr_eval_cuda(square, empty, 0, cuda)
+    assert TK.LAUNCHES["expr_eval"] == before and values[0].shape == (0,)
+
+    cases = SMOKE.expr_grid_cases()
+    names = ["q1_charge", "case_nested", "in_int", "mod_float"]
+    jobs = []
+    for name in names:
+        program, leaves = SMOKE.expr_case(TK, tpe, grid_batch.schema, cases[name])
+        jobs.append((program, SMOKE.expr_env(TK, grid_batch, leaves, cuda)))
+    results, errors = {}, []
+
+    def work(k):
+        try:
+            program, env_k = jobs[k]
+            for _ in range(10):
+                results[k] = TK.expr_eval_cuda(program, env_k, n, cuda)
+            torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for k, (program, env_k) in enumerate(jobs):
+        twin = TK.expr_program_reference(program, env_k, n, cuda)
+        assert SMOKE.expr_diff(results[k], twin) is None, names[k]
+
+
+def test_expr_eval_rejects_bad_input(cuda, grid_batch):
+    program, leaves = SMOKE.expr_case(TK, tpe, grid_batch.schema,
+                                      SMOKE.expr_grid_cases()["q1_charge"])
+    env = SMOKE.expr_env(TK, grid_batch, leaves, cuda)
+    n = grid_batch.num_rows
+    before = TK.LAUNCHES["expr_eval"]
+    value = next(k for k in env if not k.endswith("__valid"))
+    valid = next(k for k in env if k.endswith("__valid") and env[k] is not None)
+    for bad in ({value: env[value].float()},  # dtype
+                {value: env[value].cpu()},  # left on the host
+                {value: torch.stack([env[value], env[value]], 1)[:, 0]},  # strided
+                {value: env[value][:-1]},  # short
+                {valid: env[valid].long()}):
+        with pytest.raises(ValueError, match="expr_eval"):
+            TK.expr_eval_cuda(program, {**env, **bad}, n, cuda)
+    with pytest.raises(ValueError, match="not CUDA"):
+        TK.expr_eval_cuda(program, env, n, torch.device("cpu"))
+    assert TK.LAUNCHES["expr_eval"] == before
+
+
+def test_extension_error_formatting_an_integer_raises(cuda):
+    """An exception thrown inside the extension with an integer in its
+    message raises RuntimeError (ROADMAP fault C4: built by another GCC,
+    the extension carried its own static libstdc++, whose integer
+    formatting ended the process with SIGSEGV).  Run in a child process,
+    so that a crash fails this test only."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from arrow_ballista_tpu_torch.ops.cuda.build import load
+ext = load()
+dev = torch.device("cuda")
+empty = torch.empty(0, dtype=torch.bool, device=dev)
+gid = torch.zeros(8, dtype=torch.int32, device=dev)
+state = torch.zeros(1, 8, dtype=torch.int64, device=dev)
+try:
+    ext.segment_agg(gid, empty, empty, empty, [empty] * 40, [empty] * 40, [0], [-1], state)
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0])
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0, (r.returncode, r.stderr[-2000:])
+    assert "raised: columns 40" in r.stdout, r.stdout

@@ -545,11 +545,11 @@ def _twin_rows(tst, entries):
     """The (gid, tail, pred, pvalid, values, valids) rows of each entry, and
     the field layout, as the multi-entry stage function builds them."""
     closures, columns, ops, cols = TK._agg_layout(tst.specs, tst._arg_closures)
+    program = TK.ExprProgram(tst._filter_closure, closures, columns)
     rows = []
     for gid, tail, arrays in entries:
         env = dict(zip(tst._flat_names, arrays))
-        pred, pvalid, values, valids = TK._eval_layout(
-            env, gid.shape[0], CPU, tst._filter_closure, closures, columns)
+        pred, pvalid, values, valids = TK.expr_eval(program, env, gid.shape[0], CPU)
         rows.append((gid, tail, pred, pvalid, values, valids))
     return rows, ops, cols
 

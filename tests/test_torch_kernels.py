@@ -345,9 +345,9 @@ def _agg_setup(pe, K, compiler_cls, batch):
             specs.append(K.KernelAggSpec("count_star", False))
             closures.append(None)
             continue
-        c = comp._lower(pe.Col(batch.schema.get_field_index(arg), arg))
-        if func == "count":
-            c = (lambda cl: lambda env: (None, cl(env)[1]))(c)
+        col = pe.Col(batch.schema.get_field_index(arg), arg)
+        # count(col) reads only the validity, as the stage compiles it
+        c = comp.validity_only(col) if func == "count" else comp._lower(col)
         specs.append(K.KernelAggSpec(func, True, int_minmax=int_mm))
         closures.append(c)
     return comp, filt, specs, closures
