@@ -5,7 +5,7 @@ This is the single-node engine entry point — the role DataFusion's
 (``client/src/context.rs:78-460``).  It equals the JAX package's
 ``context.py`` except that a session carries the torch device its device
 stages run on, and physical planning installs the port's
-``TorchStageExec`` (no mesh pass: the mesh is not ported).
+``TorchStageExec`` on it.
 """
 
 from __future__ import annotations
@@ -376,8 +376,11 @@ class SessionContext:
     def create_physical_plan(self, logical: lp.LogicalPlan) -> ExecutionPlan:
         phys = PhysicalPlanner(self.config).create_physical_plan(logical)
         from .ops.stage_compiler import maybe_accelerate
+        from .parallel.mesh_stage import maybe_mesh
 
-        return maybe_accelerate(phys, self.config, self.device)
+        return maybe_mesh(
+            maybe_accelerate(phys, self.config, self.device), self.config
+        )
 
     def execute(self, plan: ExecutionPlan) -> pa.Table:
         return collect(plan, self.task_context())

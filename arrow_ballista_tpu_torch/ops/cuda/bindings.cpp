@@ -18,6 +18,8 @@
 #include "expr_eval.h"
 #include "join_probe.h"
 #include "keyed.h"
+#include "mesh_reduce.h"
+#include "mesh_route.h"
 #include "partition_id.h"
 #include "radix_sort.h"
 #include "range_extremum.h"
@@ -608,6 +610,67 @@ void expr_eval_(const at::Tensor& words, int64_t n_instr, int64_t n_regs,
   launched(expr_eval_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
+void mesh_reduce_(const std::vector<at::Tensor>& states, const std::vector<int64_t>& ops,
+                  at::Tensor out) {
+  c10::cuda::CUDAGuard guard(out.device());
+  TORCH_CHECK(!states.empty() && states.size() <= (size_t)kMeshMaxShards,
+              "mesh_reduce: shard count");
+  TORCH_CHECK(ops.size() == (size_t)out.size(0) && ops.size() <= (size_t)kSegAggMaxFields,
+              "mesh_reduce: field count");
+  MeshReduceParams p{};
+  p.n_shards = (int)states.size();
+  p.n_fields = (int)out.size(0);
+  p.capacity = out.size(1);
+  for (int s = 0; s < p.n_shards; ++s) {
+    TORCH_CHECK(states[s].device() == out.device() && states[s].sizes() == out.sizes(),
+                "mesh_reduce: shard state shape or device");
+    p.states[s] = reinterpret_cast<const long long*>(states[s].data_ptr<int64_t>());
+  }
+  for (int f = 0; f < p.n_fields; ++f) p.ops[f] = (int8_t)ops[f];
+  p.out = reinterpret_cast<long long*>(out.data_ptr<int64_t>());
+  launched(mesh_reduce_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+constexpr int64_t kMeshRouteTile = 4096;  // rows per block of the route
+
+void mesh_route_(const at::Tensor& dest, const at::Tensor& valid,
+                 const std::vector<at::Tensor>& cols, int64_t n_dev, int64_t capacity,
+                 const std::vector<at::Tensor>& staged, at::Tensor staged_valid,
+                 at::Tensor dropped) {
+  c10::cuda::CUDAGuard guard(dest.device());
+  TORCH_CHECK(cols.size() == staged.size(), "mesh_route: staged columns");
+  TORCH_CHECK(n_dev >= 1 && n_dev <= kMeshRouteMaxDevs, "mesh_route: destinations");
+  MeshRouteParams p{};
+  p.dest = dest.data_ptr<int32_t>();
+  p.valid = valid.data_ptr<bool>();
+  p.n = dest.size(0);
+  p.n_dev = (int)n_dev;
+  p.capacity = capacity;
+  p.tile = kMeshRouteTile;
+  p.n_blocks = (int)((p.n + kMeshRouteTile - 1) / kMeshRouteTile);
+  p.dropped = reinterpret_cast<unsigned long long*>(dropped.data_ptr<int64_t>());
+  if (p.n == 0) return;
+  at::Tensor counts = at::empty({n_dev, (int64_t)p.n_blocks}, dest.options().dtype(at::kLong));
+  p.counts = reinterpret_cast<long long*>(counts.data_ptr<int64_t>());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  launched(mesh_route_plan(&p, stream));
+  size_t g = 0;
+  do {  // one scatter per group of columns; the first writes the validity
+    const size_t k = std::min(cols.size() - g, (size_t)kMeshRouteMaxCols);
+    p.n_cols = (int)k;
+    for (size_t c = 0; c < k; ++c) {
+      TORCH_CHECK(staged[g + c].scalar_type() == cols[g + c].scalar_type(),
+                  "mesh_route: staged dtype");
+      p.cols[c] = cols[g + c].data_ptr();
+      p.staged[c] = staged[g + c].data_ptr();
+      p.esize[c] = (int8_t)cols[g + c].element_size();
+    }
+    p.staged_valid = g == 0 ? staged_valid.data_ptr<bool>() : nullptr;
+    launched(mesh_route_scatter(&p, stream));
+    g += k;
+  } while (g < cols.size());
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -634,4 +697,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("keyed_median", &keyed_median_, "keyed route: per-group median and distinct count");
   m.def("corr_mask", &corr_mask_, "keyed corr: pairwise-valid rows");
   m.def("corr_center", &corr_center_, "keyed corr: centred products");
+  m.def("mesh_reduce", &mesh_reduce_, "mesh: shard states folded in shard order");
+  m.def("mesh_route", &mesh_route_, "mesh: one shard's rows staged by destination");
 }

@@ -33,6 +33,8 @@ SOURCES = [
     os.path.join(_HERE, "keyed_finish.cu"),
     os.path.join(_HERE, "keyed_median.cu"),
     os.path.join(_HERE, "keyed_corr.cu"),
+    os.path.join(_HERE, "mesh_reduce.cu"),
+    os.path.join(_HERE, "mesh_route.cu"),
     os.path.join(_HERE, "bindings.cpp"),
 ]
 BUILD_DIR = os.path.join(

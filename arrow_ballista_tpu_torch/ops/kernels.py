@@ -956,7 +956,7 @@ def states_from_numpy(
 LAUNCHES = dict.fromkeys(
     ("expr_eval", "segment_agg", "segment_agg_entries", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
      "partition_ids", "join_build_table", "join_probe", "key_encode", "keyed_gids",
-     "keyed_finish", "keyed_median", "keyed_corr"), 0
+     "keyed_finish", "keyed_median", "keyed_corr", "mesh_reduce", "mesh_route"), 0
 )
 _LAUNCHES_LOCK = threading.Lock()
 

@@ -2098,7 +2098,7 @@ def maybe_accelerate(
 ) -> ExecutionPlan:
     """PhysicalOptimizerRule: replace eligible aggregates with
     TorchStageExec and eligible windows with TorchWindowExec on
-    ``device``."""
+    ``device``, and point each mesh repartition's exchange at it."""
     if not config.tpu_enable:
         return plan
     kids = plan.children()
@@ -2107,7 +2107,12 @@ def maybe_accelerate(
             [maybe_accelerate(c, config, device) for c in kids]
         )
     from ..exec.window import WindowExec
+    from ..parallel.mesh_stage import MeshRepartitionExec
 
+    if isinstance(plan, MeshRepartitionExec):
+        # the exchange runs on this pass's device (the executor's)
+        plan.device = torch.device(device)
+        return plan
     if isinstance(plan, WindowExec):
         from .window_compiler import TorchWindowExec
 

@@ -672,8 +672,11 @@ def try_broadcast(graph, completed_sid: int) -> None:
         # roll them back to placeholders (selections preserved) so the
         # consumer — which stays Unresolved, outside reset_stages' reach —
         # re-resolves against live locations after any executor loss
-        # (no mesh gang bodies to skip: the port's planner emits none)
         probe_body = rollback_resolved_shuffles(probe.plan.input)
+        from ..parallel.mesh_stage import MeshGangExec, MeshRepartitionExec
+
+        if isinstance(probe_body, (MeshGangExec, MeshRepartitionExec)):
+            continue  # gang bodies assume the writer's exchange contract
         tasks_before = consumer.partitions
         new_join = join.as_collect_left(right=probe_body)
         consumer.plan = _replace_node(consumer.plan, join, new_join)

@@ -119,9 +119,11 @@ class SchedulerGrpcService:
             from ..obs.recorder import trace_store
 
             trace_store().add_json(request.spans_json)
-        if request.telemetry_json:
+        if request.telemetry_json and not em.is_dead_executor(request.executor_id):
             # tolerant: an old executor ships nothing, a broken one may
-            # ship garbage — the store counts a parse error and moves on
+            # ship garbage — the store counts a parse error and moves on.
+            # A removed executor's last beats are dropped: recording them
+            # would re-create the rings forget_executor just dropped
             self.server.state.telemetry.record_executor(
                 request.executor_id, request.telemetry_json
             )

@@ -377,8 +377,13 @@ def _canon_plan(p: Any, child_fps: dict[int, str], with_snapshot: bool) -> Any:
             fp,
             sorted(p.selections) if p.selections else None,
         ]
-    # the mesh operators are not ported: the port's planner never emits them
-    raise CacheIneligible(f"unknown operator {type(p).__name__}")
+    n = type(p).__name__
+    if n in ("MeshRepartitionExec", "MeshGangExec"):
+        inner = _canon_plan(p.input, child_fps, with_snapshot)
+        if n == "MeshRepartitionExec":
+            return ["mesh_repart", _canon_partitioning(p.partitioning), inner]
+        return ["mesh_gang", inner]
+    raise CacheIneligible(f"unknown operator {n}")
 
 
 def plan_fingerprint(

@@ -15,10 +15,6 @@ Also ``remove_unresolved_shuffles`` (swap placeholders for readers with real
 locations once producing stages complete, `planner.rs:199-247`) and
 ``rollback_resolved_shuffles`` (the inverse, for executor-loss recovery,
 `planner.rs:252-275`).
-
-The mesh stage forms (``MeshGangExec``, ``MeshRepartitionExec``) are not
-ported: with ``ballista.mesh.enable`` on or off, every shuffle boundary
-becomes a ``ShuffleWriterExec`` hop.
 """
 
 from __future__ import annotations
@@ -42,6 +38,40 @@ class DistributedPlanner:
         self.work_dir = work_dir
         self.config = config or BallistaConfig()
         self._next_stage_id = 0
+
+    def _maybe_gang(self, plan: ExecutionPlan, part=None) -> ExecutionPlan:
+        """TPU-native stage forms (two shapes):
+
+        * the subtree fuses into a partial aggregate → MeshGangExec: the
+          cross-partition exchange is a psum over ICI and only
+          [capacity]-sized states reach the shuffle;
+        * the stage feeds a hash repartition (``part``) → MeshRepartition-
+          Exec: rows route to their output partition with one all_to_all
+          over ICI and the writer persists pre-partitioned batches —
+          replacing the per-partition hash-split + disk+Flight hop the
+          reference always takes (shuffle_writer.rs:142-292, :201-285).
+        """
+        from ..parallel.mesh_stage import (
+            MeshGangExec,
+            MeshRepartitionExec,
+            exchange_supported,
+            gang_eligible,
+        )
+
+        if not (self.config.mesh_enable and self.config.tpu_enable):
+            return plan
+        if plan.output_partitioning().n <= 1:
+            return plan  # single partition: nothing to gang
+        if gang_eligible(plan):
+            return MeshGangExec(plan, self.config.mesh_devices)
+        if (
+            part is not None
+            and part.kind == "hash"
+            and part.exprs
+            and exchange_supported(plan.schema)
+        ):
+            return MeshRepartitionExec(plan, part, self.config.mesh_devices)
+        return plan
 
     def _new_stage_id(self) -> int:
         self._next_stage_id += 1
@@ -67,7 +97,7 @@ class DistributedPlanner:
 
         if isinstance(plan, CoalescePartitionsExec):
             writer = self._create_shuffle_writer(
-                job_id, children[0], None
+                job_id, self._maybe_gang(children[0]), None
             )
             stages.append(writer)
             placeholder = UnresolvedShuffleExec(
@@ -83,7 +113,7 @@ class DistributedPlanner:
             part = plan.partitioning
             if part.kind == "hash":
                 writer = self._create_shuffle_writer(
-                    job_id, children[0], part
+                    job_id, self._maybe_gang(children[0], part), part
                 )
                 stages.append(writer)
                 placeholder = UnresolvedShuffleExec(

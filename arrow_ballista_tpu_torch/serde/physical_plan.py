@@ -2,9 +2,7 @@
 
 Counterpart of the reference's ``core/src/serde/physical_plan/mod.rs``
 (operator encode/decode; roundtrip-tested the same way).  Stage plans
-travel scheduler → executor inside ``TaskDefinition.plan``.  The mesh
-operators are not ported (the port's planner never emits them), so their
-nodes neither encode nor decode here.
+travel scheduler → executor inside ``TaskDefinition.plan``.
 
 ``ShuffleWriterExec.work_dir`` deliberately does NOT travel on the wire:
 the receiving executor rebuilds the writer against its local work dir,
@@ -228,6 +226,20 @@ def physical_plan_to_proto(plan: ExecutionPlan) -> pb.PhysicalPlanNode:
         if plan.selections is not None:
             n.unresolved_shuffle.selections_json = json.dumps(plan.selections)
         return n
+    from ..parallel.mesh_stage import MeshGangExec, MeshRepartitionExec
+
+    if isinstance(plan, MeshRepartitionExec):
+        n.mesh_repartition.input.CopyFrom(physical_plan_to_proto(plan.input))
+        n.mesh_repartition.partitioning.CopyFrom(
+            partitioning_to_proto(plan.partitioning)
+        )
+        n.mesh_repartition.n_devices = plan.n_devices
+        return n
+
+    if isinstance(plan, MeshGangExec):
+        n.mesh_gang.input.CopyFrom(physical_plan_to_proto(plan.input))
+        n.mesh_gang.n_devices = plan.n_devices
+        return n
     raise PlanError(f"cannot serialize physical plan {type(plan).__name__}")
 
 
@@ -381,5 +393,17 @@ def physical_plan_from_proto(
             selections=_selections_from_json(
                 n.unresolved_shuffle.selections_json
             ),
+        )
+    if kind == "mesh_gang":
+        from ..parallel.mesh_stage import MeshGangExec
+
+        return MeshGangExec(rec(n.mesh_gang.input), n.mesh_gang.n_devices)
+    if kind == "mesh_repartition":
+        from ..parallel.mesh_stage import MeshRepartitionExec
+
+        return MeshRepartitionExec(
+            rec(n.mesh_repartition.input),
+            partitioning_from_proto(n.mesh_repartition.partitioning),
+            n.mesh_repartition.n_devices,
         )
     raise PlanError(f"cannot deserialize physical plan node {kind!r}")

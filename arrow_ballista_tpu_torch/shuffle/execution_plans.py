@@ -240,10 +240,15 @@ class ShuffleWriterExec(ExecutionPlan):
         )
 
     def _store_kind(self, policy) -> str:
-        """Resolve the shuffle store for this write:
-        ``ballista.shuffle.store`` (with the legacy ``shuffle.to_memory``
-        folded in by WritePolicy.from_config).  The mesh stages, which
-        the reference keeps in memory, are not ported."""
+        """Resolve the shuffle store for this write: a mesh stage (gang
+        or ICI-exchanged repartition) always stays in memory — its output
+        never belongs on disk — otherwise ``ballista.shuffle.store``
+        (with the legacy ``shuffle.to_memory`` folded in by
+        WritePolicy.from_config)."""
+        from ..parallel.mesh_stage import MeshGangExec, MeshRepartitionExec
+
+        if isinstance(self.input, (MeshGangExec, MeshRepartitionExec)):
+            return "mem"
         return policy.store
 
     def _stage_base_dir(self, kind: str, policy) -> str:
@@ -382,6 +387,19 @@ class ShuffleWriterExec(ExecutionPlan):
 
         if part.kind != "hash":
             raise ExecutionError(f"unsupported shuffle partitioning {part.kind}")
+
+        from ..parallel.mesh_stage import MeshExchangeError, MeshRepartitionExec
+
+        if isinstance(self.input, MeshRepartitionExec):
+            # the stage body already routed rows to their destination over
+            # ICI: write each received output partition directly (one task,
+            # zero hash-split work here).  Only exchange-specific failures
+            # fall back; inner-plan errors propagate to stage retry.
+            try:
+                return self._exchanged_write(input_partition, ctx, stage_dir)
+            except MeshExchangeError:
+                self.metrics.add("mesh_exchange_fallback", 1)
+                return self._fallback_hash_write(ctx, stage_dir, part)
 
         if not policy.pipelined:
             sinks: list = [None] * part.n
@@ -612,6 +630,85 @@ class ShuffleWriterExec(ExecutionPlan):
                     )
                 )
         return out
+
+    def _exchanged_write(
+        self, input_partition: int, ctx: TaskContext, stage_dir: str
+    ) -> list[ShuffleWritePartition]:
+        """Persist already-exchanged (out_partition, batch) pairs from a
+        MeshRepartitionExec stage body — the write half of the ICI
+        shuffle.  No hash-split work here, but the batches still ride the
+        slab-buffered async pool (coalescing + off-thread serialization
+        + compression)."""
+        assert input_partition == 0, "mesh-exchanged stages are single-task"
+        from .writer import AsyncShuffleWriter
+
+        to_mem = self._store_kind(self._policy(None)) == "mem"
+        if not self._policy(None).pipelined:
+            # the A/B baseline flag pins the pre-pipelining behavior on
+            # EVERY write shape, this one included
+            sinks: list = [None] * self.shuffle_output_partitioning.n
+            for out_p, batch in self.input.execute_exchanged(ctx):
+                ctx.check_cancelled()
+                with self.metrics.timer("write_time_ns"):
+                    if sinks[out_p] is None:
+                        sinks[out_p] = self._sink(
+                            to_mem, stage_dir, out_p, 0, batch.schema, False
+                        )
+                    sinks[out_p].write(batch)
+            return self._close_sinks(
+                sinks, to_mem, stage_dir, 0, self.input.schema
+            )
+        writer = AsyncShuffleWriter(
+            self.shuffle_output_partitioning.n,
+            self._sink_factory(to_mem, stage_dir, 0, self.input.schema),
+            self._policy(None),
+            self.metrics,
+            cancel_event=ctx.cancel_event,
+            replicate_fn=self._replicate_hook(),
+        )
+        try:
+            for out_p, batch in self.input.execute_exchanged(ctx):
+                ctx.check_cancelled()
+                writer.append(out_p, batch)
+            sinks = writer.finish()
+        except BaseException:
+            writer.abort()
+            raise
+        return self._stats_from_sinks(sinks)
+
+    def _fallback_hash_write(
+        self, ctx: TaskContext, stage_dir: str, part: Partitioning
+    ) -> list[ShuffleWritePartition]:
+        """Exchange fallback: run the hash-split over EVERY inner
+        partition inside this one task (still correct, no collective).
+
+        Sinks follow the EXPLICIT config only — the mesh-input heuristic
+        of _store_kind must not apply here, or a shuffle that fell back
+        precisely because it exceeded the row ceiling would be buffered
+        whole in executor memory anyway."""
+        to_mem = self._policy(None).store == "mem"
+        inner = self.input.children()[0]
+
+        if self._policy(None).pipelined:
+
+            def batches():
+                for in_p in range(inner.output_partitioning().n):
+                    for batch in inner.execute(in_p, ctx):
+                        ctx.check_cancelled()
+                        yield batch
+
+            return self._pipelined_hash_write(
+                batches(), part, ctx, stage_dir, to_mem, 0,
+                schema=inner.schema,
+            )
+        sinks: list = [None] * part.n
+        for in_p in range(inner.output_partitioning().n):
+            for batch in inner.execute(in_p, ctx):
+                ctx.check_cancelled()
+                self._hash_split_into_sinks(
+                    batch, part, sinks, to_mem, stage_dir, 0
+                )
+        return self._close_sinks(sinks, to_mem, stage_dir, 0, inner.schema)
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
         stats = self.execute_shuffle_write(partition, ctx)

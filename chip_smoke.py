@@ -50,6 +50,15 @@ Phases; any failure exits non-zero and prints no result line:
               build columns (f64 with NaN and -0.0, int64, int32 with
               nulls), probe keys with nulls, misses, keys below kmin and
               negative keys: bit-identical to the twins;
+            * ``mesh_reduce`` and ``mesh_route`` (B13b) on a mesh of 4
+              shards of the one card: the reduce over q1's state (16
+              fields) and a mixed one (NaN, -0.0, int64 past 2^53) at
+              capacity in {64, 2^20}; the route over 4 shards of 2^23 rows
+              of q3's lineitem columns (int64, f64, f64, each with its
+              validity, and the int32 ``__part``) to 4 destinations, at
+              the exact capacity and one below the exact need (n_dropped
+              the surplus, the exchange at twice that capacity delivering
+              every row); all bit-identical to the twins;
 4. query  — TPC-H q1 and q6 over ``--sf`` lineitem (``gen_lineitem``'s
             seed, streamed as ``ballista.batch.size`` = 2^23-row batches,
             ``ballista.shuffle.partitions`` = 1) through
@@ -103,7 +112,17 @@ Phases; any failure exits non-zero and prints no result line:
             results, no fallback, ``fused_dispatches`` and
             ``fused_pid_in_kernel`` above 0, and every output batch's
             partition ids equal to the host partitioner's;
-11. timing — every kernel at the first shape its main path gave it: the
+10b. mesh — distributed q1 and q3 again through a cluster of the same
+            shape with the mesh on (the reference's default: no
+            ``ballista.mesh.enable`` key): q1's partial aggregate is one
+            ``MeshGangExec`` task (``mesh_devices`` the card count,
+            ``mesh_rows_in`` every lineitem row, ``mesh_reduce`` launched),
+            q3's repartition stages are ``MeshRepartitionExec`` tasks
+            (``mesh_exchange_rows`` above 0, ``mesh_route`` launched; a
+            writer's fallback past the row ceiling is printed); each equal
+            to the CPU operators' answer of the mesh-off legs;
+11. timing — every kernel at the first shape its main path gave it
+            (``mesh_route`` at the largest, dist. q3's lineitem exchange): the
             kernel, its twin and, where one PyTorch call computes the same
             function, that call (CUDA events, median of 20 launches),
             beside the least time the card could take (the bytes the call
@@ -111,7 +130,7 @@ Phases; any failure exits non-zero and prints no result line:
 
 Launch counts are set to 0 just before each main-path run (q1/q6 three ways
 each, q3, keyed q3, h2o q6/q9/q10, star join, window, distributed q3 and q1,
-the fusion leg) and read just after; a kernel of that path that never
+the fusion leg, the mesh legs) and read just after; a kernel of that path that never
 launched fails the run.  ``expr_eval`` launches on every leg whose stage
 computes a filter or an argument (one a batch or entry); h2o q9 and q10,
 whose programs pass bare columns through, and the window leg launch it
@@ -146,6 +165,10 @@ PID_PARTITIONS = (1, 7, 200, 1 << 16)
 JOIN_ROWS = (1 << 20, 1 << 23)
 JOIN_COLUMNS = (0, 1, 3)
 JOIN_FORMS = ("dense 2^20", "dense 2^26", "sorted")
+MESH_SHARDS = 4  # the kernel phase's mesh: 4 shards on the one card
+MESH_REDUCE_CAPACITIES = (64, 1 << 20)  # q1's state, and a wide one
+MESH_ROUTE_ROWS = 1 << 23  # rows per shard
+MESH_ROUTE_DESTS = 4
 STAR_ROWS, STAR_DIM = 60_000_000, 1_000_000  # bench_suite.py:bench_starjoin
 WINDOW_BATCHES = 2  # the window leg reads lineitem's first 2 batches (2^24 rows)
 H2O_ROWS, H2O_K = 10_000_000, 100  # db-benchmark's G1_1e7_1e2_0_0
@@ -179,6 +202,8 @@ KERNELS = {
     "keyed_finish": ("keyed_finish.cu", "arrow_ballista_tpu/ops/kernels.py:1886"),
     "keyed_median": ("keyed_median.cu", "arrow_ballista_tpu/ops/kernels.py:1582"),
     "keyed_corr": ("keyed_corr.cu", "arrow_ballista_tpu/ops/kernels.py:1949"),
+    "mesh_reduce": ("mesh_reduce.cu", "arrow_ballista_tpu/parallel/mesh.py:33"),
+    "mesh_route": ("mesh_route.cu", "arrow_ballista_tpu/parallel/mesh.py:113"),
 }
 
 
@@ -416,6 +441,177 @@ def entries_phase(TK, device) -> tuple[float, dict]:
     return worst, times
 
 
+# ------------------------------------------------------------ mesh (B13b)
+def _q1_specs(TK) -> list:
+    """q1's state layout: four sums, three avgs, count(*) (16 fields)."""
+    return ([TK.KernelAggSpec("sum", True)] * 4 + [TK.KernelAggSpec("avg", True)] * 3
+            + [TK.KernelAggSpec("count_star", False)])
+
+
+def _mixed_specs(TK) -> list:
+    return [TK.KernelAggSpec("min", True), TK.KernelAggSpec("max", True),
+            TK.KernelAggSpec("sum", True, int_sum=True),
+            TK.KernelAggSpec("min", True, int_minmax=True), TK.KernelAggSpec("sum", True)]
+
+
+def _shard_states(TK, specs, cap: int, n_shards: int, seed: int, device) -> list:
+    """Seeded shard states in the port's layout: f64 fields normal (NaN and
+    -0.0 sprinkled in), int fields counts or int64 past 2^53."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    flags = TK._field_flags(specs)
+    states = []
+    for _ in range(n_shards):
+        rows = []
+        for role, is_int in flags:
+            if is_int:
+                rows.append(rng.integers(0, 1 << 60, cap) if role != "add"
+                            else rng.integers(0, 1 << 20, cap))
+            else:
+                v = rng.normal(size=cap) * 1e6
+                v[::97] = np.nan
+                v[5::89] = -0.0
+                rows.append(v.view(np.int64))
+        states.append(torch.from_numpy(np.stack(rows)).to(device))
+    return states
+
+
+def _time_reduce(TM, specs, states) -> dict:
+    import torch
+
+    want = TM.mesh_reduce_reference(specs, states)
+    runs = [TM.mesh_reduce_cuda(specs, states) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], want)):
+        raise AssertionError("mesh_reduce differs from its twin")
+    stacked = torch.stack(states)
+    nf, cap = states[0].shape
+    return dict(
+        shards=len(states), fields=nf, capacity=cap,
+        ms=_median_ms(lambda: TM.mesh_reduce_cuda(specs, states)),
+        plain_ms=_median_ms(lambda: TM.mesh_reduce_reference(specs, states), reps=5),
+        # nearest single call: a sum over the stacked states (no min/max roles)
+        library_ms=_median_ms(lambda: torch.sum(stacked, 0)),
+        max_abs_err=0.0,
+        **_bound(_nbytes(*states) + _nbytes(want)),
+    )
+
+
+def _route_bytes(dest, valid, cols, n_dev: int, cap: int) -> int:
+    row = sum(c.element_size() for c in cols)
+    return _nbytes(dest, valid, *cols) + n_dev * cap * (row + 1)
+
+
+def _route_library(dest, valid, cols, n_dev: int, cap: int):
+    """torch.argsort(stable=True) of the destinations plus one index_put_
+    per column: the sort and scatter half of the route as library calls."""
+    import torch
+
+    dm = torch.where(valid, dest, n_dev)
+    order = torch.argsort(dm, stable=True)
+    ds = dm[order]
+    idx = torch.arange(ds.shape[0], device=ds.device) % cap  # no ranks: a yardstick
+    ok = ds < n_dev
+    at = (ds[ok], idx[ok])
+    for c in cols:
+        torch.zeros((n_dev, cap), dtype=c.dtype, device=c.device).index_put_(at, c[order][ok])
+
+
+def _checked_route(TM, dest, valid, cols, n_dev: int, cap: int) -> int:
+    """The kernel's staging bit-identical to the twin's; its n_dropped."""
+    import torch
+
+    got = TM.mesh_route_cuda(dest, valid, cols, n_dev, cap)
+    want = TM.mesh_route_reference(dest, valid, cols, n_dev, cap)
+    torch.cuda.synchronize()
+    same = torch.equal(got[1], want[1]) and int(got[2]) == int(want[2]) and all(
+        g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+        for g, w in zip(got[0], want[0]))
+    if not same:
+        raise AssertionError(f"mesh_route differs from its twin (n_dev={n_dev}, capacity={cap})")
+    return int(got[2])
+
+
+def _time_route(TM, dest, valid, cols, n_dev: int, cap: int) -> dict:
+    n_dropped = _checked_route(TM, dest, valid, cols, n_dev, cap)
+    return dict(
+        rows=int(dest.shape[0]), destinations=n_dev, capacity=cap, columns=len(cols),
+        ms=_median_ms(lambda: TM.mesh_route_cuda(dest, valid, cols, n_dev, cap)),
+        plain_ms=_median_ms(lambda: TM.mesh_route_reference(dest, valid, cols, n_dev, cap),
+                            reps=5),
+        library_ms=_median_ms(lambda: _route_library(dest, valid, cols, n_dev, cap)),
+        max_abs_err=0.0, n_dropped=n_dropped,
+        **_bound(_route_bytes(dest, valid, cols, n_dev, cap)),
+    )
+
+
+def _q3_route_inputs(n: int, n_dev: int, seed: int, device):
+    """One shard of distributed q3's lineitem exchange: l_orderkey (int64),
+    l_extendedprice and l_discount (f64), each with its validity, and the
+    int32 __part column, as BatchExchanger.to_columns lays them out."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    part = rng.integers(0, 8, n).astype(np.int32)
+    cols = [t(rng.integers(1, 60_000_000, n)), t(np.ones(n, bool)),
+            t(rng.uniform(900.0, 105_000.0, n)), t(np.ones(n, bool)),
+            t(np.round(rng.uniform(0.0, 0.1, n), 2)), t(np.ones(n, bool)), t(part)]
+    return t(part % n_dev), t(np.ones(n, bool)), cols
+
+
+def mesh_phase(TK, device) -> dict:
+    """Both mesh kernels on TorchMesh([cuda:0] * 4): the reduce over q1's
+    state and a wide mixed one, the route over 4 shards of q3's lineitem
+    columns, each shard once with its exact capacity and once one below it
+    (n_dropped the surplus, the doubled retry delivering every row); all
+    bit-identical to the twins."""
+    import torch
+
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    mesh = TM.TorchMesh([device] * MESH_SHARDS)
+    out: dict = {}
+    for cap in MESH_REDUCE_CAPACITIES:
+        for name, specs in (("q1", _q1_specs(TK)), ("mixed", _mixed_specs(TK))):
+            states = _shard_states(TK, specs, cap, mesh.size, seed=cap, device=device)
+            t = _time_reduce(TM, specs, states)
+            out[f"reduce {name} capacity={cap}"] = t
+            print(f"mesh_reduce {name} shards={mesh.size} capacity={cap}: ok {json.dumps(t)}")
+            del states
+    shards = [_q3_route_inputs(MESH_ROUTE_ROWS, MESH_ROUTE_DESTS, seed=s, device=device)
+              for s in range(mesh.size)]
+    counts = [torch.bincount(dest, minlength=MESH_ROUTE_DESTS) for dest, _v, _c in shards]
+    need = int(max(int(c.max()) for c in counts))
+    exact = 1 << max(need - 1, 0).bit_length()  # MeshRepartitionExec's capacity
+    for s, (dest, valid, cols) in enumerate(shards):
+        if s == 0:
+            t = out["route exact"] = _time_route(TM, dest, valid, cols, MESH_ROUTE_DESTS, exact)
+            print(f"mesh_route shard 0 rows={MESH_ROUTE_ROWS} capacity={exact}: ok {json.dumps(t)}")
+            n_dropped = t["n_dropped"]
+        else:
+            n_dropped = _checked_route(TM, dest, valid, cols, MESH_ROUTE_DESTS, exact)
+        if n_dropped:
+            raise AssertionError(f"mesh_route shard {s}: {n_dropped} dropped at the exact capacity")
+    # one below the exact need: the surplus is counted, the retry delivers
+    tight = need - 1
+    dropped = sum(_checked_route(TM, dest, valid, cols, MESH_ROUTE_DESTS, tight)
+                  for dest, valid, cols in shards)
+    surplus = sum(int(torch.clamp(c - tight, min=0).sum()) for c in counts)
+    if dropped != surplus or surplus < 1:
+        raise AssertionError(f"mesh_route: n_dropped {dropped} vs surplus {surplus}")
+    exchange = TM.ici_batch_exchange(mesh, len(shards[0][2]), 2 * tight)
+    recv_cols, recv_valid, n_dropped = exchange([[d, v, *c] for d, v, c in shards])
+    delivered = sum(int(r.sum()) for r in recv_valid)
+    if n_dropped or delivered != mesh.size * MESH_ROUTE_ROWS:
+        raise AssertionError(f"mesh_route retry: dropped {n_dropped}, delivered {delivered}")
+    print(f"mesh_route capacity={tight}: n_dropped={dropped} = surplus; retry at "
+          f"{2 * tight} delivered {delivered} rows over {mesh.size} shards")
+    out["route tight"] = dict(capacity=tight, n_dropped=dropped, retry_delivered=delivered)
+    return out
+
+
 # ------------------------------------------------ sort, scan and windows
 class Capture:
     """Wraps ``module.name`` to keep its first call's arguments (the main
@@ -439,6 +635,22 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.inner)
+
+
+class CaptureLargest(Capture):
+    """A Capture that keeps the call over the most rows (its first
+    argument's length) instead of the first call."""
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def hook(*args, **kwargs):
+            if self.args is None or len(args[0]) > len(self.args[0][0]):
+                self.args = (args, kwargs)
+            return inner(*args, **kwargs)
+
+        setattr(self.module, self.name, hook)
+        return self
 
 
 def _reset_counts(TK) -> None:
@@ -1810,7 +2022,96 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
             out[q] = dict(launches=launches, pids=first.args, probe=probe.args,
-                          build=build.args)
+                          build=build.args, want=want, cpu_s=cpu_s)
+    finally:
+        ctx.close()
+    return out
+
+
+# the reference's default cluster: no ballista.mesh.enable key, so the mesh
+# is on; the same shape as DIST_SETTINGS otherwise
+MESH_DIST_SETTINGS = {"ballista.shuffle.partitions": "8"}
+
+
+def mesh_dist_phase(tbt, TK, root: str, lineitem_rows: int, dist: dict, device) -> dict:
+    """Distributed q1 and q3 with the mesh on, through a standalone cluster
+    of the same shape: q1's partial aggregate runs as one MeshGangExec task
+    (each shard's stage kernels, then ``mesh_reduce``), q3's repartition
+    stages as MeshRepartitionExec (``mesh_route`` and the block
+    all-to-all); each held against the CPU operators' answer the mesh-off
+    legs computed."""
+    import torch
+
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+    from benchmarks.tpch.queries import QUERIES
+
+    ctx = tbt.BallistaContext.standalone(
+        tbt.BallistaConfig(dict(MESH_DIST_SETTINGS)), num_executors=1,
+        concurrent_tasks=4, device=device,
+    )
+    out: dict = {}
+    try:
+        for name in DIST_TABLES:
+            ctx.register_parquet(name, os.path.join(root, name))
+        for q in (1, 3):
+            _reset_counts(TK)
+            with Capture(TM, "mesh_reduce_cuda") as red, \
+                    CaptureLargest(TM, "mesh_route_cuda") as route:
+                got, dev_s, metrics = _run_job(ctx, QUERIES[q])
+            launches = dict(TK.LAUNCHES)
+            _tables_equal(dist[q]["want"], got, f"dist. q{q} mesh")
+            gang = metrics.get("MeshGangExec", {})
+            rep = metrics.get("MeshRepartitionExec", {})
+            writer = metrics.get("ShuffleWriterExec", {})
+            stage = metrics.get("TorchStageExec", {})
+            for k in ("cpu_fallback", "highcard_fallback"):
+                if stage.get(k, 0):
+                    raise AssertionError(f"dist. q{q} mesh: {k}={stage[k]}")
+            # an exchanged partition reaches q3's join stage as one batch
+            # of about 4M probe rows, whose keys fill over half the group
+            # table: the reference's capacity rule bails to the unfolded
+            # shape (join on the CPU, aggregate on the card), as local q3
+            # does; any other device fallback fails the leg
+            if stage.get("tpu_fallback", 0) != stage.get("join_fallback", 0):
+                raise AssertionError(f"dist. q{q} mesh: a fallback other than the join "
+                                     f"bail ({json.dumps(stage)})")
+            if q == 1:
+                if gang.get("mesh_fallback", 0):
+                    raise AssertionError(f"dist. q1 gang: mesh_fallback ({json.dumps(gang)})")
+                if gang.get("mesh_devices") != torch.cuda.device_count() or (
+                        gang.get("mesh_rows_in") != lineitem_rows):
+                    raise AssertionError(f"dist. q1 gang: {json.dumps(gang)}")
+                need = ("mesh_reduce", "segment_agg", "expr_eval")
+                body = gang
+            else:
+                if rep.get("mesh_exchange_rows", 0) < 1:
+                    raise AssertionError(f"dist. q3 mesh: no exchange ran ({json.dumps(rep)})")
+                if writer.get("mesh_exchange_fallback", 0):
+                    # the row or capacity ceiling sent a stage back to the
+                    # hash-split writer: print why, the leg still counts
+                    print(f"dist. q3 mesh: mesh_exchange_fallback="
+                          f"{writer['mesh_exchange_fallback']} (a stage passed "
+                          f"mesh.exchange_max_rows or the capacity ceiling)")
+                need = ("mesh_route", "join_build_table", "expr_eval")
+                body = rep
+            for k in need:
+                if launches[k] < 1:
+                    raise AssertionError(f"dist. q{q} mesh: {k} never launched "
+                                         f"({json.dumps(launches)})")
+            breakdown = {k: body.get(k, 0) for k in (
+                "mesh_stage_time_ns", "key_encode_time_ns", "bridge_time_ns",
+                "device_time_ns", "repart_time_ns", "mesh_rows_in", "mesh_exchange_rows",
+                "mesh_devices", "mesh_fallback", "capacity_growths")}
+            print(
+                f"dist. q{q} mesh: lineitem_rows={lineitem_rows} "
+                f"launches={json.dumps(launches)} cuda_s={dev_s!r} "
+                f"cpu_s={dist[q]['cpu_s']!r} "
+                f"cuda_rows_per_s={lineitem_rows / dev_s!r} "
+                f"mesh={json.dumps(breakdown)} stage={json.dumps(stage)} "
+                f"mesh_exchange_fallback={writer.get('mesh_exchange_fallback', 0)} "
+                f"write_time_ns={writer.get('write_time_ns', 0)}"
+            )
+            out[q] = dict(launches=launches, reduce=red.args, route=route.args)
     finally:
         ctx.close()
     return out
@@ -2577,6 +2878,7 @@ def run(opts, device) -> list:
     scan_err = max(t["max_abs_err"] for t in scan_times.values())
     pid_times = pid_phase(TK, device)
     probe_times, build_times = join_phase(TK, device)
+    mesh_times = mesh_phase(TK, device)
     t1 = time.perf_counter()
     expr_grid = expr_grid_phase(TK, device)
     print(f"expr_eval grid: {len(expr_grid)} cases bit-identical to the twin and the "
@@ -2610,11 +2912,14 @@ def run(opts, device) -> list:
     del batches
     with parquet:
         dist = distributed_phase(tbt, TK, parquet.name, lineitem_rows, device)
+        mesh_dist = mesh_dist_phase(tbt, TK, parquet.name, lineitem_rows, dist, device)
+    for q in (1, 3):
+        dist[q].pop("want")
     with tempfile.TemporaryDirectory(prefix="g1-parquet-") as g1_root:
         fusion = fusion_phase(tbt, TK, g1, g1_root, device)
     del g1
     runs = [*queries[1].values(), *queries[6].values(), q3, q3k, *h2o.values(), star,
-            window, dist[3], dist[1], fusion]
+            window, dist[3], dist[1], fusion, mesh_dist[1], mesh_dist[3]]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
@@ -2633,6 +2938,12 @@ def run(opts, device) -> list:
                     for name, r in (("star", star), ("q3", q3), ("distributed q3", dist[3]))}
     keyed = keyed_timing(TK, {"h2o q6": h2o["q6"], "h2o q9": h2o["q9"],
                               "h2o q10": h2o["q10"], "q3 keyed": q3k})
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    (red_specs, red_states), _ = mesh_dist[1]["reduce"]
+    reduce_shape = _time_reduce(TM, red_specs, red_states)
+    route_shape = _time_route(TM, *mesh_dist[3]["route"][0])
+    del red_states, mesh_dist
     for name, t in [*shapes.items(), *(("radix_sort " + k, v) for k, v in sort_shapes.items()),
                     *(("seg_scan " + k, v) for k, v in scan_shapes.items()),
                     ("range_extremum window", rx_shape), ("window_pack window", pack_shape),
@@ -2640,7 +2951,9 @@ def run(opts, device) -> list:
                     ("partition_ids distributed q3", pid_shape),
                     *(("join_probe " + k, v) for k, v in probe_shapes.items()),
                     *(("join_build_table " + k, v) for k, v in build_shapes.items()),
-                    *(("expr_eval " + k, v) for k, v in expr_shapes.items())]:
+                    *(("expr_eval " + k, v) for k, v in expr_shapes.items()),
+                    ("mesh_reduce dist. q1 gang", reduce_shape),
+                    ("mesh_route dist. q3 mesh (its largest call)", route_shape)]:
         print(f"timing {name}: {json.dumps(t)}")
 
     for name, t in expr_grid.items():
@@ -2684,6 +2997,12 @@ def run(opts, device) -> list:
         entries.append(_entry(name, shapes_k[head], launches[name],
                               max(t["max_abs_err"] for t in shapes_k.values()),
                               shapes=shapes_k))
+    entries.append(_entry("mesh_reduce", reduce_shape, launches["mesh_reduce"], 0.0,
+                          kernel_phase={k: t for k, t in mesh_times.items()
+                                        if k.startswith("reduce")}))
+    entries.append(_entry("mesh_route", route_shape, launches["mesh_route"], 0.0,
+                          kernel_phase={k: t for k, t in mesh_times.items()
+                                        if k.startswith("route")}))
 
     return entries
 

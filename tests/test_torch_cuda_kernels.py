@@ -102,9 +102,12 @@ def test_segment_agg_kernel_rejects_bad_input(cuda):
 
 # (device on, cache_columns, the kernel that must launch): the CPU
 # operators, the per-batch B1 path with the column cache off, and the
-# default path, whose retained batches fold in one multi-entry launch
+# default path, whose retained batches fold in one multi-entry launch.
+# These pin the stage's own paths: with the mesh on (the default) the
+# tables' two partitions would run as one gang (its own test is below)
 _RUNS = (("false", "true", None), ("true", "false", "segment_agg"),
          ("true", "true", "segment_agg_entries"))
+_NO_MESH = {"ballista.mesh.enable": "false"}
 
 
 @pytest.mark.parametrize("q", [1, 6])
@@ -115,7 +118,7 @@ def test_tpch_on_cuda_matches_cpu_operators(cuda, q):
         ctx = tbt.SessionContext(
             tbt.BallistaConfig({"ballista.tpu.enable": enable,
                                 "ballista.tpu.cache_columns": cache,
-                                "ballista.tpu.min_rows": "0"}),
+                                "ballista.tpu.min_rows": "0", **_NO_MESH}),
             device=cuda,
         )
         ctx.register_arrow_table("lineitem", lineitem, partitions=2)
@@ -166,7 +169,7 @@ def test_stage_on_cuda_matches_cpu_operators(cuda, sql):
         ctx = tbt.SessionContext(
             tbt.BallistaConfig({"ballista.tpu.enable": enable,
                                 "ballista.tpu.cache_columns": cache,
-                                "ballista.tpu.min_rows": "0"}),
+                                "ballista.tpu.min_rows": "0", **_NO_MESH}),
             device=cuda,
         )
         ctx.register_arrow_table("t", tbl, partitions=2)
@@ -244,7 +247,7 @@ def test_cache_hit_on_cuda_equals_the_cold_run(cuda):
 
     ctx = tbt.SessionContext(
         tbt.BallistaConfig({"ballista.tpu.min_rows": "0",
-                            "ballista.batch.size": "65536"}),
+                            "ballista.batch.size": "65536", **_NO_MESH}),
         device=cuda,
     )
     ctx.register_arrow_table("lineitem", gen_lineitem(0.05), partitions=2)
@@ -999,3 +1002,148 @@ except RuntimeError as e:
                        text=True, timeout=900)
     assert r.returncode == 0, (r.returncode, r.stderr[-2000:])
     assert "raised: columns 40" in r.stdout, r.stdout
+
+
+# ------------------------------------------------------------ mesh (B13b)
+def _mesh_states(cuda, n_shards, cap, seed):
+    """Each shard's state from the segment-aggregate kernel over its rows."""
+    states = []
+    for s in range(n_shards):
+        gid, tail, pred, pvalid, values, valids = _inputs(50_000, cap, cuda, seed=seed + s)
+        state = TK.init_states(_SPECS, cap, cuda)
+        TK.segment_agg_cuda(gid, tail, pred, pvalid, values, valids, _OPS, _COLS, state)
+        states.append(state)
+    return states
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 4])
+@pytest.mark.parametrize("cap", [64, 70000])
+def test_mesh_reduce_matches_twin(cuda, n_shards, cap):
+    """Bit for bit: the kernel folds the shards in order with B1's merge,
+    as the twin folds combine_states (NaN, -0.0 and int wrap included)."""
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    states = _mesh_states(cuda, n_shards, cap, seed=11 * n_shards)
+    states.append(TK.init_states(_SPECS, cap, cuda))  # an empty shard
+    before = TK.LAUNCHES["mesh_reduce"]
+    got = TM.mesh_reduce_cuda(_SPECS, states)
+    again = TM.mesh_reduce_cuda(_SPECS, states)
+    want = TM.mesh_reduce_reference(_SPECS, states)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["mesh_reduce"] == before + 2
+    assert torch.equal(got, again) and torch.equal(got, want)
+
+
+def _route_inputs(cuda, n, n_dev, seed, invalid=0.1):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    f = rng.normal(size=n)
+    f[::97] = np.nan
+    f[3::101] = -0.0
+    cols = [
+        t(rng.integers(-(2**62), 2**62, n)), t(f),
+        t(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)),
+        t(rng.random(n) < 0.5), t(rng.integers(0, 2**15, n).astype(np.int16)),
+    ]
+    return t(rng.integers(0, n_dev, n).astype(np.int32)), t(rng.random(n) >= invalid), cols
+
+
+@pytest.mark.parametrize("n,n_dev", [(1, 1), (5000, 3), (300_001, 4), (70_000, 200)])
+@pytest.mark.parametrize("tight", [False, True])
+def test_mesh_route_matches_twin(cuda, n, n_dev, tight):
+    """Bit for bit: the staged columns (every dtype width), the staged
+    validity and the dropped count, with capacity at the largest bucket or
+    one below it."""
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    dest, valid, cols = _route_inputs(cuda, n, n_dev, seed=n + n_dev)
+    live = dest[valid]
+    need = int(torch.bincount(live, minlength=n_dev).max()) if live.numel() else 1
+    cap = max(1, need - 1 if tight else need)
+    before = TK.LAUNCHES["mesh_route"]
+    got = TM.mesh_route_cuda(dest, valid, cols, n_dev, cap)
+    want = TM.mesh_route_reference(dest, valid, cols, n_dev, cap)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["mesh_route"] == before + 1
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    assert torch.equal(got[1], want[1])
+    counts = torch.bincount(live, minlength=n_dev) if live.numel() else torch.zeros(1)
+    surplus = int(torch.clamp(counts - cap, min=0).sum())
+    assert int(got[2]) == int(want[2]) == surplus
+    assert (surplus > 0) == (tight and need > 1)
+
+
+def test_mesh_route_many_columns_and_out_of_range(cuda):
+    """More columns than one scatter launch copies, and destinations
+    outside 0..n_dev-1 counted as dropped, as the twin counts them."""
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    dest, valid, cols = _route_inputs(cuda, 20_000, 4, seed=3)
+    dest[::50] = 9
+    dest[1::50] = -2
+    cols = cols * 8  # 40 columns
+    got = TM.mesh_route_cuda(dest, valid, cols, 4, 8192)
+    want = TM.mesh_route_reference(dest, valid, cols, 4, 8192)
+    torch.cuda.synchronize()
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    assert torch.equal(got[1], want[1]) and int(got[2]) == int(want[2]) > 0
+
+
+@pytest.mark.parametrize("q", [1, 6])
+def test_mesh_gang_on_cuda_matches_cpu_operators(cuda, q):
+    """The default plan (mesh on) gangs q1's and q6's two partitions: one
+    shard on the card, B3 and B1 over its rows, one mesh_reduce; equal to
+    the CPU operators."""
+    from arrow_ballista_tpu_torch.parallel.mesh_stage import MeshGangExec
+
+    lineitem = gen_lineitem(0.05)
+    out = []
+    for enable in ("false", "true"):
+        ctx = tbt.SessionContext(
+            tbt.BallistaConfig({"ballista.tpu.enable": enable,
+                                "ballista.tpu.min_rows": "0"}),
+            device=cuda,
+        )
+        ctx.register_arrow_table("lineitem", lineitem, partitions=2)
+        before = dict(TK.LAUNCHES)
+        plan = ctx.sql(QUERIES[q]).physical_plan()
+        out.append(ctx.execute(plan))
+    gang = [n for n in _walk(plan) if isinstance(n, MeshGangExec)]
+    assert gang and gang[0].metrics.to_dict()["mesh_devices"] == torch.cuda.device_count()
+    for kernel in ("mesh_reduce", "segment_agg", "expr_eval"):
+        assert TK.LAUNCHES[kernel] > before[kernel], kernel
+    a, b = out
+    assert a.num_rows == b.num_rows
+    for name in a.schema.names:
+        for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
+            if isinstance(x, float):
+                assert y == pytest.approx(x, rel=1e-9)
+            else:
+                assert x == y
+
+
+def _walk(plan):
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        yield node
+        stack.extend(node.children())
+
+
+def test_mesh_kernels_reject_bad_input(cuda):
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    s = TK.init_states(_SPECS, 64, cuda)
+    with pytest.raises(ValueError):
+        TM.mesh_reduce_cuda(_SPECS, [s, s[:, :32].contiguous()])
+    with pytest.raises(ValueError):
+        TM.mesh_reduce_cuda(_SPECS, [s] * (TM.MESH_MAX_SHARDS + 1))
+    dest, valid, cols = _route_inputs(cuda, 100, 2, seed=1)
+    with pytest.raises(ValueError):
+        TM.mesh_route_cuda(dest.to(torch.int64), valid, cols, 2, 64)
+    with pytest.raises(ValueError):
+        TM.mesh_route_cuda(dest, valid, cols, TM.MESH_MAX_DEVICES + 1, 64)
+    with pytest.raises(ValueError):
+        TM.mesh_route_cuda(dest, valid, [cols[0][:50]], 2, 64)

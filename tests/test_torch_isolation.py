@@ -37,7 +37,7 @@ HOST_COPIES = [
     "scheduler/backend.py", "scheduler/display.py", "scheduler/event_loop.py",
     "scheduler/execution_graph.py", "scheduler/execution_stage.py",
     "scheduler/executor_manager.py", "scheduler/external_scaler.py",
-    "scheduler/failure.py", "scheduler/grpc_service.py", "scheduler/kvstore.py",
+    "scheduler/failure.py", "scheduler/kvstore.py",
     "scheduler/policy_store.py", "scheduler/query_stage_scheduler.py",
     "scheduler/queue_wal.py", "scheduler/server.py", "scheduler/speculation.py",
     "scheduler/standalone.py", "scheduler/state.py", "scheduler/task_manager.py",
@@ -49,6 +49,8 @@ HOST_COPIES = [
     "shuffle/delta_store.py",
     "testing/__init__.py", "testing/faults.py", "utils/diagram.py",
     "ops/fusion.py",
+    "parallel/__init__.py", "scheduler/planner.py", "scheduler/adaptive.py",
+    "shuffle/execution_plans.py",
 ]
 # ported, not copied: context.py gains the device, ops/bridge.py gains the
 # device staging (appended after the copied body) and a zigzag identity key
@@ -64,18 +66,22 @@ ALLOWLIST = {
     # imports its own generated modules package-qualified (a bare
     # `ballista_pb2` would resolve to the JAX package's through sys.modules)
     "proto/__init__.py",
-    # unwraps TorchStageExec/TorchWindowExec; the mesh nodes are not ported
+    # unwraps TorchStageExec/TorchWindowExec (the port's device wrappers)
     "serde/physical_plan.py",
-    # the writer's mesh branches go (the mesh is not ported)
-    "shuffle/execution_plans.py",
-    # no mesh rewrite: every shuffle boundary is a writer hop
-    "scheduler/planner.py",
-    # the AQE broadcast rewrite has no mesh gang bodies to skip
-    "scheduler/adaptive.py",
     # fingerprints the port's device wrappers as the plan they wrap
     "scheduler/plan_cache.py",
+    # the mesh is a list of torch devices driven by one process, its
+    # collectives the port's reduce and route kernels plus block copies
+    "parallel/mesh.py",
+    # the gang runs the port's stage routes per shard, re-runs only on
+    # data-dependent exits (a device error raises), and the exchange runs
+    # on the device the acceleration pass gives it
+    "parallel/mesh_stage.py",
     # the scheduler's sessions only plan, so they need no CUDA device
     "scheduler/session_manager.py",
+    # drops the telemetry of a heartbeat from a removed executor (the
+    # reference records it, re-creating the rings the removal forgot)
+    "scheduler/grpc_service.py",
     # the executor carries a torch device and accelerates on it; a cuda
     # executor keeps device stages in its own process
     "executor/executor.py",

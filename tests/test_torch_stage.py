@@ -104,7 +104,9 @@ def test_tpch_query_matches_jax_and_cpu(q):
     """q1/q6 (the main path), q12 (CASE over a host string leaf) and q3
     (the aggregate on the device above a CPU join)."""
     _three(QUERIES[q], _register_tpch)
-    ctx = _port()
+    # the stage's own route and metrics: with the mesh on (the default,
+    # which _three holds to the reference) q1, q6 and q12 run as a gang
+    ctx = _port(**{"ballista.mesh.enable": "false"})
     _register_tpch(ctx)
     _, m = _run_port(ctx, QUERIES[q])
     for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
