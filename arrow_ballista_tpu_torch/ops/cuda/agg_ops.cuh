@@ -10,6 +10,7 @@
 #include <math.h>
 
 #include "segment_agg.h"
+#include "x32_ops.cuh"
 
 namespace agg_ops {
 
@@ -40,19 +41,43 @@ __device__ __forceinline__ bool is_f64_op(int op) {
   return op == SA_ADD_F64 || op == SA_MIN_F64 || op == SA_MAX_F64;
 }
 
-// The fold's identity; sums and counts start at 0 (+0.0 is the zero word).
+// The fold's identity; sums and counts start at 0 (+0.0 is the zero word,
+// (0, 0) the zero pair).
 __device__ __forceinline__ long long identity(int op) {
   switch (op) {
     case SA_MIN_F64: return 0x7ff0000000000000LL;              // +inf
     case SA_MAX_F64: return (long long)0xfff0000000000000ULL;  // -inf
     case SA_MIN_I64: return LLONG_MAX;
     case SA_MAX_I64: return LLONG_MIN;
+    case SA_UMIN_U64: return -1LL;  // the largest unsigned word
     default: return 0;
   }
 }
 
+// An f32 (hi, lo) pair as one word, hi in the low half.
+__device__ __forceinline__ long long df32_word(float hi, float lo) {
+  return (long long)(((unsigned long long)(unsigned)__float_as_int(lo) << 32) |
+                     (unsigned long long)(unsigned)__float_as_int(hi));
+}
+__device__ __forceinline__ float df32_hi(long long w) { return __int_as_float((int)w); }
+__device__ __forceinline__ float df32_lo(long long w) { return __int_as_float((int)(w >> 32)); }
+
+// The reference's _scan_segments df32 combine: s, e = 2Sum(a_hi, b_hi),
+// then 2Sum(s, a_lo + b_lo + e).
+__device__ __forceinline__ long long df32_combine(long long a, long long b) {
+  float s, e, hi, lo;
+  x32_ops::two_sum(df32_hi(a), df32_hi(b), &s, &e);
+  x32_ops::two_sum(s, __fadd_rn(__fadd_rn(df32_lo(a), df32_lo(b)), e), &hi, &lo);
+  return df32_word(hi, lo);
+}
+
 __device__ __forceinline__ long long combine(int op, long long a, long long b) {
   switch (op) {
+    case SA_DF32: return df32_combine(a, b);
+    case SA_UMIN_U64:
+      return (unsigned long long)a < (unsigned long long)b ? a : b;
+    case SA_UMAX_U64:
+      return (unsigned long long)a > (unsigned long long)b ? a : b;
     case SA_ADD_F64: return as_word(as_f64(a) + as_f64(b));
     case SA_MIN_F64: return as_word(min_nan(as_f64(a), as_f64(b)));
     case SA_MAX_F64: return as_word(max_nan(as_f64(a), as_f64(b)));

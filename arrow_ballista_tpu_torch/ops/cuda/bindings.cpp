@@ -15,11 +15,13 @@
 #include <utility>
 #include <vector>
 
+#include "df32_agg.h"
 #include "expr_eval.h"
 #include "join_probe.h"
 #include "keyed.h"
 #include "mesh_reduce.h"
 #include "mesh_route.h"
+#include "ord_extremum.h"
 #include "partition_id.h"
 #include "radix_sort.h"
 #include "range_extremum.h"
@@ -27,6 +29,7 @@
 #include "segment_agg.h"
 #include "segment_agg_entries.h"
 #include "window_epilogue.h"
+#include "x32_merge.h"
 
 namespace {
 
@@ -290,7 +293,9 @@ void seg_scan_(int64_t n, const at::Tensor& perm, const at::Tensor& flag,
                const std::vector<at::Tensor>& outs, const at::Tensor& state,
                const std::vector<int64_t>& field_col,
                const std::vector<int64_t>& field_op, at::Tensor block_agg,
-               at::Tensor block_carry, at::Tensor block_start) {
+               at::Tensor block_carry, at::Tensor block_start,
+               const std::vector<at::Tensor>& values2, const std::vector<int64_t>& width,
+               const at::Tensor& state32) {
   c10::cuda::CUDAGuard guard(block_agg.device());
   SegScanParams p{};
   p.n = n;
@@ -307,11 +312,15 @@ void seg_scan_(int64_t n, const at::Tensor& perm, const at::Tensor& flag,
     p.src[c] = (int8_t)src[c];
     p.op[c] = (int8_t)op[c];
     p.in_i64[c] = (int8_t)in_i64[c];
+    p.values2[c] = opt<const void>(values2[c]);
+    p.width[c] = (int8_t)width[c];
     p.out[c] = reinterpret_cast<long long*>(opt<int64_t>(outs[c]));
   }
   p.state = reinterpret_cast<long long*>(opt<int64_t>(state));
-  if (p.state != nullptr) {
-    p.capacity = state.size(1);
+  p.state32 = opt<int32_t>(state32);
+  TORCH_CHECK(p.state == nullptr || p.state32 == nullptr, "seg_scan: two states");
+  if (p.state != nullptr || p.state32 != nullptr) {
+    p.capacity = p.state != nullptr ? state.size(1) : state32.size(1);
     p.n_fields = (int)field_col.size();
     TORCH_CHECK(p.n_fields <= kSegAggMaxFields, "seg_scan: fields");
     for (int f = 0; f < p.n_fields; ++f) {
@@ -611,7 +620,7 @@ void expr_eval_(const at::Tensor& words, int64_t n_instr, int64_t n_regs,
 }
 
 void mesh_reduce_(const std::vector<at::Tensor>& states, const std::vector<int64_t>& ops,
-                  at::Tensor out) {
+                  at::Tensor out, bool x32) {
   c10::cuda::CUDAGuard guard(out.device());
   TORCH_CHECK(!states.empty() && states.size() <= (size_t)kMeshMaxShards,
               "mesh_reduce: shard count");
@@ -622,13 +631,118 @@ void mesh_reduce_(const std::vector<at::Tensor>& states, const std::vector<int64
   p.n_fields = (int)out.size(0);
   p.capacity = out.size(1);
   for (int s = 0; s < p.n_shards; ++s) {
-    TORCH_CHECK(states[s].device() == out.device() && states[s].sizes() == out.sizes(),
-                "mesh_reduce: shard state shape or device");
-    p.states[s] = reinterpret_cast<const long long*>(states[s].data_ptr<int64_t>());
+    TORCH_CHECK(states[s].device() == out.device() && states[s].sizes() == out.sizes() &&
+                    states[s].scalar_type() == out.scalar_type(),
+                "mesh_reduce: shard state shape, dtype or device");
+    p.states[s] = states[s].data_ptr();
   }
+  TORCH_CHECK(out.scalar_type() == (x32 ? at::kInt : at::kLong), "mesh_reduce: state dtype");
   for (int f = 0; f < p.n_fields; ++f) p.ops[f] = (int8_t)ops[f];
-  p.out = reinterpret_cast<long long*>(out.data_ptr<int64_t>());
+  p.x32 = x32 ? 1 : 0;
+  p.out = out.data_ptr();
   launched(mesh_reduce_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+// D: hi, lo [n_out, capacity] f32 and cnt [n_cnt, capacity] int32 written;
+// ``partial`` is the [blocks, slots + counts, capacity] scratch.  The
+// Python wrapper (ops/kernels.py:df32_agg_cuda) checks every tensor first.
+void df32_agg_(const at::Tensor& gid, const at::Tensor& tail, const at::Tensor& pred,
+               const at::Tensor& pvalid, const std::vector<at::Tensor>& values,
+               const std::vector<at::Tensor>& valids, const std::vector<int64_t>& slots,
+               const std::vector<int64_t>& out_a, const std::vector<int64_t>& out_b,
+               const std::vector<int64_t>& counts, int64_t capacity, int64_t block,
+               int64_t nb, at::Tensor hi, at::Tensor lo, at::Tensor cnt,
+               at::Tensor partial) {
+  const at::Device dev = gid.device();
+  c10::cuda::CUDAGuard guard(dev);
+  TORCH_CHECK(values.size() == valids.size() && values.size() <= (size_t)kDfMaxCols &&
+                  slots.size() <= (size_t)kDfMaxCols && out_a.size() <= (size_t)kDfMaxCols &&
+                  out_a.size() == out_b.size() && counts.size() <= (size_t)kDfMaxCols,
+              "df32_agg: sizes");
+  Df32Params p{};
+  p.n = gid.size(0);
+  p.gid = gid.data_ptr<int32_t>();
+  p.tail = mask_ptr(tail, p.n, dev, "tail");
+  p.pred = mask_ptr(pred, p.n, dev, "pred");
+  p.pvalid = mask_ptr(pvalid, p.n, dev, "pvalid");
+  for (size_t c = 0; c < values.size(); ++c) {
+    p.values[c] = opt<const float>(values[c]);
+    p.valids[c] = mask_ptr(valids[c], p.n, dev, "validity");
+  }
+  p.n_slots = (int)slots.size();
+  for (int j = 0; j < p.n_slots; ++j) p.slot_col[j] = (int8_t)slots[j];
+  p.n_out = (int)out_a.size();
+  for (int k = 0; k < p.n_out; ++k) {
+    p.out_a[k] = (int8_t)out_a[k];
+    p.out_b[k] = (int8_t)out_b[k];
+  }
+  p.n_cnt = (int)counts.size();
+  for (int c = 0; c < p.n_cnt; ++c) p.cnt_col[c] = (int8_t)counts[c];
+  p.capacity = capacity;
+  p.block = block;
+  p.nb = nb;
+  p.n_real = (p.n + block - 1) / block;
+  TORCH_CHECK(p.n_real <= 65535 && p.n_real <= nb, "df32_agg: blocks");
+  TORCH_CHECK(partial.numel() >= p.n_real * (p.n_slots + p.n_cnt) * capacity,
+              "df32_agg: scratch");
+  p.tile = df32_agg_tile(p.n_slots + p.n_cnt, capacity);
+  p.partial = reinterpret_cast<int32_t*>(partial.data_ptr());
+  p.hi = opt<float>(hi);
+  p.lo = opt<float>(lo);
+  p.cnt = opt<int32_t>(cnt);
+  launched(df32_agg_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+// E: ``out`` [1 or 2, capacity] int32 written, ``keys`` [capacity] uint64
+// scratch (held in an int64 tensor).
+void ord_extremum_(const at::Tensor& gid, const at::Tensor& tail, const at::Tensor& pred,
+                   const at::Tensor& pvalid, const at::Tensor& valid, const at::Tensor& hi,
+                   const at::Tensor& lo, int64_t kind, bool is_min, at::Tensor keys,
+                   at::Tensor out) {
+  const at::Device dev = gid.device();
+  c10::cuda::CUDAGuard guard(dev);
+  OrdParams p{};
+  p.n = gid.size(0);
+  p.gid = gid.data_ptr<int32_t>();
+  p.tail = mask_ptr(tail, p.n, dev, "tail");
+  p.pred = mask_ptr(pred, p.n, dev, "pred");
+  p.pvalid = mask_ptr(pvalid, p.n, dev, "pvalid");
+  p.valid = mask_ptr(valid, p.n, dev, "valid");
+  p.hi = static_cast<const int32_t*>(hi.data_ptr());
+  p.lo = opt<const int32_t>(lo);
+  TORCH_CHECK((kind == ORD_PAIR) == (p.lo != nullptr) && kind >= 0 && kind <= 2,
+              "ord_extremum: kind");
+  p.kind = (int)kind;
+  p.is_min = is_min ? 1 : 0;
+  p.capacity = keys.size(0);
+  TORCH_CHECK(out.size(1) == p.capacity && out.size(0) == (kind == ORD_PAIR ? 2 : 1),
+              "ord_extremum: output shape");
+  p.keys = reinterpret_cast<unsigned long long*>(keys.data_ptr<int64_t>());
+  p.out = out.data_ptr<int32_t>();
+  launched(ord_extremum_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+// M: ``rows`` (one int32 [capacity] tensor per state row) merged into the
+// int32 ``state`` in place.
+void x32_merge_(at::Tensor state, const std::vector<int64_t>& ops,
+                const std::vector<at::Tensor>& rows) {
+  c10::cuda::CUDAGuard guard(state.device());
+  TORCH_CHECK(state.scalar_type() == at::kInt && state.dim() == 2 && state.is_contiguous(),
+              "x32_merge: state must be a contiguous int32 [n_fields, capacity]");
+  TORCH_CHECK(ops.size() == (size_t)state.size(0) && rows.size() == ops.size() &&
+                  ops.size() <= (size_t)kSegAggMaxFields,
+              "x32_merge: field count");
+  X32MergeParams p{};
+  p.state = state.data_ptr<int32_t>();
+  p.n_fields = (int)ops.size();
+  p.capacity = state.size(1);
+  for (int f = 0; f < p.n_fields; ++f) {
+    TORCH_CHECK(rows[f].device() == state.device() && rows[f].numel() == p.capacity,
+                "x32_merge: row shape or device");
+    p.ops[f] = (int8_t)ops[f];
+    p.rows[f] = rows[f].data_ptr<int32_t>();
+  }
+  launched(x32_merge_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
 constexpr int64_t kMeshRouteTile = 4096;  // rows per block of the route
@@ -698,5 +812,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("corr_mask", &corr_mask_, "keyed corr: pairwise-valid rows");
   m.def("corr_center", &corr_center_, "keyed corr: centred products");
   m.def("mesh_reduce", &mesh_reduce_, "mesh: shard states folded in shard order");
+  m.def("df32_agg", &df32_agg_, "x32: double-float segment sums and exact counts");
+  m.def("ord_extremum", &ord_extremum_, "x32: exact per-group extremum");
+  m.def("x32_merge", &x32_merge_, "x32: state merge");
   m.def("mesh_route", &mesh_route_, "mesh: one shard's rows staged by destination");
 }

@@ -35,6 +35,9 @@ SOURCES = [
     os.path.join(_HERE, "keyed_corr.cu"),
     os.path.join(_HERE, "mesh_reduce.cu"),
     os.path.join(_HERE, "mesh_route.cu"),
+    os.path.join(_HERE, "df32_agg.cu"),
+    os.path.join(_HERE, "ord_extremum.cu"),
+    os.path.join(_HERE, "x32_merge.cu"),
     os.path.join(_HERE, "bindings.cpp"),
 ]
 BUILD_DIR = os.path.join(

@@ -33,6 +33,12 @@
 // the divisor added when the signs differ); float -> int64 casts through
 // cvt.rzi (saturating, NaN -> 0), CAST explicitly so; the transcendentals
 // through the same libdevice functions torch's kernels call.
+//
+// x32 programs (the reference's x32 closures) run in int32 and float32
+// registers with the same rules in 32 bits: one f32 rounding per operation
+// (__f*_rn, never an FMA), int32 arithmetic that wraps, the f32 libdevice
+// functions (sqrtf, expf, ...), float -> int32 casts saturating at the
+// int32 range.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,21 +57,59 @@ constexpr long long kI64Min = -kI64Max - 1;
 
 __device__ __forceinline__ double as_f64(u64 b) { return __longlong_as_double((long long)b); }
 __device__ __forceinline__ u64 f64_bits(double x) { return (u64)__double_as_longlong(x); }
+__device__ __forceinline__ float as_f32(u64 b) { return __int_as_float((int)(unsigned)b); }
+__device__ __forceinline__ u64 f32_bits(float x) { return (u64)(unsigned)__float_as_int(x); }
+__device__ __forceinline__ u64 i32_word(int v) { return (u64)(long long)v; }
 
-// torch's .to(dtype) between the three dtypes; a bool is 0 or 1.
+// torch's .to(dtype) between the five dtypes; a bool is 0 or 1, an int32
+// register is sign-extended, so the integer sources read as long long.
 __device__ __forceinline__ u64 convert(u64 b, int from, int to) {
   if (from == to) return b;
-  if (to == kDtBool) return from == kDtF64 ? (u64)(as_f64(b) != 0.0) : (u64)(b != 0);
-  if (to == kDtI64) return from == kDtF64 ? (u64)__double2ll_rz(as_f64(b)) : b;
-  return f64_bits(from == kDtI64 ? __ll2double_rn((long long)b) : (b ? 1.0 : 0.0));
+  const bool ints = from == kDtI64 || from == kDtI32 || from == kDtBool;
+  switch (to) {
+    case kDtBool:
+      if (from == kDtF64) return as_f64(b) != 0.0;
+      if (from == kDtF32) return as_f32(b) != 0.0f;
+      return b != 0;
+    case kDtI64:
+      if (from == kDtF64) return (u64)__double2ll_rz(as_f64(b));
+      if (from == kDtF32) return (u64)__float2ll_rz(as_f32(b));
+      return b;
+    case kDtI32:
+      if (from == kDtF64) return i32_word(__double2int_rz(as_f64(b)));
+      if (from == kDtF32) return i32_word(__float2int_rz(as_f32(b)));
+      return i32_word((int)(unsigned)b);  // wraps, as .to(int32)
+    case kDtF32:
+      if (from == kDtF64) return f32_bits(__double2float_rn(as_f64(b)));
+      if (from == kDtBool) return f32_bits(b ? 1.0f : 0.0f);
+      return f32_bits(from == kDtI32 ? __int2float_rn((int)(long long)b)
+                                     : __ll2float_rn((long long)b));
+    default:  // kDtF64
+      if (from == kDtF32) return f64_bits((double)as_f32(b));
+      if (from == kDtBool) return f64_bits(b ? 1.0 : 0.0);
+      return f64_bits(ints ? __ll2double_rn((long long)b) : as_f64(b));
+  }
 }
 
 // A value as a condition (nonzero; NaN is true).
 __device__ __forceinline__ bool truth(u64 b, int dt) {
-  return dt == kDtF64 ? as_f64(b) != 0.0 : b != 0;
+  if (dt == kDtF64) return as_f64(b) != 0.0;
+  if (dt == kDtF32) return as_f32(b) != 0.0f;
+  return b != 0;
 }
 
 __device__ __forceinline__ bool compare(int op, u64 x, u64 y, int dt) {
+  if (dt == kDtF32) {
+    const float l = as_f32(x), r = as_f32(y);
+    switch (op) {
+      case kOpEq: return l == r;
+      case kOpNe: return l != r;
+      case kOpLt: return l < r;
+      case kOpLe: return l <= r;
+      case kOpGt: return l > r;
+      default: return l >= r;
+    }
+  }
   if (dt == kDtF64) {
     const double l = as_f64(x), r = as_f64(y);
     switch (op) {
@@ -94,8 +138,14 @@ __device__ __forceinline__ u64 arith(int op, u64 x, u64 y, int dt) {
     return f64_bits(op == kOpAdd ? __dadd_rn(l, r)
                     : op == kOpSub ? __dsub_rn(l, r) : __dmul_rn(l, r));
   }
+  if (dt == kDtF32) {
+    const float l = as_f32(x), r = as_f32(y);
+    return f32_bits(op == kOpAdd ? __fadd_rn(l, r)
+                    : op == kOpSub ? __fsub_rn(l, r) : __fmul_rn(l, r));
+  }
   if (dt == kDtBool) return op == kOpAdd ? (x | y) : (x & y);  // torch: or, and
-  return op == kOpAdd ? x + y : op == kOpSub ? x - y : x * y;
+  const u64 w = op == kOpAdd ? x + y : op == kOpSub ? x - y : x * y;
+  return dt == kDtI32 ? i32_word((int)(unsigned)w) : w;
 }
 
 __device__ __forceinline__ double unary_f64(int op, double x) {
@@ -115,6 +165,30 @@ __device__ __forceinline__ double unary_f64(int op, double x) {
     case kOpRound: return ::rint(x);  // half to even
     default: return __dmul_rn(x, x);  // kOpSquare
   }
+}
+
+__device__ __forceinline__ float unary_f32(int op, float x) {
+  switch (op) {
+    case kOpAbs: return ::fabsf(x);
+    case kOpSqrt: return ::sqrtf(x);
+    case kOpExp: return ::expf(x);
+    case kOpLn: return ::logf(x);
+    case kOpLog10: return ::log10f(x);
+    case kOpLog2: return ::log2f(x);
+    case kOpCeil: return ::ceilf(x);
+    case kOpFloor: return ::floorf(x);
+    case kOpSin: return ::sinf(x);
+    case kOpCos: return ::cosf(x);
+    case kOpTan: return ::tanf(x);
+    case kOpSignum: return (x != x || x == 0.0f) ? x : (x > 0.0f ? 1.0f : -1.0f);
+    case kOpRound: return ::rintf(x);  // half to even
+    default: return __fmul_rn(x, x);  // kOpSquare
+  }
+}
+
+// A float register as the function's operand dtype (kDtF64 or kDtF32).
+__device__ __forceinline__ u64 unary(int op, u64 x, int dt) {
+  return dt == kDtF32 ? f32_bits(unary_f32(op, as_f32(x))) : f64_bits(unary_f64(op, as_f64(x)));
 }
 
 // Validity bits of a thread's registers: one 64-bit word in a register
@@ -170,6 +244,8 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
           const u64 w = convert(va, da, in.out_dt);
           if (in.out_dt == kDtBool) {
             static_cast<unsigned char*>(dst)[row] = (unsigned char)w;
+          } else if (in.out_dt == kDtI32 || in.out_dt == kDtF32) {
+            static_cast<unsigned*>(dst)[row] = (unsigned)w;
           } else {
             static_cast<u64*>(dst)[row] = w;
           }
@@ -186,14 +262,20 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
       switch (op) {
         case kOpLeaf:
           if (a >= 0) {
-            v = in.out_dt == kDtBool
-                    ? (u64)(static_cast<const unsigned char*>(p.in[a])[row] != 0)
-                    : static_cast<const u64*>(p.in[a])[row];
+            if (in.out_dt == kDtBool) {
+              v = (u64)(static_cast<const unsigned char*>(p.in[a])[row] != 0);
+            } else if (in.out_dt == kDtI32) {
+              v = i32_word(static_cast<const int*>(p.in[a])[row]);
+            } else if (in.out_dt == kDtF32) {
+              v = (u64)static_cast<const unsigned*>(p.in[a])[row];
+            } else {
+              v = static_cast<const u64*>(p.in[a])[row];
+            }
           }
           if (p.in[b] != nullptr) ok = static_cast<const unsigned char*>(p.in[b])[row] != 0;
           break;
         case kOpLit:
-          v = (u64)in.imm;
+          v = (in.out_dt == kDtF32) ? (u64)(unsigned)in.imm : (u64)in.imm;
           break;
         case kOpNull:
           ok = false;
@@ -202,11 +284,18 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
           v = convert(va, da, in.out_dt);
           ok = oa;
           break;
-        case kOpCastI64: {
-          const double x = as_f64(convert(va, da, kDtF64));
-          v = (u64)(x != x ? 0LL
-                    : x >= 9223372036854775808.0 ? kI64Max
-                    : x < -9223372036854775808.0 ? kI64Min : __double2ll_rz(x));
+        case kOpCastI64: {  // float -> the result's integer dtype, saturating
+          if (in.out_dt == kDtI32) {
+            const float x = as_f32(convert(va, da, kDtF32));
+            v = i32_word(x != x ? 0
+                         : x >= 2147483648.0f ? 0x7fffffff
+                         : x < -2147483648.0f ? (-0x7fffffff - 1) : __float2int_rz(x));
+          } else {
+            const double x = as_f64(convert(va, da, kDtF64));
+            v = (u64)(x != x ? 0LL
+                      : x >= 9223372036854775808.0 ? kI64Max
+                      : x < -9223372036854775808.0 ? kI64Min : __double2ll_rz(x));
+          }
           ok = oa;
           break;
         }
@@ -234,6 +323,11 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
           if (in.in_dt == kDtF64) {
             const double l = as_f64(x);
             for (int j = 0; j < in.c && !hit; ++j) hit = as_f64((u64)__ldg(table + j)) == l;
+          } else if (in.in_dt == kDtF32) {
+            const float l = as_f32(x);
+            for (int j = 0; j < in.c && !hit; ++j) hit = as_f32((u64)__ldg(table + j)) == l;
+          } else if (in.in_dt == kDtI32) {  // table words hold int32 values
+            for (int j = 0; j < in.c && !hit; ++j) hit = (int)__ldg(table + j) == (int)x;
           } else {
             for (int j = 0; j < in.c && !hit; ++j) hit = (u64)__ldg(table + j) == x;
           }
@@ -256,8 +350,9 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
           } else if (op >= kOpAdd && op <= kOpMul) {
             v = arith(op, convert(va, da, in.in_dt), convert(vb, db, in.in_dt), in.in_dt);
           } else if (op == kOpDivInt || op == kOpModInt) {
-            const long long l = (long long)convert(va, da, kDtI64);
-            const long long r = (long long)convert(vb, db, kDtI64);
+            // in the operand dtype's width (int64, or int32 in x32)
+            const long long l = (long long)convert(va, da, in.in_dt);
+            const long long r = (long long)convert(vb, db, in.in_dt);
             if (op == kOpDivInt) {
               v = r == -1 ? 0ULL - (u64)l : (u64)(l / (r == 0 ? 1 : r));
             } else if (r == 0 || r == -1) {
@@ -267,6 +362,21 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
               if (m != 0 && ((m < 0) != (r < 0))) m += r;
               v = (u64)m;
             }
+            if (in.in_dt == kDtI32) v = i32_word((int)(unsigned)v);
+          } else if (in.in_dt == kDtF32 &&
+                     (op == kOpDivF || op == kOpModF || op == kOpPower)) {
+            const float l = as_f32(convert(va, da, kDtF32));
+            const float r = as_f32(convert(vb, db, kDtF32));
+            float out;
+            if (op == kOpDivF) {
+              out = __fdiv_rn(l, r);
+            } else if (op == kOpPower) {
+              out = ::powf(l, r);
+            } else {
+              out = ::fmodf(l, r);
+              if (out != 0.0f && ((r < 0.0f) != (out < 0.0f))) out = __fadd_rn(out, r);
+            }
+            v = f32_bits(out);
           } else if (op == kOpDivF || op == kOpModF || op == kOpPower) {
             const double l = as_f64(convert(va, da, kDtF64));
             const double r = as_f64(convert(vb, db, kDtF64));
@@ -282,9 +392,16 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
             v = f64_bits(out);
           } else if (op == kOpNeg) {
             const u64 x = convert(va, da, in.in_dt);
-            v = in.in_dt == kDtF64 ? f64_bits(-as_f64(x)) : 0ULL - x;
-          } else {  // the f64 functions and the square
-            v = f64_bits(unary_f64(op, as_f64(convert(va, da, kDtF64))));
+            if (in.in_dt == kDtF64) {
+              v = f64_bits(-as_f64(x));
+            } else if (in.in_dt == kDtF32) {
+              v = f32_bits(-as_f32(x));
+            } else {
+              v = 0ULL - x;
+              if (in.in_dt == kDtI32) v = i32_word((int)(unsigned)v);
+            }
+          } else {  // the float functions and the square, in the operand dtype
+            v = unary(op, convert(va, da, in.in_dt), in.in_dt);
           }
           break;
         }

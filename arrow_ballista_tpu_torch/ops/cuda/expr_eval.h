@@ -10,8 +10,10 @@ constexpr int kExprMaxOutputs = 72;   // outputs it writes (pred, pvalid, 2 x 32
 constexpr int kExprMaxInstr = 1024;   // rows of code, stores included
 constexpr int kExprSmemLimit = 232448;  // shared memory a CTA can use on sm_90
 
-// Register dtypes: the port's only device dtypes.
-enum ExprDtype : int { kDtBool = 0, kDtI64 = 1, kDtF64 = 2 };
+// Register dtypes: the port's device dtypes, x64's and x32's.  An int32
+// register holds its value sign-extended, a float32 one its bits in the
+// low word.
+enum ExprDtype : int { kDtBool = 0, kDtI64 = 1, kDtF64 = 2, kDtI32 = 3, kDtF32 = 4 };
 
 // Opcodes, in the order of ops/kernels.py:EXPR_OPS.
 enum ExprOp : int {

@@ -9,12 +9,14 @@
 constexpr int kMeshMaxShards = 64;
 
 struct MeshReduceParams {
-  const long long* states[kMeshMaxShards];  // each [n_fields, capacity]
+  // each [n_fields, capacity]: int64 words, or int32 words in x32
+  const void* states[kMeshMaxShards];
   int n_shards;
   int n_fields;
   long long capacity;
-  int8_t ops[kSegAggMaxFields];  // per field: SegAggOp merge code
-  long long* out;                // [n_fields, capacity]
+  int8_t ops[kSegAggMaxFields];  // per field: SegAggOp, or X32Op in x32
+  int x32;
+  void* out;                     // [n_fields, capacity]
 };
 
 extern "C" cudaError_t mesh_reduce_launch(const MeshReduceParams* params,

@@ -11,7 +11,12 @@
 // count, the row index, or an auxiliary 0/1 flag.  Each row either starts
 // a segment (flag[r], or a change of key[perm[r]]) or continues it; the
 // fold per column is a sum, min or max over f64 or i64 words, min/max with
-// jnp.minimum/maximum's NaN and signed-zero rules (agg_ops.cuh).
+// jnp.minimum/maximum's NaN and signed-zero rules (agg_ops.cuh).  x32's
+// sort route adds three folds over 64-bit words: the double-float pair of
+// _scan_segments' "df32" kind (2Sum, then 2Sum of s with a_lo + b_lo + e)
+// and the unsigned min/max of a joined order pair ("omin"/"omax"); its
+// columns are 32-bit (f32, i32, or f32 / i32 pairs), and its epilogue
+// merges into an int32 state with the x32 merge (x32_ops.cuh).
 //
 // Bound: bytes (the gathers of the columns through perm, the flags, the
 // outputs).  Design, three deterministic phases over tiles of kScanTile
@@ -84,9 +89,59 @@ __device__ __forceinline__ long long element(const SegScanParams& p, int c,
   if (src == SS_COUNT) return ok ? 1 : 0;
   const int op = p.op[c];
   if (!ok) return agg_ops::identity(op);
-  const long long w = static_cast<const long long*>(p.values[c])[j];
-  if (p.in_i64[c] && agg_ops::is_f64_op(op)) return agg_ops::as_word((double)w);
-  return w;
+  switch (p.width[c]) {
+    case SW_F32: {
+      const float f = static_cast<const float*>(p.values[c])[j];
+      return op == SA_DF32 ? agg_ops::df32_word(f, 0.0f) : agg_ops::as_word((double)f);
+    }
+    case SW_I32:
+      return (long long)static_cast<const int32_t*>(p.values[c])[j];
+    case SW_F32_PAIR: {
+      float s, e;
+      x32_ops::two_sum(static_cast<const float*>(p.values[c])[j],
+                       static_cast<const float*>(p.values2[c])[j], &s, &e);
+      return agg_ops::df32_word(s, e);
+    }
+    case SW_ORD_PAIR:
+      return (long long)x32_ops::ord_join(static_cast<const int32_t*>(p.values[c])[j],
+                                          static_cast<const int32_t*>(p.values2[c])[j]);
+    default: {
+      const long long w = static_cast<const long long*>(p.values[c])[j];
+      if (p.in_i64[c] && agg_ops::is_f64_op(op)) return agg_ops::as_word((double)w);
+      return w;
+    }
+  }
+}
+
+// The x32 epilogue: the segment total ``w`` of a column merged into field
+// f's row(s) of the int32 state at group ``key`` (ops/kernels.py:
+// _x32_scan_rows decodes the same way).
+__device__ __forceinline__ void merge_x32(const SegScanParams& p, int f, int key,
+                                          long long w) {
+  const int op = p.field_op[f];
+  int32_t* s = p.state32 + (long long)f * p.capacity + key;
+  int32_t* s2 = s + p.capacity;
+  switch (op) {
+    case XM_SUM_HI:
+      x32_ops::merge_field(op, s, s2, __float_as_int(agg_ops::df32_hi(w)),
+                           __float_as_int(agg_ops::df32_lo(w)));
+      return;
+    case XM_OMIN_HI:
+    case XM_OMAX_HI:
+      x32_ops::merge_field(op, s, s2, x32_ops::ord_hi((unsigned long long)w),
+                           x32_ops::ord_lo((unsigned long long)w));
+      return;
+    case XM_MIN_F32:
+    case XM_MAX_F32:
+      x32_ops::merge_field(op, s, s, __float_as_int((float)agg_ops::as_f64(w)), 0);
+      return;
+    case XM_SUM_LO:
+    case XM_PAIR_LO:
+      return;
+    default:  // counts and i32 extrema: the word's low 32 bits
+      x32_ops::merge_field(op, s, s, (int32_t)w, 0);
+      return;
+  }
 }
 
 __device__ __forceinline__ Acc shfl_up(Acc a, int d) {
@@ -200,7 +255,7 @@ __global__ void ss_apply(SegScanParams p) {
   const Tile t = thread_tile(p);
   unsigned ends = 0;  // sorted aggregate: segment ends with a live key
   int keys[kScanItems];
-  if (p.state != nullptr) {
+  if (p.state != nullptr || p.state32 != nullptr) {
     for (int k = 0; k < t.live; ++k) {
       const long long r = t.e0 + k;  // forward only
       keys[k] = key_at(p, r);
@@ -226,6 +281,10 @@ __global__ void ss_apply(SegScanParams p) {
       if ((ends >> k) & 1u) {
         for (int f = 0; f < p.n_fields; ++f) {
           if (p.field_col[f] != c) continue;
+          if (p.state32 != nullptr) {
+            merge_x32(p, f, keys[k], run.v);
+            continue;
+          }
           long long* s = p.state + (long long)f * p.capacity + keys[k];
           *s = combine(p.field_op[f], *s, run.v);
         }

@@ -20,6 +20,16 @@ enum ScanSrc : int8_t {
   SS_AUX = 3,     // aux[r] as 0/1
 };
 
+// How a SS_VALUES column's words are read (x32's sort route reads 32-bit
+// columns; ops/kernels.py SW_*).
+enum ScanWidth : int8_t {
+  SW_WORD = 0,      // 8-byte f64 / i64 words
+  SW_F32 = 1,       // f32: widened to f64 (an f64 fold) or the pair (v, 0)
+  SW_I32 = 2,       // i32: sign-extended
+  SW_F32_PAIR = 3,  // f32 values and values2: the 2Sum of the two halves
+  SW_ORD_PAIR = 4,  // i32 order pair (values, values2): join_u64
+};
+
 struct SegScanParams {
   long long n;
   const int32_t* perm;  // [n] gather of values/valid, or null (identity)
@@ -35,11 +45,16 @@ struct SegScanParams {
   int8_t src[kScanMaxCols];
   int8_t op[kScanMaxCols];           // SA_ADD_F64 .. SA_MAX_I64
   int8_t in_i64[kScanMaxCols];       // i64 values under an f64 op: convert
+  const void* values2[kScanMaxCols]; // [n] a pair's second half, or null
+  int8_t width[kScanMaxCols];        // ScanWidth
   long long* out[kScanMaxCols];      // [n] scanned words, or null
   // sorted-aggregate epilogue (state != null): at each segment's last row
   // with key < capacity, field f merges its column's total into
   // state[f][key] with op field_op[f]
   long long* state;
+  // x32 epilogue (state32 != null): field f merges its column's total into
+  // the int32 state32[f][key] with the x32 merge field_op[f] (X32Op)
+  int32_t* state32;
   long long capacity;
   int n_fields;
   int8_t field_col[kSegAggMaxFields];

@@ -13,6 +13,10 @@ enum SegAggOp : int8_t {
   SA_MAX_F64 = 4,
   SA_MIN_I64 = 5,
   SA_MAX_I64 = 6,
+  // the segmented scan's x32 folds (x32's sort route), over 64-bit words
+  SA_DF32 = 7,      // an f32 (hi, lo) pair, hi in the low word
+  SA_UMIN_U64 = 8,  // unsigned min of a joined order pair
+  SA_UMAX_U64 = 9,
 };
 
 constexpr int kSegAggMaxCols = 32;

@@ -23,8 +23,13 @@ multi-entry launch of the segment aggregate
 batch.
 
 Design rules:
-* x64 only — f64/i64 device dtypes (the H100 has both); every tensor the
-  port builds names its dtype, so torch's float32 default never leaks in;
+* a dtype MODE, as the reference's: "x64" (f64/i64 device dtypes, the
+  default on every device: the H100 has both) or "x32" (f32/i32, forced
+  with :func:`set_precision`), whose sums are double-float (hi, lo) pairs
+  (``ops/cuda/df32_agg.cu``), whose f64 min/max ride order pairs
+  (``ops/cuda/ord_extremum.cu``) and whose states merge through
+  ``ops/cuda/x32_merge.cu``; every tensor the port builds names its dtype,
+  so torch's float32 default never leaks in;
 * group-by runs over host-assigned dense group ids into a fixed-capacity
   state that grows in 4x steps with identity padding;
 * nulls ride as separate validity masks and fold into the row mask; an
@@ -48,10 +53,10 @@ from ..errors import ExecutionError
 from ..exec import expressions as pe
 from .bridge import arrow_to_numpy
 
-# The port's one dtype mode is the reference's "x64": f64 values, i64
-# integers (x32 is not ported).
 F64 = torch.float64
 I64 = torch.int64
+F32 = torch.float32
+I32 = torch.int32
 
 # env key under which the stage's torch.device travels to the closures
 # (literal constants are materialised on it)
@@ -70,6 +75,53 @@ class NotLowerable(Exception):
     """Subtree cannot run on device (string compute, unsupported fn)."""
 
 
+class X32RangeError(ExecutionError):
+    """A value the x32 device dtypes cannot carry exactly (an integer past
+    int32, an int64 pair past 2^48, a float past the f32 range): the stage
+    re-runs the partition on the CPU operators, as for a capacity overflow
+    (``tpu_fallback``)."""
+
+
+# ------------------------------------------------------------- precision
+# The device dtype policy is a MODE, as in the reference:
+#   "x64" — f64/i64 device dtypes (the port's default on every device)
+#   "x32" — f32/i32 device dtypes; sums are double-float (hi, lo) pairs,
+#           f64 min/max ride order-preserving (hi, lo) int32 pairs
+# Each TorchStageExec pins the mode it was built under.
+_PRECISION: dict = {"mode": None}
+
+
+def set_precision(mode: Optional[str]) -> None:
+    """Force the kernel dtype mode ("x64" | "x32"), or None for the default."""
+    if mode not in (None, "x64", "x32"):
+        raise ValueError(f"precision mode {mode!r}")
+    _PRECISION["mode"] = mode
+
+
+def precision_mode() -> str:
+    """The dtype mode in force: "x64" unless "x32" was set."""
+    return _PRECISION["mode"] or "x64"
+
+
+def value_dtype(mode: Optional[str] = None) -> torch.dtype:
+    return F32 if (mode or precision_mode()) == "x32" else F64
+
+
+def index_dtype(mode: Optional[str] = None) -> torch.dtype:
+    return I32 if (mode or precision_mode()) == "x32" else I64
+
+
+class X32Deferred(ExecutionError):
+    """An x32 route whose port waits for ROADMAP A7b (the keyed route, the
+    statistical aggregates, windows, the join fold, the exchange's int64
+    pairs): raised where the reference would take the route, never turned
+    into a quiet CPU re-run."""
+
+
+def x32_deferred(what: str) -> X32Deferred:
+    return X32Deferred(f"{what} in x32 mode is not ported yet (ROADMAP A7b)")
+
+
 @dataclass
 class LeafSpec:
     """One host-supplied input array of the stage.
@@ -77,13 +129,15 @@ class LeafSpec:
     Kinds: "column" (value + validity), "cpu_expr" (host-evaluated value +
     validity), "column_validity" (validity ONLY — count(col) never needs
     the values), "column_ord_pair" (the value as an order-preserving
-    (hi, lo) int32 pair + validity: the keyed median's sort operand),
+    (hi, lo) int32 pair + validity: the keyed median's sort operand, and
+    an f64 min/max in x32), "column_pair" (x32: the value as an exact f32
+    (hi, lo) pair + validity, summed by the pair-aware aggregates),
     "join_col" (a build-side column of a folded device join: gathered on
     the device by :func:`join_probe`, never read from the probe batch).
     """
 
     name: str
-    kind: str  # "column" | "cpu_expr" | "column_validity" | "column_ord_pair" | "join_col"
+    kind: str  # "column" | "cpu_expr" | "column_validity" | "column_ord_pair" | "column_pair" | "join_col"
     col_index: int = -1
     cpu_expr: Optional[pe.PhysicalExpr] = None
 
@@ -94,12 +148,12 @@ class CompiledExpr:
     leaves: dict[str, LeafSpec] = field(default_factory=dict)
 
 
-def _pa_to_torch_dtype(t: pa.DataType) -> torch.dtype:
+def _pa_to_torch_dtype(t: pa.DataType, mode: str = "x64") -> torch.dtype:
     if pa.types.is_floating(t) or pa.types.is_decimal(t):
-        return F64
+        return value_dtype(mode)
     if pa.types.is_boolean(t):
         return torch.bool
-    return I64
+    return index_dtype(mode)
 
 
 def _const(value, dtype: torch.dtype) -> Callable[[dict], torch.Tensor]:
@@ -121,9 +175,11 @@ class ExprNode:
     """The typed twin of one lowered closure, which :class:`ExprProgram`
     compiles: ``op`` (an :data:`EXPR_OPS` name before linearisation, or
     "div"/"mod" resolved to their int or float form here), the static
-    value dtype (bool, int64 or float64; None for a validity-only leaf),
+    value dtype (bool, int64 or float64 in x64, bool, int32 or float32 in
+    x32; None for a validity-only leaf),
     the argument nodes and a constant: a leaf's (value, validity) env
-    names, a literal's int64 bit pattern, an IN list's (dtype, bit
+    names, a literal's bit pattern (an int64; a float32's is its int32
+    bits), an IN list's (dtype, bit
     patterns), whether a CASE has an ELSE, or an "error" node's message
     (an operation torch refuses, raised when the program is built, where
     the closure raises when it runs).  Equal nodes compute equal values."""
@@ -140,9 +196,12 @@ def _with_node(closure: TorchClosure, node: ExprNode) -> TorchClosure:
 
 
 def _bits(value, dtype: torch.dtype) -> int:
-    """The int64 bit pattern of a literal of ``dtype``."""
+    """The bit pattern of a literal of ``dtype``: an f64's int64 bits, an
+    f32's int32 bits, an integer or bool itself."""
     if dtype == F64:
         return int(np.array(value, np.float64).view(np.int64))
+    if dtype == F32:
+        return int(np.array(value, np.float32).view(np.int32))
     return int(value)
 
 
@@ -155,18 +214,20 @@ _BOOL_OPS = ("and", "or", "not", "is_null", "is_not_null",
              "eq", "ne", "lt", "le", "gt", "ge")
 
 
-def _node(op: str, *closures) -> ExprNode:
+def _node(op: str, *closures, mode: str = "x64") -> ExprNode:
     """The node of an operation over the closures' nodes, its dtype decided
-    as the closure's torch calls decide it."""
+    as the closure's torch calls decide it (``mode`` gives the float and
+    integer dtypes)."""
     args = tuple(c.node for c in closures)
     err = next((a for a in args if a.op == "error"), None)
     if err is not None:
         return err
     if op in _BOOL_OPS:
         return ExprNode(op, torch.bool, args)
-    if op in ("div", "mod"):  # both int64 (bool is not): truncating / floor
-        ints = all(a.dtype == I64 for a in args)
-        return ExprNode(f"{op}_int" if ints else f"{op}_f", I64 if ints else F64, args)
+    fdt, idt = value_dtype(mode), index_dtype(mode)
+    if op in ("div", "mod"):  # both integer (bool is not): truncating / floor
+        ints = all(a.dtype in (I64, I32) for a in args)
+        return ExprNode(f"{op}_int" if ints else f"{op}_f", idt if ints else fdt, args)
     if op in ("add", "sub", "mul", "neg"):
         zeros = [torch.zeros((), dtype=a.dtype) for a in args]
         try:
@@ -177,35 +238,38 @@ def _node(op: str, *closures) -> ExprNode:
         except RuntimeError as exc:  # bool - bool, -bool
             return ExprNode("error", None, args, str(exc))
         return ExprNode(op, dtype, args)
-    return ExprNode(op, F64, args)  # the float functions, power, round, square
+    return ExprNode(op, fdt, args)  # the float functions, power, round, square
 
 
-def _in_node(f: TorchClosure, items, all_int: bool, negated: bool) -> ExprNode:
-    """IN / NOT IN: the table in the dtype the closure compares in."""
+def _in_node(f: TorchClosure, items, all_int: bool, negated: bool,
+             mode: str = "x64") -> ExprNode:
+    """IN / NOT IN: the table in the dtype the closure compares in (its
+    bits as int64, int32 in x32)."""
     child = f.node
     if child.op == "error":
         return child
+    fdt, idt = value_dtype(mode), index_dtype(mode)
     try:
         if all_int:
-            table = torch.tensor(list(items), dtype=I64)
-            if child.dtype != I64:
-                table = table.to(F64)
+            table = torch.tensor(list(items), dtype=idt)
+            if child.dtype != idt:
+                table = table.to(fdt)
         else:
-            table = torch.tensor([_to_num(i) for i in items], dtype=F64)
+            table = torch.tensor([_to_num(i) for i in items], dtype=fdt)
     except (RuntimeError, OverflowError) as exc:
         return ExprNode("error", None, (child,), str(exc))
-    bits = tuple(table.view(I64).tolist())
+    bits = tuple(table.view(idt).tolist())
     return ExprNode("not_in" if negated else "in", torch.bool, (child,),
                     (table.dtype, bits))
 
 
 def _cast_node(child: ExprNode, dt: torch.dtype) -> ExprNode:
-    """CAST as :func:`_cast` does it: float → int64 saturates, a cast to the
-    same dtype is the value itself, the rest is ``.to``."""
+    """CAST as :func:`_cast` does it: float → integer saturates, a cast to
+    the same dtype is the value itself, the rest is ``.to``."""
     if child.op == "error" or dt == child.dtype:
         return child
-    if dt == I64 and child.dtype == F64:
-        return ExprNode("cast_i64", I64, (child,))
+    if dt in (I64, I32) and child.dtype in (F64, F32):
+        return ExprNode("cast_i64", dt, (child,))
     return ExprNode("convert", dt, (child,))
 
 
@@ -218,11 +282,17 @@ class TorchExprCompiler:
     batch and shipped beside the raw columns.  Every closure carries its
     typed :class:`ExprNode` (``closure.node``), which a stage compiles into
     an :class:`ExprProgram`; the closures are the program's specification.
+    ``mode`` (the precision mode when None) fixes the value dtypes: x32
+    computes in float32/int32 as the reference's x32 closures do.
     """
 
-    def __init__(self, schema: pa.Schema):
+    def __init__(self, schema: pa.Schema, mode: Optional[str] = None):
         self.schema = schema
         self.leaves: dict[str, LeafSpec] = {}
+        self.mode = mode or precision_mode()
+        self.x32 = self.mode == "x32"
+        self.F = value_dtype(self.mode)
+        self.I = index_dtype(self.mode)
 
     def compile(self, expr: pe.PhysicalExpr) -> CompiledExpr:
         closure = self._lower_or_leaf(expr)
@@ -242,6 +312,9 @@ class TorchExprCompiler:
             or pa.types.is_timestamp(t)
         ):
             raise NotLowerable(f"column {e.colname}: type {t}")
+        if self.x32 and (pa.types.is_timestamp(t) or pa.types.is_date64(t)):
+            # ns/ms epoch values overflow int32: these stay on the CPU
+            raise NotLowerable(f"column {e.colname}: {t} needs int64 (x32 mode)")
         name = f"col_{e.index}"
         self.leaves[name] = LeafSpec(name, "column", col_index=e.index)
         vname = f"{name}__valid"
@@ -249,7 +322,9 @@ class TorchExprCompiler:
         def run(env: dict):
             return env[name], env[vname]
 
-        return _with_node(run, ExprNode("leaf", _pa_to_torch_dtype(t), (), (name, vname)))
+        return _with_node(
+            run, ExprNode("leaf", _pa_to_torch_dtype(t, self.mode), (), (name, vname))
+        )
 
     def validity_only(self, e: pe.Col) -> TorchClosure:
         """Leaf that ships ONLY the validity mask of a column (count(col))."""
@@ -277,6 +352,19 @@ class TorchExprCompiler:
 
         return run
 
+    def pair_column(self, e: pe.Col) -> TorchClosure:
+        """x32: leaf that ships an int64 (or f64) column as an exact f32
+        (hi, lo) pair, read only by the pair-aware sums
+        (``KernelAggSpec.pair``)."""
+        name = f"col_{e.index}__pair"
+        self.leaves[name] = LeafSpec(name, "column_pair", col_index=e.index)
+        vname = f"{name}__valid"
+
+        def run(env: dict):
+            return (env[f"{name}__hi"], env[f"{name}__lo"]), env[vname]
+
+        return run
+
     def _cpu_leaf(self, e: pe.PhysicalExpr) -> TorchClosure:
         out_t = _infer_pa_type(e, self.schema)
         if pa.types.is_uint64(out_t) or not (
@@ -294,7 +382,7 @@ class TorchExprCompiler:
             return env[name], env[vname]
 
         return _with_node(
-            run, ExprNode("leaf", _pa_to_torch_dtype(out_t), (), (name, vname))
+            run, ExprNode("leaf", _pa_to_torch_dtype(out_t, self.mode), (), (name, vname))
         )
 
     def _lower_or_leaf(self, e: pe.PhysicalExpr) -> TorchClosure:
@@ -315,13 +403,14 @@ class TorchExprCompiler:
             if isinstance(v, bool):
                 dtype, value = torch.bool, v
             elif isinstance(v, int):
-                if not -(2**63) <= v < 2**63:
-                    raise NotLowerable(f"int literal {v} exceeds i64")
-                dtype, value = I64, v
+                bits = 31 if self.x32 else 63
+                if not -(2**bits) <= v < 2**bits:
+                    raise NotLowerable(f"int literal {v} exceeds {self.I}")
+                dtype, value = self.I, v
             elif isinstance(v, float):
-                dtype, value = F64, v
+                dtype, value = self.F, v
             elif _is_date(v):
-                dtype, value = I64, _days(v)
+                dtype, value = self.I, _days(v)
             else:
                 raise NotLowerable(f"literal {v!r}")
             const = _const(value, dtype)
@@ -346,7 +435,7 @@ class TorchExprCompiler:
                         return torch.logical_and(lv, rv), None
                     return torch.logical_or(lv, rv), None
 
-                return _with_node(run_bool, _node(op.lower(), lf, rf))
+                return _with_node(run_bool, _node(op.lower(), lf, rf, mode=self.mode))
             lf, rf = self._lower(e.left), self._lower(e.right)
             fns = {
                 "=": torch.eq, "<>": torch.ne, "<": torch.lt,
@@ -362,17 +451,17 @@ class TorchExprCompiler:
                     lv, rv = _numeric_align(lv, rv)
                     return f(lv, rv), _merge_valid(lval, rval)
 
-                return _with_node(run_bin, _node(_BINARY_OPS[op], lf, rf))
+                return _with_node(run_bin, _node(_BINARY_OPS[op], lf, rf, mode=self.mode))
             if op == "/":
 
-                def run_div(env, lf=lf, rf=rf):
+                def run_div(env, lf=lf, rf=rf, fdt=self.F):
                     lv, lval = lf(env)
                     rv, rval = rf(env)
                     if _is_int(lv) and _is_int(rv):
                         return _trunc_div(lv, rv), _merge_valid(lval, rval)
-                    return lv.to(F64) / rv.to(F64), _merge_valid(lval, rval)
+                    return lv.to(fdt) / rv.to(fdt), _merge_valid(lval, rval)
 
-                return _with_node(run_div, _node("div", lf, rf))
+                return _with_node(run_div, _node("div", lf, rf, mode=self.mode))
             if op == "%":
 
                 def run_mod(env, lf=lf, rf=rf):
@@ -380,7 +469,7 @@ class TorchExprCompiler:
                     rv, rval = rf(env)
                     return _floor_mod(lv, rv), _merge_valid(lval, rval)
 
-                return _with_node(run_mod, _node("mod", lf, rf))
+                return _with_node(run_mod, _node("mod", lf, rf, mode=self.mode))
             raise NotLowerable(f"binary op {op}")
 
         if isinstance(e, pe.Not):
@@ -391,7 +480,7 @@ class TorchExprCompiler:
                 v = v if val is None else torch.logical_and(v, val)
                 return torch.logical_not(v), None
 
-            return _with_node(run_not, _node("not", f))
+            return _with_node(run_not, _node("not", f, mode=self.mode))
 
         if isinstance(e, pe.Negative):
             f = self._lower(e.expr)
@@ -400,7 +489,7 @@ class TorchExprCompiler:
                 v, val = f(env)
                 return -v, val
 
-            return _with_node(run_neg, _node("neg", f))
+            return _with_node(run_neg, _node("neg", f, mode=self.mode))
 
         if isinstance(e, pe.IsNull):
             f = self._lower_or_leaf(e.expr)
@@ -415,7 +504,7 @@ class TorchExprCompiler:
                 return (val if negated else torch.logical_not(val)), None
 
             return _with_node(
-                run_isnull, _node("is_not_null" if negated else "is_null", f)
+                run_isnull, _node("is_not_null" if negated else "is_null", f, mode=self.mode)
             )
 
         if isinstance(e, pe.InList):
@@ -428,34 +517,39 @@ class TorchExprCompiler:
             all_int = all(
                 isinstance(i, int) and not isinstance(i, bool) for i in items
             )
+            if all_int and self.x32 and any(
+                not -(2**31) <= i < 2**31 for i in items
+            ):
+                raise NotLowerable("IN list item exceeds int32")
             consts = (
-                _const(list(items), I64)
+                _const(list(items), self.I)
                 if all_int
-                else _const([_to_num(i) for i in items], F64)
+                else _const([_to_num(i) for i in items], self.F)
             )
             negated = e.negated
 
-            def run_in(env, f=f, consts=consts, negated=negated, all_int=all_int):
+            def run_in(env, f=f, consts=consts, negated=negated, all_int=all_int,
+                       fdt=self.F, idt=self.I):
                 v, val = f(env)
                 rhs = consts(env)
                 if all_int and _is_int(v):
-                    lhs = v.to(I64)
+                    lhs = v.to(idt)
                 else:
-                    lhs = v.to(F64)
-                    rhs = rhs.to(F64)
+                    lhs = v.to(fdt)
+                    rhs = rhs.to(fdt)
                 m = torch.eq(lhs[:, None], rhs[None, :]).any(dim=1)
                 if negated:
                     m = torch.logical_not(m)
                 return m, val
 
-            return _with_node(run_in, _in_node(f, items, all_int, negated))
+            return _with_node(run_in, _in_node(f, items, all_int, negated, self.mode))
 
         if isinstance(e, pe.Case):
             whens = [
                 (self._lower_or_leaf(w), self._lower(t)) for w, t in e.whens
             ]
             else_f = self._lower(e.else_expr) if e.else_expr is not None else None
-            out_dtype = _pa_to_torch_dtype(e.out_type)
+            out_dtype = _pa_to_torch_dtype(e.out_type, self.mode)
             true, false = _const(True, torch.bool), _const(False, torch.bool)
             zero = _const(0, out_dtype)
 
@@ -488,7 +582,7 @@ class TorchExprCompiler:
 
         if isinstance(e, pe.Cast):
             f = self._lower(e.expr)
-            dt = _pa_to_torch_dtype(e.to_type)
+            dt = _pa_to_torch_dtype(e.to_type, self.mode)
 
             def run_cast(env, f=f, dt=dt):
                 v, val = f(env)
@@ -507,30 +601,30 @@ class TorchExprCompiler:
                 f = self._lower(e.args[0])
                 fn = mapping[e.fname]
 
-                def run_fn(env, f=f, fn=fn):
+                def run_fn(env, f=f, fn=fn, fdt=self.F):
                     v, val = f(env)
-                    return fn(v.to(F64)), val
+                    return fn(v.to(fdt)), val
 
-                return _with_node(run_fn, _node(e.fname, f))
+                return _with_node(run_fn, _node(e.fname, f, mode=self.mode))
             if e.fname == "power" and len(e.args) == 2:
                 a = self._lower(e.args[0])
                 b = self._lower(e.args[1])
 
-                def run_pow(env, a=a, b=b):
+                def run_pow(env, a=a, b=b, fdt=self.F):
                     av, aval = a(env)
                     bv, bval = b(env)
-                    return torch.pow(av.to(F64), bv.to(F64)), _merge_valid(aval, bval)
+                    return torch.pow(av.to(fdt), bv.to(fdt)), _merge_valid(aval, bval)
 
-                return _with_node(run_pow, _node("power", a, b))
+                return _with_node(run_pow, _node("power", a, b, mode=self.mode))
             if e.fname == "round":
                 f = self._lower(e.args[0])
 
-                def run_round(env, f=f):
+                def run_round(env, f=f, fdt=self.F):
                     v, val = f(env)
                     # half-to-even, as jnp.round
-                    return torch.round(v.to(F64)), val
+                    return torch.round(v.to(fdt)), val
 
-                return _with_node(run_round, _node("round", f))
+                return _with_node(run_round, _node("round", f, mode=self.mode))
             raise NotLowerable(f"scalar fn {e.fname}")
 
         raise NotLowerable(f"node {type(e).__name__}")
@@ -559,20 +653,31 @@ def _is_int(t: torch.Tensor) -> bool:
     return not t.is_floating_point() and t.dtype != torch.bool
 
 
+def _wide(*ts: torch.Tensor) -> bool:
+    """Whether the operands are x64 values (x32's are int32/float32; the
+    two modes never meet in one expression)."""
+    return any(t.dtype in (F64, I64) for t in ts)
+
+
 def _numeric_align(lv, rv):
     if lv.dtype == torch.bool or rv.dtype == torch.bool:
         return lv, rv
+    wide = _wide(lv, rv)
     if lv.is_floating_point() or rv.is_floating_point():
-        return lv.to(F64), rv.to(F64)
-    return lv.to(I64), rv.to(I64)
+        fdt = F64 if wide else F32
+        return lv.to(fdt), rv.to(fdt)
+    idt = I64 if wide else I32
+    return lv.to(idt), rv.to(idt)
 
 
 def _trunc_div(lv: torch.Tensor, rv: torch.Tensor) -> torch.Tensor:
     """SQL / Arrow integer ``/``: truncates toward zero (``//`` would
     floor) with a zero divisor guarded, as the reference's ``lax.div``;
     ``x / -1`` is the wrapping negation, so ``INT64_MIN / -1`` is
-    ``INT64_MIN`` as in XLA (the CPU's division traps there)."""
-    lv, rv = lv.to(I64), rv.to(I64)
+    ``INT64_MIN`` as in XLA (the CPU's division traps there).  In the
+    operands' width (int32 in x32)."""
+    idt = I64 if _wide(lv, rv) else I32
+    lv, rv = lv.to(idt), rv.to(idt)
     neg1 = rv == -1
     rv_safe = torch.where((rv == 0) | neg1, torch.ones_like(rv), rv)
     return torch.where(neg1, -lv, torch.div(lv, rv_safe, rounding_mode="trunc"))
@@ -582,12 +687,15 @@ def _floor_mod(lv: torch.Tensor, rv: torch.Tensor) -> torch.Tensor:
     """``jnp.mod``: floor modulo; an integer zero divisor gives 0 (torch
     raises on the CPU and returns garbage on CUDA, so it is guarded), and
     so does -1 (``INT64_MIN % -1`` traps on the CPU)."""
+    wide = _wide(lv, rv)
     if _is_int(lv) and _is_int(rv):
-        lv, rv = lv.to(I64), rv.to(I64)
+        idt = I64 if wide else I32
+        lv, rv = lv.to(idt), rv.to(idt)
         zero = rv == 0
         r = torch.remainder(lv, torch.where(zero | (rv == -1), torch.ones_like(rv), rv))
         return torch.where(zero, torch.zeros_like(r), r)
-    return torch.remainder(lv.to(F64), rv.to(F64))
+    fdt = F64 if wide else F32
+    return torch.remainder(lv.to(fdt), rv.to(fdt))
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -597,16 +705,19 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cast(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """``astype`` with XLA's float → int64 conversion: truncate toward zero,
-    saturate at the int64 range, NaN → 0 (torch leaves these undefined)."""
-    if dt == I64 and v.is_floating_point():
-        v = v.to(F64)
-        hi = v >= 2.0**63
-        lo = v < -(2.0**63)
+    """``astype`` with XLA's float → integer conversion: truncate toward
+    zero, saturate at the integer range, NaN → 0 (torch leaves these
+    undefined).  float32 → int32 compares in float32, as XLA does."""
+    if dt in (I64, I32) and v.is_floating_point():
+        bits = 63 if dt == I64 else 31
+        if dt == I64:
+            v = v.to(F64)
+        hi = v >= 2.0**bits
+        lo = v < -(2.0**bits)
         bad = hi | lo | torch.isnan(v)
-        out = torch.where(bad, torch.zeros_like(v), v).to(I64)
-        out = torch.where(hi, torch.full_like(out, 2**63 - 1), out)
-        return torch.where(lo, torch.full_like(out, -(2**63)), out)
+        out = torch.where(bad, torch.zeros_like(v), v).to(dt)
+        out = torch.where(hi, torch.full_like(out, 2**bits - 1), out)
+        return torch.where(lo, torch.full_like(out, -(2**bits)), out)
     return v.to(dt)
 
 
@@ -639,14 +750,17 @@ def _infer_pa_type(e: pe.PhysicalExpr, schema: pa.Schema) -> pa.DataType:
 # ---------------------------------------------------------------- env build
 def build_env(
     batch: pa.RecordBatch, leaves: dict[str, LeafSpec], n_padded: int,
-    trivial_valid: Optional[set] = None,
+    trivial_valid: Optional[set] = None, mode: str = "x64",
 ) -> dict[str, np.ndarray]:
     """Evaluate/extract all leaf arrays for one batch, padded to n_padded.
 
     Every leaf ships a validity companion (all-true when the batch has no
     nulls).  Names of companions that are trivially all-true over the live
     rows are added to ``trivial_valid`` when given: the stage replaces them
-    with ``None`` so they never cross the bridge.
+    with ``None`` so they never cross the bridge.  In ``mode`` "x32" the
+    values narrow to float32/int32 (:func:`coerce_host_values`) and a pair
+    leaf ships its exact f32 (hi, lo) split; a value those cannot carry
+    raises :class:`X32RangeError`.
     """
     import pyarrow.compute as pc
 
@@ -686,20 +800,55 @@ def build_env(
             env[f"{name}__ohi"] = _pad(ohi, n_padded)
             env[f"{name}__olo"] = _pad(olo, n_padded)
             continue
-        env[name] = _pad(coerce_host_values(values), n_padded)
+        if spec.kind == "column_pair":
+            hi, lo = _pair_split(values)
+            env[f"{name}__hi"] = _pad(hi, n_padded)
+            env[f"{name}__lo"] = _pad(lo, n_padded)
+            continue
+        env[name] = _pad(coerce_host_values(values, mode), n_padded)
     return env
 
 
-def coerce_host_values(values: np.ndarray) -> np.ndarray:
-    """Widen host arrays to the x64 device dtypes before transfer.
+def _pair_split(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """x32: the exact f32 (hi, lo) split of an int64 or f64 column
+    (hi = f32(v), lo = f32(v - hi)).  Integers past 2^48 lose low bits in
+    the split and floats past the f32 range have no hi: both raise
+    :class:`X32RangeError`."""
+    v = values.astype(np.float64)
+    if len(v) and values.dtype.kind in "iu" and np.abs(v).max() >= float(1 << 48):
+        raise X32RangeError("int64 column exceeds 48-bit pair range in x32 mode")
+    if len(v) and values.dtype.kind == "f" and np.abs(v).max() >= 3e38:
+        raise X32RangeError("f64 column exceeds f32 range")
+    hi = v.astype(np.float32)
+    return hi, (v - hi.astype(np.float64)).astype(np.float32)
 
-    Every integer leaf (date32 days included) becomes int64 and every float
-    leaf float64, which is what the reference's lowering aligns them to
-    before any arithmetic, comparison or aggregate.  The compiler keeps
+
+def coerce_host_values(values: np.ndarray, mode: str = "x64") -> np.ndarray:
+    """Convert host arrays to the mode's device dtypes before transfer.
+
+    x64: every integer leaf (date32 days included) becomes int64 and every
+    float leaf float64, which is what the reference's lowering aligns them
+    to before any arithmetic, comparison or aggregate.  The compiler keeps
     uint64 leaves off the device at plan time; uint64 values past the
-    int64 range raise ExecutionError here all the same.
+    int64 range raise ExecutionError here all the same.  x32: floats
+    become float32 and integers int32 (half the bytes); an integer past
+    the int32 range raises :class:`X32RangeError` and the stage re-runs
+    the partition on the CPU operators.
     """
     kind = values.dtype.kind
+    if mode == "x32":
+        if kind == "b":
+            return values
+        if kind == "f":
+            return values.astype(np.float32)
+        if kind in "iu":
+            if values.dtype.itemsize >= 4 and len(values) and (
+                values.max() > np.iinfo(np.int32).max
+                or (kind == "i" and values.min() < np.iinfo(np.int32).min)
+            ):
+                raise X32RangeError("int64 column exceeds i32 range in x32 mode")
+            return values.astype(np.int32)
+        raise ExecutionError(f"dtype {values.dtype} cannot cross the device bridge")
     if kind == "b" or values.dtype in (np.dtype(np.int64), np.dtype(np.float64)):
         return values
     if kind == "f":
@@ -720,6 +869,8 @@ def flat_arg_names(leaves: dict[str, LeafSpec]) -> list[str]:
             out.append(f"{n}__valid")
         elif spec.kind == "column_ord_pair":
             out.extend([f"{n}__ohi", f"{n}__olo", f"{n}__valid"])
+        elif spec.kind == "column_pair":
+            out.extend([f"{n}__hi", f"{n}__lo", f"{n}__valid"])
         else:
             out.extend([n, f"{n}__valid"])
     return out
@@ -746,69 +897,89 @@ class KernelAggSpec:
     # min/max over integer/date args stay in INTEGER dtype end-to-end
     int_minmax: bool = False
     # sum over an integer arg accumulates in int64: exact at any magnitude
-    # (the reference sums in f64, exact only below 2^53)
+    # (the reference sums in f64, exact only below 2^53); x64 only
     int_sum: bool = False
+    # x32 only: the argument is an exact f32 (hi, lo) pair of an int64
+    # column (avg over int64); the sum adds both halves and recombines
+    pair: bool = False
+    # x32 only: min/max over an f64 column rides an order-preserving
+    # (hi, lo) int32 pair, so the extremum is bit-exact
+    ord_pair: bool = False
 
 
-def state_fields(spec: KernelAggSpec) -> tuple[str, ...]:
+def _state_mode(state) -> str:
+    """The mode of a state tensor or packed array: x32 states are int32."""
+    return "x32" if state.dtype in (I32, np.int32) else "x64"
+
+
+def state_fields(spec: KernelAggSpec, mode: str = "x64") -> tuple[str, ...]:
     """Per-aggregate kernel-state layout: field roles in output order.
 
-    Roles drive merging: "add" → +, "min"/"max" → elementwise extremum.
+    Roles drive merging: "add" → +, "min"/"max" → elementwise extremum,
+    "omin_hi"/"omin_lo" (and omax) → the lexicographic extremum of an
+    order pair.  x32 sums carry a double-float (hi, lo) pair.
     """
     if spec.func in ("count", "count_star"):
         return ("add",)
     if spec.func in ("sum", "avg"):
-        return ("add", "add")
-    if spec.func == "min":
-        return ("min", "add")
-    if spec.func == "max":
-        return ("max", "add")
+        return ("add", "add", "add") if mode == "x32" else ("add", "add")
+    if spec.func in ("min", "max"):
+        if spec.ord_pair:
+            return (f"o{spec.func}_hi", f"o{spec.func}_lo", "add")
+        return (spec.func, "add")
     raise ExecutionError(f"kernel agg {spec.func}")
 
 
-def state_is_int(spec: KernelAggSpec) -> tuple[bool, ...]:
+def state_is_int(spec: KernelAggSpec, mode: str = "x64") -> tuple[bool, ...]:
     """Which state fields are integer (counts) vs float, in layout order."""
     if spec.func in ("count", "count_star"):
         return (True,)
     if spec.func in ("sum", "avg"):
-        return (spec.int_sum, True)
+        return (False, False, True) if mode == "x32" else (spec.int_sum, True)
+    if spec.ord_pair:
+        return (True, True, True)  # (hi, lo, n): all integer
     return (spec.int_minmax, True)  # min/max: (value, n)
 
 
-def _field_flags(specs: list[KernelAggSpec]) -> list[tuple[str, bool]]:
+def _field_flags(specs: list[KernelAggSpec], mode: str = "x64") -> list[tuple[str, bool]]:
     """(role, is_int) per state row, presence last."""
     out = []
     for spec in specs:
-        out.extend(zip(state_fields(spec), state_is_int(spec)))
+        out.extend(zip(state_fields(spec, mode), state_is_int(spec, mode)))
     out.append(("add", True))  # presence
     return out
 
 
-def _pad_ident(role: str, is_int: bool):
+def _pad_ident(role: str, is_int: bool, mode: str = "x64"):
     """Growth-padding identity per state field, dtype-aware (integer
     min/max states must not pad with float inf)."""
-    if role == "min":
-        return torch.iinfo(I64).max if is_int else math.inf
-    if role == "max":
-        return torch.iinfo(I64).min if is_int else -math.inf
+    info = torch.iinfo(index_dtype(mode))
+    if role in ("min", "omin_hi", "omin_lo"):
+        return info.max if is_int else math.inf
+    if role in ("max", "omax_hi", "omax_lo"):
+        return info.min if is_int else -math.inf
     return 0
 
 
-def _ident_bits(role: str, is_int: bool) -> int:
-    """The identity of a state row as its int64 storage word."""
-    v = _pad_ident(role, is_int)
+def _ident_bits(role: str, is_int: bool, mode: str = "x64") -> int:
+    """The identity of a state row as its storage word (int64 in x64,
+    int32 in x32; a float row holds its float's bits)."""
+    v = _pad_ident(role, is_int, mode)
     if is_int:
         return int(v)
+    if mode == "x32":
+        return int(np.array(float(v), np.float32).view(np.int32))
     return int(np.array(float(v), np.float64).view(np.int64))
 
 
 def init_states(
-    specs: list[KernelAggSpec], capacity: int, device
+    specs: list[KernelAggSpec], capacity: int, device, mode: str = "x64"
 ) -> torch.Tensor:
-    """Fresh [n_fields, capacity] int64 state holding every row's identity
-    (float rows hold float64 bit patterns)."""
-    words = [_ident_bits(r, i) for r, i in _field_flags(specs)]
-    col = torch.tensor(words, dtype=I64).to(device)
+    """Fresh [n_fields, capacity] state holding every row's identity: int64
+    words in x64 (float rows hold float64 bit patterns), int32 words in x32
+    (float rows hold float32 bit patterns)."""
+    words = [_ident_bits(r, i, mode) for r, i in _field_flags(specs, mode)]
+    col = torch.tensor(words, dtype=index_dtype(mode)).to(device)
     return col[:, None].expand(len(words), capacity).contiguous()
 
 
@@ -824,23 +995,23 @@ def pad_states(
     grow = new_cap - acc.shape[1]
     if grow <= 0:
         return acc
-    return torch.cat([acc, init_states(specs, grow, acc.device)], dim=1)
+    return torch.cat([acc, init_states(specs, grow, acc.device, _state_mode(acc))], dim=1)
 
 
 def _fmin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """jnp.minimum on f64: NaN propagates and -0.0 orders below +0.0."""
+    """jnp.minimum on floats: NaN propagates and -0.0 orders below +0.0."""
     r = torch.minimum(a, b)
     z = (a == 0) & (b == 0)
     neg = torch.signbit(a) | torch.signbit(b)
-    return _keep_nan(a, b, torch.where(z, _signed_zero(neg), r))
+    return _keep_nan(a, b, torch.where(z, _signed_zero(neg, a.dtype), r))
 
 
 def _fmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """jnp.maximum on f64: NaN propagates and +0.0 orders above -0.0."""
+    """jnp.maximum on floats: NaN propagates and +0.0 orders above -0.0."""
     r = torch.maximum(a, b)
     z = (a == 0) & (b == 0)
     neg = torch.signbit(a) & torch.signbit(b)
-    return _keep_nan(a, b, torch.where(z, _signed_zero(neg), r))
+    return _keep_nan(a, b, torch.where(z, _signed_zero(neg, a.dtype), r))
 
 
 def _keep_nan(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -850,8 +1021,8 @@ def _keep_nan(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor) -> torch.Tensor
     return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, r))
 
 
-def _signed_zero(neg: torch.Tensor) -> torch.Tensor:
-    zero = torch.zeros(neg.shape, dtype=F64, device=neg.device)
+def _signed_zero(neg: torch.Tensor, dtype: torch.dtype = F64) -> torch.Tensor:
+    zero = torch.zeros(neg.shape, dtype=dtype, device=neg.device)
     return torch.where(neg, -zero, zero)
 
 
@@ -881,9 +1052,14 @@ def combine_states(
     """Merge two [n_fields, capacity] states elementwise (+, min, max).
 
     The CUDA kernel merges each batch into the running state itself; this
-    is the plain form of that epilogue (the twin uses it)."""
+    is the plain form of that epilogue (the twin uses it).  An x32 state
+    (int32 words) merges as the reference's x32 ``combine_states``: sums
+    by 2Sum of the hi words, order pairs lexicographically
+    (:func:`x32_merge_reference`)."""
     if acc is None:
         return new
+    if _state_mode(new) == "x32":
+        return x32_merge_reference(acc.clone(), x32_merge_ops(specs), list(new))
     rows = [
         _merge_row(role, is_int, acc[i], new[i])
         for i, (role, is_int) in enumerate(_field_flags(specs))
@@ -894,7 +1070,8 @@ def combine_states(
 def fetch_states(state: torch.Tensor, keep: Optional[int] = None) -> np.ndarray:
     """ONE device→host copy of the first ``keep`` state columns.  The state
     already has the reference's packed layout ([n_fields, keep], floats as
-    their int64 bits), so there is nothing to pack."""
+    their int64 bits, or their int32 bits in x32), so there is nothing to
+    pack."""
     cap = state.shape[1]
     if keep is None or keep > cap:
         keep = cap
@@ -904,48 +1081,49 @@ def fetch_states(state: torch.Tensor, keep: Optional[int] = None) -> np.ndarray:
 def unpack_host(
     specs: list[KernelAggSpec], packed: np.ndarray
 ) -> list[np.ndarray]:
-    """Host-side view of a fetched state (numpy, no device)."""
-    flags = [f for spec in specs for f in state_is_int(spec)] + [True]
+    """Host-side view of a fetched state (numpy, no device); an int32 pack
+    is an x32 state, its float rows float32."""
+    mode = _state_mode(packed)
+    flags = [f for spec in specs for f in state_is_int(spec, mode)] + [True]
+    fdt = np.float32 if mode == "x32" else np.float64
     out = []
     for row, is_int in zip(packed, flags):
-        out.append(row if is_int else row.view(np.float64))
+        out.append(row if is_int else row.view(fdt))
     return out
 
 
 # ----------------------------------------------------- JAX-package interop
 def specs_from_dicts(dicts: list[dict]) -> list[KernelAggSpec]:
     """Port specs from the reference's ``KernelAggSpec`` fields as plain
-    dicts (``dataclasses.asdict``).  Only x64 layouts carry over."""
-    out = []
-    for d in dicts:
-        if d.get("pair") or d.get("ord_pair"):
-            raise NotLowerable("x32 pair state layouts are not ported")
-        out.append(
-            KernelAggSpec(
-                d["func"], bool(d["has_arg"]),
-                int_minmax=bool(d.get("int_minmax", False)),
-                int_sum=bool(d.get("int_sum", False)),
-            )
+    dicts (``dataclasses.asdict``), x32 pair layouts included."""
+    return [
+        KernelAggSpec(
+            d["func"], bool(d["has_arg"]),
+            int_minmax=bool(d.get("int_minmax", False)),
+            int_sum=bool(d.get("int_sum", False)),
+            pair=bool(d.get("pair", False)),
+            ord_pair=bool(d.get("ord_pair", False)),
         )
-    return out
+        for d in dicts
+    ]
 
 
 def states_from_numpy(
-    spec_dicts: list[dict], arrays, device
+    spec_dicts: list[dict], arrays, device, mode: str = "x64"
 ) -> torch.Tensor:
     """The reference's state tuple (one [capacity] array per field, then
-    presence) as the port's [n_fields, capacity] int64 state on ``device``."""
-    flags = _field_flags(specs_from_dicts(spec_dicts))
+    presence) as the port's [n_fields, capacity] state on ``device``: int64
+    words in x64, int32 words in x32."""
+    flags = _field_flags(specs_from_dicts(spec_dicts), mode)
     arrays = [np.asarray(a) for a in arrays]
     if len(arrays) != len(flags):
         raise ValueError(f"{len(arrays)} state arrays for {len(flags)} fields")
+    idt, fdt = (np.int32, np.float32) if mode == "x32" else (np.int64, np.float64)
     rows = []
     for a, (_role, is_int) in zip(arrays, flags):
         if is_int != (a.dtype.kind in "iu"):
             raise ValueError(f"state field dtype {a.dtype} vs is_int={is_int}")
-        rows.append(
-            a.astype(np.int64) if is_int else a.astype(np.float64).view(np.int64)
-        )
+        rows.append(a.astype(idt) if is_int else a.astype(fdt).view(idt))
     return torch.from_numpy(np.stack(rows)).to(device)
 
 
@@ -956,7 +1134,8 @@ def states_from_numpy(
 LAUNCHES = dict.fromkeys(
     ("expr_eval", "segment_agg", "segment_agg_entries", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
      "partition_ids", "join_build_table", "join_probe", "key_encode", "keyed_gids",
-     "keyed_finish", "keyed_median", "keyed_corr", "mesh_reduce", "mesh_route"), 0
+     "keyed_finish", "keyed_median", "keyed_corr", "mesh_reduce", "mesh_route",
+     "df32_agg", "ord_extremum", "x32_merge"), 0
 )
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -975,6 +1154,10 @@ OP_MIN_F64 = 3
 OP_MAX_F64 = 4
 OP_MIN_I64 = 5
 OP_MAX_I64 = 6
+# scan-only folds of x32's sort route over 64-bit words (seg_scan.cu)
+OP_DF32 = 7      # an f32 (hi, lo) pair, hi in the low word: _scan_segments' df32
+OP_UMIN_U64 = 8  # unsigned min of a joined order pair (join_u64)
+OP_UMAX_U64 = 9
 _OP_ROLE = {
     OP_COUNT: ("add", True), OP_ADD_F64: ("add", False),
     OP_ADD_I64: ("add", True), OP_MIN_F64: ("min", False),
@@ -1219,35 +1402,484 @@ def segment_agg_entries(entries: list, ops: list[int], cols: list[int], state):
     return segment_agg_entries_cuda(entries, ops, cols, state)
 
 
+# ------------------------------------------------------------ x32 kernels
+# Three kernels serve the x32 partial aggregate (ROADMAP B12):
+#   D  (ops/cuda/df32_agg.cu)     — double-float segment sums and exact
+#                                   counts (the reference's
+#                                   _blocked_onehot_agg and
+#                                   _segment_sum_df32);
+#   E  (ops/cuda/ord_extremum.cu) — the per-group extremum of order pairs
+#                                   and of single f32/i32 words
+#                                   (_ord_segment_extremum, segment_min/max);
+#   M  (ops/cuda/x32_merge.cu)    — the x32 state merge (combine_states'
+#                                   x32 branches, _two_sum and _lex_merge).
+DF32_BLOCK = 1 << 14  # rows per block of D's matmul form (_MATMUL_BLOCK)
+DF32_MAX_COLUMNS = 32  # df32_agg.h: kDfMaxCols
+
+# x32 state-merge codes, one per state row (x32_merge.h: X32Op)
+XM_SUM_HI = 0    # a (hi, lo) f32 pair: this row and the next, merged by 2Sum
+XM_SUM_LO = 1    # the lo word of the pair above (merged with it)
+XM_ADD_I32 = 2   # counts and presence
+XM_MIN_F32 = 3
+XM_MAX_F32 = 4
+XM_MIN_I32 = 5
+XM_MAX_I32 = 6
+XM_OMIN_HI = 7   # an order pair: this row (hi) and the next (lo)
+XM_OMAX_HI = 8
+XM_PAIR_LO = 9   # the lo word of the order pair above
+
+# E's operand kinds (ord_extremum.h: OrdKind)
+ORD_PAIR, ORD_F32, ORD_I32 = 0, 1, 2
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Knuth 2Sum: s = fl(a + b) and its exact rounding error e (no FMA;
+    torch's float32 adds round once each)."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def _lex_merge(a_hi, a_lo, b_hi, b_lo, is_min: bool) -> tuple:
+    """Lexicographic (hi, lo) extremum: with the order-pair encoding of an
+    f64 this is the f64 min/max."""
+    if is_min:
+        better_b = (b_hi < a_hi) | ((b_hi == a_hi) & (b_lo < a_lo))
+    else:
+        better_b = (b_hi > a_hi) | ((b_hi == a_hi) & (b_lo > a_lo))
+    return torch.where(better_b, b_hi, a_hi), torch.where(better_b, b_lo, a_lo)
+
+
+def x32_merge_ops(specs: list[KernelAggSpec]) -> list[int]:
+    """The merge code of every row of an x32 state, presence last."""
+    ops: list[int] = []
+    for spec in specs:
+        if spec.func in ("count", "count_star"):
+            ops.append(XM_ADD_I32)
+        elif spec.func in ("sum", "avg"):
+            ops.extend([XM_SUM_HI, XM_SUM_LO, XM_ADD_I32])
+        elif spec.ord_pair:
+            ops.extend([XM_OMIN_HI if spec.func == "min" else XM_OMAX_HI,
+                        XM_PAIR_LO, XM_ADD_I32])
+        elif spec.int_minmax:
+            ops.extend([XM_MIN_I32 if spec.func == "min" else XM_MAX_I32, XM_ADD_I32])
+        else:
+            ops.extend([XM_MIN_F32 if spec.func == "min" else XM_MAX_F32, XM_ADD_I32])
+    ops.append(XM_ADD_I32)  # presence
+    return ops
+
+
+def _x32_merge_row(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One single-word x32 state row merged (int32 words)."""
+    if op == XM_ADD_I32:
+        return a + b
+    if op == XM_MIN_I32:
+        return torch.minimum(a, b)
+    if op == XM_MAX_I32:
+        return torch.maximum(a, b)
+    fn = _fmin if op == XM_MIN_F32 else _fmax
+    return fn(a.view(F32), b.view(F32)).view(I32)
+
+
+def x32_merge_reference(state: torch.Tensor, ops: list[int], rows: list) -> torch.Tensor:
+    """Plain twin of the x32 state merge (kernel M): ``rows`` (one int32
+    [capacity] tensor per state row, floats as their bits) merged into the
+    int32 ``state`` in place, as the reference's x32 ``combine_states``:
+    a sum's (hi, lo) by ``s, e = 2Sum(acc_hi, new_hi)``, ``lo = acc_lo +
+    new_lo + e``; an order pair lexicographically; the rest by i32 add or
+    f32/i32 min/max (NaN propagates, -0.0 below +0.0)."""
+    for f, op in enumerate(ops):
+        if op in (XM_SUM_LO, XM_PAIR_LO):
+            continue
+        if op == XM_SUM_HI:
+            s, e = _two_sum(state[f].view(F32), rows[f].view(F32))
+            lo = state[f + 1].view(F32) + rows[f + 1].view(F32) + e
+            state[f] = s.view(I32)
+            state[f + 1] = lo.view(I32)
+        elif op in (XM_OMIN_HI, XM_OMAX_HI):
+            hi, lo = _lex_merge(state[f], state[f + 1], rows[f], rows[f + 1],
+                                op == XM_OMIN_HI)
+            state[f] = hi
+            state[f + 1] = lo
+        else:
+            state[f] = _x32_merge_row(op, state[f], rows[f])
+    return state
+
+
+def _check_x32_rows(state, ops, rows) -> None:
+    if state.dtype != I32 or state.dim() != 2 or not state.is_contiguous():
+        raise ValueError("x32 state must be a contiguous int32 [n_fields, capacity]")
+    if len(ops) != state.shape[0] or len(rows) != len(ops) or len(ops) > MAX_FIELDS:
+        raise ValueError(f"x32_merge: {len(ops)} ops, {len(rows)} rows, {state.shape[0]} fields")
+    for f, (op, r) in enumerate(zip(ops, rows)):
+        if not 0 <= op <= XM_PAIR_LO:
+            raise ValueError(f"x32_merge: field {f}: op {op}")
+        _check_cuda_tensor(r, f"x32_merge row {f}", (I32,), state.shape[1], state.device)
+
+
+def x32_merge_cuda(state: torch.Tensor, ops: list[int], rows: list) -> torch.Tensor:
+    """Launch the hand-written x32 state merge (ops/cuda/x32_merge.cu).
+
+    Replaces the x32 branches of ``arrow_ballista_tpu/ops/kernels.py:
+    combine_states`` (with ``_two_sum`` and ``_lex_merge``).  Inputs are
+    checked (ValueError); a failed build or launch raises."""
+    from .cuda.build import load
+
+    if state.device.type != "cuda":
+        raise ValueError("x32_merge_cuda takes CUDA tensors")
+    _check_x32_rows(state, ops, rows)
+    load().x32_merge(state, list(ops), list(rows))
+    count_launch("x32_merge")
+    return state
+
+
+def x32_merge(state: torch.Tensor, ops: list[int], rows: list) -> torch.Tensor:
+    """Merge ``rows`` into the x32 ``state`` in place: the CUDA kernel for
+    CUDA tensors, its plain twin for tensors on the CPU."""
+    if state.device.type == "cpu":
+        return x32_merge_reference(state, ops, rows)
+    return x32_merge_cuda(state, ops, rows)
+
+
+def _x32_row_mask(n: int, tail, pred, pvalid, device) -> torch.Tensor:
+    """tail ∧ pred ∧ pvalid (all-true where None), the kernels' row mask."""
+    mask = torch.ones(n, dtype=torch.bool, device=device) if tail is None else tail
+    if pred is not None:
+        p = pred if pvalid is None else torch.logical_and(pred, pvalid)
+        mask = torch.logical_and(mask, p)
+    return mask
+
+
+def _col_mask(mask: torch.Tensor, valids: list, c: int) -> torch.Tensor:
+    return mask if c < 0 or valids[c] is None else torch.logical_and(mask, valids[c])
+
+
+def df32_scatter_block(n: int, capacity: int, device) -> int:
+    """Rows per block of D's scatter form: the reference's
+    ``_segment_sum_df32`` rule for its backend — the CPU's
+    ``max(256, min(4096, n // 64))``, an accelerator's ``max(8192,
+    ⌈n/64⌉)`` up to capacity 2^16, else ``max(2^16, ⌈n/8⌉)``."""
+    if torch.device(device).type == "cpu":
+        return int(max(256, min(4096, n // 64)))
+    if capacity <= (1 << 16):
+        return int(max(8192, -(-n // 64)))
+    return int(max(1 << 16, -(-n // 8)))
+
+
+def _df32_blocks(n: int, block: int) -> int:
+    """The pow2 block count of the pair tree (at least one block)."""
+    nb = max(1, -(-n // block))
+    return 1 << (nb - 1).bit_length()
+
+
+def _df32_tree(part: torch.Tensor) -> tuple:
+    """The reference's pairwise double-float tree over [nb, ...] f32 block
+    partials (nb a power of two): ``hi[0::2]`` with ``hi[1::2]`` by 2Sum,
+    ``lo = lo[0::2] + lo[1::2] + e``.  Returns (hi, lo)."""
+    hi = part
+    lo = torch.zeros_like(hi)
+    while hi.shape[0] > 1:
+        s, e = _two_sum(hi[0::2], hi[1::2])
+        hi, lo = s, lo[0::2] + lo[1::2] + e
+    return hi[0], lo[0]
+
+
+def df32_agg_reference(gid, tail, pred, pvalid, values, valids, sums, counts,
+                       capacity: int, block: int) -> tuple:
+    """Plain twin of the double-float segment sum (kernel D).
+
+    Rows split into ``block``-row blocks, padded with zeros to a power-of-
+    two block count; each block's per-group sum of every masked f32 column
+    (row mask tail ∧ pred ∧ pvalid, then the column's validity; a masked
+    row adds 0), rounded once to f32 (accumulated in f64 here; the kernel
+    adds in f32 in a fixed tree), then the reference's pairwise 2Sum tree
+    over the blocks.  ``sums`` lists each output's columns ``(a, b)``: b >=
+    0 sums a second column (an int64 pair's lo half) by its own tree, and
+    the two combine as ``s, e = 2Sum(hi_a, hi_b)``, ``lo = lo_a + lo_b +
+    e``.  ``counts`` lists each count's validity column (-1: the row mask),
+    exact in int32.  Returns (hi [S, cap] f32, lo [S, cap] f32, counts
+    [C, cap] int32)."""
+    n = gid.shape[0]
+    device = gid.device
+    mask = _x32_row_mask(n, tail, pred, pvalid, device)
+    g = gid.to(I64)
+    nb = _df32_blocks(n, block)
+    flat = torch.arange(n, dtype=I64, device=device) // block * capacity + g
+
+    def tree(c: int) -> tuple:
+        v = torch.where(_col_mask(mask, valids, c), values[c].to(F64),
+                        torch.zeros((), dtype=F64, device=device))
+        part = torch.zeros(nb * capacity, dtype=F64, device=device).index_add_(0, flat, v)
+        return _df32_tree(part.to(F32).view(nb, capacity))
+
+    his, los = [], []
+    for a, b in sums:
+        hi, lo = tree(a)
+        if b >= 0:
+            hi_b, lo_b = tree(b)
+            hi, e = _two_sum(hi, hi_b)
+            lo = lo + lo_b + e
+        his.append(hi)
+        los.append(lo)
+    cnts = []
+    for c in counts:
+        cnt = torch.zeros(capacity, dtype=I64, device=device)
+        cnts.append(cnt.index_add_(0, g, _col_mask(mask, valids, c).to(I64)).to(I32))
+
+    def stack(rows, dtype):
+        if not rows:
+            return torch.empty((0, capacity), dtype=dtype, device=device)
+        return torch.stack(rows)
+
+    return stack(his, F32), stack(los, F32), stack(cnts, I32)
+
+
+def _check_df32_args(gid, tail, pred, pvalid, values, valids, sums, counts,
+                     capacity, block) -> None:
+    device = gid.device
+    if device.type != "cuda":
+        raise ValueError("df32_agg_cuda takes CUDA tensors")
+    n = gid.shape[0]
+    _check_cuda_tensor(gid, "gid", (torch.int32,), n, device)
+    for name, m in (("tail", tail), ("pred", pred), ("pvalid", pvalid)):
+        if m is not None:
+            _check_cuda_tensor(m, name, (torch.bool,), n, device)
+    if pvalid is not None and pred is None:
+        raise ValueError("pvalid without pred")
+    if len(values) != len(valids) or len(values) > DF32_MAX_COLUMNS:
+        raise ValueError(f"df32_agg: {len(values)} columns")
+    read = {a for a, _ in sums} | {b for _, b in sums if b >= 0}
+    for c, (v, ok) in enumerate(zip(values, valids)):
+        if c in read:
+            _check_cuda_tensor(v, f"column {c}", (F32,), n, device)
+        if ok is not None:
+            _check_cuda_tensor(ok, f"validity {c}", (torch.bool,), n, device)
+    if len(sums) + len(counts) == 0 or len(sums) > DF32_MAX_COLUMNS or (
+        len(counts) > DF32_MAX_COLUMNS
+    ):
+        raise ValueError(f"df32_agg: {len(sums)} sums, {len(counts)} counts")
+    if any(not 0 <= c < len(values) for c in read) or any(
+        not -1 <= c < len(values) for c in counts
+    ):
+        raise ValueError("df32_agg: column index out of range")
+    if block < 1 or capacity < 1 or n >= 1 << 31:
+        raise ValueError(f"df32_agg: block {block}, capacity {capacity}, {n} rows")
+
+
+def df32_agg_cuda(gid, tail, pred, pvalid, values, valids, sums, counts,
+                  capacity: int, block: int) -> tuple:
+    """Launch the hand-written double-float segment sum (ops/cuda/
+    df32_agg.cu): one pass folds every block's per-group f32 partials of
+    the summed columns and counts (no one-hot, no GEMM), a second runs the
+    pairwise 2Sum tree over the blocks.  Same results as
+    :func:`df32_agg_reference` within rel 1e-6 on hi + lo, counts exact.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:_blocked_onehot_agg``
+    (block 2^14, every sum and count column) and ``_segment_sum_df32``
+    (each column by its own tree at the backend's block).  Inputs are
+    checked (ValueError); a failed build or launch raises."""
+    from .cuda.build import load
+
+    _check_df32_args(gid, tail, pred, pvalid, values, valids, sums, counts,
+                     capacity, block)
+    device = gid.device
+    n = gid.shape[0]
+    nb = _df32_blocks(n, block)
+    slots = sorted({a for a, _ in sums} | {b for _, b in sums if b >= 0})
+    hi = torch.empty((len(sums), capacity), dtype=F32, device=device)
+    lo = torch.empty((len(sums), capacity), dtype=F32, device=device)
+    cnt = torch.empty((len(counts), capacity), dtype=I32, device=device)
+    n_real = max(1, -(-n // block))
+    partial = torch.empty(n_real * (len(slots) + len(counts)) * capacity,
+                          dtype=F32, device=device)
+    empty = torch.empty(0, dtype=torch.bool, device=device)
+
+    def opt(x):
+        return empty if x is None else x
+
+    load().df32_agg(
+        gid, opt(tail), opt(pred), opt(pvalid),
+        [opt(v) for v in values], [opt(v) for v in valids],
+        slots, [slots.index(a) for a, _ in sums],
+        [slots.index(b) if b >= 0 else -1 for _, b in sums],
+        list(counts), capacity, block, nb, hi, lo, cnt, partial,
+    )
+    count_launch("df32_agg")
+    return hi, lo, cnt
+
+
+def df32_agg(gid, tail, pred, pvalid, values, valids, sums, counts,
+             capacity: int, block: int) -> tuple:
+    """Double-float segment sums and exact counts: the CUDA kernel for
+    CUDA tensors, its plain twin for tensors on the CPU.  D's matmul form
+    is ``block`` = :data:`DF32_BLOCK`, its scatter form
+    :func:`df32_scatter_block`; either reduces every column by its own
+    tree."""
+    if gid.device.type == "cpu":
+        return df32_agg_reference(gid, tail, pred, pvalid, values, valids, sums,
+                                  counts, capacity, block)
+    return df32_agg_cuda(gid, tail, pred, pvalid, values, valids, sums, counts,
+                         capacity, block)
+
+
+_I64_MIN = -(1 << 63)
+_F32_CANON_NAN = 0x7FC00000
+
+
+def _ord_keys(kind: int, hi: torch.Tensor, lo, is_min: bool) -> torch.Tensor:
+    """E's sort keys as int64 whose signed order is the operand order:
+    an order pair ``hi * 2^32 + (lo + 2^31)`` (the unsigned order of
+    ``join_u64``), an f32 its IEEE order key in [0, 2^32) with NaN the
+    extreme the reference's scatter min/max keeps (0 for min, 2^32 - 1
+    for max), an i32 ``v + 2^31``."""
+    if kind == ORD_PAIR:
+        return hi.to(I64) * (1 << 32) + (lo.to(I64) + (1 << 31))
+    if kind == ORD_I32:
+        return hi.to(I64) + (1 << 31)
+    bits = hi.view(I32).to(I64) & 0xFFFFFFFF
+    key = torch.where(bits >= (1 << 31), bits ^ 0xFFFFFFFF, bits | (1 << 31))
+    nan = torch.isnan(hi.view(F32))
+    return torch.where(nan, torch.full_like(key, 0 if is_min else 0xFFFFFFFF), key)
+
+
+def _ord_ident(kind: int, is_min: bool) -> int:
+    """The key of an empty group: the reference's identity (INT32_MAX
+    pairs, +inf, INT32_MAX for a min; their opposites for a max)."""
+    if kind == ORD_PAIR:
+        return (1 << 63) - 1 if is_min else _I64_MIN
+    if kind == ORD_I32:
+        return (1 << 32) - 1 if is_min else 0
+    return 0xFF800000 if is_min else 0x007FFFFF  # +inf / -inf
+
+
+def _ord_decode(kind: int, key: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """Keys back to state words: [2, cap] (hi, lo) for a pair, else [1, cap]."""
+    if kind == ORD_PAIR:
+        hi = torch.div(key, 1 << 32, rounding_mode="floor")
+        lo = key - hi * (1 << 32) - (1 << 31)
+        return torch.stack([hi.to(I32), lo.to(I32)])
+    if kind == ORD_I32:
+        return (key - (1 << 31)).to(I32)[None]
+    nan = key == (0 if is_min else 0xFFFFFFFF)
+    bits = torch.where(key >= (1 << 31), key & 0x7FFFFFFF, key ^ 0xFFFFFFFF)
+    bits = torch.where(nan, torch.full_like(bits, _F32_CANON_NAN), bits)
+    return torch.where(bits >= (1 << 31), bits - (1 << 32), bits).to(I32)[None]
+
+
+def ord_extremum_reference(gid, tail, pred, pvalid, valid, hi, lo, capacity: int,
+                           is_min: bool) -> torch.Tensor:
+    """Plain twin of the exact per-group extremum (kernel E) over rows where
+    tail ∧ pred ∧ pvalid ∧ ``valid``.  ``lo`` given: ``(hi, lo)`` is an
+    order pair (int32 words of ``split_u64_i32``), whose lexicographic
+    extremum — the reference's hi pass then lo pass among the ties — is
+    one 64-bit extremum of the joined word.  Else ``hi`` is one float32 or
+    int32 column, reduced as ``jax.ops.segment_min/max`` (NaN propagates
+    as the canonical NaN, -0.0 below +0.0).  Returns int32 [2, cap] (hi,
+    lo) or [1, cap] words; an empty group holds the identity."""
+    kind = ORD_PAIR if lo is not None else (ORD_F32 if hi.dtype == F32 else ORD_I32)
+    mask = _x32_row_mask(gid.shape[0], tail, pred, pvalid, gid.device)
+    if valid is not None:
+        mask = torch.logical_and(mask, valid)
+    key = _ord_keys(kind, hi, lo, is_min)[mask]
+    out = torch.full((capacity,), _ord_ident(kind, is_min), dtype=I64, device=gid.device)
+    out = out.scatter_reduce(0, gid.to(I64)[mask], key, "amin" if is_min else "amax")
+    return _ord_decode(kind, out, is_min)
+
+
+def ord_extremum_cuda(gid, tail, pred, pvalid, valid, hi, lo, capacity: int,
+                      is_min: bool) -> torch.Tensor:
+    """Launch the hand-written exact extremum (ops/cuda/ord_extremum.cu):
+    one pass of unsigned 64-bit min/max per group over the operand's order
+    keys, split back into state words.  Bit-identical to its twin.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:_ord_segment_extremum``
+    and the matmul and scatter routes' ``segment_min``/``segment_max``.
+    Inputs are checked (ValueError); a failed build or launch raises."""
+    from .cuda.build import load
+
+    device = gid.device
+    n = gid.shape[0]
+    if device.type != "cuda" or capacity < 1 or n >= 1 << 31:
+        raise ValueError("ord_extremum_cuda takes CUDA tensors, capacity >= 1")
+    _check_cuda_tensor(gid, "gid", (torch.int32,), n, device)
+    for name, m in (("tail", tail), ("pred", pred), ("pvalid", pvalid), ("valid", valid)):
+        if m is not None:
+            _check_cuda_tensor(m, name, (torch.bool,), n, device)
+    if lo is not None:
+        kind = ORD_PAIR
+        _check_cuda_tensor(hi, "hi", (I32,), n, device)
+        _check_cuda_tensor(lo, "lo", (I32,), n, device)
+    else:
+        _check_cuda_tensor(hi, "values", (F32, I32), n, device)
+        kind = ORD_F32 if hi.dtype == F32 else ORD_I32
+    out = torch.empty((2 if kind == ORD_PAIR else 1, capacity), dtype=I32, device=device)
+    scratch = torch.empty(capacity, dtype=I64, device=device)
+    empty = torch.empty(0, dtype=torch.bool, device=device)
+
+    def opt(x):
+        return empty if x is None else x
+
+    load().ord_extremum(gid, opt(tail), opt(pred), opt(pvalid), opt(valid),
+                        hi.view(I32), empty if lo is None else lo, kind, bool(is_min),
+                        scratch, out)
+    count_launch("ord_extremum")
+    return out
+
+
+def ord_extremum(gid, tail, pred, pvalid, valid, hi, lo, capacity: int,
+                 is_min: bool) -> torch.Tensor:
+    """The exact per-group extremum: the CUDA kernel for CUDA tensors, its
+    plain twin for tensors on the CPU."""
+    if gid.device.type == "cpu":
+        return ord_extremum_reference(gid, tail, pred, pvalid, valid, hi, lo,
+                                      capacity, is_min)
+    return ord_extremum_cuda(gid, tail, pred, pvalid, valid, hi, lo, capacity, is_min)
+
+
 # ------------------------------------------------------- algorithm choice
 # The segment reduction has two device routes: "scatter" (B1, segment_agg
 # above) and "sort" (one stable radix sort of the group ids, then one
 # segmented scan over every aggregate column, totals merged at each
 # segment's last row).  B1 re-scans a batch once per tile of groups, so it
 # stops paying at large capacity; the sort route costs the same at any
-# capacity.  The reference's matmul route is x32-only and not ported.
+# capacity.  x32 adds the reference's "matmul" route (kernel D's matmul
+# form over every sum and count column, E for extrema, M to merge), the
+# accelerator's choice while capacity and rows x capacity stay inside its
+# bounds; x32's "scatter" route runs D's scatter form (the backend's block).
 # Bounds: the reference's builtin defaults (its routing table names no
 # cuda platform), constants until the cuda routing grid exists.
 SORT_MIN_CAPACITY = 8192  # capacity above this sorts
 SORT_MIN_ELEMS = 1 << 36  # rows x capacity above this sorts
+MATMUL_MAX_CAPACITY = 8192  # x32: capacity above this sorts
+MATMUL_MAX_ELEMS = 1 << 36  # x32: rows x capacity above this sorts
 _AGG_ALGO: dict = {"force": None}
 
 
 def set_agg_algorithm(algo: Optional[str]) -> None:
     """Force the segment-reduction route (tests) or None = by the bounds."""
-    if algo not in (None, "scatter", "sort"):
+    if algo not in (None, "matmul", "scatter", "sort"):
         raise ValueError(f"agg algorithm {algo!r}")
     _AGG_ALGO["force"] = algo
 
 
-def segment_algo(capacity: int, n_rows: Optional[int], device) -> str:
-    """Route of one batch: "sort" on cuda above the capacity or the
-    rows x capacity bound, else "scatter"; the CPU twins always scatter
-    unless a route is forced."""
-    if _AGG_ALGO["force"] is not None:
-        return _AGG_ALGO["force"]
+def segment_algo(capacity: int, n_rows: Optional[int], device, mode: str = "x64") -> str:
+    """Route of one batch.  x64: "sort" on cuda above the capacity or the
+    rows x capacity bound, else "scatter".  x32: "matmul" on cuda inside
+    the matmul bounds, else "sort".  The CPU twins always scatter unless a
+    route is forced; a forced "matmul" runs scatter in x64, as in the
+    reference."""
+    force = _AGG_ALGO["force"]
+    if force is not None:
+        return "scatter" if force == "matmul" and mode != "x32" else force
     if torch.device(device).type != "cuda":
         return "scatter"
+    if mode == "x32":
+        if capacity > MATMUL_MAX_CAPACITY or (
+            n_rows is not None and n_rows * capacity > MATMUL_MAX_ELEMS
+        ):
+            return "sort"
+        return "matmul"
     if capacity > SORT_MIN_CAPACITY:
         return "sort"
     if n_rows is not None and n_rows * capacity > SORT_MIN_ELEMS:
@@ -1258,7 +1890,8 @@ def segment_algo(capacity: int, n_rows: Optional[int], device) -> str:
 def algo_cache_token() -> tuple:
     """Part of a kernel cache key: the route inputs that are not in the
     kernel's signature."""
-    return (_AGG_ALGO["force"], SORT_MIN_CAPACITY, SORT_MIN_ELEMS)
+    return (_AGG_ALGO["force"], SORT_MIN_CAPACITY, SORT_MIN_ELEMS,
+            MATMUL_MAX_CAPACITY, MATMUL_MAX_ELEMS)
 
 
 def _check_cuda_tensor(x, name: str, dtypes, n: int, device) -> None:
@@ -1361,12 +1994,23 @@ SCAN_TILE = 2048  # rows per block (seg_scan.h: kScanTile)
 
 @dataclass(frozen=True, eq=False)
 class ScanColumn:
-    """One column of a segmented scan: its element source and fold."""
+    """One column of a segmented scan: its element source and fold.
+
+    x32's sort route reads 32-bit columns: float32 or int32 ``values``
+    under an f64/i64 fold widen exactly; under :data:`OP_DF32` a float32
+    column is the pair (v, 0) and, with float32 ``values2``, the 2Sum of
+    the two halves of an int64 pair; under :data:`OP_UMIN_U64`/
+    :data:`OP_UMAX_U64` int32 ``values`` and ``values2`` are an order
+    pair's (hi, lo), joined into one unsigned word."""
 
     src: int
-    op: int  # OP_ADD_F64 .. OP_MAX_I64 (OP_ADD_I64 for counts and iota)
-    values: Optional[torch.Tensor] = None  # [n] f64/i64, input row order
+    op: int  # OP_ADD_F64 .. OP_UMAX_U64 (OP_ADD_I64 for counts and iota)
+    values: Optional[torch.Tensor] = None  # [n] input row order
     valid: Optional[torch.Tensor] = None   # [n] bool, input row order
+    values2: Optional[torch.Tensor] = None  # [n] the pair's second half
+
+
+_I64_MIN_WORD = -(1 << 63)
 
 
 def _ident_value(op: int, dtype):
@@ -1374,11 +2018,42 @@ def _ident_value(op: int, dtype):
         return math.inf if dtype == F64 else torch.iinfo(I64).max
     if op in (OP_MAX_F64, OP_MAX_I64):
         return -math.inf if dtype == F64 else torch.iinfo(I64).min
+    if op == OP_UMIN_U64:
+        return -1  # all ones: the largest unsigned word
     return 0
 
 
+def _df32_word(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """An f32 (hi, lo) pair as one int64 word, hi's bits in the low half."""
+    return lo.view(I32).to(I64) * (1 << 32) + (hi.view(I32).to(I64) & 0xFFFFFFFF)
+
+
+def _df32_split(w: torch.Tensor) -> tuple:
+    """The (hi, lo) float32 pair of :func:`_df32_word` words."""
+    lo = torch.div(w, 1 << 32, rounding_mode="floor")
+    hi = w - lo * (1 << 32)
+    hi = torch.where(hi >= (1 << 31), hi - (1 << 32), hi)
+    return hi.to(I32).view(F32), lo.to(I32).view(F32)
+
+
+def _ord_word(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """An order pair's ``join_u64`` as int64 bits (its unsigned order is
+    the pair's lexicographic order)."""
+    return (hi ^ torch.iinfo(I32).min).to(I64) * (1 << 32) + (
+        (lo.to(I64) & 0xFFFFFFFF) ^ 0x80000000
+    )
+
+
+def _ord_split(w: torch.Tensor) -> tuple:
+    """The int32 (hi, lo) of :func:`_ord_word` words."""
+    top = torch.div(w, 1 << 32, rounding_mode="floor")
+    lo = w - top * (1 << 32) - (1 << 31)
+    return top.to(I32) ^ torch.iinfo(I32).min, lo.to(I32)
+
+
 def _elements(col: ScanColumn, n: int, perm, aux, device) -> torch.Tensor:
-    """The column's elements in sorted order, typed (f64 or i64)."""
+    """The column's elements in sorted order, typed (f64 or i64; the x32
+    folds' as int64 words)."""
     if col.src == SS_IOTA:
         return torch.arange(n, dtype=I64, device=device)
     if col.src == SS_AUX:
@@ -1390,14 +2065,34 @@ def _elements(col: ScanColumn, n: int, perm, aux, device) -> torch.Tensor:
     ok = None if col.valid is None else gathered(col.valid)
     if col.src == SS_COUNT:
         return torch.ones(n, dtype=I64, device=device) if ok is None else ok.to(I64)
-    dtype = F64 if _OP_ROLE[col.op][1] is False else I64
-    v = gathered(col.values).to(dtype)
+    if col.op == OP_DF32:
+        h = gathered(col.values)
+        if col.values2 is None:
+            w = _df32_word(h, torch.zeros_like(h))
+        else:
+            w = _df32_word(*_two_sum(h, gathered(col.values2)))
+    elif col.op in (OP_UMIN_U64, OP_UMAX_U64):
+        w = _ord_word(gathered(col.values), gathered(col.values2))
+    else:
+        dtype = F64 if _OP_ROLE[col.op][1] is False else I64
+        w = gathered(col.values).to(dtype)
+        if ok is None:
+            return w
+        return torch.where(ok, w, torch.full_like(w, _ident_value(col.op, dtype)))
     if ok is None:
-        return v
-    return torch.where(ok, v, torch.full_like(v, _ident_value(col.op, dtype)))
+        return w
+    return torch.where(ok, w, torch.full_like(w, _ident_value(col.op, I64)))
 
 
 def _fold(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if op == OP_DF32:  # _scan_segments' df32 combine
+        ah, al = _df32_split(a)
+        bh, bl = _df32_split(b)
+        s, e = _two_sum(ah, bh)
+        return _df32_word(*_two_sum(s, al + bl + e))
+    if op in (OP_UMIN_U64, OP_UMAX_U64):
+        a_le_b = (a ^ _I64_MIN_WORD) <= (b ^ _I64_MIN_WORD)
+        return torch.where(a_le_b == (op == OP_UMIN_U64), a, b)
     role, is_int = _OP_ROLE[op]
     if role == "min":
         return torch.minimum(a, b) if is_int else _fmin(a, b)
@@ -1470,24 +2165,48 @@ def _check_scan_args(cols, n, perm, flag, key, aux, device) -> None:
     if key is not None:
         _check_cuda_tensor(key, "key", (torch.int32,), n, device)
     for i, c in enumerate(cols):
-        if c.op not in _OP_ROLE or c.op == OP_COUNT:
+        x32_op = c.op in (OP_DF32, OP_UMIN_U64, OP_UMAX_U64)
+        if (c.op not in _OP_ROLE and not x32_op) or c.op == OP_COUNT:
             raise ValueError(f"scan column {i}: op {c.op}")
         if c.src == SS_AUX:
             _check_cuda_tensor(aux, "aux", (torch.uint8, torch.bool), n, device)
         if c.src == SS_VALUES:
-            want = I64 if _OP_ROLE[c.op][1] else F64
-            dtypes = (F64, I64) if want == F64 else (I64,)
+            if x32_op:
+                dtypes = (F32,) if c.op == OP_DF32 else (I32,)
+            else:
+                want = I64 if _OP_ROLE[c.op][1] else F64
+                dtypes = (F64, I64, F32, I32) if want == F64 else (I64, I32)
             _check_cuda_tensor(c.values, f"column {i} values", dtypes, n, device)
+            if c.values2 is not None or c.op in (OP_UMIN_U64, OP_UMAX_U64):
+                if not x32_op:
+                    raise ValueError(f"scan column {i}: a pair under op {c.op}")
+                _check_cuda_tensor(c.values2, f"column {i} values2", dtypes, n, device)
         if c.valid is not None:
             _check_cuda_tensor(c.valid, f"column {i} validity", (torch.bool,), n, device)
 
 
+# how seg_scan.cu reads a SS_VALUES column (seg_scan.h: ScanWidth)
+SW_WORD, SW_F32, SW_I32, SW_F32_PAIR, SW_ORD_PAIR = 0, 1, 2, 3, 4
+
+
+def _scan_width(c: ScanColumn) -> int:
+    if c.values is None:
+        return SW_WORD
+    if c.values2 is not None:
+        return SW_F32_PAIR if c.values.dtype == F32 else SW_ORD_PAIR
+    return {F32: SW_F32, I32: SW_I32}.get(c.values.dtype, SW_WORD)
+
+
 def _launch_scan(cols, n, perm, flag, key, aux, reverse, outs, state, field_col,
                  field_op):
+    """One seg_scan launch.  An int64 ``state`` takes the x64 epilogue
+    (``field_op`` the OP_* merges), an int32 one the x32 epilogue
+    (``field_op`` the XM_* merges of :func:`x32_merge`)."""
     from .cuda.build import load
 
     device = (perm if perm is not None else flag if flag is not None else key).device
     empty = torch.empty(0, dtype=torch.uint8, device=device)
+    x32_state = state is not None and state.dtype == I32
     blocks = max(1, -(-n // SCAN_TILE))
     load().seg_scan(
         n,
@@ -1502,11 +2221,14 @@ def _launch_scan(cols, n, perm, flag, key, aux, reverse, outs, state, field_col,
         [c.op for c in cols],
         [int(c.values is not None and c.values.dtype == I64) for c in cols],
         [empty if o is None else o for o in outs],
-        empty if state is None else state,
+        empty if state is None or x32_state else state,
         list(field_col), list(field_op),
         torch.empty(blocks * len(cols), dtype=I64, device=device),
         torch.empty(blocks * len(cols), dtype=I64, device=device),
         torch.empty(blocks, dtype=torch.uint8, device=device),
+        [empty if c.values2 is None else c.values2 for c in cols],
+        [_scan_width(c) for c in cols],
+        state if x32_state else empty,
     )
     count_launch("seg_scan")
 
@@ -1722,9 +2444,12 @@ EXPR_OPS = (
     "store_value", "store_valid",
 )
 _EXPR_OP = {name: i for i, name in enumerate(EXPR_OPS)}
-DT_BOOL, DT_I64, DT_F64 = 0, 1, 2  # expr_eval.h: ExprDtype
-_DT_CODE = {torch.bool: DT_BOOL, I64: DT_I64, F64: DT_F64}
-_DT_TORCH = (torch.bool, I64, F64)
+DT_BOOL, DT_I64, DT_F64, DT_I32, DT_F32 = 0, 1, 2, 3, 4  # expr_eval.h: ExprDtype
+_DT_CODE = {torch.bool: DT_BOOL, I64: DT_I64, F64: DT_F64, I32: DT_I32, F32: DT_F32}
+_DT_TORCH = (torch.bool, I64, F64, I32, F32)
+# the register dtypes of each mode's programs (x64: bool < int64 < float64,
+# x32: bool < int32 < float32, each ordered as torch promotes)
+_MODE_DTS = {"x64": (DT_BOOL, DT_I64, DT_F64), "x32": (DT_BOOL, DT_I32, DT_F32)}
 EXPR_MAX_INPUTS = 96  # expr_eval.h: kExprMaxInputs
 EXPR_MAX_OUTPUTS = 72  # kExprMaxOutputs
 EXPR_MAX_INSTR = 1024  # kExprMaxInstr
@@ -1743,7 +2468,8 @@ _ARITY.update(dict.fromkeys(("leaf", "lit", "null"), 0))
 _ARITY.update(dict.fromkeys(("and", "or", "add", "sub", "mul", "div_int", "div_f",
                              "mod_int", "mod_f", "power", *_CMP), 2))
 _ARITY["select"] = 3
-# operand and result dtypes fixed by the op (-1: read from the row)
+# operand and result dtypes fixed by the op (-1: read from the row), as x64
+# codes; an x32 program reads DT_I64/DT_F64 here as DT_I32/DT_F32
 _FIXED_IN = {"div_int": DT_I64, "mod_int": DT_I64, "div_f": DT_F64, "mod_f": DT_F64,
              "cast_i64": DT_F64, "power": DT_F64, "square": DT_F64,
              **dict.fromkeys(_UNARY_F64, DT_F64)}
@@ -1774,6 +2500,13 @@ def _validity(rows, leaf_valid) -> list[bool]:
     return out
 
 
+def _fixed_dt(table: dict, name: str, mode: str):
+    dt = table.get(name)
+    if dt is None or mode != "x32":
+        return dt
+    return {DT_I64: DT_I32, DT_F64: DT_F32}.get(dt, dt)
+
+
 def _closure_node(closure) -> ExprNode:
     node = getattr(closure, "node", None)
     if not isinstance(node, ExprNode):
@@ -1798,9 +2531,12 @@ class ExprProgram:
     slot)``, ``("valid", reg, slot)`` or ``("input", slot, dtype code)``:
     the env tensor itself (a leaf asked for in its own dtype, or its
     validity, as :func:`_column` passes them through).  ``source`` keeps
-    the ``(filter closure, closures, columns)`` it was compiled from."""
+    the ``(filter closure, closures, columns)`` it was compiled from.
+    ``mode`` "x32" programs compute in bool, int32 and float32 registers
+    (the x32 closures' dtypes), x64 ones in bool, int64 and float64."""
 
-    def __init__(self, filter_closure, closures: list, columns: list):
+    def __init__(self, filter_closure, closures: list, columns: list, mode: str = "x64"):
+        self.mode = mode
         self._rows: list[list[int]] = []
         self._regs: dict = {}
         self._consts: list[int] = []
@@ -1841,9 +2577,11 @@ class ExprProgram:
         del self._rows, self._regs, self._consts
 
     @classmethod
-    def from_parts(cls, code, consts, inputs, n_regs, stores, outputs) -> "ExprProgram":
+    def from_parts(cls, code, consts, inputs, n_regs, stores, outputs,
+                   mode: str = "x64") -> "ExprProgram":
         """A program from its tables, validated (ValueError when malformed)."""
         self = cls.__new__(cls)
+        self.mode = mode
         self.inputs = list(inputs)
         self.source = None
         self._init(np.asarray(code, np.int64), np.asarray(consts, np.int64),
@@ -1907,7 +2645,8 @@ class ExprProgram:
             elif op == "convert":
                 in_dt = self._dt(a)
             else:
-                in_dt = _FIXED_IN.get(op, -1)
+                in_dt = _fixed_dt(_FIXED_IN, op, self.mode)
+                in_dt = -1 if in_dt is None else in_dt
             reg = self._row(op, dt, in_dt, a, b, c)
         self._regs[node] = reg
         return reg
@@ -1958,7 +2697,7 @@ class ExprProgram:
         are the ones last validated (the arrays are read-only) passes at
         once."""
         key = (id(self.code), id(self.consts), id(self.inputs), id(self.stores),
-               id(self.outputs), self.n_regs)
+               id(self.outputs), self.n_regs, self.mode)
         if getattr(self, "_valid_key", None) == key:
             return
         code = self.code
@@ -1967,6 +2706,10 @@ class ExprProgram:
         if self.consts.dtype != np.int64 or self.consts.ndim != 1:
             raise ValueError("expr program: consts must be int64 [n]")
         n_regs, n_in = self.n_regs, len(self.inputs)
+        if self.mode not in _MODE_DTS:
+            raise ValueError(f"expr program: mode {self.mode!r}")
+        dts = _MODE_DTS[self.mode]
+        d_int, d_float = dts[1], dts[2]
         if not 0 <= n_regs <= len(code):
             raise ValueError(f"expr program: {n_regs} registers")
         rows = code.tolist()
@@ -1978,22 +2721,23 @@ class ExprProgram:
             where = f"expr program: row {i} ({name})"
             if name.startswith("store_") != (i >= n_regs):
                 raise ValueError(f"{where}: out of place")
-            if dt not in (DT_BOOL, DT_I64, DT_F64) or dt != _FIXED_OUT.get(name, dt):
+            fixed_out = _fixed_dt(_FIXED_OUT, name, self.mode)
+            if dt not in dts or dt != (dt if fixed_out is None else fixed_out):
                 raise ValueError(f"{where}: result dtype {dt}")
             for r in (a, b, c)[:_ARITY[name]]:
                 if not 0 <= r < min(i, n_regs):
                     raise ValueError(f"{where}: register {r}")
-            fixed = _FIXED_IN.get(name)
+            fixed = _fixed_dt(_FIXED_IN, name, self.mode)
             if fixed is not None and in_dt != fixed:
                 raise ValueError(f"{where}: operand dtype {in_dt}")
             if name == "leaf" and not (-1 <= a < n_in and 0 <= b < n_in):
                 raise ValueError(f"{where}: input slots {a}, {b}")
             if name in ("in", "not_in") and (
-                in_dt not in (DT_I64, DT_F64) or b < 0 or c < 0
+                in_dt not in (d_int, d_float) or b < 0 or c < 0
                 or b + c > len(self.consts)
             ):
                 raise ValueError(f"{where}: table {b}+{c} of {len(self.consts)}")
-            if name in (*_CMP, "convert") and in_dt not in (DT_BOOL, DT_I64, DT_F64):
+            if name in (*_CMP, "convert") and in_dt not in dts:
                 raise ValueError(f"{where}: operand dtype {in_dt}")
             if name in ("add", "sub", "mul", "neg") and (
                 in_dt != dt or (dt == DT_BOOL and name in ("sub", "neg"))
@@ -2013,7 +2757,7 @@ class ExprProgram:
             if out is None:
                 continue
             if out[0] == "input":
-                if not (0 <= out[1] < n_in and out[2] in (DT_BOOL, DT_I64, DT_F64)):
+                if not (0 <= out[1] < n_in and out[2] in dts):
                     raise ValueError(f"expr program: output {out}")
                 continue
             kind, reg, slot = out[0], out[1], out[-1]
@@ -2097,7 +2841,12 @@ def expr_program_reference(program: ExprProgram, env: dict, n: int, device) -> t
             v = None if a < 0 else env[program.inputs[a]]
             val = env[program.inputs[b]]
         elif name == "lit":
-            value = np.int64(imm).view(np.float64).item() if dt == DT_F64 else imm
+            if dt == DT_F64:
+                value = np.int64(imm).view(np.float64).item()
+            elif dt == DT_F32:
+                value = np.int32(imm).view(np.float32).item()
+            else:
+                value = imm
             v = program.constant(i, bool(value) if dt == DT_BOOL else value, dtype, device)
         elif name == "null":
             v = program.constant(i, 0, dtype, device)
@@ -2115,7 +2864,8 @@ def expr_program_reference(program: ExprProgram, env: dict, n: int, device) -> t
             else:
                 v = valids[a] if negated else torch.logical_not(valids[a])
         elif name in ("in", "not_in"):
-            table = program.constant(("table", i), program.consts[b:b + c].tolist(), I64, device)
+            tdt = I32 if in_dt in (DT_I32, DT_F32) else I64
+            table = program.constant(("table", i), program.consts[b:b + c].tolist(), tdt, device)
             lhs = vals[a].to(_DT_TORCH[in_dt])
             m = torch.eq(lhs.reshape(-1, 1), table.view(lhs.dtype)[None, :]).any(dim=1)
             v, val = (torch.logical_not(m) if name == "not_in" else m), valids[a]
@@ -2134,22 +2884,24 @@ def expr_program_reference(program: ExprProgram, env: dict, n: int, device) -> t
             elif name == "div_int":
                 v = _trunc_div(x, y)
             elif name == "div_f":
-                v = x.to(F64) / y.to(F64)
+                fdt = _DT_TORCH[in_dt]
+                v = x.to(fdt) / y.to(fdt)
             elif name in ("mod_int", "mod_f"):
                 v = _floor_mod(x, y)
             elif name == "power":
-                v = torch.pow(x.to(F64), y.to(F64))
+                fdt = _DT_TORCH[in_dt]
+                v = torch.pow(x.to(fdt), y.to(fdt))
             elif name == "neg":
                 v = -x
             elif name == "convert":
                 v = x.to(dtype)
             elif name == "cast_i64":
-                v = _cast(x, I64)
+                v = _cast(x, dtype)
             elif name == "square":
-                x = x.to(F64)
+                x = x.to(_DT_TORCH[in_dt])
                 v = x * x
             else:
-                v = _UNARY_F64[name](x.to(F64))
+                v = _UNARY_F64[name](x.to(_DT_TORCH[in_dt]))
             val = valids[a] if y is None else _merge_valid(valids[a], valids[b])
         vals.append(v)
         valids.append(val)
@@ -2266,6 +3018,7 @@ def make_partial_agg_kernel(
     capacity: int,
     flat_names: list[str],
     algo: str = "scatter",
+    mode: str = "x64",
 ):
     """Build the fused filter → project → segment-aggregate function.
 
@@ -2282,7 +3035,21 @@ def make_partial_agg_kernel(
     distinct argument is one column.  ``algo`` picks the reduction
     route (:func:`segment_algo`): "scatter" (:func:`segment_agg`) or "sort"
     (:func:`sorted_segment_agg`); both merge into the same state.
+
+    ``mode`` "x32" builds the reference's x32 function instead: the
+    program computes float32/int32 columns, the state is int32 words in
+    :func:`state_fields`' x32 layout, and ``algo`` is "matmul", "scatter"
+    or "sort" (:func:`x32_reduce`).
     """
+    if mode == "x32":
+        if algo not in ("matmul", "scatter", "sort"):
+            raise ValueError(f"agg algorithm {algo!r}")
+        run = _make_x32_kernels(filter_closure, arg_closures, specs, flat_names)
+
+        def fn32(seg_ids, valid, *arrays, state=None):
+            return run(algo, seg_ids, valid, arrays, capacity, state)
+
+        return fn32
     if algo not in ("scatter", "sort"):
         raise ValueError(f"agg algorithm {algo!r}")
     reduce = sorted_segment_agg if algo == "sort" else segment_agg
@@ -2307,13 +3074,29 @@ def make_entries_agg_kernel(
     specs: list[KernelAggSpec],
     capacity: int,
     flat_names: list[str],
+    mode: str = "x64",
 ):
     """The multi-entry counterpart of :func:`make_partial_agg_kernel` (its
     scatter route): ``fn(entries) -> state`` over retained ``(gid, tail,
     leaf arrays)`` entries runs the expression program over every entry,
     then ONE :func:`segment_agg_entries` folds all of them into a fresh
     identity state at ``capacity``.  The program's outputs of every entry
-    are alive together until that call returns."""
+    are alive together until that call returns.
+
+    x32 (the reference's x32 ``_fused_for``): each entry runs its own route
+    (:func:`segment_algo` for its rows) and one merge into the state."""
+    if mode == "x32":
+        run = _make_x32_kernels(filter_closure, arg_closures, specs, flat_names)
+
+        def fn32(entries: list) -> torch.Tensor:
+            device = entries[0][0].device
+            state = init_states(specs, capacity, device, "x32")
+            for gid, tail, arrays in entries:
+                algo = segment_algo(capacity, gid.shape[0], device, "x32")
+                state = run(algo, gid, tail, arrays, capacity, state)
+            return state
+
+        return fn32
     closures, columns, ops, cols = _agg_layout(specs, arg_closures)
     program = ExprProgram(filter_closure, closures, columns)
 
@@ -2327,6 +3110,285 @@ def make_entries_agg_kernel(
         return segment_agg_entries(rows, ops, cols, state)
 
     return fn
+
+
+# ------------------------------------------------- x32 partial aggregate
+@dataclass
+class X32Layout:
+    """An x32 stage function's reductions, fixed once (:func:`x32_layout`).
+
+    Kernel columns are the expression program's columns, then two per pair
+    leaf (hi, lo).  ``sums``: each sum output's columns ``(a, b)`` (b = -1
+    but for an int64 pair); ``counts``: each count's validity column (-1:
+    the row mask); ``exts``: each extremum's ``(hi column, lo column or
+    -1, is_min)``; ``fields``: per state row its source, ``("sum", k,
+    0 | 1)`` for hi | lo, ``("cnt", k)`` or ``("ext", k, 0 | 1)``;
+    ``ops``: per state row its :func:`x32_merge` code."""
+
+    closures: list
+    columns: list
+    pairs: list
+    sums: list
+    counts: list
+    exts: list
+    fields: list
+    ops: list
+
+
+def x32_layout(specs: list[KernelAggSpec], arg_closures: list) -> X32Layout:
+    """The x32 reductions of ``specs`` as the reference's x32 routes lower
+    them: a sum or avg sums its argument as float32 (an int64 pair's two
+    halves each), a min/max reduces a float32 or int32 operand (an f64
+    column's order pair), and every aggregate counts its argument's valid
+    rows.  Equal arguments share one column, equal validities one count."""
+    closures: list = []
+    columns: list = []  # (closure index, dtype) of the expression program
+    pairs: list = []    # pair-leaf closures, two kernel columns each
+    sums: list = []
+    counts: list = []
+    exts: list = []
+    fields: list = []
+
+    def index(items: list, item) -> int:
+        if item not in items:
+            items.append(item)
+        return items.index(item)
+
+    def column(closure, dtype) -> int:
+        k = next((i for i, c in enumerate(closures) if c is closure), None)
+        if k is None:
+            k = len(closures)
+            closures.append(closure)
+        return index(columns, (k, dtype))
+
+    arg_cols: list = []  # per spec: its value columns (for the count)
+    for spec, closure in zip(specs, arg_closures):
+        if spec.func == "count_star":
+            arg_cols.append(None)
+        elif spec.pair or spec.ord_pair:
+            p = next((i for i, c in enumerate(pairs) if c is closure), None)
+            if p is None:
+                p = len(pairs)
+                pairs.append(closure)
+            arg_cols.append(("pair", p))
+        elif spec.func == "count":
+            arg_cols.append(column(closure, None))
+        elif spec.func in ("sum", "avg") or not spec.int_minmax:
+            arg_cols.append(column(closure, F32))
+        else:
+            arg_cols.append(column(closure, I32))
+    base = len(columns)
+
+    def cols_of(a):
+        if isinstance(a, tuple):
+            return base + 2 * a[1], base + 2 * a[1] + 1
+        return a, -1
+
+    for spec, a in zip(specs, arg_cols):
+        if spec.func == "count_star":
+            fields.append(("cnt", index(counts, -1)))
+            continue
+        hi, lo = cols_of(a)
+        cnt = ("cnt", index(counts, hi))
+        if spec.func == "count":
+            fields.append(cnt)
+        elif spec.func in ("sum", "avg"):
+            k = index(sums, (hi, lo))
+            fields.extend([("sum", k, 0), ("sum", k, 1), cnt])
+        elif spec.func in ("min", "max"):
+            k = index(exts, (hi, lo, spec.func == "min"))
+            fields.extend([("ext", k, 0)] + ([("ext", k, 1)] if spec.ord_pair else []) + [cnt])
+        else:  # the stage rejects every other aggregate at plan time
+            raise ValueError(f"kernel agg {spec.func}")
+    fields.append(("cnt", index(counts, -1)))  # presence
+    return X32Layout(closures, columns, pairs, sums, counts, exts, fields,
+                     x32_merge_ops(specs))
+
+
+def _batch_counts(counts: list, valids: list) -> tuple:
+    """The batch's distinct counts: counts over one validity tensor are
+    one, and a count over a column with no null (validity None) is the row
+    mask's, as the reference dedupes its count columns by validity.
+    Returns ``(count columns, the distinct count of each layout count)``."""
+    keys: dict = {}
+    distinct: list = []
+    index: list = []
+    for c in counts:
+        k = None if c < 0 or valids[c] is None else id(valids[c])
+        if k not in keys:
+            keys[k] = len(distinct)
+            distinct.append(-1 if k is None else c)
+        index.append(keys[k])
+    return distinct, index
+
+
+def _x32_rows(layout: X32Layout, hi, lo, cnt: list, ext_out: list) -> list:
+    """Each state row's new words (int32 [capacity] views) from D's and
+    E's outputs (``cnt``: one row per layout count)."""
+    rows = []
+    for src in layout.fields:
+        if src[0] == "sum":
+            rows.append((hi if src[2] == 0 else lo)[src[1]].view(I32))
+        elif src[0] == "cnt":
+            rows.append(cnt[src[1]])
+        else:
+            rows.append(ext_out[src[1]][src[2]])
+    return rows
+
+
+def _x32_scan_plan(layout: X32Layout, values: list, valids: list) -> tuple:
+    """The sort route's scan columns and the column each state row reads:
+    a sum output is one df32 column (an int64 pair's halves 2Summed first),
+    a distinct count counts its validity, an extremum folds its f32 / i32
+    operand widened exactly or its order pair as one unsigned word."""
+    columns: list[ScanColumn] = []
+    for a, b in layout.sums:
+        columns.append(ScanColumn(SS_VALUES, OP_DF32, values=values[a], valid=valids[a],
+                                  values2=values[b] if b >= 0 else None))
+    n_sums = len(columns)
+    distinct, count_of = _batch_counts(layout.counts, valids)
+    for c in distinct:
+        columns.append(ScanColumn(SS_COUNT, OP_ADD_I64,
+                                  valid=valids[c] if c >= 0 else None))
+    n_cnt = len(columns)
+    for a, b, is_min in layout.exts:
+        if b >= 0:
+            op = OP_UMIN_U64 if is_min else OP_UMAX_U64
+            columns.append(ScanColumn(SS_VALUES, op, values=values[a], valid=valids[a],
+                                      values2=values[b]))
+        elif values[a].dtype == F32:
+            columns.append(ScanColumn(SS_VALUES, OP_MIN_F64 if is_min else OP_MAX_F64,
+                                      values=values[a], valid=valids[a]))
+        else:
+            columns.append(ScanColumn(SS_VALUES, OP_MIN_I64 if is_min else OP_MAX_I64,
+                                      values=values[a], valid=valids[a]))
+    field_col = [
+        src[1] if src[0] == "sum"
+        else n_sums + count_of[src[1]] if src[0] == "cnt"
+        else n_cnt + src[1]
+        for src in layout.fields
+    ]
+    return columns, field_col
+
+
+def _x32_scan_rows(layout: X32Layout, totals: list, field_col: list) -> list:
+    """Each state row's new int32 words from the scan totals (the twin of
+    the x32 scan epilogue's decode)."""
+    rows = []
+    for src, op, j in zip(layout.fields, layout.ops, field_col):
+        w = totals[j]
+        if src[0] == "sum":
+            hi, lo = _df32_split(w)
+            rows.append((hi if src[2] == 0 else lo).view(I32))
+        elif src[0] == "cnt":
+            rows.append(w.to(I32))
+        elif op in (XM_OMIN_HI, XM_OMAX_HI, XM_PAIR_LO):
+            rows.append(_ord_split(w)[0 if op != XM_PAIR_LO else 1])
+        elif op in (XM_MIN_F32, XM_MAX_F32):
+            rows.append(w.view(F64).to(F32).view(I32))
+        else:
+            rows.append(w.to(I32))
+    return rows
+
+
+def sorted_segment_agg_x32_reference(gid, tail, pred, pvalid, values, valids,
+                                     layout: X32Layout, state) -> torch.Tensor:
+    """Plain twin of x32's sort route: the radix sort's and the scan's
+    twins over :func:`_x32_scan_plan`'s columns, each segment's total read
+    at its last row, merged into the int32 ``state`` (:func:`x32_merge`)
+    where the group has rows."""
+    n, capacity = gid.shape[0], state.shape[1]
+    key = _sort_key(gid, tail, pred, pvalid, capacity)
+    perm = radix_argsort_reference([key])
+    columns, field_col = _x32_scan_plan(layout, values, valids)
+    scanned = seg_scan_reference(columns, n, perm=perm, key=key)
+    s2 = key[perm.long()]
+    bounds = torch.searchsorted(s2, torch.arange(capacity + 1, dtype=s2.dtype, device=s2.device))
+    present = (bounds[1:] - bounds[:-1]) > 0
+    last = torch.clamp(bounds[1:] - 1, 0, max(n - 1, 0))
+    totals = [s[last] if n else s.new_zeros(capacity) for s in scanned]
+    merged = x32_merge_reference(state.clone(), layout.ops,
+                                 _x32_scan_rows(layout, totals, field_col))
+    state.copy_(torch.where(present[None, :], merged, state))
+    return state
+
+
+def sorted_segment_agg_x32_cuda(gid, tail, pred, pvalid, values, valids,
+                                layout: X32Layout, state) -> torch.Tensor:
+    """x32's sort route on the card: the radix sort of the group ids, then
+    one segmented scan whose x32 epilogue merges every segment's totals
+    into the int32 ``state`` (ops/cuda/seg_scan.cu's df32 and unsigned
+    pair folds).  Replaces ``arrow_ballista_tpu/ops/kernels.py:
+    _build_scan_plan``' x32 columns and ``_scan_segments``' df32 / omin /
+    omax kinds inside ``_fn_sorted``."""
+    n, capacity = gid.shape[0], state.shape[1]
+    if n == 0:
+        return state
+    key = _sort_key(gid, tail, pred, pvalid, capacity).contiguous()
+    perm = radix_argsort_cuda([key])
+    columns, field_col = _x32_scan_plan(layout, values, valids)
+    _check_scan_args(columns, n, perm, None, key, None, state.device)
+    if state.dtype != I32 or len(layout.ops) != state.shape[0]:
+        raise ValueError("x32 sort route: state must be int32 [n_fields, capacity]")
+    _launch_scan(columns, n, perm, None, key, None, False, [None] * len(columns),
+                 state, field_col, layout.ops)
+    return state
+
+
+def x32_reduce(algo: str, gid, tail, pred, pvalid, values, valids,
+               layout: X32Layout, state) -> torch.Tensor:
+    """One batch of an x32 stage function reduced on ``algo``'s route and
+    merged into the int32 ``state``: "matmul" (D's matmul form over every
+    sum and count, E per extremum, one M), "scatter" (the same at D's
+    scatter block) or "sort"."""
+    capacity = state.shape[1]
+    device = state.device
+    if algo == "sort":
+        if device.type == "cpu":
+            return sorted_segment_agg_x32_reference(gid, tail, pred, pvalid, values,
+                                                    valids, layout, state)
+        return sorted_segment_agg_x32_cuda(gid, tail, pred, pvalid, values, valids,
+                                           layout, state)
+    distinct, count_of = _batch_counts(layout.counts, valids)
+    block = (DF32_BLOCK if algo == "matmul"
+             else df32_scatter_block(gid.shape[0], capacity, device))
+    hi, lo, cnt = df32_agg(gid, tail, pred, pvalid, values, valids, layout.sums,
+                           distinct, capacity, block)
+    ext_out = [
+        ord_extremum(gid, tail, pred, pvalid, valids[a], values[a],
+                     values[b] if b >= 0 else None, capacity, is_min)
+        for a, b, is_min in layout.exts
+    ]
+    return x32_merge(state, layout.ops,
+                     _x32_rows(layout, hi, lo, [cnt[i] for i in count_of], ext_out))
+
+
+def _x32_batch(layout: X32Layout, program: "ExprProgram", env: dict, n: int, device):
+    """The batch's kernel columns: the expression program's outputs, then
+    each pair leaf's (hi, lo) with its validity twice."""
+    pred, pvalid, values, valids = expr_eval(program, env, n, device)
+    values, valids = list(values), list(valids)
+    for closure in layout.pairs:
+        (hi, lo), ok = closure(env)
+        values += [hi, lo]
+        valids += [ok, ok]
+    return pred, pvalid, values, valids
+
+
+def _make_x32_kernels(filter_closure, arg_closures, specs, flat_names):
+    layout = x32_layout(specs, arg_closures)
+    program = ExprProgram(filter_closure, layout.closures, layout.columns, mode="x32")
+
+    def run(algo: str, seg_ids, valid, arrays, capacity: int, state):
+        device = seg_ids.device
+        n = seg_ids.shape[0]
+        env = dict(zip(flat_names, arrays))
+        pred, pvalid, values, valids = _x32_batch(layout, program, env, n, device)
+        if state is None:
+            state = init_states(specs, capacity, device, "x32")
+        return x32_reduce(algo, seg_ids, valid, pred, pvalid, values, valids, layout, state)
+
+    return run
 
 
 # ------------------------------------------------ shuffle partition ids (B4)
@@ -2487,7 +3549,7 @@ def fetch_states_with_pids(
     of partition ids (:func:`partition_ids` over ``bits``/``nulls``, whose
     width is that ``keep``, capped at the capacity): ``(states, pids)``."""
     keep = min(keep, state.shape[1])
-    buf = torch.empty((state.shape[0] + 1, keep), dtype=I64, device=state.device)
+    buf = torch.empty((state.shape[0] + 1, keep), dtype=state.dtype, device=state.device)
     buf[:-1] = state[:, :keep]
     buf[-1] = partition_ids(bits, nulls, n_out)
     host = buf.cpu().numpy()

@@ -36,6 +36,11 @@ and no bridge (``cache_hits``).  Under ``ballista.tpu.whole_stage_fusion``
 and the shuffle partition ids of its groups ride the same fetch
 (``fused_pid_in_kernel``).  Past ``_FUSED_MAX_ENTRIES`` entries, or at a
 capacity that takes the sort route, the entries run one launch each.
+A stage built under ``kernels.set_precision("x32")`` runs the reference's
+x32 mode (``TorchStageExec._mode``): float32/int32 columns, double-float
+sums and order-pair extrema on the matmul, scatter or sort route
+(``kernels.x32_reduce``); a value that mode cannot carry re-runs the
+partition on the CPU operators, and its routes still to port raise.
 Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
 (``ops/window_compiler.py``).  Everything else stays on the CPU operator
 path, gated by the same session config (``ballista.tpu.enable``).
@@ -597,6 +602,8 @@ def _maybe_fold_join(fused: _FusedStage) -> Optional[_FusedStage]:
     except ExecutionError:
         return None
 
+    if K.precision_mode() == "x32":
+        raise K.x32_deferred("the device join fold")
     return _FusedStage(
         probe,
         filters,
@@ -652,7 +659,11 @@ class TorchStageExec(ExecutionPlan):
             schema = probe_schema
         self._probe_ncols = len(probe_schema)
 
-        compiler = K.TorchExprCompiler(schema)
+        # the dtype mode is pinned when the stage is built: every kernel,
+        # state and cache key of this stage follows it
+        self._mode = K.precision_mode()
+        x32 = self._mode == "x32"
+        compiler = K.TorchExprCompiler(schema, self._mode)
         # equal arguments lower to ONE closure, which the kernel function
         # turns into one shared kernel column
         lowered: dict = {}
@@ -696,6 +707,8 @@ class TorchStageExec(ExecutionPlan):
                     ok = ok or pa.types.is_date(at)
                 if not ok:
                     raise K.NotLowerable(f"{a.func} over {at}")
+                if x32:
+                    raise K.x32_deferred(a.func)
                 compiler.ord_pair_column(a.arg)
                 pending[idx] = ("median" if a.func == "median" else "cdist",
                                 a.arg.index)
@@ -713,6 +726,8 @@ class TorchStageExec(ExecutionPlan):
                     at = schema.field(e.index).type
                     if not (pa.types.is_floating(at) or pa.types.is_integer(at)):
                         raise K.NotLowerable(f"corr over {at}")
+                    if x32:
+                        raise K.x32_deferred("corr")
                     compiler._leaf_column(e)
                 pending[idx] = ("corr", a.arg.index, a.arg2.index)
                 continue
@@ -723,6 +738,8 @@ class TorchStageExec(ExecutionPlan):
                 # only in x32 (compensated sums), so x64 routes as usual
                 if fused.mode == PARTIAL:
                     raise K.NotLowerable("variance family is single-stage")
+                if x32:
+                    raise K.x32_deferred(a.func)
                 c = lower(a.arg)
                 parts = [
                     (K.KernelAggSpec("sum", True), c),
@@ -739,6 +756,9 @@ class TorchStageExec(ExecutionPlan):
                 continue
             t = _infer_type(a.arg, schema)
             is_int = t is not None and pa.types.is_integer(t)
+            if x32:
+                pending[idx] = self._x32_agg(a, t, compiler, lower)
+                continue
             if a.func in ("min", "max"):
                 int_mm = is_int or (t is not None and pa.types.is_date32(t))
                 spec = K.KernelAggSpec(a.func, True, int_minmax=int_mm)
@@ -797,7 +817,7 @@ class TorchStageExec(ExecutionPlan):
         self.specs: list[K.KernelAggSpec] = specs
         self._arg_closures = arg_closures
         self._filter_closure = filter_closure
-        n_fields = sum(len(K.state_fields(s)) for s in self.specs) + 1
+        n_fields = sum(len(K.state_fields(s, self._mode)) for s in self.specs) + 1
         if n_fields > K.MAX_FIELDS or len(self.specs) > K.MAX_COLUMNS:
             raise K.NotLowerable(f"{len(self.specs)} aggregates")
         self.leaves = compiler.leaves
@@ -881,6 +901,29 @@ class TorchStageExec(ExecutionPlan):
         # the hash-partition ids ride the device instead of the host
         self._shuffle_hint = None
 
+    @staticmethod
+    def _x32_agg(a, t, compiler, lower) -> tuple:
+        """(spec, argument closure) of a count/sum/avg/min/max under x32, as
+        the reference lowers it: an f64 min/max must not come back
+        f32-rounded, so an f64 COLUMN rides an order pair (bit-exact) and an
+        f64 expression stays on the CPU; an avg over int64 sums an exact f32
+        (hi, lo) pair; a sum over int64 ships int32 values (a value past
+        int32 re-runs the partition on the CPU)."""
+        if a.func in ("min", "max"):
+            int_mm = t is not None and (pa.types.is_integer(t) or pa.types.is_date32(t))
+            if not int_mm and not (t is not None and pa.types.is_float32(t)):
+                if isinstance(a.arg, pe.Col) and t is not None and pa.types.is_float64(t):
+                    return (K.KernelAggSpec(a.func, True, ord_pair=True),
+                            compiler.ord_pair_column(a.arg))
+                raise K.NotLowerable("x32 min/max over f64 expression")
+            return K.KernelAggSpec(a.func, True, int_minmax=int_mm), lower(a.arg)
+        if (
+            a.func == "avg" and isinstance(a.arg, pe.Col) and t is not None
+            and (pa.types.is_int64(t) or pa.types.is_uint64(t))
+        ):
+            return K.KernelAggSpec(a.func, True, pair=True), compiler.pair_column(a.arg)
+        return K.KernelAggSpec(a.func, True), lower(a.arg)
+
     def _build_kernels(self) -> None:
         """The CUDA kernels build on first use; that build is the stage's
         ``tpu_compile_ns``."""
@@ -900,7 +943,7 @@ class TorchStageExec(ExecutionPlan):
         decided per execution from the prepared build side's key span).
         Cached per (capacity, route, dense) on this stage, whose closures
         it holds, so a capacity growth builds the next one."""
-        algo = K.segment_algo(capacity, n_rows, self.device)
+        algo = K.segment_algo(capacity, n_rows, self.device, self._mode)
         key = (capacity, algo, dense) + K.algo_cache_token()
         kernel = self._kernels.get(key)
         if kernel is None:
@@ -911,6 +954,7 @@ class TorchStageExec(ExecutionPlan):
                 capacity,
                 self._flat_names,
                 algo=algo,
+                mode=self._mode,
             )
             if self.fused.join is not None:
                 kernel = K.make_join_kernel(
@@ -1015,6 +1059,10 @@ class TorchStageExec(ExecutionPlan):
             self.metrics.add("cpu_fallback", 1)
             cpu_plan = self._replay(si.batches)
         except _KeyedRoute as kr:
+            if self._mode == "x32":
+                if kr.ra is not None:
+                    kr.ra.close()
+                raise K.x32_deferred("the keyed route")
             # device-keyed aggregation; only the data-dependent exits
             # (cardinality past tpu.max_capacity, keys that cannot ship,
             # the median/corr buffer budget, the variance guard) hand the
@@ -1051,10 +1099,11 @@ class TorchStageExec(ExecutionPlan):
             # replaying the consumed batch + chaining the live source
             self.metrics.add("highcard_fallback", 1)
             cpu_plan = self._replay(hc.batches, hc.tail)
-        except _CapacityExceeded:
+        except (_CapacityExceeded, K.X32RangeError):
             # the group table outgrew tpu.max_capacity or its 62-bit key
-            # space.  Nothing else goes to the CPU: a device, kernel or
-            # bridge failure raises
+            # space, or (x32) a value past what int32/float32 pairs carry.
+            # Nothing else goes to the CPU: a device, kernel or bridge
+            # failure raises
             self.metrics.add("tpu_fallback", 1)
             if self.fused.join is not None:
                 # a join-fused stage's group table holds every distinct
@@ -1185,7 +1234,7 @@ class TorchStageExec(ExecutionPlan):
             [f"{s.kind}:{s.col_index}:{s.cpu_expr}" for s in self.leaves.values()]
             + [str(g) for g, _ in self.fused.group_exprs]
             + [f"proj={node.projection}", f"cols={source_cols}"]
-            + [str(ctx.batch_size), f"cap={self.capacity}", "x64"]
+            + [str(ctx.batch_size), f"cap={self.capacity}", self._mode]
         )
         return node.provider, sig
 
@@ -1455,12 +1504,12 @@ class TorchStageExec(ExecutionPlan):
 
     def _entries_kernel(self, capacity: int):
         """The multi-entry stage function at ``capacity`` (cached)."""
-        key = ("entries", capacity)
+        key = ("entries", capacity) + K.algo_cache_token()
         fn = self._kernels.get(key)
         if fn is None:
             fn = K.make_entries_agg_kernel(
                 self._filter_closure, self._arg_closures, self.specs, capacity,
-                self._flat_names,
+                self._flat_names, mode=self._mode,
             )
             self._kernels[key] = fn
         return fn
@@ -1485,7 +1534,9 @@ class TorchStageExec(ExecutionPlan):
             raise ExecutionError("the fused runner takes join-free stages only")
         launches: list = []
         n_groups = group_table.n_groups if group_table is not None else None
-        sort_route = any(
+        # x32's entries runner takes every route itself (one route launch
+        # and one merge per entry)
+        sort_route = self._mode == "x64" and any(
             K.segment_algo(cap, gid.shape[0], self.device) != "scatter"
             for gid, _tail, _args in entries
         )
@@ -1542,7 +1593,7 @@ class TorchStageExec(ExecutionPlan):
         keyed route's per-key host operand tuples) they cross in the same
         staging and ``(args, device key tuples)`` is returned."""
         trivial: set = set()
-        env = K.build_env(batch, self.leaves, n, trivial_valid=trivial)
+        env = K.build_env(batch, self.leaves, n, trivial_valid=trivial, mode=self._mode)
         names = [nm for nm in self._flat_names if nm not in self._join_slots]
         host = {nm: (None if nm in trivial else env[nm]) for nm in names}
         host["__gid__"] = seg
@@ -1928,7 +1979,7 @@ class TorchStageExec(ExecutionPlan):
         off = 0
         for spec in self.specs:
             offs.append(off)
-            off += len(K.state_fields(spec))
+            off += len(K.state_fields(spec, self._mode))
 
         def typed(arr: pa.Array) -> pa.Array:
             field_t = schema.field(len(cols)).type
@@ -2002,7 +2053,26 @@ class TorchStageExec(ExecutionPlan):
                 cols.append(pa.array(host[i][keep], pa.int64()))
                 continue
             field_t = schema.field(len(cols)).type
-            n_arr = host[i + 1][keep]
+            if spec.ord_pair:
+                # x32 order-pair f64 extremum: the lexicographic (hi, lo)
+                # int32 words decode to the bit-exact f64 min/max
+                from .bridge import order_decode_f64
+
+                n_arr = host[i + 2][keep]
+                empty = n_arr == 0
+                v = order_decode_f64(
+                    np.where(empty, 0, host[i][keep]).astype(np.int32),
+                    np.where(empty, 0, host[i + 1][keep]).astype(np.int32),
+                )
+                cols.append(pa.array(v, field_t, mask=empty))
+                continue
+            if spec.func in ("sum", "avg") and self._mode == "x32":
+                # double-float state: hi + lo recombine in f64 on the host
+                v = host[i][keep].astype(np.float64) + host[i + 1][keep].astype(np.float64)
+                n_arr = host[i + 2][keep]
+            else:
+                v = None
+                n_arr = host[i + 1][keep]
             empty = n_arr == 0
             if spec.int_minmax or spec.int_sum:
                 # integer states stay INT end-to-end (an f64 round-trip
@@ -2012,7 +2082,8 @@ class TorchStageExec(ExecutionPlan):
                     vals = vals.astype("datetime64[D]")
                 cols.append(pa.array(vals, field_t, mask=empty))
                 continue
-            v = host[i][keep].astype(np.float64)
+            if v is None:
+                v = host[i][keep].astype(np.float64)
             if spec.func == "avg":
                 if partial:
                     cols.append(pa.array(v, pa.float64()))

@@ -21,11 +21,11 @@ which would break the executor's one-task-per-stage contract.  When shards
 span more than one card, states and staged blocks move to their card with
 ``Tensor.to``.
 
-x64 only.  The reference's x32 forms — the lexicographic order-pair
-extremum in :func:`make_distributed_agg_step` and the ``i64pair`` column
-layout of :class:`BatchExchanger` — wait for the x32 port; the port
-rejects pair layouts at plan time, and either form raises
-``ExecutionError`` if it is ever reached.
+In x32 the reduce folds int32 state words with the reference's
+collective semantics: a sum's hi and lo words each added (its ``psum``,
+no 2Sum), order pairs by the lexicographic extremum, in shard order.  The
+exchange's x32 ``i64pair`` layout waits for ROADMAP A7b and raises
+``ExecutionError`` where the reference would take it.
 """
 
 from __future__ import annotations
@@ -81,11 +81,14 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> TorchMesh:
 
 
 # ------------------------------------------------------- B13b-reduce kernel
-def _reduce_ops(specs: list) -> list[int]:
-    """The kernel's per-field merge codes from the state layout."""
+def _reduce_ops(specs: list, mode: str = "x64") -> list[int]:
+    """The kernel's per-field merge codes from the state layout: OP_* codes
+    in x64, :func:`..ops.kernels.x32_merge_ops`' XM_* codes in x32."""
+    if mode == "x32":
+        return K.x32_merge_ops(specs)
     for spec in specs:
         if getattr(spec, "ord_pair", False) or getattr(spec, "pair", False):
-            raise ExecutionError("x32 pair states are not ported")
+            raise ExecutionError("pair states exist only in x32 mode")
     codes = {
         ("add", True): K.OP_ADD_I64, ("add", False): K.OP_ADD_F64,
         ("min", True): K.OP_MIN_I64, ("min", False): K.OP_MIN_F64,
@@ -94,13 +97,39 @@ def _reduce_ops(specs: list) -> list[int]:
     return [codes[f] for f in K._field_flags(specs)]
 
 
+def _mesh_merge_x32(ops: list[int], acc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Two x32 shard states folded with the reference's collectives: hi and
+    lo words of a sum each added in float32 (``psum``), order pairs
+    lexicographically (``pmin``/``pmax`` of hi, then of lo among the
+    ties), the rest as the state merge does."""
+    out = acc.clone()
+    for f, op in enumerate(ops):
+        if op in (K.XM_SUM_HI, K.XM_SUM_LO):
+            out[f] = (acc[f].view(K.F32) + new[f].view(K.F32)).view(K.I32)
+        elif op in (K.XM_OMIN_HI, K.XM_OMAX_HI):
+            out[f], out[f + 1] = K._lex_merge(acc[f], acc[f + 1], new[f], new[f + 1],
+                                              op == K.XM_OMIN_HI)
+        elif op != K.XM_PAIR_LO:
+            out[f] = K._x32_merge_row(op, acc[f], new[f])
+    return out
+
+
 def mesh_reduce_reference(specs: list, states: list) -> torch.Tensor:
     """Plain PyTorch twin of the reduce kernel: ``combine_states`` folded
-    over the shards in order, on the first shard's device."""
+    over the shards in order (x32: :func:`_mesh_merge_x32`), on the first
+    shard's device."""
     out = None
     dev = states[0].device
+    x32 = K._state_mode(states[0]) == "x32"
+    ops = _reduce_ops(specs, "x32") if x32 else None
     for s in states:
-        out = K.combine_states(specs, out, s.to(dev))
+        s = s.to(dev)
+        if out is None:
+            out = s
+        elif x32:
+            out = _mesh_merge_x32(ops, out, s)
+        else:
+            out = K.combine_states(specs, out, s)
     return out.clone() if len(states) == 1 else out
 
 
@@ -113,12 +142,13 @@ def _check_reduce_args(states: list, n_fields: int) -> None:
     for s in states:
         if not (
             isinstance(s, torch.Tensor) and s.device == first.device
-            and s.device.type == "cuda" and s.dtype == torch.int64
+            and s.device.type == "cuda" and s.dtype in (torch.int64, torch.int32)
+            and s.dtype == first.dtype
             and s.dim() == 2 and s.shape == first.shape and s.is_contiguous()
         ):
             raise ValueError(
-                "shard states must be contiguous CUDA int64 [n_fields, capacity] "
-                f"tensors of one shape on {first.device}"
+                "shard states must be contiguous CUDA int64 (x32: int32) "
+                f"[n_fields, capacity] tensors of one shape and dtype on {first.device}"
             )
     if first.shape[0] != n_fields or n_fields > K.MAX_FIELDS:
         raise ValueError(f"{first.shape[0]} state rows for {n_fields} fields")
@@ -128,18 +158,20 @@ def mesh_reduce_cuda(specs: list, states: list) -> torch.Tensor:
     """Launch the hand-written cross-shard reduce (ops/cuda/mesh_reduce.cu).
 
     Replaces the ``psum``/``pmin``/``pmax`` of
-    ``arrow_ballista_tpu/parallel/mesh.py:make_distributed_agg_step``.
-    States on other cards move to the first shard's card first.  Inputs are
-    checked (ValueError); a failed build or launch raises."""
+    ``arrow_ballista_tpu/parallel/mesh.py:make_distributed_agg_step``, its
+    x32 form (int32 states) included.  States on other cards move to the
+    first shard's card first.  Inputs are checked (ValueError); a failed
+    build or launch raises."""
     from ..ops.cuda.build import load
 
-    ops = _reduce_ops(specs)
+    x32 = states[0].dtype == torch.int32
+    ops = _reduce_ops(specs, "x32" if x32 else "x64")
     dev = states[0].device
     states = [s.to(dev) for s in states]
     _check_reduce_args(states, len(ops))
     ext = load()
     out = torch.empty_like(states[0])
-    ext.mesh_reduce(states, ops, out)
+    ext.mesh_reduce(states, ops, out, x32)
     K.count_launch("mesh_reduce")
     return out
 
@@ -151,7 +183,7 @@ def mesh_reduce(specs: list, states: list) -> torch.Tensor:
     if not states:
         raise ValueError("mesh_reduce: no shard states")
     if states[0].device.type == "cpu":
-        _reduce_ops(specs)
+        _reduce_ops(specs, K._state_mode(states[0]))
         return mesh_reduce_reference(specs, states)
     return mesh_reduce_cuda(specs, states)
 
@@ -256,6 +288,7 @@ def make_distributed_agg_step(
     specs,
     mesh: TorchMesh,
     capacity: int,
+    mode: str = "x64",
 ):
     """Wrap a partial-agg stage function so it runs over the mesh.
 
@@ -268,8 +301,9 @@ def make_distributed_agg_step(
     shard holds the identity, as the reference's padded shard does), then
     :func:`mesh_reduce` folds them, even for one shard, as ``shard_map``'s
     program always holds the psum.  The reduced state lies on the first
-    shard's device."""
-    _reduce_ops(specs)
+    shard's device.  ``mode`` is the one the stage function was built
+    under (x32: int32 states, the reference's x32 collectives)."""
+    _reduce_ops(specs, mode)
 
     def step(shards: list) -> torch.Tensor:
         if len(shards) != mesh.size:
@@ -277,7 +311,7 @@ def make_distributed_agg_step(
         states = []
         for dev, shard in zip(mesh.devices, shards):
             if shard is None:
-                states.append(K.init_states(specs, capacity, dev))
+                states.append(K.init_states(specs, capacity, dev, mode))
                 continue
             gid, tail, *arrays = shard
             states.append(kernel(gid, tail, *arrays, state=None))
@@ -359,11 +393,18 @@ class BatchExchanger:
         # per-field device layout: "num" (one array) or "dict" (codes)
         self.layout: list[tuple] = []
         self.encoders: dict[int, DictEncoder] = {}
+        x32 = K.precision_mode() == "x32"
         for i, f in enumerate(schema):
             t = f.type
             if pa.types.is_string(t) or pa.types.is_large_string(t):
                 self.encoders[i] = DictEncoder()
                 self.layout.append(("dict", i))
+            elif x32 and (
+                pa.types.is_int64(t) or pa.types.is_uint64(t) or pa.types.is_date64(t)
+                or pa.types.is_timestamp(t) or pa.types.is_float64(t)
+            ):
+                # the reference's x32 "i64pair" layout
+                raise K.x32_deferred("the exchange's int64 pair layout")
             else:
                 self.layout.append(("num", i))
         self.n_cols = 2 * len(self.layout)  # value + validity per field

@@ -127,7 +127,7 @@ class MeshGangExec(ExecutionPlan):
         # the acceleration pass ran before: at plan time locally, on the
         # executor's device for a distributed task
         inner = self.input
-        data_exits = (_CapacityExceeded, _KeyedFallback, K.NotLowerable)
+        data_exits = (_CapacityExceeded, _KeyedFallback, K.NotLowerable, K.X32RangeError)
         if (
             isinstance(inner, TorchStageExec)
             and ctx.config.tpu_enable
@@ -140,6 +140,8 @@ class MeshGangExec(ExecutionPlan):
                 yield from batches
                 return
             except _MeshKeyedRoute as route:
+                if inner._mode == "x32":
+                    raise K.x32_deferred("the keyed gang")
                 try:
                     batches = list(
                         self._execute_mesh_keyed(inner, ctx, route.n_dev)
@@ -246,7 +248,7 @@ class MeshGangExec(ExecutionPlan):
                 fn = tpu._kernel_for(cap, gid.shape[0])
                 return fn(gid, tail, *arrays, state=state)
 
-            step = M.make_distributed_agg_step(kernel, tpu.specs, mesh, cap)
+            step = M.make_distributed_agg_step(kernel, tpu.specs, mesh, cap, tpu._mode)
             with self.metrics.timer("device_time_ns"):
                 width = len(next(ch for chunks in n_dev_chunks for ch in chunks))
                 shards = M.assemble_shards(mesh, n_dev_chunks, width)
@@ -434,6 +436,7 @@ class MeshRepartitionExec(ExecutionPlan):
     ) -> Iterator[tuple[int, pa.RecordBatch]]:
         """Yield (output_partition, batch) pairs after the mesh exchange."""
         from ..errors import ExecutionError
+        from ..ops.kernels import X32Deferred
         from ..shuffle.execution_plans import partition_indices
         from . import mesh as M
 
@@ -525,6 +528,8 @@ class MeshRepartitionExec(ExecutionPlan):
                             "mesh exchange capacity ceiling exceeded"
                         )
                     self.metrics.add("capacity_growths", 1)
+            except X32Deferred:
+                raise
             except ExecutionError as e:
                 # column didn't cross the bridge (dtype slipped past the
                 # plan-time check): an exchange failure, not a plan failure

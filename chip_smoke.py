@@ -71,6 +71,26 @@ Phases; any failure exits non-zero and prints no result line:
             cache hit: no scan, ``key_encode_time_ns`` and
             ``bridge_time_ns`` 0, equal bit for bit to the cold run), with
             the peak device memory and ``device_cache.stats()`` after each;
+4b. x32   — the same batches under ``set_precision("x32")`` (restored
+            after these legs), against the query phase's CPU answers at
+            rel 1e-6 (integers exact): q1 and q6 three ways (cache off:
+            ``df32_agg`` matmul form and ``x32_merge`` per batch; cold and
+            warm per entry), q1 warm again forced to the scatter route
+            (``df32_agg``'s scatter form) and the sort route (``seg_scan``'s
+            df32 fold), a q1 min/max query against its own CPU run (f64
+            extrema bit-exact, ``ord_extremum``) and q1 over 8 partitions as
+            one ``MeshGangExec`` (``mesh_reduce``'s x32 form); then
+            ``df32_agg`` (both forms), ``ord_extremum``, ``x32_merge``, the
+            x32 ops of ``seg_scan``, ``mesh_reduce`` (4 shards) and
+            ``expr_eval`` against their twins at the first main-path shape
+            and a wide one (``df32_agg`` at capacity 8192,
+            ``ord_extremum`` and ``x32_merge`` at 2^20): ``df32_agg`` and
+            the df32 fold within rel 1e-6 on hi + lo, everything else
+            bit-identical, two launches bit-identical; and ``df32_agg``
+            (both forms) and the df32 fold on the cancellation mix
+            (``df32_cancel_inputs``: group sums near 0 beside large
+            values) within rel 1e-6 of the f64 sum on every group, a bar
+            the hi word alone and numpy's f32 sum must each fail;
 5. q3     — TPC-H q3 (BASELINE config #3) the same way; its join folds
             into the device stage, and the route must be the one the
             reference's capacity rule gives on this data, computed on the
@@ -129,8 +149,8 @@ Phases; any failure exits non-zero and prints no result line:
             must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s).
 
 Launch counts are set to 0 just before each main-path run (q1/q6 three ways
-each, q3, keyed q3, h2o q6/q9/q10, star join, window, distributed q3 and q1,
-the fusion leg, the mesh legs) and read just after; a kernel of that path that never
+each, the x32 legs, q3, keyed q3, h2o q6/q9/q10, star join, window,
+distributed q3 and q1, the fusion leg, the mesh legs) and read just after; a kernel of that path that never
 launched fails the run.  ``expr_eval`` launches on every leg whose stage
 computes a filter or an argument (one a batch or entry); h2o q9 and q10,
 whose programs pass bare columns through, and the window leg launch it
@@ -204,6 +224,9 @@ KERNELS = {
     "keyed_corr": ("keyed_corr.cu", "arrow_ballista_tpu/ops/kernels.py:1949"),
     "mesh_reduce": ("mesh_reduce.cu", "arrow_ballista_tpu/parallel/mesh.py:33"),
     "mesh_route": ("mesh_route.cu", "arrow_ballista_tpu/parallel/mesh.py:113"),
+    "df32_agg": ("df32_agg.cu", "arrow_ballista_tpu/ops/kernels.py:900"),
+    "ord_extremum": ("ord_extremum.cu", "arrow_ballista_tpu/ops/kernels.py:2186"),
+    "x32_merge": ("x32_merge.cu", "arrow_ballista_tpu/ops/kernels.py:2349"),
 }
 
 
@@ -1265,13 +1288,14 @@ def join_phase(TK, device) -> tuple[dict, dict]:
 
 
 # ------------------------------------------------------------- query phase
-def _tables_equal(a, b, what: str) -> None:
+def _tables_equal(a, b, what: str, rel: float = REL) -> None:
+    """Row by row: floats within ``rel`` (0: bit-exact), all else exact."""
     if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
         raise AssertionError(f"{what}: shape {a.shape} vs {b.shape}")
     for name in a.schema.names:
         for x, y in zip(a.column(name).to_pylist(), b.column(name).to_pylist()):
             if isinstance(x, float) and y is not None:
-                if not abs(x - y) <= REL * abs(x):
+                if not abs(x - y) <= rel * abs(x):
                     raise AssertionError(f"{what}.{name}: {x!r} vs {y!r}")
             elif x != y:
                 raise AssertionError(f"{what}.{name}: {x!r} vs {y!r}")
@@ -1332,12 +1356,13 @@ def _keep_entries(args):
     return args[:-1] + (args[-1].clone(),)
 
 
-def query_phase(tbt, TK, batches, device) -> dict:
+def query_phase(tbt, TK, batches, device, wants: dict) -> dict:
     """q1 and q6 three ways each against the CPU operators: the column cache
     off (one B1 launch per batch), cold with it on (the batches retained,
     then one multi-entry launch) and warm (a cache hit: no scan, no host
     encode, no bridge).  Warm is bit-identical to cold, and cold to the
-    cache-off run (the same fold order at the same capacity)."""
+    cache-off run (the same fold order at the same capacity).  The CPU
+    operators' answers go into ``wants`` (the x32 legs reuse them)."""
     import torch
 
     from arrow_ballista_tpu_torch.exec.operators import ScanExec
@@ -1424,6 +1449,7 @@ def query_phase(tbt, TK, batches, device) -> dict:
             runs[name] = dict(launches=launches, args=b1.args, entries=multi.args,
                               expr=expr.args)
             del plan, stages, scans
+        wants[q] = want
         del ctx, results, want
         out[q] = runs
     return out
@@ -2243,12 +2269,14 @@ EXPR_SEED = 17
 I64_MIN, I64_MAX = -(2**63), 2**63 - 1
 
 
-def expr_grid_batch(n: int, seed: int = EXPR_SEED):
+def expr_grid_batch(n: int, seed: int = EXPR_SEED, mode: str = "x64"):
     """A seeded batch for the expression grid: int64 ``i`` (past 2^53,
     INT64_MIN and INT64_MAX), int64 divisors ``j`` (0, ±1, INT64_MIN),
     float64 ``x`` and ``y`` (NaN, ±0.0, ±inf, subnormals, halves, the
     int64 range's edges), bool ``b``, date32 ``d`` and int32 ``k`` (never
-    null); a tenth of every other column is null."""
+    null); a tenth of every other column is null.  ``mode`` "x32" keeps
+    ``i`` and ``j`` inside int32 (past 2^24, INT32_MIN and INT32_MAX), as
+    x32's bridge takes them."""
     import pyarrow as pa
 
     rng = np.random.default_rng(seed)
@@ -2265,6 +2293,10 @@ def expr_grid_batch(n: int, seed: int = EXPR_SEED):
 
     ints = [0, 1, -1, 7, -7, 2**53 + 1, -(2**53) - 1, I64_MIN, I64_MAX, I64_MIN + 1]
     divisors = [0, 0, -1, -1, 1, 2, -2, 3, I64_MIN, I64_MAX]
+    if mode == "x32":
+        lo, hi = -(2**31), 2**31 - 1
+        ints = [0, 1, -1, 7, -7, 2**24 + 1, -(2**24) - 1, lo, hi, lo + 1]
+        divisors = [0, 0, -1, -1, 1, 2, -2, 3, lo, hi]
     floats = [0.0, -0.0, nan, inf, -inf, 5e-324, -2.2250738585072014e-308, 0.5, 1.5,
               2.5, -0.5, -2.5, 1e300, -1e300, 2.0**63, -(2.0**63), 9.3e18, -9.3e18,
               2.0**53 + 2, 1.0, -1.0]
@@ -2400,16 +2432,17 @@ def expr_case(TK, tpe, schema, build):
     comp = TK.TorchExprCompiler(schema)
     closure = comp._lower_or_leaf(
         build(tpe, lambda name: tpe.Col(schema.get_field_index(name), name)))
-    return TK.ExprProgram(None, [closure], [(0, closure.node.dtype)]), comp.leaves
+    program = TK.ExprProgram(None, [closure], [(0, closure.node.dtype)], mode=comp.mode)
+    return program, comp.leaves
 
 
-def expr_env(TK, batch, leaves, device) -> dict:
+def expr_env(TK, batch, leaves, device, mode: str = "x64") -> dict:
     """The leaves' tensors on ``device`` as a stage ships them: a validity
     with no null is None."""
     import torch
 
     trivial: set = set()
-    host = TK.build_env(batch, leaves, batch.num_rows, trivial_valid=trivial)
+    host = TK.build_env(batch, leaves, batch.num_rows, trivial_valid=trivial, mode=mode)
     return {k: None if k in trivial else torch.from_numpy(np.array(v)).to(device)
             for k, v in host.items()}
 
@@ -2431,8 +2464,9 @@ def expr_diff(a, b):
             continue
         if x.dtype != y.dtype or x.shape != y.shape:
             return f"output {k}: {x.dtype}{tuple(x.shape)} against {y.dtype}{tuple(y.shape)}"
-        xw = (x.view(torch.int64) if x.dtype == torch.float64 else x).cpu().numpy()
-        yw = (y.view(torch.int64) if y.dtype == torch.float64 else y).cpu().numpy()
+        words = {torch.float64: torch.int64, torch.float32: torch.int32}
+        xw = (x.view(words[x.dtype]) if x.dtype in words else x).cpu().numpy()
+        yw = (y.view(words[y.dtype]) if y.dtype in words else y).cpu().numpy()
         bad = np.nonzero(xw != yw)[0]
         if bad.size:
             msg = (f"output {k} ({x.dtype}): {bad.size} rows differ, rows "
@@ -2454,7 +2488,7 @@ def _expr_bytes(TK, program, env: dict, n: int) -> int:
     total = sum(n * inputs[s].element_size() for s in read if inputs[s] is not None)
     for kind, reg, dt in program.stores:
         if kind == "value":
-            total += n * (1 if dt == TK.DT_BOOL else 8)
+            total += n * {TK.DT_BOOL: 1, TK.DT_I32: 4, TK.DT_F32: 4}.get(dt, 8)
         elif present[reg]:
             total += n
     return total
@@ -2523,6 +2557,586 @@ def _check_expr_launches(launches: dict, what: str, computes: bool = True) -> No
         raise AssertionError(f"{what}: expr_eval never launched: {json.dumps(launches)}")
     if not computes and n:
         raise AssertionError(f"{what}: expr_eval launched {n} times on pass-through programs")
+
+
+# --------------------------------------------------------------- x32 phase
+X32_REL = 1e-6  # the reference's x32 bar (double-float sums)
+X32_MINMAX_SQL = (
+    "select l_returnflag, l_linestatus, min(l_extendedprice) as min_price, "
+    "max(l_extendedprice) as max_price, max(l_quantity) as max_qty, "
+    "min(l_shipdate) as min_ship, count(*) as count_order from lineitem "
+    "where l_shipdate <= date '1998-09-02' group by l_returnflag, l_linestatus "
+    "order by l_returnflag, l_linestatus"
+)
+X32_GANG_PARTITIONS = 8
+X32_WIDE_ROWS = 1 << 23
+X32_WIDE_D_CAPACITY = 8192  # D's matmul form at its largest capacity
+X32_WIDE_E_CAPACITY = 1 << 20
+X32_MERGE_CAPACITY = 1 << 20
+X32_SCAN_ROWS = 1 << 23
+X32_CANCEL_ROWS = 1 << 20  # the cancellation mix: 16 cycles of 2^14-row runs
+X32_CANCEL_CAPACITY = 64
+# the x32 kernels each leg must launch (beside expr_eval)
+X32_ROUTE_KERNELS = {
+    "matmul": ("df32_agg", "x32_merge"),
+    "scatter": ("df32_agg", "x32_merge"),
+    "sort": ("radix_sort", "seg_scan"),
+}
+
+
+def _keep_merge(args):
+    """An x32 merge's (state, ops, rows), the state (merged in place) copied."""
+    state, ops, rows = args
+    return (state.clone(), ops, rows)
+
+
+def _check_x32_launches(launches: dict, route: str, what: str) -> None:
+    for k in X32_ROUTE_KERNELS[route]:
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"{what}: {k} never launched: {json.dumps(launches)}")
+    for k in ("segment_agg", "segment_agg_entries"):
+        if launches.get(k, 0):
+            raise AssertionError(f"{what}: the x64 kernel {k} launched")
+
+
+def x32_phase(tbt, TK, batches, wants: dict, device) -> dict:
+    """x32 mode (``set_precision("x32")`` around these legs only) over the
+    lineitem batches the x64 legs used, against those legs' CPU-operator
+    answers (rel 1e-6, integers exact): q1 and q6 three ways (cache off:
+    D matmul and M per batch; cold: per entry; warm: a cache hit replayed
+    through D), q1 warm again under the forced scatter (D's scatter form)
+    and sort (K2's df32) routes, the min/max query against its own CPU run
+    (f64 extrema bit-exact: E), and q1 over 8 partitions as one mesh gang
+    (mesh_reduce's x32 form).  Returns each leg's launches and the main
+    path's captured kernel arguments."""
+    TK.set_precision("x32")
+    try:
+        return _x32_legs(tbt, TK, batches, wants, device)
+    finally:
+        TK.set_precision(None)
+        TK.set_agg_algorithm(None)
+
+
+def _x32_legs(tbt, TK, batches, wants: dict, device) -> dict:
+    import torch
+
+    from arrow_ballista_tpu_torch.parallel.mesh_stage import MeshGangExec
+    from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+    from benchmarks.tpch.queries import QUERIES
+
+    t_start = time.perf_counter()
+    n_rows = sum(b.num_rows for b in batches)
+
+    def session(enable: bool, extra: dict, parts=None):
+        cfg = dict(SETTINGS, **extra, **{"ballista.tpu.enable": str(enable).lower()})
+        ctx = tbt.SessionContext(tbt.BallistaConfig(cfg), device=device)
+        ctx.register_record_batches("lineitem", parts or [batches])
+        return ctx
+
+    def leg(ctx, sql, what, route, want, exact=False, captures=()):
+        plan = ctx.sql(sql).physical_plan()
+        stages = _stage_nodes(plan, TorchStageExec)
+        if not stages:
+            raise AssertionError(f"{what}: no TorchStageExec in the plan")
+        _reset_counts(TK)
+        caps = [Capture(TM if name.startswith("mesh_") else TK, name, keep=keep)
+                for name, keep in captures]
+        for c in caps:
+            c.__enter__()
+        try:
+            t0 = time.perf_counter()
+            got = ctx.execute(plan)
+            torch.cuda.synchronize()
+            dev_s = time.perf_counter() - t0
+        finally:
+            for c in caps:
+                c.__exit__()
+        launches = dict(TK.LAUNCHES)
+        metrics = _stage_metrics(stages + _stage_nodes(plan, MeshGangExec))
+        for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback", "mesh_fallback"):
+            if metrics.get(k, 0):
+                raise AssertionError(f"{what}: {k}={metrics[k]}")
+        _tables_equal(want, got, what, rel=0.0 if exact else X32_REL)
+        _check_expr_launches(launches, what)
+        _check_x32_launches(launches, route, what)
+        breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + ("cache_hits", "fused_dispatches")}
+        print(f"x32 {what}: rows={n_rows} launches={json.dumps(launches)} "
+              f"cuda_rows_per_s={n_rows / dev_s!r} cuda_s={dev_s!r} "
+              f"breakdown={json.dumps(breakdown)}")
+        return got, metrics, dict(launches=launches,
+                                  captured={c.name: c.args for c in caps})
+
+    out: dict = {}
+    for q in (1, 6):
+        results = {}
+        ctx = None
+        for name, extra in CACHE_RUNS:
+            if name != "warm":
+                ctx = session(True, extra)
+            captures = []
+            if name == "cache_off":
+                captures = [("df32_agg_cuda", None), ("x32_merge_cuda", _keep_merge),
+                            ("expr_eval_cuda", _keep_expr_call)]
+            got, metrics, run_ = leg(ctx, QUERIES[q], f"q{q} {name}", "matmul", wants[q],
+                                     captures=captures)
+            launches = run_["launches"]
+            if name == "cache_off":
+                if launches["x32_merge"] != launches["expr_eval"]:
+                    raise AssertionError(f"q{q} x32 cache off: one merge a batch: "
+                                         f"{json.dumps(launches)}")
+            else:
+                hits = metrics.get("cache_hits", 0)
+                if (name == "cold") != (hits == 0) or metrics.get("fused_dispatches", 0) != 1:
+                    raise AssertionError(f"q{q} x32 {name}: {json.dumps(metrics)}")
+            if name == "warm":
+                for k in ("key_encode_time_ns", "bridge_time_ns"):
+                    if metrics.get(k, 0):
+                        raise AssertionError(f"q{q} x32 warm: {k}={metrics[k]}")
+                if not got.equals(results["cold"]):
+                    raise AssertionError(f"q{q} x32: warm differs from cold")
+            results[name] = got
+            out[f"q{q} {name}"] = run_
+        if q == 1:
+            # forced routes, replaying the cached entries of the warm session
+            for algo in ("scatter", "sort"):
+                TK.set_agg_algorithm(algo)
+                captures = ([("sorted_segment_agg_x32_cuda", _keep_state)]
+                            if algo == "sort" else [("df32_agg_cuda", None)])
+                got, metrics, run_ = leg(ctx, QUERIES[1], f"q1 warm {algo}", algo, wants[1],
+                                         captures=captures)
+                if not metrics.get("cache_hits", 0):
+                    raise AssertionError(f"x32 q1 warm {algo}: no cache hit")
+                out[f"q1 warm {algo}"] = run_
+            TK.set_agg_algorithm(None)
+        del ctx, results
+
+    # the min/max query: its own CPU run, the f64 extrema bit-exact
+    cpu_ctx = session(False, {})
+    t0 = time.perf_counter()
+    want = cpu_ctx.sql(X32_MINMAX_SQL).collect()
+    print(f"x32 min/max: cpu_s={time.perf_counter() - t0!r}")
+    del cpu_ctx
+    ctx = session(True, {})
+    _, _, run_ = leg(ctx, X32_MINMAX_SQL, "q1 min/max", "matmul", want, exact=True,
+                     captures=[("ord_extremum_cuda", None)])
+    if run_["launches"]["ord_extremum"] < 1:
+        raise AssertionError("x32 min/max: ord_extremum never launched")
+    out["q1 min/max"] = run_
+    del ctx
+
+    # q1 over 8 partitions: the partial aggregate as one mesh gang
+    parts = [batches[i::X32_GANG_PARTITIONS] for i in range(X32_GANG_PARTITIONS)]
+    ctx = session(True, {}, parts=[p for p in parts if p])
+    plan = ctx.sql(QUERIES[1]).physical_plan()
+    if not _stage_nodes(plan, MeshGangExec):
+        raise AssertionError("x32 gang: no MeshGangExec in q1's plan over 8 partitions")
+    _, _, run_ = leg(ctx, QUERIES[1], "q1 gang", "matmul", wants[1],
+                     captures=[("mesh_reduce_cuda", None)])
+    if run_["launches"]["mesh_reduce"] < 1:
+        raise AssertionError("x32 gang: mesh_reduce never launched")
+    out["q1 gang"] = run_
+    del ctx
+    print(f"x32 legs: s={time.perf_counter() - t_start!r}")
+    return out
+
+
+def _df32_bytes(args) -> int:
+    gid, tail, pred, pvalid, values, valids, sums, counts, cap, _block = args
+    n = gid.numel()
+    read = {a for a, _ in sums} | {b for _, b in sums if b >= 0}
+    total = 4 * n + _nbytes(tail, pred, pvalid)
+    total += sum(_nbytes(values[c]) for c in read)
+    total += sum(_nbytes(valids[c]) for c in read | {c for c in counts if c >= 0})
+    return total + (2 * len(sums) + len(counts)) * cap * 4
+
+
+def _df32_check(TK, args, what: str) -> dict:
+    """D against its twin: hi + lo within X32_REL, counts exact, two launches
+    bit-identical; ms beside the bound and the library calls (index_add_,
+    and torch.bmm of the block one-hot with TF32 off where it fits)."""
+    import torch
+
+    gid, tail, pred, pvalid, values, valids, sums, counts, cap, block = args
+    runs = [TK.df32_agg_cuda(*args) for _ in range(2)]
+    twin = TK.df32_agg_reference(*args)
+    if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+        raise AssertionError(f"df32_agg {what}: two launches differ")
+    k = (runs[0][0].double() + runs[0][1].double()).cpu().numpy()
+    t = (twin[0].double() + twin[1].double()).cpu().numpy()
+    diff = np.abs(k - t)
+    if np.any(diff > X32_REL * np.abs(t)):
+        raise AssertionError(f"df32_agg {what}: off by {diff.max()!r}")
+    if not torch.equal(runs[0][2], twin[2]):
+        raise AssertionError(f"df32_agg {what}: counts differ")
+    n = gid.numel()
+    mask = torch.ones(n, dtype=torch.bool, device=gid.device)
+    for m in (tail, pred, pvalid):
+        if m is not None:
+            mask &= m
+    cols = [torch.where(mask if valids[a] is None else mask & valids[a], values[a], 0.0)
+            for a, _ in sums]
+    cols += [(mask if c < 0 or valids[c] is None else mask & valids[c]).float() for c in counts]
+    V = torch.stack(cols, dim=1)
+    acc = torch.zeros(cap, V.shape[1], dtype=torch.float32, device=V.device)
+    g = gid.long()
+    library = _median_ms(lambda: acc.index_add_(0, g, V))
+    bmm_ms = None
+    nb = TK._df32_blocks(n, TK.DF32_BLOCK)
+    if nb * TK.DF32_BLOCK * cap * 4 <= (4 << 30):
+        # the reference's einsum as one batched product, in full f32
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            pad = nb * TK.DF32_BLOCK - n
+            gp = torch.nn.functional.pad(g, (0, pad)).view(nb, TK.DF32_BLOCK)
+            Vp = torch.nn.functional.pad(V, (0, 0, 0, pad)).view(nb, TK.DF32_BLOCK, -1)
+            onehot = torch.nn.functional.one_hot(gp, cap).float().transpose(1, 2)
+            bmm_ms = _median_ms(lambda: torch.bmm(onehot, Vp))
+            del onehot
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+    return dict(rows=n, capacity=cap, block=block, sums=len(sums), counts=len(counts),
+                max_abs_err=float(diff.max()) if diff.size else 0.0,
+                ms=_median_ms(lambda: TK.df32_agg_cuda(*args)),
+                plain_ms=_median_ms(lambda: TK.df32_agg_reference(*args), reps=3),
+                library_ms=library, bmm_tf32_off_ms=bmm_ms, **_bound(_df32_bytes(args)))
+
+
+def _ord_check(TK, args, what: str) -> dict:
+    """E bit-identical to its twin (two launches too); ms beside the bound and
+    scatter_reduce over the operand's int64 order keys."""
+    import torch
+
+    gid, tail, pred, pvalid, valid, hi, lo, cap, is_min = args
+    runs = [TK.ord_extremum_cuda(*args) for _ in range(2)]
+    twin = TK.ord_extremum_reference(*args)
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], twin)):
+        raise AssertionError(f"ord_extremum {what}: differs from its twin")
+    kind = TK.ORD_PAIR if lo is not None else (TK.ORD_F32 if hi.dtype == torch.float32
+                                                else TK.ORD_I32)
+    keys = TK._ord_keys(kind, hi, lo, is_min)
+    out = torch.full((cap,), TK._ord_ident(kind, is_min), dtype=torch.int64, device=gid.device)
+    g = gid.long()
+    library = _median_ms(lambda: out.scatter_reduce(0, g, keys, "amin" if is_min else "amax"))
+    moved = 4 * gid.numel() + _nbytes(tail, pred, pvalid, valid, hi, lo) + _nbytes(twin)
+    return dict(rows=gid.numel(), capacity=cap, pair=lo is not None, max_abs_err=0.0,
+                ms=_median_ms(lambda: TK.ord_extremum_cuda(*args)),
+                plain_ms=_median_ms(lambda: TK.ord_extremum_reference(*args), reps=3),
+                library_ms=library, **_bound(moved))
+
+
+def _merge_check(TK, state0, ops, rows, what: str) -> dict:
+    """M bit-identical to its twin and to itself; ms beside the bound (no
+    single PyTorch call merges 2Sum pairs: library none)."""
+    import torch
+
+    runs = [TK.x32_merge_cuda(state0.clone(), ops, rows) for _ in range(2)]
+    twin = TK.x32_merge_reference(state0.clone(), ops, [r.clone() for r in rows])
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], twin)):
+        raise AssertionError(f"x32_merge {what}: differs from its twin")
+    s = state0.clone()
+    return dict(fields=len(ops), capacity=state0.shape[1], max_abs_err=0.0,
+                ms=_median_ms(lambda: TK.x32_merge_cuda(s, ops, rows)),
+                plain_ms=_median_ms(lambda: TK.x32_merge_reference(s.clone(), ops, rows), reps=5),
+                library_ms=None, **_bound(3 * _nbytes(state0)))
+
+
+def _x32_wide_inputs(TK, n: int, cap: int, seed: int, device):
+    """q1-like x32 inputs: five f32 columns (one with nulls), an int64 pair
+    split into f32 halves, an order pair and an int32 column."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    gid = rng.integers(0, cap, n, dtype=np.int32)
+    vals = [rng.uniform(1.0, 1e5, n).astype(np.float32) for _ in range(5)]
+    big = rng.integers(1 << 33, 1 << 40, n)
+    hi = big.astype(np.float32)
+    lo = (big - hi.astype(np.float64)).astype(np.float32)
+    from arrow_ballista_tpu_torch.ops.bridge import split_u64_i32, to_u64_order
+
+    f64 = rng.uniform(-1e3, 1e3, n) * (1 + rng.integers(-4, 5, n) * 1e-13)
+    ohi, olo = split_u64_i32(to_u64_order(f64))
+    ints = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int64).astype(np.int32)
+    valid = rng.random(n) >= 0.05
+    return dict(
+        gid=t(gid), tail=t(np.arange(n) < n - 1000), pred=t(rng.random(n) >= 0.2),
+        values=[t(v) for v in vals] + [t(hi), t(lo), t(ohi), t(olo), t(ints)],
+        valids=[t(valid)] + [None] * 4 + [t(valid), t(valid), t(valid), t(valid), None],
+    )
+
+
+def df32_cancel_inputs(n: int, cap: int, unit: int, seed: int) -> tuple:
+    """The double-float cancellation mix as numpy ``(gid int32, pred bool,
+    v float32)``: runs of ``unit`` rows in cycles of four — large values
+    (k·2^8, k in 1..15), tiny ones of both signs (k·2^-12, |k| <= 7), the
+    first run's rows again with the large values negated, tiny ones — so
+    each group's large values cancel exactly and its sum is its tiny
+    values', near 0 beside the magnitudes.  The scaled integers stay under
+    2^24 in every ``unit``-row block (``unit`` a multiple of the block),
+    so each block's per-group f32 partial is exact and a double-float sum
+    over the blocks (or a df32 scan) lands on the f64 sum, where a plain
+    f32 sum — the hi word of the 2Sum tree alone, or numpy's f32 pairwise
+    sum — drops the tiny values next to the large partials."""
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(0, cap, n).astype(np.int32)
+    pred = rng.random(n) >= 0.1
+    run = (np.arange(n) // unit) % 4
+    v = np.where(run % 2 == 0, rng.integers(1, 16, n) * 256.0,
+                 rng.integers(-7, 8, n) * 2.0 ** -12)
+    third = np.flatnonzero(run == 2)
+    src = third - 2 * unit
+    gid[third], pred[third], v[third] = gid[src], pred[src], -v[src]
+    return gid, pred, v.astype(np.float32)
+
+
+def cancel_sums(gid, pred, v, cap: int) -> tuple:
+    """The mix's per-group f64 sum and numpy's f32 pairwise sum (the plain
+    f32 control) of the same rows in row order."""
+    want = np.zeros(cap)
+    np.add.at(want, gid[pred], v[pred].astype(np.float64))
+    naive = np.array([np.sum(v[pred & (gid == g)]) for g in range(cap)], np.float64)
+    return want, naive
+
+
+def cancel_miss(got, want) -> float:
+    """The worst |got - want| past the bar X32_REL·|want| on any group (0.0:
+    every group within it)."""
+    diff = np.abs(np.asarray(got, np.float64) - want)
+    return float(np.max(np.where(diff > X32_REL * np.abs(want), diff, 0.0)))
+
+
+def _check_cancel(got, want, controls: dict, what: str) -> dict:
+    """``got`` within the bar on every group, and each plain f32 control
+    past it (else the input proves nothing)."""
+    miss = cancel_miss(got, want)
+    if miss:
+        raise AssertionError(f"{what} on the cancellation mix: off by {miss!r}")
+    out = dict(max_abs_err=float(np.max(np.abs(np.asarray(got, np.float64) - want))))
+    for name, c in controls.items():
+        out[f"{name}_err"] = cancel_miss(c, want)
+        if not out[f"{name}_err"]:
+            raise AssertionError(f"{what}: the control {name} meets the cancellation bar")
+    return out
+
+
+def _df32_cancel_check(TK, device) -> dict:
+    """D on the cancellation mix, both forms: hi + lo of the kernel (two
+    launches bit-identical) and of its twin against the f64 sum at rel
+    X32_REL on each group, a bar the hi word alone (D's plain f32 pairwise
+    tree over the blocks) and numpy's f32 sum each fail."""
+    import torch
+
+    n, cap = X32_CANCEL_ROWS, X32_CANCEL_CAPACITY
+    gid, pred, v = df32_cancel_inputs(n, cap, TK.DF32_BLOCK, 47)
+    want, naive = cancel_sums(gid, pred, v, cap)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    out = {}
+    for form, block in (("matmul", TK.DF32_BLOCK),
+                        ("scatter", TK.df32_scatter_block(n, cap, device))):
+        if TK.DF32_BLOCK % block:
+            raise AssertionError(f"cancellation mix: {form} block {block}")
+        args = (t(gid), None, t(pred), None, [t(v)], [None], [(0, -1)], [], cap, block)
+        runs = [TK.df32_agg_cuda(*args) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+            raise AssertionError(f"df32_agg cancellation {form}: two launches differ")
+        twin = TK.df32_agg_reference(*args)
+        hi, lo = (x[0].double().cpu().numpy() for x in runs[0][:2])
+        _check_cancel(twin[0][0].double().cpu().numpy() + twin[1][0].double().cpu().numpy(),
+                      want, {}, f"df32_agg twin {form}")
+        out[form] = dict(rows=n, capacity=cap, block=block, **_check_cancel(
+            hi + lo, want, {"hi_alone": hi, "f32_pairwise": naive}, f"df32_agg {form}"))
+    return out
+
+
+def _scan_cancel_check(TK, device) -> dict:
+    """K2's df32 fold on the cancellation mix sorted by group (each
+    segment's rows in row order): each segment's total, of the kernel (two
+    launches bit-identical) and of its twin, against the f64 sum at rel
+    X32_REL, a bar numpy's f32 pairwise sum fails."""
+    import torch
+
+    n, cap = X32_CANCEL_ROWS, X32_CANCEL_CAPACITY
+    gid, pred, v = df32_cancel_inputs(n, cap, TK.DF32_BLOCK, 53)
+    want, naive = cancel_sums(gid, pred, v, cap)
+    order = np.argsort(gid, kind="stable")
+    key = torch.from_numpy(gid[order]).to(device)
+    cols = [TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=torch.from_numpy(v[order]).to(device),
+                          valid=torch.from_numpy(pred[order]).to(device))]
+    last = torch.from_numpy(np.searchsorted(gid[order], np.arange(1, cap + 1)) - 1).to(device)
+    runs = [TK.seg_scan_cuda(cols, n, key=key)[0] for _ in range(2)]
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("seg_scan df32 cancellation: two launches differ")
+    total = lambda s: sum(x.double() for x in TK._df32_split(s[last])).cpu().numpy()  # noqa: E731
+    _check_cancel(total(TK.seg_scan_reference(cols, n, key=key)[0]), want, {},
+                  "seg_scan df32 twin")
+    return dict(rows=n, capacity=cap, **_check_cancel(
+        total(runs[0]), want, {"f32_pairwise": naive}, "seg_scan df32"))
+
+
+def _x32_scan_check(TK, device) -> dict:
+    """K2's x32 ops (df32, unsigned pair min/max) against the twin over
+    X32_SCAN_ROWS sorted rows: pair ops bit-identical, df32 within X32_REL
+    on hi + lo, two launches bit-identical."""
+    import torch
+
+    d = _x32_wide_inputs(TK, X32_SCAN_ROWS, 1 << 16, 23, device)
+    v, ok = d["values"], d["valids"]
+    cols = [TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=v[0], valid=ok[0]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=v[5], valid=ok[5], values2=v[6]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_UMIN_U64, values=v[7], valid=ok[7], values2=v[8]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_UMAX_U64, values=v[7], valid=ok[7], values2=v[8])]
+    key = torch.sort(d["gid"]).values
+    kw = dict(key=key)
+    runs = [TK.seg_scan_cuda(cols, X32_SCAN_ROWS, **kw) for _ in range(2)]
+    twin = TK.seg_scan_reference(cols, X32_SCAN_ROWS, **kw)
+    worst = 0.0
+    for c, (a, b, w) in enumerate(zip(runs[0], runs[1], twin)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"seg_scan x32 column {c}: two launches differ")
+        if cols[c].op == TK.OP_DF32:
+            ka = sum(x.double() for x in TK._df32_split(a)).cpu().numpy()
+            tw = sum(x.double() for x in TK._df32_split(w)).cpu().numpy()
+            diff = np.abs(ka - tw)
+            worst = max(worst, float(diff.max()))
+            if np.any(diff > X32_REL * np.abs(tw)):
+                raise AssertionError(f"seg_scan x32 df32 column {c}: off by {diff.max()!r}")
+        elif not torch.equal(a, w):
+            raise AssertionError(f"seg_scan x32 pair column {c}: differs from the twin")
+    moved = _scan_bytes(TK, cols, X32_SCAN_ROWS, **kw) + sum(_nbytes(c.values2) for c in cols)
+    return dict(rows=X32_SCAN_ROWS, columns=len(cols), max_abs_err=worst,
+                ms=_median_ms(lambda: TK.seg_scan_cuda(cols, X32_SCAN_ROWS, **kw)),
+                plain_ms=_median_ms(lambda: TK.seg_scan_reference(cols, X32_SCAN_ROWS, **kw),
+                                    reps=3),
+                library_ms=None, **_bound(moved))
+
+
+def _sorted_x32_check(TK, captured) -> dict:
+    """x32's sort route (K1 + K2's x32 ops and epilogue) at the forced-sort
+    leg's first entry against its twin: sums within X32_REL, counts and
+    extrema exact."""
+    import torch
+
+    (gid, tail, pred, pvalid, values, valids, layout, state0), _ = captured
+    k = TK.sorted_segment_agg_x32_cuda(gid, tail, pred, pvalid, values, valids, layout,
+                                       state0.clone())
+    t = TK.sorted_segment_agg_x32_reference(gid, tail, pred, pvalid, values, valids, layout,
+                                            state0.clone())
+    kk, tt = k.cpu().numpy(), t.cpu().numpy()
+    worst = 0.0
+    for f, op in enumerate(layout.ops):
+        if op == TK.XM_SUM_HI:
+            ks = kk[f].view(np.float32).astype(np.float64) + kk[f + 1].view(np.float32)
+            ts = tt[f].view(np.float32).astype(np.float64) + tt[f + 1].view(np.float32)
+            diff = np.abs(ks - ts)
+            worst = max(worst, float(diff.max()))
+            if np.any(diff > X32_REL * np.abs(ts)):
+                raise AssertionError(f"x32 sort route field {f}: off by {diff.max()!r}")
+        elif op != TK.XM_SUM_LO and not np.array_equal(kk[f], tt[f]):
+            raise AssertionError(f"x32 sort route field {f}: differs from the twin")
+    n = gid.numel()
+    args = (gid, tail, pred, pvalid, values, valids, layout)
+    moved = 4 * n + _nbytes(tail, pred, pvalid, *values, *valids) + 2 * _nbytes(state0)
+    return dict(rows=n, capacity=state0.shape[1], max_abs_err=worst,
+                ms=_median_ms(lambda: TK.sorted_segment_agg_x32_cuda(*args, state0.clone())),
+                plain_ms=_median_ms(lambda: TK.sorted_segment_agg_x32_reference(
+                    *args, state0.clone()), reps=3),
+                library_ms=None, **_bound(moved))
+
+
+def _shard_states_x32(TK, specs, cap: int, n_shards: int, seed: int, device) -> list:
+    """Seeded x32 shard states: f32 rows normal (NaN and -0.0 sprinkled in),
+    counts small, order-pair words any int32."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    states = []
+    for _ in range(n_shards):
+        rows = []
+        for role, is_int in TK._field_flags(specs, "x32"):
+            if is_int:
+                rows.append(rng.integers(0, 1 << 20, cap).astype(np.int32) if role == "add"
+                            else rng.integers(-(1 << 31), (1 << 31) - 1, cap).astype(np.int32))
+            else:
+                v = (rng.normal(size=cap) * 1e6).astype(np.float32)
+                v[::97] = np.nan
+                v[5::89] = -0.0
+                rows.append(v.view(np.int32))
+        states.append(torch.from_numpy(np.stack(rows)).to(device))
+    return states
+
+
+def x32_kernel_phase(TK, device, legs: dict) -> dict:
+    """Every x32 kernel and op against its twin at the first main-path shape
+    the legs captured and at a wide one, with its ms, bound and library
+    yardstick (CUDA events, median of 20); D and K2's df32 fold also on the
+    cancellation mix against the f64 sum, beside their plain f32 controls."""
+    import torch
+
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    t0 = time.perf_counter()
+    out: dict = {"df32_agg": {}, "ord_extremum": {}, "x32_merge": {}, "seg_scan": {},
+                 "mesh_reduce": {}, "expr_eval": {}}
+    cap_ = legs["q1 cache_off"]["captured"]
+    (d_args, _) = cap_["df32_agg_cuda"]
+    out["df32_agg"]["q1 matmul form"] = _df32_check(TK, d_args, "q1 matmul form")
+    (d_args, _) = legs["q1 warm scatter"]["captured"]["df32_agg_cuda"]
+    out["df32_agg"]["q1 scatter form"] = _df32_check(TK, d_args, "q1 scatter form")
+    w = _x32_wide_inputs(TK, X32_WIDE_ROWS, X32_WIDE_D_CAPACITY, 31, device)
+    wide = (w["gid"], w["tail"], w["pred"], None, w["values"][:5], w["valids"][:5],
+            [(c, -1) for c in range(5)], [-1, 0], X32_WIDE_D_CAPACITY, TK.DF32_BLOCK)
+    out["df32_agg"][f"wide cap {X32_WIDE_D_CAPACITY} matmul form"] = _df32_check(
+        TK, wide, "wide matmul form")
+    block = TK.df32_scatter_block(X32_WIDE_ROWS, X32_WIDE_D_CAPACITY, device)
+    pair = (w["gid"], w["tail"], w["pred"], None, w["values"], w["valids"],
+            [(5, 6)], [5], X32_WIDE_D_CAPACITY, block)
+    out["df32_agg"][f"wide cap {X32_WIDE_D_CAPACITY} scatter form, int64 pair"] = _df32_check(
+        TK, pair, "wide scatter form")
+    del wide, pair
+    for form, r in _df32_cancel_check(TK, device).items():
+        out["df32_agg"][f"cancellation {form} form"] = r
+
+    (e_args, _) = legs["q1 min/max"]["captured"]["ord_extremum_cuda"]
+    out["ord_extremum"]["q1 min/max first call"] = _ord_check(TK, e_args, "q1 min/max")
+    w = _x32_wide_inputs(TK, X32_WIDE_ROWS, X32_WIDE_E_CAPACITY, 37, device)
+    v, ok = w["values"], w["valids"]
+    for name, hi, lo, valid, is_min in (("pair min", v[7], v[8], ok[7], True),
+                                        ("pair max", v[7], v[8], ok[7], False),
+                                        ("f32 min", v[0], None, ok[0], True),
+                                        ("i32 max", v[9], None, None, False)):
+        args = (w["gid"], w["tail"], w["pred"], None, valid, hi, lo, X32_WIDE_E_CAPACITY, is_min)
+        out["ord_extremum"][f"wide cap {X32_WIDE_E_CAPACITY} {name}"] = _ord_check(TK, args, name)
+    del w
+
+    (state0, ops, rows), _ = cap_["x32_merge_cuda"]
+    out["x32_merge"]["q1 first batch"] = _merge_check(TK, state0, ops, rows, "q1")
+    specs = _mixed_specs(TK) + [TK.KernelAggSpec("max", True, ord_pair=True)]
+    s = _shard_states_x32(TK, specs, X32_MERGE_CAPACITY, 2, 41, device)
+    out["x32_merge"][f"wide cap {X32_MERGE_CAPACITY}"] = _merge_check(
+        TK, s[0], TK.x32_merge_ops(specs), list(s[1]), "wide")
+    del s
+
+    out["seg_scan"]["x32 ops"] = _x32_scan_check(TK, device)
+    out["seg_scan"]["x32 df32 cancellation"] = _scan_cancel_check(TK, device)
+    out["seg_scan"]["x32 sort route q1 entry"] = _sorted_x32_check(
+        TK, legs["q1 warm sort"]["captured"]["sorted_segment_agg_x32_cuda"])
+
+    (r_specs, r_states), _ = legs["q1 gang"]["captured"]["mesh_reduce_cuda"]
+    out["mesh_reduce"]["x32 q1 gang"] = _time_reduce(TM, r_specs, r_states)
+    for cap in MESH_REDUCE_CAPACITIES:
+        st = _shard_states_x32(TK, specs, cap, MESH_SHARDS, 43, device)
+        out["mesh_reduce"][f"x32 {MESH_SHARDS} shards cap {cap}"] = _time_reduce(TM, specs, st)
+    del st
+
+    (program, env, n, dev), _ = cap_["expr_eval_cuda"]
+    out["expr_eval"]["x32 q1"] = expr_check(TK, program, env, n, dev, "x32 q1")
+    for kind, shapes in out.items():
+        for name, t in shapes.items():
+            print(f"timing {kind} {name}: {json.dumps(t)}")
+    print(f"x32 kernel phase: ok s={time.perf_counter() - t0!r}")
+    return out
 
 
 # ------------------------------------------------------------ timing phase
@@ -2887,7 +3501,8 @@ def run(opts, device) -> list:
 
     batches = lineitem_batches(lineitem)
     del lineitem
-    queries = query_phase(tbt, TK, batches, device)
+    wants: dict = {}
+    queries = query_phase(tbt, TK, batches, device, wants)
     expr_shapes = expr_query_check(
         TK, {q: r["cache_off"].pop("expr") for q, r in queries.items()}, device)
     for r in queries.values():
@@ -2902,6 +3517,11 @@ def run(opts, device) -> list:
         entry_shapes[f"q{q}"] = entries_check(TK, rows, ops, cols, state0)
         print(f"timing segment_agg_entries q{q} cold: {json.dumps(entry_shapes[f'q{q}'])}")
         del rows, state0
+    x32_legs = x32_phase(tbt, TK, batches, wants, device)
+    x32_times = x32_kernel_phase(TK, device, x32_legs)
+    for leg_ in x32_legs.values():
+        leg_.pop("captured")
+    del wants
     q3 = q3_phase(tbt, TK, batches, orders, customer, device)
     q3k = q3_keyed_phase(tbt, TK, batches, orders, customer, q3.pop("want"), device)
     del orders, customer
@@ -2919,7 +3539,8 @@ def run(opts, device) -> list:
         fusion = fusion_phase(tbt, TK, g1, g1_root, device)
     del g1
     runs = [*queries[1].values(), *queries[6].values(), q3, q3k, *h2o.values(), star,
-            window, dist[3], dist[1], fusion, mesh_dist[1], mesh_dist[3]]
+            window, dist[3], dist[1], fusion, mesh_dist[1], mesh_dist[3],
+            *x32_legs.values()]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
@@ -3003,6 +3624,16 @@ def run(opts, device) -> list:
     entries.append(_entry("mesh_route", route_shape, launches["mesh_route"], 0.0,
                           kernel_phase={k: t for k, t in mesh_times.items()
                                         if k.startswith("route")}))
+    for name, head in (("df32_agg", "q1 matmul form"), ("ord_extremum", "q1 min/max first call"),
+                       ("x32_merge", "q1 first batch")):
+        shapes_x = x32_times[name]
+        entries.append(_entry(name, shapes_x[head], launches[name],
+                              max(t["max_abs_err"] for t in shapes_x.values()),
+                              shapes=shapes_x))
+    # the x32 ops of B3, K2 and the mesh reduce beside their x64 entries
+    for e in entries:
+        if e["name"] in ("expr_eval", "seg_scan", "mesh_reduce"):
+            e["x32"] = x32_times[e["name"]]
 
     return entries
 

@@ -1147,3 +1147,207 @@ def test_mesh_kernels_reject_bad_input(cuda):
         TM.mesh_route_cuda(dest, valid, cols, TM.MESH_MAX_DEVICES + 1, 64)
     with pytest.raises(ValueError):
         TM.mesh_route_cuda(dest, valid, [cols[0][:50]], 2, 64)
+
+
+# ------------------------------------------------------------ x32 (B12)
+# D (df32_agg), E (ord_extremum), M (x32_merge) and the x32 forms of K2,
+# mesh_reduce and B3.  Tolerance: D and K2's df32 within rel 1e-6 on
+# hi + lo (the kernel adds each block in a tree, the twin rounds it once),
+# counts and everything else bit-identical, two launches bit-identical.
+X32_REL = 1e-6
+
+
+@pytest.fixture
+def x32():
+    TK.set_precision("x32")
+    yield
+    TK.set_precision(None)
+    TK.set_agg_algorithm(None)
+
+
+def _close_df32(hi, lo, want_hi, want_lo):
+    k = (hi.double() + lo.double()).cpu().numpy()
+    t = (want_hi.double() + want_lo.double()).cpu().numpy()
+    np.testing.assert_allclose(k, t, rtol=X32_REL, atol=0)
+
+
+@pytest.mark.parametrize("form", ["matmul", "scatter"])
+@pytest.mark.parametrize("cap", [1, 64, 8192])
+def test_df32_agg_matches_twin(cuda, form, cap):
+    d = SMOKE._x32_wide_inputs(TK, 300_001, cap, cap, cuda)
+    block = TK.DF32_BLOCK if form == "matmul" else TK.df32_scatter_block(300_001, cap, cuda)
+    args = (d["gid"], d["tail"], d["pred"], None, d["values"], d["valids"],
+            [(0, -1), (1, -1), (5, 6)], [-1, 0, 5], cap, block)
+    runs = [TK.df32_agg_cuda(*args) for _ in range(2)]
+    twin = TK.df32_agg_reference(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _close_df32(runs[0][0], runs[0][1], twin[0], twin[1])
+    assert torch.equal(runs[0][2], twin[2])
+
+
+@pytest.mark.parametrize("kind", ["pair", "f32", "i32"])
+@pytest.mark.parametrize("is_min", [True, False])
+@pytest.mark.parametrize("cap", [7, 70_000])
+def test_ord_extremum_matches_twin(cuda, kind, is_min, cap):
+    d = SMOKE._x32_wide_inputs(TK, 300_001, cap, cap + is_min, cuda)
+    v, ok = d["values"], d["valids"]
+    f = v[0].clone()
+    f[:200:3] = float("nan")
+    f[1:200:3] = -0.0
+    f[2:200:3] = 0.0
+    hi, lo, valid = {"pair": (v[7], v[8], ok[7]), "f32": (f, None, ok[0]),
+                     "i32": (v[9], None, None)}[kind]
+    args = (d["gid"], d["tail"], d["pred"], None, valid, hi, lo, cap, is_min)
+    runs = [TK.ord_extremum_cuda(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], TK.ord_extremum_reference(*args))
+
+
+def _x32_specs():
+    KS = TK.KernelAggSpec
+    return [KS("count_star", False), KS("sum", True), KS("avg", True, pair=True),
+            KS("min", True), KS("max", True, int_minmax=True),
+            KS("min", True, ord_pair=True), KS("max", True, ord_pair=True)]
+
+
+@pytest.mark.parametrize("cap", [64, 70_000])
+def test_x32_merge_matches_twin(cuda, cap):
+    specs = _x32_specs()
+    s = SMOKE._shard_states_x32(TK, specs, cap, 2, cap, cuda)
+    ops = TK.x32_merge_ops(specs)
+    runs = [TK.x32_merge_cuda(s[0].clone(), ops, list(s[1])) for _ in range(2)]
+    twin = TK.x32_merge_reference(s[0].clone(), ops, list(s[1]))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], twin)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 4])
+def test_mesh_reduce_x32_matches_twin(cuda, n_shards):
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    specs = _x32_specs()
+    states = SMOKE._shard_states_x32(TK, specs, 70_000, n_shards, n_shards, cuda)
+    runs = [TM.mesh_reduce_cuda(specs, states) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], TM.mesh_reduce_reference(specs, states))
+
+
+def test_seg_scan_x32_ops_match_twin(cuda):
+    d = SMOKE._x32_wide_inputs(TK, 300_001, 4096, 5, cuda)
+    v, ok = d["values"], d["valids"]
+    cols = [TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=v[0], valid=ok[0]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=v[5], valid=ok[5], values2=v[6]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_UMIN_U64, values=v[7], valid=ok[7], values2=v[8]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_UMAX_U64, values=v[7], valid=ok[7], values2=v[8]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_MIN_F64, values=v[1], valid=ok[1]),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_MAX_I64, values=v[9])]
+    key = torch.sort(d["gid"]).values
+    runs = [TK.seg_scan_cuda(cols, 300_001, key=key) for _ in range(2)]
+    twin = TK.seg_scan_reference(cols, 300_001, key=key)
+    torch.cuda.synchronize()
+    for c, (a, b, w) in enumerate(zip(runs[0], runs[1], twin)):
+        assert torch.equal(a, b), c
+        if cols[c].op == TK.OP_DF32:
+            _close_df32(*TK._df32_split(a), *TK._df32_split(w))
+        else:
+            assert torch.equal(a, w), c
+
+
+def test_df32_agg_cancellation_mix(cuda):
+    """D (both forms) on the cancellation mix: hi + lo of the kernel and of
+    its twin meet the f64 sum at rel 1e-6 on every group, a bar its hi word
+    alone and numpy's f32 pairwise sum each fail."""
+    for form, r in SMOKE._df32_cancel_check(TK, cuda).items():  # raises past the bar
+        assert r["hi_alone_err"] > 0.0 and r["f32_pairwise_err"] > 0.0, form
+
+
+def test_seg_scan_df32_cancellation_mix(cuda):
+    """K2's df32 fold on the cancellation mix: each segment's total meets
+    the f64 sum at rel 1e-6, a bar numpy's f32 pairwise sum fails."""
+    r = SMOKE._scan_cancel_check(TK, cuda)  # raises past the bar
+    assert r["f32_pairwise_err"] > 0.0
+
+
+@pytest.mark.parametrize("algo", ["matmul", "scatter", "sort"])
+def test_x32_routes_match_twin(cuda, x32, algo):
+    """One x32 batch on each route, the card against its twin on the CPU
+    (the same stage function over the same inputs): sums within rel 1e-6,
+    the rest bit-identical."""
+    from arrow_ballista_tpu_torch.exec import expressions as pe
+
+    specs = _x32_specs()
+    cap = 4096
+    d = SMOKE._x32_wide_inputs(TK, 300_001, cap, 11, torch.device("cpu"))
+    v, ok = d["values"], d["valids"]
+    env = {"v": v[0], "v__valid": ok[0], "p__hi": v[5], "p__lo": v[6], "p__valid": ok[5],
+           "o__ohi": v[7], "o__olo": v[8], "o__valid": ok[7], "i": v[9], "i__valid": None}
+    comp = TK.TorchExprCompiler(pa.schema([("v", pa.float32()), ("i", pa.int32())]), "x32")
+    vc = comp._lower(pe.Col(0, "v"))
+    ic = comp._lower(pe.Col(1, "i"))
+    env = {("col_0" + k[1:] if k.startswith("v") else "col_1" + k[1:] if k.startswith("i")
+            else k): t for k, t in env.items()}
+    pair = lambda e: ((e["p__hi"], e["p__lo"]), e["p__valid"])  # noqa: E731
+    opair = lambda e: ((e["o__ohi"], e["o__olo"]), e["o__valid"])  # noqa: E731
+    closures = [None, vc, pair, vc, ic, opair, opair]
+    names = list(env)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        fn = TK.make_partial_agg_kernel(None, closures, specs, cap, names, algo=algo,
+                                        mode="x32")
+        arrays = [None if env[k] is None else env[k].to(dev) for k in names]
+        out.append(fn(d["gid"].to(dev), d["tail"].to(dev), *arrays).cpu())
+    ops = TK.x32_merge_ops(specs)
+    k, t = out[0].numpy(), out[1].numpy()
+    for f, op in enumerate(ops):
+        if op == TK.XM_SUM_HI:
+            np.testing.assert_allclose(
+                k[f].view(np.float32).astype(np.float64) + k[f + 1].view(np.float32),
+                t[f].view(np.float32).astype(np.float64) + t[f + 1].view(np.float32),
+                rtol=X32_REL, atol=0)
+        elif op != TK.XM_SUM_LO:
+            np.testing.assert_array_equal(k[f], t[f], err_msg=str(f))
+
+
+@pytest.fixture(scope="module")
+def grid_batch_x32():
+    return SMOKE.expr_grid_batch(_GRID_ROWS, mode="x32")
+
+
+@pytest.mark.parametrize("name", sorted(SMOKE.expr_grid_cases()))
+def test_expr_eval_x32_grid_matches_twin(cuda, x32, grid_batch_x32, name):
+    """B3's int32/float32 registers: every opcode's case compiled in x32,
+    two kernel runs, the twin and the closures bit for bit."""
+    program, leaves = SMOKE.expr_case(TK, tpe, grid_batch_x32.schema,
+                                      SMOKE.expr_grid_cases()[name])
+    assert program.mode == "x32"
+    env = SMOKE.expr_env(TK, grid_batch_x32, leaves, cuda, mode="x32")
+    n = grid_batch_x32.num_rows
+    runs = [TK.expr_eval_cuda(program, env, n, cuda) for _ in range(2)]
+    for other in (runs[1], TK.expr_program_reference(program, env, n, cuda),
+                  TK.closures_layout(program, env, n, cuda)):
+        assert SMOKE.expr_diff(runs[0], other) is None, SMOKE.expr_diff(runs[0], other)
+
+
+@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("algo", [None, "scatter", "sort"])
+def test_tpch_x32_on_cuda_matches_cpu_operators(cuda, x32, q, algo):
+    li = gen_lineitem(0.01)
+    outs = []
+    for enable in ("false", "true"):
+        TK.set_agg_algorithm(algo if enable == "true" else None)
+        ctx = tbt.SessionContext(tbt.BallistaConfig({"ballista.tpu.enable": enable,
+                                                     "ballista.tpu.min_rows": "0"}),
+                                 device=cuda)
+        ctx.register_arrow_table("lineitem", li, partitions=2)
+        outs.append(ctx.sql(QUERIES[q]).collect())
+    want, got = outs
+    assert want.num_rows == got.num_rows
+    for name in want.column_names:
+        for x, y in zip(want.column(name).to_pylist(), got.column(name).to_pylist()):
+            if isinstance(x, float):
+                assert y == pytest.approx(x, rel=X32_REL), name
+            else:
+                assert x == y, name

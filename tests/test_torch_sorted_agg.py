@@ -267,8 +267,13 @@ def test_segment_algo_routes_by_device_and_capacity():
     TK.set_agg_algorithm("scatter")
     assert TK.segment_algo(1 << 20, 1 << 23, cuda) == "scatter"
     assert TK.algo_cache_token()[0] == "scatter"
+    # "matmul" is x32's route: forced under x64 it runs scatter, as in the
+    # reference; an unknown route is refused
+    TK.set_agg_algorithm("matmul")
+    assert TK.segment_algo(64, 10, cuda) == "scatter"
+    assert TK.segment_algo(64, 10, cuda, "x32") == "matmul"
     with pytest.raises(ValueError):
-        TK.set_agg_algorithm("matmul")
+        TK.set_agg_algorithm("onehot")
 
 
 def test_radix_argsort_twin_is_lax_sort_order():
@@ -284,3 +289,84 @@ def test_radix_argsort_twin_is_lax_sort_order():
     want = jax.lax.sort(tuple(jnp.asarray(k) for k in keys) + (iota,), num_keys=4)[-1]
     got = TK.radix_argsort([torch.from_numpy(k) for k in keys])
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------------------ x32
+# The x32 cases of tests/test_sorted_agg.py: test_q1_sorted_matches_oracle
+# and test_min_max_count_mixed_sorted with mode="x32" (both packages forced
+# to x32 and the sort route, held to the CPU operators at rel 1e-6), and
+# test_sorted_df32_precision through K2's df32 fold.
+X32_REL = 1e-6
+
+
+@pytest.fixture
+def _x32_both():
+    old = JK._PRECISION["mode"]
+    JK.set_precision("x32")
+    TK.set_precision("x32")
+    try:
+        yield
+    finally:
+        TK.set_precision(None)
+        JK._PRECISION["mode"] = old
+
+
+@pytest.mark.parametrize("name", ["q1", "min_max_count_mixed"])
+def test_sorted_route_x32_matches_jax_and_cpu(name, monkeypatch, _x32_both):
+    calls = []
+    inner = TK.sorted_segment_agg_x32_reference
+
+    def counted(*args):
+        calls.append(args[0].shape[0])
+        return inner(*args)
+
+    monkeypatch.setattr(TK, "sorted_segment_agg_x32_reference", counted)
+    jcpu = jbt.SessionContext(jbt.BallistaConfig(_settings(False)))
+    jdev = jbt.SessionContext(jbt.BallistaConfig(_settings(True)))
+    port = tbt.SessionContext(tbt.BallistaConfig(_settings(True)), device="cpu")
+    for tname, t in _tables(0.01).items():
+        for c in (jcpu, jdev, port):
+            c.register_arrow_table(tname, t, partitions=2)
+    sql = _SQL[name]
+    got = port.sql(sql).collect()
+    assert calls, "the x32 sort route never ran"
+    JK.set_agg_algorithm(None)
+    want = jcpu.sql(sql).collect()
+    JK.set_agg_algorithm("sort")
+    jgot = jdev.sql(sql).collect()
+    keys = [(c, "ascending") for c in want.column_names]
+    want, jgot, got = (t.sort_by(keys) for t in (want, jgot, got))
+    for other, what in ((jgot, "jax x32 sort route"), (got, "port x32 sort route")):
+        assert other.num_rows == want.num_rows, what
+        for col in want.column_names:
+            for x, y in zip(want.column(col).to_pylist(), other.column(col).to_pylist()):
+                if isinstance(x, float):
+                    assert y == pytest.approx(x, rel=X32_REL), (what, col)
+                else:
+                    assert x == y, (what, col)
+
+
+def test_sorted_df32_precision_x32():
+    """Compensated sums through K2's df32 fold survive the cancellation mix
+    the reference's does (large + tiny f32 values): within rel 1e-9 of the
+    f64 sums and of ``_sorted_segment_agg``'s df32 totals."""
+    rng = np.random.default_rng(11)
+    n, cap = 1 << 17, 64
+    seg = rng.integers(0, cap, n).astype(np.int32)
+    vals = np.where(rng.random(n) < 0.5, rng.uniform(1e6, 1e7, n),
+                    rng.uniform(1e-3, 1e-2, n)).astype(np.float32)
+    h = jnp.asarray(vals)
+    totals, _ = JK._sorted_segment_agg(jnp.asarray(seg), cap, ["df32"], [(h, jnp.zeros_like(h))])
+    ref = np.zeros(cap)
+    np.add.at(ref, seg, vals.astype(np.float64))
+    key = torch.from_numpy(seg)
+    perm = TK.radix_argsort([key])
+    (scanned,) = TK.seg_scan([TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32,
+                                            values=torch.from_numpy(vals))], n, perm=perm, key=key)
+    s2 = key[perm.long()]
+    last = torch.searchsorted(s2, torch.arange(1, cap + 1, dtype=s2.dtype)) - 1
+    hi, lo = TK._df32_split(scanned[last])
+    got = hi.double().numpy() + lo.double().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-9)
+    want = np.asarray(totals[0][0], np.float64) + np.asarray(totals[0][1])
+    np.testing.assert_allclose(got, want, rtol=1e-9)
