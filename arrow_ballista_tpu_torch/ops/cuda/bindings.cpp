@@ -347,7 +347,8 @@ void range_extremum_(int64_t op, int64_t depth, const at::Tensor& perm,
   p.op = (int)op;
   p.depth = (int)depth;
   p.perm = perm.data_ptr<int32_t>();
-  p.values = reinterpret_cast<const long long*>(values.data_ptr());
+  p.values = values.data_ptr();
+  p.value_bytes = (int)values.element_size();
   p.valid = opt<const bool>(valid);
   p.in_i64 = in_i64 ? 1 : 0;
   p.seg_first = reinterpret_cast<const long long*>(seg_first.data_ptr<int64_t>());
@@ -394,7 +395,8 @@ void window_pack_(const at::Tensor& perm, at::Tensor inv, const at::Tensor& sf,
   p.pf = reinterpret_cast<const long long*>(opt<const int64_t>(pf));
   p.pl = reinterpret_cast<const long long*>(opt<const int64_t>(pl));
   p.desc = reinterpret_cast<const long long*>(desc.data_ptr<int64_t>());
-  p.out = reinterpret_cast<long long*>(out.data_ptr<int64_t>());
+  p.out = out.data_ptr();
+  p.out_bytes = (int)out.element_size();
   launched(window_pack_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
@@ -415,7 +417,8 @@ void join_build_table_(const at::Tensor& bkeys, int64_t kmin, at::Tensor table) 
   c10::cuda::CUDAGuard guard(table.device());
   JoinBuildParams p{};
   p.m = bkeys.size(0);
-  p.bkeys = reinterpret_cast<const long long*>(bkeys.data_ptr<int64_t>());
+  p.bkeys = bkeys.data_ptr();
+  p.key_bytes = (int)bkeys.element_size();
   p.kmin = kmin;
   p.span = table.size(0);
   p.table = table.data_ptr<int32_t>();
@@ -433,13 +436,14 @@ void join_probe_(const at::Tensor& pkey, const at::Tensor& pkey_valid,
   TORCH_CHECK((int64_t)bvals.size() <= kJoinMaxCols, "join_probe: build columns");
   JoinProbeParams p{};
   p.n = pkey.size(0);
-  p.pkey = reinterpret_cast<const long long*>(pkey.data_ptr<int64_t>());
+  p.pkey = pkey.data_ptr();
+  p.key_bytes = (int)pkey.element_size();
   p.pkey_valid = opt<const uint8_t>(pkey_valid);
   p.valid = opt<const uint8_t>(valid);
   p.table = opt<const int32_t>(table);
   p.span = table.numel();
   p.kmin = kmin;
-  p.bkeys = opt<const long long>(bkeys);
+  p.bkeys = bkeys.numel() ? bkeys.data_ptr() : nullptr;
   p.m = bkeys.numel();
   p.n_cols = (int)bvals.size();
   for (int c = 0; c < p.n_cols; ++c) {
@@ -474,8 +478,9 @@ void key_encode_(int64_t n, const std::vector<at::Tensor>& masks, at::Tensor inv
     p.in_type[k] = (int8_t)in_types[k];
     p.values[k] = values[k].data_ptr();
     p.valid[k] = opt<const uint8_t>(valids[k]);
-    p.out[k] = reinterpret_cast<long long*>(outs[k].data_ptr<int64_t>());
+    p.out[k] = outs[k].data_ptr();
   }
+  p.out_bytes = outs.empty() ? 8 : (int)outs[0].element_size();
   launched(key_encode_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
@@ -518,7 +523,8 @@ void keyed_keys_(const std::vector<at::Tensor>& sk, const at::Tensor& starts,
     p.key_bytes[k] = (int)sk[k].element_size();
   }
   p.starts = starts.data_ptr<int32_t>();
-  p.out = reinterpret_cast<long long*>(out.data_ptr<int64_t>());
+  p.out = out.data_ptr();
+  p.out_bytes = (int)out.element_size();
   launched(keyed_keys_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
@@ -536,7 +542,8 @@ void keyed_median_(const at::Tensor& perm, const at::Tensor& argnull,
   p.olo = olo.data_ptr<int32_t>();
   p.starts = starts.data_ptr<int32_t>();
   p.counts = reinterpret_cast<const long long*>(counts.data_ptr<int64_t>());
-  p.out = reinterpret_cast<long long*>(out.data_ptr<int64_t>());
+  p.out = out.data_ptr();
+  p.out_bytes = (int)out.element_size();
   launched(keyed_median_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
@@ -545,11 +552,14 @@ void corr_mask_(const at::Tensor& x, const at::Tensor& xvalid,
   c10::cuda::CUDAGuard guard(m.device());
   CorrMaskParams p{};
   p.n = m.size(0);
+  auto type = [](const at::Tensor& t) {
+    return t.scalar_type() == at::kLong ? CT_I64 : t.scalar_type() == at::kFloat ? CT_F32 : CT_F64;
+  };
   p.x = x.data_ptr();
-  p.x_i64 = x.scalar_type() == at::kLong ? 1 : 0;
+  p.x_type = type(x);
   p.xvalid = opt<const uint8_t>(xvalid);
   p.y = y.data_ptr();
-  p.y_i64 = y.scalar_type() == at::kLong ? 1 : 0;
+  p.y_type = type(y);
   p.yvalid = opt<const uint8_t>(yvalid);
   p.m = static_cast<uint8_t*>(m.data_ptr());
   launched(corr_mask_launch(&p, at::cuda::getCurrentCUDAStream()));
@@ -575,6 +585,29 @@ void corr_center_(const at::Tensor& s2, const at::Tensor& perm,
   p.xx = xx.data_ptr<double>();
   p.yy = yy.data_ptr<double>();
   launched(corr_center_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+void corr_center_x32_(const at::Tensor& s2, const at::Tensor& perm,
+                      const at::Tensor& xhi, const at::Tensor& xlo,
+                      const at::Tensor& yhi, const at::Tensor& ylo, const at::Tensor& m,
+                      const at::Tensor& moments, at::Tensor xy, at::Tensor xx,
+                      at::Tensor yy) {
+  c10::cuda::CUDAGuard guard(xy.device());
+  CorrCenterX32Params p{};
+  p.n = perm.size(0);
+  p.capacity = moments.size(1);
+  p.s2 = s2.data_ptr<int32_t>();
+  p.perm = perm.data_ptr<int32_t>();
+  p.xhi = xhi.data_ptr<float>();
+  p.xlo = xlo.data_ptr<float>();
+  p.yhi = yhi.data_ptr<float>();
+  p.ylo = ylo.data_ptr<float>();
+  p.m = static_cast<const uint8_t*>(m.data_ptr());
+  p.moments = moments.data_ptr<int32_t>();
+  p.xy = xy.data_ptr<float>();
+  p.xx = xx.data_ptr<float>();
+  p.yy = yy.data_ptr<float>();
+  launched(corr_center_x32_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
 // One launch of the expression program: ``words`` holds the code (32-byte
@@ -811,6 +844,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("keyed_median", &keyed_median_, "keyed route: per-group median and distinct count");
   m.def("corr_mask", &corr_mask_, "keyed corr: pairwise-valid rows");
   m.def("corr_center", &corr_center_, "keyed corr: centred products");
+  m.def("corr_center_x32", &corr_center_x32_, "x32 corr centring: f32 products of the centred pairs");
   m.def("mesh_reduce", &mesh_reduce_, "mesh: shard states folded in shard order");
   m.def("df32_agg", &df32_agg_, "x32: double-float segment sums and exact counts");
   m.def("ord_extremum", &ord_extremum_, "x32: exact per-group extremum");

@@ -186,6 +186,20 @@ __device__ __forceinline__ float unary_f32(int op, float x) {
   }
 }
 
+// The error word of x² for the exact float32 pair x = hi + lo (kernel
+// B12f, x32's variance family; its p word is kOpSquare of hi), in the
+// order the reference's square_pair_closure compiles to: the Dekker
+// error hi·hi - p as one FMA (NaN where the Veltkamp split hi·4097
+// overflows, as there), then fma(2·hi, lo, e) + lo·lo.  Each step rounds
+// as written: no contraction beyond the FMAs named.
+__device__ __forceinline__ float sqpair_lo(float hi, float lo) {
+  const float p = __fmul_rn(hi, hi);
+  const float split = __fmul_rn(hi, 4097.0f);
+  float e = isinf(split) ? __int_as_float(0x7fc00000) : __fmaf_rn(hi, hi, -p);
+  e = __fmaf_rn(__fmul_rn(2.0f, hi), lo, e);
+  return __fadd_rn(e, __fmul_rn(lo, lo));
+}
+
 // A float register as the function's operand dtype (kDtF64 or kDtF32).
 __device__ __forceinline__ u64 unary(int op, u64 x, int dt) {
   return dt == kDtF32 ? f32_bits(unary_f32(op, as_f32(x))) : f64_bits(unary_f64(op, as_f64(x)));
@@ -342,7 +356,7 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
           break;
         }
         default: {
-          const bool binary = op <= kOpModF || op == kOpPower;
+          const bool binary = op <= kOpModF || op == kOpPower || op == kOpSqPairLo;
           const u64 vb = binary ? vals[b * T + t] : 0;
           ok = binary ? oa && oks.get(b) : oa;
           if (op >= kOpEq && op <= kOpGe) {
@@ -390,6 +404,9 @@ __global__ void expr_eval_kernel(const __grid_constant__ ExprEvalParams p) {
               if (out != 0.0 && ((r < 0.0) != (out < 0.0))) out = __dadd_rn(out, r);
             }
             v = f64_bits(out);
+          } else if (op == kOpSqPairLo) {  // x32 only: float32 operands
+            v = f32_bits(sqpair_lo(as_f32(convert(va, da, kDtF32)),
+                                   as_f32(convert(vb, db, kDtF32))));
           } else if (op == kOpNeg) {
             const u64 x = convert(va, da, in.in_dt);
             if (in.in_dt == kDtF64) {

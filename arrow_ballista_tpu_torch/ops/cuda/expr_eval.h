@@ -22,7 +22,7 @@ enum ExprOp : int {
   kOpDivInt, kOpDivF, kOpModInt, kOpModF, kOpNeg, kOpIsNull, kOpIsNotNull,
   kOpIn, kOpNotIn, kOpSelect, kOpAbs, kOpSqrt, kOpExp, kOpLn, kOpLog10, kOpLog2,
   kOpCeil, kOpFloor, kOpSin, kOpCos, kOpTan, kOpSignum, kOpRound, kOpPower,
-  kOpSquare, kOpStoreValue, kOpStoreValid,
+  kOpSquare, kOpStoreValue, kOpStoreValid, kOpSqPairLo,
 };
 
 // One row of code (32 bytes).  Row i < n_regs computes register i from

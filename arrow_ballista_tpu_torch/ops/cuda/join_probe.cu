@@ -16,8 +16,10 @@
 // then each build column and its validity are gathered at row (an
 // unmatched row carries the values at the clamped row, as in the
 // reference; its validity is ANDed with match) and the row mask becomes
-// valid && match.  Values move as whole 8- or 1-byte words, so f64 comes
-// back bit for bit.
+// valid && match.  Values move as whole 8-, 4- or 1-byte words, so f64
+// comes back bit for bit.  x32's form reads int32 keys (the probe keys
+// masked into int32 range on the host, the build keys range-checked
+// there) and gathers its f32 and int32 build columns as 4-byte words.
 //
 // Bound: bytes, the probe key, its validity and the mask once per row,
 // one 4-byte slot (dense) or log2(m) 8-byte keys (sorted) per row, and
@@ -43,6 +45,11 @@ unsigned grid_for(long long n) {
   return (unsigned)blocks;
 }
 
+__device__ __forceinline__ long long key_at(const void* keys, int bytes, long long i) {
+  return bytes == 4 ? (long long)static_cast<const int32_t*>(keys)[i]
+                    : static_cast<const long long*>(keys)[i];
+}
+
 __global__ void zero_table_kernel(int32_t* table, long long span) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -55,8 +62,8 @@ __global__ void build_table_kernel(JoinBuildParams p) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < p.m; i += stride) {
-    const long long rel =
-        (long long)((unsigned long long)p.bkeys[i] - (unsigned long long)p.kmin);
+    const long long rel = (long long)((unsigned long long)key_at(p.bkeys, p.key_bytes, i) -
+                                      (unsigned long long)p.kmin);
     if (rel >= 0 && rel < p.span) p.table[rel] = (int32_t)(i + 1);
   }
 }
@@ -65,7 +72,7 @@ __global__ void probe_kernel(JoinProbeParams p) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < p.n; i += stride) {
-    const long long key = p.pkey[i];
+    const long long key = key_at(p.pkey, p.key_bytes, i);
     long long row;
     bool match;
     if (p.table != nullptr) {
@@ -80,20 +87,22 @@ __global__ void probe_kernel(JoinProbeParams p) {
       long long lo = 0, hi = p.m;  // first position whose key >= key
       while (lo < hi) {
         const long long mid = lo + ((hi - lo) >> 1);
-        if (p.bkeys[mid] < key) {
+        if (key_at(p.bkeys, p.key_bytes, mid) < key) {
           lo = mid + 1;
         } else {
           hi = mid;
         }
       }
       row = lo < p.m ? lo : p.m - 1;
-      match = p.bkeys[row] == key;
+      match = key_at(p.bkeys, p.key_bytes, row) == key;
     }
     if (p.pkey_valid != nullptr) match = match && p.pkey_valid[i] != 0;
     for (int c = 0; c < p.n_cols; ++c) {
       if (p.val_bytes[c] == 8) {
         static_cast<long long*>(p.out_vals[c])[i] =
             static_cast<const long long*>(p.bvals[c])[row];
+      } else if (p.val_bytes[c] == 4) {
+        static_cast<int32_t*>(p.out_vals[c])[i] = static_cast<const int32_t*>(p.bvals[c])[row];
       } else {
         static_cast<uint8_t*>(p.out_vals[c])[i] =
             static_cast<const uint8_t*>(p.bvals[c])[row];

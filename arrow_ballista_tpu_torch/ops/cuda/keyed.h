@@ -25,7 +25,8 @@ struct KeyEncodeParams {
   int8_t in_type[kKeyedMaxKeys];
   const void* values[kKeyedMaxKeys];     // [n] raw key values
   const uint8_t* valid[kKeyedMaxKeys];   // [n] or null (all valid)
-  long long* out[kKeyedMaxKeys];         // [n] int64 codes
+  void* out[kKeyedMaxKeys];              // [n] codes
+  int out_bytes;  // 8: int64 codes; 4: x32's int32 codes (the code's low word)
 };
 
 struct KeyedGidsParams {
@@ -52,7 +53,8 @@ struct KeyedKeysParams {
   const void* sk[kKeyedMaxKeys];  // [n] sorted key codes
   int key_bytes[kKeyedMaxKeys];
   const int32_t* starts;  // [n + 1]
-  long long* out;         // [n_keys][capacity]
+  void* out;              // [n_keys][capacity]
+  int out_bytes;          // 8: int64 words; 4: x32's int32 words
 };
 
 struct KeyedMedianParams {
@@ -64,16 +66,20 @@ struct KeyedMedianParams {
   const int32_t* olo;
   const int32_t* starts;   // [n + 1] of the gid kernel over that sort
   const long long* counts; // [2] groups, valid rows
-  long long* out;          // [6][capacity]
+  void* out;               // [6][capacity]
+  int out_bytes;           // 8: int64 words; 4: x32's int32 words
 };
+
+// Argument types of the corr mask: f64, int64 (x64), f32 (x32's hi word).
+enum CorrType : int { CT_F64 = 0, CT_I64 = 1, CT_F32 = 2 };
 
 struct CorrMaskParams {
   long long n;
   const void* x;
-  int x_i64;  // x holds int64 words, else f64
+  int x_type;  // CorrType
   const uint8_t* xvalid;
   const void* y;
-  int y_i64;
+  int y_type;
   const uint8_t* yvalid;
   uint8_t* m;  // [n] both valid and neither NaN
 };
@@ -94,6 +100,24 @@ struct CorrCenterParams {
   double* yy;
 };
 
+// The x32 centring pass (the reference's x32 corr_fn): per sorted row the
+// centred f32 pair values (hi - mean) + lo, their products in f32.
+struct CorrCenterX32Params {
+  long long n;
+  long long capacity;
+  const int32_t* s2;    // [n] sorted order group ids
+  const int32_t* perm;  // [n]
+  const float* xhi;     // [n] input order: the arguments' exact f32 pairs
+  const float* xlo;
+  const float* yhi;
+  const float* ylo;
+  const uint8_t* m;         // [n] input order pair mask
+  const int32_t* moments;   // [5][capacity]: n, sum x (hi, lo), sum y (hi, lo)
+  float* xy;                // [n] sorted order products
+  float* xx;
+  float* yy;
+};
+
 extern "C" cudaError_t key_encode_launch(const KeyEncodeParams* p, cudaStream_t s);
 extern "C" long long keyed_gids_blocks(long long n);
 extern "C" cudaError_t keyed_gids_launch(const KeyedGidsParams* p, cudaStream_t s);
@@ -101,3 +125,4 @@ extern "C" cudaError_t keyed_keys_launch(const KeyedKeysParams* p, cudaStream_t 
 extern "C" cudaError_t keyed_median_launch(const KeyedMedianParams* p, cudaStream_t s);
 extern "C" cudaError_t corr_mask_launch(const CorrMaskParams* p, cudaStream_t s);
 extern "C" cudaError_t corr_center_launch(const CorrCenterParams* p, cudaStream_t s);
+extern "C" cudaError_t corr_center_x32_launch(const CorrCenterX32Params* p, cudaStream_t s);

@@ -9,7 +9,8 @@
 // at group g's first sorted row (starts[g]) for g < n_groups, else 0.  So
 // states and keys come back to the host in one copy.
 //
-// Bound: bytes, n_keys x capacity int64 written, as many codes gathered.
+// x32's form (int32 codes, int32 state rows) writes int32 words.
+// Bound: bytes, n_keys x capacity words written, as many codes gathered.
 // One thread per slot in a grid-stride loop.
 
 #include <cuda_runtime.h>
@@ -34,7 +35,12 @@ __global__ void keyed_keys_kernel(KeyedKeysParams p) {
         v = p.key_bytes[k] == 8 ? static_cast<const long long*>(p.sk[k])[r]
                                 : (long long)static_cast<const int32_t*>(p.sk[k])[r];
       }
-      p.out[(long long)k * p.capacity + g] = v;
+      const long long at = (long long)k * p.capacity + g;
+      if (p.out_bytes == 4) {
+        static_cast<int32_t*>(p.out)[at] = (int32_t)v;
+      } else {
+        static_cast<long long*>(p.out)[at] = v;
+      }
     }
   }
 }

@@ -10,8 +10,10 @@
 // fold into the sort's major key (inv); each device key's code is the
 // port's host encoder's, bit for bit: ident the zigzag image 2v+1 / -2v
 // (null 0), bool null 0 / false 1 / true 2, floats their raw bits (null
-// the reserved NaN).  Bound: bytes, each input read once, inv and the
-// int64 codes written once.
+// the reserved NaN).  x32's form writes each code's low 32 bits (the
+// wrapper admits only keys whose codes fit them: zigzag images below
+// 2^32, f32 bits).  Bound: bytes, each input read once, inv and the codes
+// written once.
 //
 // keyed_gids: three passes over tiles of kGidsTile sorted rows.  (1) each
 // block counts the group starts (a valid row whose keys differ from the
@@ -69,7 +71,12 @@ __global__ void key_encode_kernel(KeyEncodeParams p) {
           null_code = kF64NullBits;
           break;
       }
-      p.out[k][i] = ok ? code : null_code;
+      const long long w = ok ? code : null_code;
+      if (p.out_bytes == 4) {
+        static_cast<int32_t*>(p.out[k])[i] = (int32_t)(uint32_t)(unsigned long long)w;
+      } else {
+        static_cast<long long*>(p.out[k])[i] = w;
+      }
     }
   }
 }

@@ -14,7 +14,9 @@
 // middle rows start + floor((cnt - 1) / 2) and start + floor(cnt / 2)
 // (clamped to the rows), and counts the run starts among the valid
 // arguments (distinct values).  Out: [6][capacity] int64 rows hi@lo,
-// lo@lo, hi@hi, lo@hi, cnt, distinct.  The host decodes and averages.
+// lo@lo, hi@hi, lo@hi, cnt, distinct (int32 rows in x32, the reference's
+// i32 indices: the keys and pairs are int32 words there, the counts below
+// 2^31 rows).  The host decodes and averages.
 //
 // Bound: bytes, each sorted row's argnull and order pair gathered once
 // through perm.  Deterministic integer block reductions, no atomics.
@@ -75,12 +77,14 @@ __global__ void keyed_median_kernel(KeyedMedianParams p) {
       hi = hi < 0 ? 0 : (hi > last ? last : hi);
       const long long il = p.perm[lo], ih = p.perm[hi];
       const long long cap = p.capacity;
-      p.out[0 * cap + g] = p.ohi[il];
-      p.out[1 * cap + g] = p.olo[il];
-      p.out[2 * cap + g] = p.ohi[ih];
-      p.out[3 * cap + g] = p.olo[ih];
-      p.out[4 * cap + g] = cnt;
-      p.out[5 * cap + g] = distinct;
+      const long long row[6] = {p.ohi[il], p.olo[il], p.ohi[ih], p.olo[ih], cnt, distinct};
+      for (int k = 0; k < 6; ++k) {
+        if (p.out_bytes == 4) {
+          static_cast<int32_t*>(p.out)[k * cap + g] = (int32_t)row[k];
+        } else {
+          static_cast<long long*>(p.out)[k * cap + g] = row[k];
+        }
+      }
     }
   }
 }

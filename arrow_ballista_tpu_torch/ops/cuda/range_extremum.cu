@@ -9,7 +9,8 @@
 // segment, so levels may span segments without leaking into a result.
 // Min/max follow jnp.minimum/maximum (NaN propagates, -0.0 below +0.0);
 // the identity is +/-inf for f64 and the int64 limits for i64, and an
-// empty frame yields it.
+// empty frame yields it.  x32's f32 and int32 arguments widen exactly
+// to those words as level 0 reads them.
 //
 // Bound: bytes, (depth + 1) writes and reads of an [n] level plus the
 // index arrays.  Design: one elementwise launch per level (a level reads
@@ -32,8 +33,15 @@ __global__ void rx_level0(RangeExtremumParams p) {
   const long long j = p.perm[i];
   long long w = identity(p.op);
   if (p.valid == nullptr || p.valid[j]) {
-    w = p.values[j];
-    if (p.in_i64 && agg_ops::is_f64_op(p.op)) w = agg_ops::as_word((double)w);
+    if (p.value_bytes == 4) {  // x32: widened exactly to the op's word
+      const int32_t v = static_cast<const int32_t*>(p.values)[j];
+      w = !agg_ops::is_f64_op(p.op) ? (long long)v
+          : p.in_i64 ? agg_ops::as_word((double)v)
+                     : agg_ops::as_word((double)__int_as_float(v));
+    } else {
+      w = static_cast<const long long*>(p.values)[j];
+      if (p.in_i64 && agg_ops::is_f64_op(p.op)) w = agg_ops::as_word((double)w);
+    }
   }
   p.table[i] = w;
 }

@@ -9,7 +9,9 @@
 //     the layout _unpack reads, clamped lag/lead/first_value/last_value
 //     gathers with their ok rows, the inverse permutation
 //     inv[perm[i]] = i, and the pack into [n_rows, n] int64 words in INPUT
-//     row order (floats as their bits).
+//     row order (floats as their bits); x32's form packs int32 words (the
+//     reference's x32 layout: a df32 total as its hi and lo words, f32
+//     extrema as f32 bits), each row narrowed as its descriptor says.
 // The clamping follows the reference exactly: gathers clip their index to
 // [0, n - 1] and the ok rows say which results the host keeps.
 //
@@ -98,7 +100,8 @@ __global__ void wp_pack(WindowPackParams p) {
         }
         const long long at = p.perm[clip(src, n)];
         if (kind == WP_VALUE) {
-          out = reinterpret_cast<const long long*>(d[6])[at];
+          out = d[9] == 4 ? (long long)reinterpret_cast<const int32_t*>(d[6])[at]
+                          : reinterpret_cast<const long long*>(d[6])[at];
         } else {
           const bool* valid = reinterpret_cast<const bool*>(d[7]);
           out = ok && (valid == nullptr || valid[at]);
@@ -121,7 +124,15 @@ __global__ void wp_pack(WindowPackParams p) {
         }
       }
     }
-    p.out[(long long)r * n + j] = out;
+    if (p.out_bytes == 4) {
+      const int nw = (int)d[8];
+      static_cast<int32_t*>(p.out)[(long long)r * n + j] =
+          nw == WN_HI32 ? (int32_t)(out >> 32)
+          : nw == WN_F32 ? __float_as_int(__double2float_rn(__longlong_as_double(out)))
+                         : (int32_t)out;
+    } else {
+      static_cast<long long*>(p.out)[(long long)r * n + j] = out;
+    }
   }
 }
 

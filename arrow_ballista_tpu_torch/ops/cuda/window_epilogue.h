@@ -27,8 +27,16 @@ enum PackKind : int {
 };
 enum PackValueFn : int { WV_FIRST = 0, WV_LAST = 1, WV_LAG = 2, WV_LEAD = 3 };
 // descriptor fields: kind, a, b, has_a, has_b, x, values, valid (pointers
-// as int64; value fns keep their fn code in has_a and offset in a)
-constexpr int kPackFields = 8;
+// as int64; value fns keep their fn code in has_a and offset in a), the
+// x32 narrowing of the row's word into an int32 output (PackNarrow) and
+// the byte width of `values` (8, or 4 for x32's f32/int32 arguments)
+constexpr int kPackFields = 10;
+// How an x32 pack (int32 output) keeps a row's 64-bit word.
+enum PackNarrow : int {
+  WN_LO32 = 0,  // the low 32 bits: counts, ranks, int32 values, a df32 pair's hi
+  WN_HI32 = 1,  // the high 32 bits: a df32 pair's lo word
+  WN_F32 = 2,   // an f64 word rounded to f32 bits (f32 extrema widened by K2/K3)
+};
 
 struct WindowFlagsParams {
   long long n;
@@ -51,7 +59,8 @@ struct WindowPackParams {
   const long long* pf;
   const long long* pl;
   const long long* desc;  // [n_rows][kPackFields]
-  long long* out;         // [n_rows][n] input order
+  void* out;              // [n_rows][n] input order
+  int out_bytes;          // 8: int64 words (x64); 4: int32 words (x32)
 };
 
 extern "C" cudaError_t window_flags_launch(const WindowFlagsParams* params,

@@ -111,17 +111,6 @@ def index_dtype(mode: Optional[str] = None) -> torch.dtype:
     return I32 if (mode or precision_mode()) == "x32" else I64
 
 
-class X32Deferred(ExecutionError):
-    """An x32 route whose port waits for ROADMAP A7b (the keyed route, the
-    statistical aggregates, windows, the join fold, the exchange's int64
-    pairs): raised where the reference would take the route, never turned
-    into a quiet CPU re-run."""
-
-
-def x32_deferred(what: str) -> X32Deferred:
-    return X32Deferred(f"{what} in x32 mode is not ported yet (ROADMAP A7b)")
-
-
 @dataclass
 class LeafSpec:
     """One host-supplied input array of the stage.
@@ -363,6 +352,13 @@ class TorchExprCompiler:
         def run(env: dict):
             return (env[f"{name}__hi"], env[f"{name}__lo"]), env[vname]
 
+        # each half as a float32 leaf of the expression program (the
+        # square pair of the variance family reads them there)
+        run.halves = tuple(
+            _with_node(lambda env, h=h: (env[h], env[vname]),
+                       ExprNode("leaf", F32, (), (h, vname)))
+            for h in (f"{name}__hi", f"{name}__lo")
+        )
         return run
 
     def _cpu_leaf(self, e: pe.PhysicalExpr) -> TorchClosure:
@@ -639,6 +635,65 @@ def square_closure(closure: TorchClosure) -> TorchClosure:
         return v * v, valid
 
     return _with_node(run, _node("square", closure))
+
+
+def square_pair_twin(hi: torch.Tensor, lo: torch.Tensor) -> tuple:
+    """x² of the exact float32 pair x = hi + lo as a float32 pair (p, e),
+    the arithmetic of the reference's ``square_pair_closure`` as XLA
+    compiles it (kernel B12f):
+
+    * p = fl(hi·hi);
+    * e = hi·hi - p exactly (the Dekker two-product, which XLA contracts
+      into one FMA), NaN where the Veltkamp split ``hi·4097`` overflows
+      (|hi| past about 8.3e34, infinities included);
+    * e = fl(fma(2·hi, lo, e) + fl(lo·lo)), the reference's
+      ``e + 2·hi·lo + lo·lo`` with its contraction.
+
+    The FMA is exact here: 2·hi·lo is exact in float64, the 2Sum of it and
+    e is exact, and rounding that pair to odd in float64 and then to
+    nearest in float32 rounds the exact sum once.  NaN payloads aside, the
+    CUDA opcode gives the same bits (``__fmaf_rn``)."""
+    with torch.no_grad():
+        hi, lo = hi.to(F32), lo.to(F32)
+        p = hi * hi
+        e = ((hi.to(F64) * hi.to(F64)) - p.to(F64)).to(F32)
+        split = hi * 4097.0
+        e = torch.where(torch.isinf(split), torch.full_like(e, math.nan), e)
+        a = (hi * 2.0).to(F64) * lo.to(F64)
+        b = e.to(F64)
+        s, t = _two_sum(a, b)
+        bits = s.view(I64)
+        odd = torch.isfinite(s) & torch.isfinite(t) & (t != 0) & ((bits & 1) == 0)
+        bits = torch.where(odd, torch.where((t > 0) == (s > 0), bits + 1, bits - 1), bits)
+        e = bits.view(F64).to(F32) + lo * lo
+    return p, e
+
+
+def square_pair_closure(pair_closure: TorchClosure) -> TorchClosure:
+    """x² as a float32 pair from a pair leaf (the variance family in x32):
+    ``((p, e), valid)`` with p the ``square`` of hi and e the ``sqpair_lo``
+    of (hi, lo), both registers of the expression program (B12f, one B3
+    launch); ``.halves`` holds the two as closures with their nodes."""
+    hi_c, lo_c = pair_closure.halves
+
+    def run(env: dict):
+        (hi, lo), valid = pair_closure(env)
+        return square_pair_twin(hi, lo), valid
+
+    p_node = ExprNode("square", F32, (hi_c.node,))
+    e_node = ExprNode("sqpair_lo", F32, (hi_c.node, lo_c.node))
+
+    def p_run(env: dict):
+        (hi, _lo), valid = pair_closure(env)
+        return hi * hi, valid
+
+    def e_run(env: dict):
+        (hi, lo), valid = pair_closure(env)
+        return square_pair_twin(hi, lo)[1], valid
+
+    run.halves = (_with_node(p_run, p_node), _with_node(e_run, e_node))
+    run.in_program = True
+    return run
 
 
 def _merge_valid(a, b):
@@ -2441,7 +2496,7 @@ EXPR_OPS = (
     "div_int", "div_f", "mod_int", "mod_f", "neg", "is_null", "is_not_null",
     "in", "not_in", "select", "abs", "sqrt", "exp", "ln", "log10", "log2",
     "ceil", "floor", "sin", "cos", "tan", "signum", "round", "power", "square",
-    "store_value", "store_valid",
+    "store_value", "store_valid", "sqpair_lo",
 )
 _EXPR_OP = {name: i for i, name in enumerate(EXPR_OPS)}
 DT_BOOL, DT_I64, DT_F64, DT_I32, DT_F32 = 0, 1, 2, 3, 4  # expr_eval.h: ExprDtype
@@ -2466,17 +2521,18 @@ _UNARY_F64 = {
 _ARITY = dict.fromkeys(EXPR_OPS, 1)
 _ARITY.update(dict.fromkeys(("leaf", "lit", "null"), 0))
 _ARITY.update(dict.fromkeys(("and", "or", "add", "sub", "mul", "div_int", "div_f",
-                             "mod_int", "mod_f", "power", *_CMP), 2))
+                             "mod_int", "mod_f", "power", "sqpair_lo", *_CMP), 2))
 _ARITY["select"] = 3
 # operand and result dtypes fixed by the op (-1: read from the row), as x64
 # codes; an x32 program reads DT_I64/DT_F64 here as DT_I32/DT_F32
 _FIXED_IN = {"div_int": DT_I64, "mod_int": DT_I64, "div_f": DT_F64, "mod_f": DT_F64,
-             "cast_i64": DT_F64, "power": DT_F64, "square": DT_F64,
+             "cast_i64": DT_F64, "power": DT_F64, "square": DT_F64, "sqpair_lo": DT_F64,
              **dict.fromkeys(_UNARY_F64, DT_F64)}
 _FIXED_OUT = {"div_int": DT_I64, "mod_int": DT_I64, "cast_i64": DT_I64,
               "store_valid": DT_BOOL, "in": DT_BOOL, "not_in": DT_BOOL,
               **dict.fromkeys(_BOOL_OPS, DT_BOOL),
-              **dict.fromkeys(("div_f", "mod_f", "power", "square", *_UNARY_F64), DT_F64)}
+              **dict.fromkeys(("div_f", "mod_f", "power", "square", "sqpair_lo", *_UNARY_F64),
+                              DT_F64)}
 # ops whose result has no validity (NULL folds into the value)
 _NO_VALIDITY = ("lit", "and", "or", "not", "is_null", "is_not_null")
 
@@ -2743,6 +2799,8 @@ class ExprProgram:
                 in_dt != dt or (dt == DT_BOOL and name in ("sub", "neg"))
             ):
                 raise ValueError(f"{where}: dtype {dt}")
+            if name == "sqpair_lo" and self.mode != "x32":
+                raise ValueError(f"{where}: an x32 opcode")
             if name == "select" and rows[c][1] != dt:
                 raise ValueError(f"{where}: ELSE dtype {rows[c][1]}")
             if name.startswith("store_"):
@@ -2900,6 +2958,8 @@ def expr_program_reference(program: ExprProgram, env: dict, n: int, device) -> t
             elif name == "square":
                 x = x.to(_DT_TORCH[in_dt])
                 v = x * x
+            elif name == "sqpair_lo":
+                v = square_pair_twin(x, y)[1]
             else:
                 v = _UNARY_F64[name](x.to(_DT_TORCH[in_dt]))
             val = valids[a] if y is None else _merge_valid(valids[a], valids[b])
@@ -3075,6 +3135,7 @@ def make_entries_agg_kernel(
     capacity: int,
     flat_names: list[str],
     mode: str = "x64",
+    force_sort: bool = False,
 ):
     """The multi-entry counterpart of :func:`make_partial_agg_kernel` (its
     scatter route): ``fn(entries) -> state`` over retained ``(gid, tail,
@@ -3084,7 +3145,8 @@ def make_entries_agg_kernel(
     are alive together until that call returns.
 
     x32 (the reference's x32 ``_fused_for``): each entry runs its own route
-    (:func:`segment_algo` for its rows) and one merge into the state."""
+    (:func:`segment_algo` for its rows, "sort" under ``force_sort``: the
+    x32 variance family) and one merge into the state."""
     if mode == "x32":
         run = _make_x32_kernels(filter_closure, arg_closures, specs, flat_names)
 
@@ -3092,7 +3154,8 @@ def make_entries_agg_kernel(
             device = entries[0][0].device
             state = init_states(specs, capacity, device, "x32")
             for gid, tail, arrays in entries:
-                algo = segment_algo(capacity, gid.shape[0], device, "x32")
+                algo = ("sort" if force_sort
+                        else segment_algo(capacity, gid.shape[0], device, "x32"))
                 state = run(algo, gid, tail, arrays, capacity, state)
             return state
 
@@ -3165,6 +3228,9 @@ def x32_layout(specs: list[KernelAggSpec], arg_closures: list) -> X32Layout:
     for spec, closure in zip(specs, arg_closures):
         if spec.func == "count_star":
             arg_cols.append(None)
+        elif spec.pair and getattr(closure, "in_program", False):
+            # a pair the expression program computes (the square pair)
+            arg_cols.append(("cols",) + tuple(column(h, F32) for h in closure.halves))
         elif spec.pair or spec.ord_pair:
             p = next((i for i, c in enumerate(pairs) if c is closure), None)
             if p is None:
@@ -3181,6 +3247,8 @@ def x32_layout(specs: list[KernelAggSpec], arg_closures: list) -> X32Layout:
 
     def cols_of(a):
         if isinstance(a, tuple):
+            if a[0] == "cols":
+                return a[1], a[2]
             return base + 2 * a[1], base + 2 * a[1] + 1
         return a, -1
 
@@ -3271,17 +3339,17 @@ def _x32_scan_plan(layout: X32Layout, values: list, valids: list) -> tuple:
     return columns, field_col
 
 
-def _x32_scan_rows(layout: X32Layout, totals: list, field_col: list) -> list:
-    """Each state row's new int32 words from the scan totals (the twin of
-    the x32 scan epilogue's decode)."""
+def _x32_scan_rows(ops: list, totals: list, field_col: list) -> list:
+    """Each state row's new int32 words from the scan totals, by its merge
+    code (the twin of the x32 scan epilogue's decode): a df32 total's hi
+    and lo words, an order pair's, an f64 extremum's f32 bits, else the
+    word's low 32 bits."""
     rows = []
-    for src, op, j in zip(layout.fields, layout.ops, field_col):
+    for op, j in zip(ops, field_col):
         w = totals[j]
-        if src[0] == "sum":
+        if op in (XM_SUM_HI, XM_SUM_LO):
             hi, lo = _df32_split(w)
-            rows.append((hi if src[2] == 0 else lo).view(I32))
-        elif src[0] == "cnt":
-            rows.append(w.to(I32))
+            rows.append((hi if op == XM_SUM_HI else lo).view(I32))
         elif op in (XM_OMIN_HI, XM_OMAX_HI, XM_PAIR_LO):
             rows.append(_ord_split(w)[0 if op != XM_PAIR_LO else 1])
         elif op in (XM_MIN_F32, XM_MAX_F32):
@@ -3289,6 +3357,25 @@ def _x32_scan_rows(layout: X32Layout, totals: list, field_col: list) -> list:
         else:
             rows.append(w.to(I32))
     return rows
+
+
+def _scan_into_state_x32_reference(columns, field_col, ops, state, n, perm, key):
+    """Twin of K2's x32 epilogue: every segment's totals (a run of equal
+    ``key[perm[r]]``, non-decreasing) merged into the int32 ``state`` with
+    :func:`x32_merge` where the segment's key is below the capacity."""
+    capacity = state.shape[1]
+    if n == 0:
+        return state
+    scanned = seg_scan_reference(columns, n, perm=perm, key=key)
+    s2 = key if perm is None else key[perm.long()]
+    bounds = torch.searchsorted(s2, torch.arange(capacity + 1, dtype=s2.dtype,
+                                                 device=s2.device))
+    present = (bounds[1:] - bounds[:-1]) > 0
+    last = torch.clamp(bounds[1:] - 1, 0, max(n - 1, 0))
+    totals = [sc[last] for sc in scanned]
+    merged = x32_merge_reference(state.clone(), ops, _x32_scan_rows(ops, totals, field_col))
+    state.copy_(torch.where(present[None, :], merged, state))
+    return state
 
 
 def sorted_segment_agg_x32_reference(gid, tail, pred, pvalid, values, valids,
@@ -3301,16 +3388,8 @@ def sorted_segment_agg_x32_reference(gid, tail, pred, pvalid, values, valids,
     key = _sort_key(gid, tail, pred, pvalid, capacity)
     perm = radix_argsort_reference([key])
     columns, field_col = _x32_scan_plan(layout, values, valids)
-    scanned = seg_scan_reference(columns, n, perm=perm, key=key)
-    s2 = key[perm.long()]
-    bounds = torch.searchsorted(s2, torch.arange(capacity + 1, dtype=s2.dtype, device=s2.device))
-    present = (bounds[1:] - bounds[:-1]) > 0
-    last = torch.clamp(bounds[1:] - 1, 0, max(n - 1, 0))
-    totals = [s[last] if n else s.new_zeros(capacity) for s in scanned]
-    merged = x32_merge_reference(state.clone(), layout.ops,
-                                 _x32_scan_rows(layout, totals, field_col))
-    state.copy_(torch.where(present[None, :], merged, state))
-    return state
+    return _scan_into_state_x32_reference(columns, field_col, layout.ops, state, n,
+                                          perm, key)
 
 
 def sorted_segment_agg_x32_cuda(gid, tail, pred, pvalid, values, valids,
@@ -3558,7 +3637,8 @@ def fetch_states_with_pids(
 
 # ------------------------------------------------------- device join (B5)
 JOIN_MAX_COLUMNS = 32  # build columns one probe gathers (join_probe.h)
-_JOIN_VALUE_DTYPES = (F64, I64, torch.bool)  # the bridge's device dtypes
+# the bridge's device dtypes (x32's f32 and int32 too)
+_JOIN_VALUE_DTYPES = (F64, I64, F32, I32, torch.bool)
 
 
 def join_build_table_twin(bkeys: torch.Tensor, kmin: int, span: int) -> torch.Tensor:
@@ -3567,7 +3647,7 @@ def join_build_table_twin(bkeys: torch.Tensor, kmin: int, span: int) -> torch.Te
     everywhere else (the reference's eager scatter in ``_prepare_build``)."""
     m = bkeys.shape[0]
     tbl = torch.zeros(span, dtype=torch.int32, device=bkeys.device)
-    tbl[bkeys - kmin] = torch.arange(1, m + 1, dtype=torch.int32, device=bkeys.device)
+    tbl[bkeys.to(I64) - kmin] = torch.arange(1, m + 1, dtype=torch.int32, device=bkeys.device)
     return tbl
 
 
@@ -3577,10 +3657,11 @@ def _check_build_args(bkeys, kmin: int, span: int) -> None:
     process)."""
     if not (
         isinstance(bkeys, torch.Tensor) and bkeys.device.type == "cuda"
-        and bkeys.dtype == I64 and bkeys.dim() == 1 and bkeys.is_contiguous()
+        and bkeys.dtype in (I64, I32) and bkeys.dim() == 1 and bkeys.is_contiguous()
         and 1 <= bkeys.shape[0] < (1 << 31)
     ):
-        raise ValueError("bkeys must be a contiguous CUDA int64 [m] tensor, 1 <= m < 2^31")
+        raise ValueError("bkeys must be a contiguous CUDA int64 or int32 [m] tensor, "
+                         "1 <= m < 2^31")
     if not -(1 << 63) <= kmin < (1 << 63):
         raise ValueError(f"kmin {kmin} outside int64")
     if not 1 <= span <= (1 << 31) - 1:
@@ -3628,7 +3709,7 @@ def join_probe_twin(pkey, pkey_valid, valid, bvals, bvalids, table=None, kmin=0,
     rows carry the values at that clamped row."""
     if table is not None:
         span = table.shape[0]
-        rel = pkey - int(kmin)
+        rel = pkey.to(I64) - int(kmin)
         inb = (rel >= 0) & (rel < span)
         slot = table[rel.clamp(0, span - 1)]
         match = inb & (slot > 0)
@@ -3650,9 +3731,9 @@ def _check_probe_args(pkey, pkey_valid, valid, bvals, bvalids, table, kmin, bkey
     the binding: an exception inside the extension may end the process)."""
     if not (
         isinstance(pkey, torch.Tensor) and pkey.device.type == "cuda"
-        and pkey.dtype == I64 and pkey.dim() == 1 and pkey.is_contiguous()
+        and pkey.dtype in (I64, I32) and pkey.dim() == 1 and pkey.is_contiguous()
     ):
-        raise ValueError("pkey must be a contiguous CUDA int64 [n] tensor")
+        raise ValueError("pkey must be a contiguous CUDA int64 or int32 [n] tensor")
     device, n = pkey.device, pkey.shape[0]
     for name, m in (("pkey_valid", pkey_valid), ("valid", valid)):
         if m is not None:
@@ -3672,7 +3753,10 @@ def _check_probe_args(pkey, pkey_valid, valid, bvals, bvalids, table, kmin, bkey
         if not isinstance(bkeys, torch.Tensor) or bkeys.dim() != 1:
             raise ValueError("bkeys must be a 1-D tensor")
         m = bkeys.shape[0]
-        _check_cuda_tensor(bkeys, "bkeys", (I64,), m, device)
+        if bkeys.dtype != pkey.dtype:
+            raise ValueError(f"pkey ({pkey.dtype}) and bkeys ({bkeys.dtype}) must share "
+                             "one key dtype")
+        _check_cuda_tensor(bkeys, "bkeys", (pkey.dtype,), m, device)
         if m < 1:
             raise ValueError("empty build keys")
     if len(bvals) != len(bvalids) or len(bvals) > JOIN_MAX_COLUMNS:
@@ -3715,7 +3799,7 @@ def join_probe_cuda(pkey, pkey_valid, valid, bvals, bvalids, table=None, kmin=0,
         empty if valid is None else valid,
         torch.empty(0, dtype=torch.int32, device=device) if table is None else table,
         int(kmin),
-        torch.empty(0, dtype=I64, device=device) if bkeys is None else bkeys,
+        torch.empty(0, dtype=pkey.dtype, device=device) if bkeys is None else bkeys,
         bvals,
         [empty if bv is None else bv for bv in bvalids],
         vals, valids, mask,
@@ -3745,7 +3829,8 @@ def make_join_kernel(inner_fn, flat_names: list[str], join_slots: dict[str, int]
            table, kmin, *bvals, *bvalids, state=None)  # dense form
 
     where ``probe_args`` are the batch's tensors for the NON-join flat names
-    (in order) and ``pkey`` is its probe join key (int64).  One
+    (in order) and ``pkey`` is its probe join key (int64; int32 in x32,
+    with the build keys).  One
     :func:`join_probe` gathers the build columns and folds the misses into
     the row mask, then ``inner_fn`` runs unchanged on the full argument
     list, so the joined relation is never materialised."""
@@ -3817,7 +3902,14 @@ def key_host_values(kind: str, values: np.ndarray) -> np.ndarray:
     return values.astype(np.int64)
 
 
-def key_encode_reference(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
+def _wrap_i32(c: torch.Tensor) -> torch.Tensor:
+    """int64 codes as int32 words: each code's low 32 bits."""
+    c = c.to(I64) & 0xFFFFFFFF
+    return torch.where(c >= (1 << 31), c - (1 << 32), c).to(I32)
+
+
+def key_encode_reference(kinds: tuple, keys: tuple, masks: tuple, n: int, device,
+                         code_dtype=I64):
     """Plain twin of the key encode kernel.  ``keys[k]`` is ``(codes,)`` for
     kind ``code`` (host-encoded codes pass through) or ``(values,
     validity-or-None)`` for a device kind; ``masks`` are the row masks
@@ -3826,7 +3918,9 @@ def key_encode_reference(kinds: tuple, keys: tuple, masks: tuple, n: int, device
     device kind, bit-identical to ``encoder.encode`` of the port's host
     encoders (``ident``: the zigzag image, null 0; ``bool``: null 0, False
     1, True 2; ``f32``/``f64``: the raw bit pattern, null the reserved NaN
-    of ``FLOAT32_NULL_BITS``/``FLOAT64_NULL_BITS``)."""
+    of ``FLOAT32_NULL_BITS``/``FLOAT64_NULL_BITS``).  ``code_dtype``
+    int32 (x32) keeps each device code's low 32 bits; "code" keys are
+    passed through as shipped."""
     m = None
     for x in masks:
         if x is not None:
@@ -3858,7 +3952,7 @@ def key_encode_reference(kinds: tuple, keys: tuple, masks: tuple, n: int, device
             raise ValueError(f"key kind {kind!r}")
         if ok is not None:
             c = torch.where(ok, c, torch.full_like(c, null))
-        codes.append(c)
+        codes.append(_wrap_i32(c) if code_dtype == I32 else c)
     return inv, codes
 
 
@@ -3884,15 +3978,19 @@ def _check_encode_args(kinds, keys, masks, n: int, device) -> None:
             _check_cuda_tensor(ok, f"key {k} validity", (torch.bool,), n, device)
 
 
-def key_encode_cuda(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
+def key_encode_cuda(kinds: tuple, keys: tuple, masks: tuple, n: int, device,
+                    code_dtype=I64):
     """Launch the hand-written key encode kernel (ops/cuda/keyed_gids.cu),
     the same outputs as :func:`key_encode_reference`, bit for bit.
 
     Replaces ``arrow_ballista_tpu/ops/kernels.py:device_encode_keys`` (B7)
     inside the keyed prep; the row mask folds into the sort operand in the
-    same pass."""
+    same pass.  ``code_dtype`` int32 is x32's form: each code's low 32
+    bits."""
     from .cuda.build import load
 
+    if code_dtype not in (I64, I32):
+        raise ValueError(f"key_encode: code dtype {code_dtype}")
     # "cuda" names the current card: compare with the tensors' own device
     device = torch.empty(0, device=device).device
     masks = tuple(masks)
@@ -3907,7 +4005,7 @@ def key_encode_cuda(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
         if kind == "code":
             codes.append(ops[0])
             continue
-        out = torch.empty(n, dtype=I64, device=device)
+        out = torch.empty(n, dtype=code_dtype, device=device)
         dev_kinds.append(KEY_KINDS[kind])
         dev_vals.append(ops[0])
         dev_valids.append(empty if ops[1] is None else ops[1])
@@ -3922,12 +4020,13 @@ def key_encode_cuda(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
     return inv, codes
 
 
-def key_encode(kinds: tuple, keys: tuple, masks: tuple, n: int, device):
+def key_encode(kinds: tuple, keys: tuple, masks: tuple, n: int, device,
+               code_dtype=I64):
     """Sort operands of one batch: the CUDA kernel on a CUDA device, its
     plain twin on the CPU."""
     if torch.device(device).type == "cpu":
-        return key_encode_reference(kinds, keys, masks, n, device)
-    return key_encode_cuda(kinds, keys, masks, n, device)
+        return key_encode_reference(kinds, keys, masks, n, device, code_dtype)
+    return key_encode_cuda(kinds, keys, masks, n, device, code_dtype)
 
 
 def keyed_gids_reference(perm: torch.Tensor, inv: torch.Tensor, keys: list) -> dict:
@@ -4034,7 +4133,7 @@ def keyed_keys_reference(sk: list, starts: torch.Tensor, n_groups: int,
                          out: torch.Tensor) -> torch.Tensor:
     """Plain twin of the finish kernel's key gather: ``out[k][g]`` is group
     g's key code (its first sorted row's ``sk[k]``) for g < ``n_groups``,
-    else 0."""
+    else 0 (int64 words, or x32's int32 words)."""
     cap = out.shape[1]
     g = torch.arange(cap, device=out.device)
     live = g < n_groups
@@ -4043,7 +4142,7 @@ def keyed_keys_reference(sk: list, starts: torch.Tensor, n_groups: int,
         if key.shape[0] == 0:
             out[k] = 0
             continue
-        vals = key[torch.clamp(at, max=key.shape[0] - 1)].to(I64)
+        vals = key[torch.clamp(at, max=key.shape[0] - 1)].to(out.dtype)
         out[k] = torch.where(live, vals, torch.zeros_like(vals))
     return out
 
@@ -4055,10 +4154,10 @@ def keyed_keys_cuda(sk: list, starts: torch.Tensor, n_groups: int,
 
     device = out.device
     n = sk[0].shape[0] if sk else 0
-    if device.type != "cuda" or out.dtype != I64 or out.dim() != 2 or (
+    if device.type != "cuda" or out.dtype not in (I64, I32) or out.dim() != 2 or (
         not out.is_contiguous() or out.shape[0] != len(sk)
     ):
-        raise ValueError("out must be a contiguous CUDA int64 [n_keys, capacity]")
+        raise ValueError("out must be a contiguous CUDA int64 or int32 [n_keys, capacity]")
     if not 0 <= n_groups <= min(n, out.shape[1]):
         raise ValueError(f"n_groups {n_groups} for {n} rows, capacity {out.shape[1]}")
     _check_cuda_tensor(starts, "starts", (torch.int32,), n + 1, device)
@@ -4149,9 +4248,67 @@ def keyed_finish(specs, columns, field_col, ops, perm, gids, n_groups: int,
                              capacity)
 
 
-def unpack_keyed_host(specs: list, packed: np.ndarray, n_keys: int) -> tuple:
+def keyed_finish_x32_reference(specs, columns, field_col, ops, perm, gids,
+                               n_groups: int, capacity: int) -> torch.Tensor:
+    """Plain twin of :func:`keyed_finish_x32_cuda`."""
+    n_state = len(ops)
+    packed = torch.empty((n_state + len(gids["sk"]), capacity), dtype=I32,
+                         device=perm.device)
+    packed[:n_state] = init_states(specs, capacity, perm.device, "x32")
+    _scan_into_state_x32_reference(columns, field_col, ops, packed[:n_state],
+                                   perm.shape[0], perm, gids["gid_in"])
+    keyed_keys_reference(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    return packed
+
+
+def keyed_finish_x32_cuda(specs, columns, field_col, ops, perm, gids, n_groups: int,
+                          capacity: int) -> torch.Tensor:
+    """The keyed finish in x32 (the reference's ``keyed_finish_kernel``
+    in x32, int32 words): K2 reduces :func:`_x32_scan_plan`'s columns
+    through ``perm`` segmented by ``gids["gid_in"]`` and its x32 epilogue
+    merges the totals into the int32 state rows (identities first), then
+    the finish kernel's int32 form gathers the key codes into the rows
+    after them: ``[n_fields + n_keys, capacity]`` int32, one fetch."""
+    n_state = len(ops)
+    device = perm.device
+    packed = torch.empty((n_state + len(gids["sk"]), capacity), dtype=I32, device=device)
+    packed[:n_state] = init_states(specs, capacity, device, "x32")
+    n = perm.shape[0]
+    if n:
+        _check_scan_args(columns, n, perm, None, gids["gid_in"], None, device)
+        _launch_scan(columns, n, perm, None, gids["gid_in"], None, False,
+                     [None] * len(columns), packed[:n_state], field_col, ops)
+    if gids["sk"]:
+        keyed_keys_cuda(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    return packed
+
+
+def keyed_finish_x32(specs, columns, field_col, ops, perm, gids, n_groups: int,
+                     capacity: int) -> torch.Tensor:
+    """The x32 keyed finish: the CUDA kernels for CUDA tensors, the twins
+    for tensors on the CPU."""
+    if perm.device.type == "cpu":
+        return keyed_finish_x32_reference(specs, columns, field_col, ops, perm, gids,
+                                          n_groups, capacity)
+    return keyed_finish_x32_cuda(specs, columns, field_col, ops, perm, gids,
+                                 n_groups, capacity)
+
+
+def unpack_keyed_host(specs: list, packed: np.ndarray, n_keys: int,
+                      signed_keys: tuple = ()) -> tuple:
     """Host inverse of :func:`keyed_finish`'s pack: (state arrays with
-    presence last, one int64 key-code array per key)."""
+    presence last, one int64 key-code array per key).  An int32 pack is
+    x32's: its states as :func:`unpack_host` views them, each key code's
+    32-bit word widened unsigned (zigzag, bool and dictionary codes) or,
+    for the keys in ``signed_keys`` (f32 bit patterns), signed."""
+    if packed.dtype == np.int32:
+        n_state = len(packed) - n_keys
+        states = unpack_host(specs, packed[:n_state])
+        keys = []
+        for k in range(n_keys):
+            w = packed[n_state + k].astype(np.int64)
+            keys.append(w if k in signed_keys else w & 0xFFFFFFFF)
+        return states, keys
     flags = [f for spec in specs for f in state_is_int(spec)] + [True]
     states = [
         row if is_int else row.view(np.float64)
@@ -4210,6 +4367,39 @@ def merge_keyed_host(specs: list, per_chunk: list) -> tuple:
     return out, out_keys, len(starts)
 
 
+def merge_keyed_host_x32(specs: list, per_chunk: list) -> tuple:
+    """:func:`merge_keyed_host` for x32 chunks: each chunk's int32 state
+    rows scatter to their merged group (identities elsewhere) and merge
+    into one state with the x32 state merge (2Sum pairs, order pairs),
+    chunk by chunk, on the host."""
+    live = [(st, k, n) for st, k, n in per_chunk if n > 0]
+    if not live:
+        empty = [np.zeros(0, dtype=np.int32) for _ in per_chunk[0][0]]
+        return empty, [np.zeros(0, np.int64) for _ in per_chunk[0][1]], 0
+    n_keys = len(live[0][1])
+    keys = [np.concatenate([k[j][:n] for _s, k, n in live]) for j in range(n_keys)]
+    order = np.lexsort(tuple(reversed(keys)))
+    sk = [k[order] for k in keys]
+    newflag = np.zeros(len(order), dtype=bool)
+    newflag[:1] = True
+    for k in sk:
+        newflag[1:] |= k[1:] != k[:-1]
+    group = np.empty(len(order), dtype=np.int64)
+    group[order] = np.cumsum(newflag) - 1
+    starts = np.flatnonzero(newflag)
+    n_groups = len(starts)
+    ops = x32_merge_ops(specs)
+    state = init_states(specs, n_groups, "cpu", "x32")
+    at = 0
+    for st, _k, n in live:
+        rows = torch.from_numpy(np.stack([a[:n].view(np.int32) for a in st]))
+        full = init_states(specs, n_groups, "cpu", "x32")
+        full[:, torch.from_numpy(group[at:at + n])] = rows
+        state = x32_merge_reference(state, ops, list(full))
+        at += n
+    return unpack_host(specs, state.numpy()), [k[starts] for k in sk], n_groups
+
+
 def _host_fold(fold, a: np.ndarray, starts: np.ndarray) -> np.ndarray:
     """Per-segment f64 min/max with jnp's rules: NaN propagates (numpy's
     reduceat does that), -0.0 orders below +0.0."""
@@ -4224,21 +4414,23 @@ def _host_fold(fold, a: np.ndarray, starts: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------- keyed median (B9)
-def keyed_median_reference(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tensor:
+def keyed_median_reference(inv, keys, ohi, olo, ovalid, capacity: int,
+                           out_dtype=I64) -> torch.Tensor:
     """Plain twin of the median kernel, the arithmetic of the reference's
     ``keyed_median_kernel``: one sort by (inv, *keys, arg-null, ohi, olo),
     group ids from key changes among valid rows, a doubled segment id
     ``gid * 2 + null`` whose bounds give each group's first row and valid
     count; per group the order pairs at the two middle rows, the valid
     count and the count of distinct values (run starts).  Returns
-    ``[6, capacity]`` int64: hi@lo, lo@lo, hi@hi, lo@hi, count, distinct."""
+    ``[6, capacity]`` int64 (``out_dtype`` int32 in x32): hi@lo, lo@lo,
+    hi@hi, lo@hi, count, distinct."""
     n, device = inv.shape[0], inv.device
     argnull = (
         torch.zeros(n, dtype=torch.int32, device=device) if ovalid is None
         else torch.logical_not(ovalid).to(torch.int32)
     )
     perm = radix_argsort_reference([inv] + list(keys) + [argnull, ohi, olo]).long()
-    out = torch.zeros((6, capacity), dtype=I64, device=device)
+    out = torch.zeros((6, capacity), dtype=out_dtype, device=device)
     if n == 0:
         return out
     sk = [k[perm] for k in keys]
@@ -4267,7 +4459,8 @@ def keyed_median_reference(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.
     return out
 
 
-def keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tensor:
+def keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity: int,
+                      out_dtype=I64) -> torch.Tensor:
     """The median and count distinct on the card: K1 sorts by (inv, *keys,
     arg-null, ohi, olo), the gid kernel finds each group's first row, and
     the median kernel (ops/cuda/keyed_median.cu, one block per group) reads
@@ -4278,8 +4471,9 @@ def keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tenso
     from .cuda.build import load
 
     device, n = inv.device, inv.shape[0]
-    if device.type != "cuda" or capacity < 1:
-        raise ValueError("keyed_median runs on CUDA tensors, capacity >= 1")
+    if device.type != "cuda" or capacity < 1 or out_dtype not in (I64, I32):
+        raise ValueError("keyed_median runs on CUDA tensors, capacity >= 1, "
+                         "int64 or int32 out")
     for name, t in (("ohi", ohi), ("olo", olo), ("inv", inv)):
         _check_cuda_tensor(t, name, (torch.int32,), n, device)
     if ovalid is not None:
@@ -4290,7 +4484,7 @@ def keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tenso
     )
     perm = radix_argsort_cuda([inv] + list(keys) + [argnull, ohi, olo])
     gids = keyed_gids_cuda(perm, inv, list(keys), sorted_outputs=False)
-    out = torch.empty((6, capacity), dtype=I64, device=device)
+    out = torch.empty((6, capacity), dtype=out_dtype, device=device)
     if n == 0:
         return out.zero_()
     load().keyed_median(perm, argnull, ohi, olo, gids["starts"], gids["counts"], out)
@@ -4298,12 +4492,13 @@ def keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tenso
     return out
 
 
-def keyed_median(inv, keys, ohi, olo, ovalid, capacity: int) -> torch.Tensor:
+def keyed_median(inv, keys, ohi, olo, ovalid, capacity: int,
+                 out_dtype=I64) -> torch.Tensor:
     """Per-group median and distinct count of one argument: the CUDA
     kernels for CUDA tensors, the twin for tensors on the CPU."""
     if inv.device.type == "cpu":
-        return keyed_median_reference(inv, keys, ohi, olo, ovalid, capacity)
-    return keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity)
+        return keyed_median_reference(inv, keys, ohi, olo, ovalid, capacity, out_dtype)
+    return keyed_median_cuda(inv, keys, ohi, olo, ovalid, capacity, out_dtype)
 
 
 # ------------------------------------------------------- keyed corr (B10)
@@ -4404,6 +4599,123 @@ def keyed_corr(s2, perm, gid_in, x, xvalid, y, yvalid, capacity: int):
     return keyed_corr_cuda(s2, perm, gid_in, x, xvalid, y, yvalid, capacity)
 
 
+# x32 corr (the reference's x32 corr_fn): the state rows of both passes
+_CORR_X32_PASS1 = [XM_ADD_I32, XM_SUM_HI, XM_SUM_LO, XM_SUM_HI, XM_SUM_LO]
+_CORR_X32_PASS2 = [XM_SUM_HI, XM_SUM_LO] * 3
+
+
+def _corr_x32_mask(xhi, xvalid, yhi, yvalid):
+    m = torch.ones(xhi.shape[0], dtype=torch.bool, device=xhi.device)
+    for ok in (xvalid, yvalid):
+        if ok is not None:
+            m = m & ok
+    return m & ~torch.isnan(xhi) & ~torch.isnan(yhi)
+
+
+def _corr_x32_pass1_columns(xhi, xlo, yhi, ylo, m):
+    return [
+        ScanColumn(SS_COUNT, OP_ADD_I64, valid=m),
+        ScanColumn(SS_VALUES, OP_DF32, values=xhi, valid=m, values2=xlo),
+        ScanColumn(SS_VALUES, OP_DF32, values=yhi, valid=m, values2=ylo),
+    ]
+
+
+def corr_center_x32_reference(s2, perm, xhi, xlo, yhi, ylo, m, moments):
+    """Plain twin of the x32 centring kernel: per sorted row the group's
+    f32 means ``(Σhi + Σlo) / max(n, 1)`` from ``moments`` (int32 rows n,
+    Σx hi, lo, Σy hi, lo), the pair centred as ``(hi - mean) + lo`` and the
+    f32 products x'y', x'², y'² (0 where the pair is not valid)."""
+    cap = moments.shape[1]
+    nf = torch.clamp(moments[0], min=1).to(F32)
+    mx = (moments[1].view(F32) + moments[2].view(F32)) / nf
+    my = (moments[3].view(F32) + moments[4].view(F32)) / nf
+    g = torch.clamp(s2.long(), 0, cap - 1)
+    p = perm.long()
+    xc = (xhi[p] - mx[g]) + xlo[p]
+    yc = (yhi[p] - my[g]) + ylo[p]
+    ms = m[p]
+    zero = torch.zeros_like(xc)
+    return [torch.where(ms, xc * yc, zero), torch.where(ms, xc * xc, zero),
+            torch.where(ms, yc * yc, zero)]
+
+
+def keyed_corr_x32_reference(s2, perm, gid_in, xhi, xlo, xvalid, yhi, ylo, yvalid,
+                             capacity: int):
+    """Plain twin of :func:`keyed_corr_x32_cuda`, the arithmetic of the
+    reference's ``keyed_corr_kernel(capacity, "x32")``: pass 1 double-
+    float sums of each argument's exact f32 pair and the pair count over
+    pairwise-valid rows, f32 centring, pass 2 double-float sums of the f32
+    products.  Returns ``[7, capacity]`` int32: Σx'y', Σx'², Σy'² as (hi,
+    lo) f32 bits, then n."""
+    n = perm.shape[0]
+    buf = torch.zeros((11, capacity), dtype=I32, device=perm.device)
+    m = _corr_x32_mask(xhi, xvalid, yhi, yvalid)
+    _scan_into_state_x32_reference(_corr_x32_pass1_columns(xhi, xlo, yhi, ylo, m),
+                                   [0, 1, 1, 2, 2], _CORR_X32_PASS1, buf[6:11], n,
+                                   perm, gid_in)
+    prods = corr_center_x32_reference(s2, perm, xhi, xlo, yhi, ylo, m, buf[6:11])
+    cols2 = [ScanColumn(SS_VALUES, OP_DF32, values=v) for v in prods]
+    _scan_into_state_x32_reference(cols2, [0, 0, 1, 1, 2, 2], _CORR_X32_PASS2, buf[0:6],
+                                   n, None, s2)
+    return buf[:7].clone()
+
+
+def keyed_corr_x32_cuda(s2, perm, gid_in, xhi, xlo, xvalid, yhi, ylo, yvalid,
+                        capacity: int):
+    """x32 corr moments on the card: the pairwise mask (``corr_mask`` on
+    the f32 hi words) and the f32 centring (``corr_center_x32``) are
+    hand-written (ops/cuda/keyed_corr.cu), both passes' double-float sums
+    are K2 with its x32 epilogue.  Same layout as
+    :func:`keyed_corr_x32_reference`.
+
+    Replaces ``arrow_ballista_tpu/ops/kernels.py:keyed_corr_kernel`` in
+    x32 (B10)."""
+    from .cuda.build import load
+
+    device, n = perm.device, perm.shape[0]
+    if device.type != "cuda" or capacity < 1:
+        raise ValueError("keyed_corr runs on CUDA tensors, capacity >= 1")
+    for name, t in (("s2", s2), ("perm", perm), ("gid_in", gid_in)):
+        _check_cuda_tensor(t, name, (torch.int32,), n, device)
+    for name, t in (("xhi", xhi), ("xlo", xlo), ("yhi", yhi), ("ylo", ylo)):
+        _check_cuda_tensor(t, name, (F32,), n, device)
+    for name, t in (("xvalid", xvalid), ("yvalid", yvalid)):
+        if t is not None:
+            _check_cuda_tensor(t, name, (torch.bool,), n, device)
+    buf = torch.zeros((11, capacity), dtype=I32, device=device)
+    if n == 0:
+        return buf[:7].clone()
+    ext = load()
+    empty = torch.empty(0, dtype=torch.bool, device=device)
+    m = torch.empty(n, dtype=torch.bool, device=device)
+    ext.corr_mask(xhi, empty if xvalid is None else xvalid, yhi,
+                  empty if yvalid is None else yvalid, m)
+    count_launch("keyed_corr")
+    cols1 = _corr_x32_pass1_columns(xhi, xlo, yhi, ylo, m)
+    _check_scan_args(cols1, n, perm, None, gid_in, None, device)
+    _launch_scan(cols1, n, perm, None, gid_in, None, False, [None] * 3, buf[6:11],
+                 [0, 1, 1, 2, 2], _CORR_X32_PASS1)
+    prods = [torch.empty(n, dtype=F32, device=device) for _ in range(3)]
+    ext.corr_center_x32(s2, perm, xhi, xlo, yhi, ylo, m, buf[6:11].contiguous(),
+                        prods[0], prods[1], prods[2])
+    count_launch("keyed_corr")
+    cols2 = [ScanColumn(SS_VALUES, OP_DF32, values=v) for v in prods]
+    _check_scan_args(cols2, n, None, None, s2, None, device)
+    _launch_scan(cols2, n, None, None, s2, None, False, [None] * 3, buf[0:6],
+                 [0, 0, 1, 1, 2, 2], _CORR_X32_PASS2)
+    return buf[:7].clone()
+
+
+def keyed_corr_x32(s2, perm, gid_in, xhi, xlo, xvalid, yhi, ylo, yvalid, capacity: int):
+    """Per-group centred corr moments in x32: the CUDA kernels for CUDA
+    tensors, the twins for tensors on the CPU."""
+    if perm.device.type == "cpu":
+        return keyed_corr_x32_reference(s2, perm, gid_in, xhi, xlo, xvalid, yhi, ylo,
+                                        yvalid, capacity)
+    return keyed_corr_x32_cuda(s2, perm, gid_in, xhi, xlo, xvalid, yhi, ylo, yvalid,
+                               capacity)
+
+
 # ------------------------------------------------------- keyed prep (B7)
 @dataclass
 class KeyedBatch:
@@ -4431,6 +4743,7 @@ def make_keyed_prep_kernel(
     flat_names: list[str],
     key_kinds: tuple,
     extra_names: tuple = (),
+    mode: str = "x64",
 ):
     """Per-batch half of the keyed aggregation (the reference's
     ``make_keyed_prep_kernel``).
@@ -4444,17 +4757,31 @@ def make_keyed_prep_kernel(
     :func:`make_join_kernel` wraps this function unchanged; ``state`` is
     accepted for that signature and ignored.  ``extra_names`` are env
     arrays buffered raw for the median and corr passes.  The keyed route
-    always has at least one group key."""
-    closures, columns, ops, cols = _agg_layout(specs, arg_closures)
-    program = ExprProgram(filter_closure, closures, columns)
+    always has at least one group key.
+
+    ``mode`` "x32" builds the reference's x32 prep: the x32 program and
+    pair leaves (:func:`_x32_batch`), int32 key codes, and ``fn.layout``
+    the :class:`X32Layout` the x32 finish reads."""
+    if mode == "x32":
+        layout = x32_layout(specs, arg_closures)
+        program = ExprProgram(filter_closure, layout.closures, layout.columns, mode="x32")
+    else:
+        closures, columns, ops, cols = _agg_layout(specs, arg_closures)
+        program = ExprProgram(filter_closure, closures, columns)
+        layout = (columns, ops, cols)
+    code_dtype = index_dtype(mode)
 
     def fn(keys, valid, *arrays, state=None):
         env = dict(zip(flat_names, arrays))
         n, device = keys[0][0].shape[0], keys[0][0].device
-        pred, pvalid, values, valids = expr_eval(program, env, n, device)
-        inv, codes = key_encode(key_kinds, tuple(keys), (valid, pred, pvalid), n, device)
+        if mode == "x32":
+            pred, pvalid, values, valids = _x32_batch(layout, program, env, n, device)
+        else:
+            pred, pvalid, values, valids = expr_eval(program, env, n, device)
+        inv, codes = key_encode(key_kinds, tuple(keys), (valid, pred, pvalid), n, device,
+                                code_dtype)
         extras = [env[nm] for nm in extra_names]
         return KeyedBatch(inv, list(codes), values, valids, extras)
 
-    fn.layout = (columns, ops, cols)
+    fn.layout = layout
     return fn

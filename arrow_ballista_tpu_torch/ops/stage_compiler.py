@@ -39,8 +39,11 @@ capacity that takes the sort route, the entries run one launch each.
 A stage built under ``kernels.set_precision("x32")`` runs the reference's
 x32 mode (``TorchStageExec._mode``): float32/int32 columns, double-float
 sums and order-pair extrema on the matmul, scatter or sort route
-(``kernels.x32_reduce``); a value that mode cannot carry re-runs the
-partition on the CPU operators, and its routes still to port raise.
+(``kernels.x32_reduce``), and on every other route the reference takes
+in that mode: the keyed route with int32 key codes, median, count
+distinct, corr, the variance family (the Dekker square pair in B3, the
+sort route), the join fold with int32 keys; a value that mode cannot
+carry re-runs the partition on the CPU operators, as in the reference.
 Each eligible ``WindowExec`` becomes a ``TorchWindowExec``
 (``ops/window_compiler.py``).  Everything else stays on the CPU operator
 path, gated by the same session config (``ballista.tpu.enable``).
@@ -602,8 +605,6 @@ def _maybe_fold_join(fused: _FusedStage) -> Optional[_FusedStage]:
     except ExecutionError:
         return None
 
-    if K.precision_mode() == "x32":
-        raise K.x32_deferred("the device join fold")
     return _FusedStage(
         probe,
         filters,
@@ -707,8 +708,6 @@ class TorchStageExec(ExecutionPlan):
                     ok = ok or pa.types.is_date(at)
                 if not ok:
                     raise K.NotLowerable(f"{a.func} over {at}")
-                if x32:
-                    raise K.x32_deferred(a.func)
                 compiler.ord_pair_column(a.arg)
                 pending[idx] = ("median" if a.func == "median" else "cdist",
                                 a.arg.index)
@@ -726,9 +725,12 @@ class TorchStageExec(ExecutionPlan):
                     at = schema.field(e.index).type
                     if not (pa.types.is_floating(at) or pa.types.is_integer(at)):
                         raise K.NotLowerable(f"corr over {at}")
+                for e in (a.arg, a.arg2):
+                    # x32 buffers each argument as its exact f32 pair
                     if x32:
-                        raise K.x32_deferred("corr")
-                    compiler._leaf_column(e)
+                        compiler.pair_column(e)
+                    else:
+                        compiler._leaf_column(e)
                 pending[idx] = ("corr", a.arg.index, a.arg2.index)
                 continue
             if a.func in ("stddev", "stddev_pop", "var", "var_pop"):
@@ -739,12 +741,26 @@ class TorchStageExec(ExecutionPlan):
                 if fused.mode == PARTIAL:
                     raise K.NotLowerable("variance family is single-stage")
                 if x32:
-                    raise K.x32_deferred(a.func)
-                c = lower(a.arg)
-                parts = [
-                    (K.KernelAggSpec("sum", True), c),
-                    (K.KernelAggSpec("sum", True), K.square_closure(c)),
-                ]
+                    # x32 ships x as its exact f32 pair and squares it
+                    # error-free (B12f), so the host's cancellation starts
+                    # from ~48-bit moments; the stage takes the sort route
+                    if not isinstance(a.arg, pe.Col):
+                        raise K.NotLowerable("x32 variance over expression")
+                    at = schema.field(a.arg.index).type
+                    if not (pa.types.is_floating(at) or pa.types.is_integer(at)):
+                        raise K.NotLowerable(f"variance over {at}")
+                    pairc = compiler.pair_column(a.arg)
+                    parts = [
+                        (K.KernelAggSpec("sum", True, pair=True), pairc),
+                        (K.KernelAggSpec("sum", True, pair=True),
+                         K.square_pair_closure(pairc)),
+                    ]
+                else:
+                    c = lower(a.arg)
+                    parts = [
+                        (K.KernelAggSpec("sum", True), c),
+                        (K.KernelAggSpec("sum", True), K.square_closure(c)),
+                    ]
                 pending[idx] = ("var", 0 if a.func.endswith("_pop") else 1,
                                 a.func.startswith("stddev"), parts)
                 continue
@@ -812,6 +828,9 @@ class TorchStageExec(ExecutionPlan):
                 specs.append(entry[0])
                 arg_closures.append(entry[1])
         self._emit = emit
+        # x32 variance: the matmul and scatter routes compensate only
+        # across blocks, so the stage sorts (its scan 2Sums every combine)
+        self._force_sort = x32 and any(e[0] == "var" for e in emit)
         # median, count distinct and corr need the keyed route's buffers
         self._needs_keyed = bool(self._median_cols or self._corr_pairs)
         self.specs: list[K.KernelAggSpec] = specs
@@ -943,7 +962,8 @@ class TorchStageExec(ExecutionPlan):
         decided per execution from the prepared build side's key span).
         Cached per (capacity, route, dense) on this stage, whose closures
         it holds, so a capacity growth builds the next one."""
-        algo = K.segment_algo(capacity, n_rows, self.device, self._mode)
+        algo = ("sort" if self._force_sort
+                else K.segment_algo(capacity, n_rows, self.device, self._mode))
         key = (capacity, algo, dense) + K.algo_cache_token()
         kernel = self._kernels.get(key)
         if kernel is None:
@@ -1059,10 +1079,6 @@ class TorchStageExec(ExecutionPlan):
             self.metrics.add("cpu_fallback", 1)
             cpu_plan = self._replay(si.batches)
         except _KeyedRoute as kr:
-            if self._mode == "x32":
-                if kr.ra is not None:
-                    kr.ra.close()
-                raise K.x32_deferred("the keyed route")
             # device-keyed aggregation; only the data-dependent exits
             # (cardinality past tpu.max_capacity, keys that cannot ship,
             # the median/corr buffer budget, the variance guard) hand the
@@ -1187,11 +1203,17 @@ class TorchStageExec(ExecutionPlan):
 
             dev = self.device
             try:
-                bkeys = torch.from_numpy(kv_sorted).to(dev)
+                # x32: int32 build keys and f32/int32 build columns (a key
+                # or value past them joins on the CPU: _JoinIneligible)
+                bkeys = torch.from_numpy(
+                    K.coerce_host_values(kv_sorted, self._mode).copy()
+                ).to(dev)
                 bvals, bvalids = [], []
                 for ci in self._device_build_cols:
                     vals, validity = arrow_to_numpy(table.column(ci).combine_chunks())
-                    bvals.append(torch.from_numpy(K.coerce_host_values(vals).copy()).to(dev))
+                    bvals.append(torch.from_numpy(
+                        K.coerce_host_values(vals, self._mode).copy()
+                    ).to(dev))
                     bvalids.append(
                         None if validity is None
                         else torch.from_numpy(validity.copy()).to(dev)
@@ -1369,14 +1391,23 @@ class TorchStageExec(ExecutionPlan):
                         # device route BEFORE any host group encode: the
                         # raw key columns cross the bridge and
                         # key_encode_time_ns stays about 0
-                        fast = self._keyed_fast_encoders()
+                        fast = self._keyed_fast_encoders(batch)
                         if fast is not None:
                             raise _KeyedRoute([(batch, None)], src, fast, ra)
                     with self.metrics.timer("key_encode_time_ns"):
                         codes = self._encode_codes(batch, key_encoders)
+                    # x32: key codes past 32 bits cannot ship to the keyed
+                    # route; the host-assigned gids of the basic route are
+                    # dense int32, so that route stays available
+                    keyed_ok = not first or self._mode != "x32" or all(
+                        _fits_x32_code(c) for c in codes
+                    )
                     if first and self._needs_keyed:
                         # median, count distinct and corr live on the keyed
-                        # route at any cardinality
+                        # route at any cardinality; keys it cannot take
+                        # re-run the partition on the CPU operators
+                        if not keyed_ok:
+                            raise K.X32RangeError("group key codes exceed 32 bits")
                         raise _KeyedRoute([(batch, codes)], src, key_encoders, ra)
                     if first:
                         try:
@@ -1390,7 +1421,7 @@ class TorchStageExec(ExecutionPlan):
                         if first_groups is None or _highcard_detect(
                             first_groups, n
                         ):
-                            if keyed_route_wanted(self.config):
+                            if keyed_route_wanted(self.config) and keyed_ok:
                                 raise _KeyedRoute([(batch, codes)], src,
                                                   key_encoders, ra)
                             # 'gid' pins the group table while it fits
@@ -1509,7 +1540,7 @@ class TorchStageExec(ExecutionPlan):
         if fn is None:
             fn = K.make_entries_agg_kernel(
                 self._filter_closure, self._arg_closures, self.specs, capacity,
-                self._flat_names, mode=self._mode,
+                self._flat_names, mode=self._mode, force_sort=self._force_sort,
             )
             self._kernels[key] = fn
         return fn
@@ -1604,7 +1635,16 @@ class TorchStageExec(ExecutionPlan):
             from .bridge import arrow_to_numpy
 
             pkv, pk_valid = arrow_to_numpy(_eval_arr(self.fused.join.probe_key, batch))
-            host["__pkey__"] = pkv.astype(np.int64)
+            pkv = pkv.astype(np.int64)
+            if self._mode == "x32":
+                # probe keys outside int32 cannot match the range-checked
+                # build keys: masked, not failed (as the reference)
+                in_range = (pkv >= -(1 << 31)) & (pkv < (1 << 31))
+                if not in_range.all():
+                    pk_valid = in_range if pk_valid is None else pk_valid & in_range
+                    pkv = np.where(in_range, pkv, 0)
+                pkv = pkv.astype(np.int32)
+            host["__pkey__"] = pkv
             host["__pkey_valid__"] = pk_valid
         dev = staging.put(host)
         args = [dev[nm] for nm in names]
@@ -1642,13 +1682,16 @@ class TorchStageExec(ExecutionPlan):
                 kinds.append("code")
         return tuple(kinds)
 
-    def _keyed_fast_encoders(self) -> Optional[list]:
+    def _keyed_fast_encoders(self, batch) -> Optional[list]:
         """Encoder set of the PRE-ENCODE keyed path, or None when this stage
         takes the host-encode routing: the stage is pinned keyed (median,
         count distinct or corr, or ``highcard_mode=device``), device encode
         is on and at least one key has a device kind.  The port's identity
         codes are zigzag images, so negative keys need no precheck (the
-        reference's value+1 codes send them back to its host route)."""
+        reference's value+1 codes send them back to its host route); in
+        x32 an identity key of the first batch whose zigzag code passes 32
+        bits sends the stage to that routing, as the reference's past-i32
+        precheck does, and an f64 key stays on the host dictionary."""
         cfg = self.config
         if not cfg.tpu_device_encode:
             return None
@@ -1660,11 +1703,23 @@ class TorchStageExec(ExecutionPlan):
         for pos, (kind, _s) in enumerate(self._group_plan):
             if kind != "enc":
                 continue
-            enc, k = device_key_encoder(self._schema.field(pos).type, "x64")
+            enc, k = device_key_encoder(self._schema.field(pos).type, self._mode)
             encs.append(enc)
             kinds.append(k)
         if not encs or all(k is None for k in kinds):
             return None
+        if self._mode == "x32":
+            from .bridge import arrow_to_numpy
+
+            for k, g in zip(kinds, self._enc_group_exprs):
+                if k != "ident":
+                    continue
+                try:
+                    vals, _valid = arrow_to_numpy(_eval_arr(g, batch))
+                except ExecutionError:
+                    return None
+                if not _fits_x32_ident(vals):
+                    return None
         return encs
 
     def _keyed_key_ops(self, batch, kinds, key_encoders, codes) -> list:
@@ -1686,11 +1741,22 @@ class TorchStageExec(ExecutionPlan):
                 else:
                     with self.metrics.timer("key_encode_time_ns"):
                         c = self._encode_codes_one(slot, enc, batch)
+                if self._mode == "x32":
+                    # x32 ships each code's 32-bit word
+                    if not _fits_x32_code(c):
+                        raise _KeyedFallback("group key codes outgrew 32 bits")
+                    c = (c.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
                 ops.append((c,))
                 continue
             vals, valid = arrow_to_numpy(_eval_arr(g, batch))
             vals = K.key_host_values(kind, vals)
-            if kind == "ident":
+            if kind == "ident" and self._mode == "x32":
+                # x32 ships int32 keys whose zigzag codes fit 32 bits; a
+                # later batch past them re-runs the partition on the CPU
+                if not _fits_x32_ident(vals):
+                    raise _KeyedFallback("group key outgrew the x32 key codes")
+                vals = vals.astype(np.int32)
+            elif kind == "ident":
                 if len(vals) and (
                     int(vals.max()) >= K.IDENT_KEY_LIMIT
                     or int(vals.min()) <= -K.IDENT_KEY_LIMIT
@@ -1727,7 +1793,11 @@ class TorchStageExec(ExecutionPlan):
             base = f"col_{ci}__ordpair"
             out.extend([f"{base}__ohi", f"{base}__olo", f"{base}__valid"])
         for ci in self._corr_cols:
-            out.extend([f"col_{ci}", f"col_{ci}__valid"])
+            if self._mode == "x32":
+                base = f"col_{ci}__pair"
+                out.extend([f"{base}__hi", f"{base}__lo", f"{base}__valid"])
+            else:
+                out.extend([f"col_{ci}", f"col_{ci}__valid"])
         return tuple(out)
 
     def _keyed_prep(self, kinds: tuple, dense: bool = False):
@@ -1739,6 +1809,7 @@ class TorchStageExec(ExecutionPlan):
             fn = K.make_keyed_prep_kernel(
                 self._filter_closure, self._arg_closures, self.specs,
                 self._flat_names, kinds, extra_names=self._median_extra_names(),
+                mode=self._mode,
             )
             layout = fn.layout
             if self.fused.join is not None:
@@ -1772,6 +1843,7 @@ class TorchStageExec(ExecutionPlan):
             build = self._prepare_build(ctx)
         kinds = self._key_kinds_for(key_encoders)
         prep = self._keyed_prep(kinds, dense=build is not None and build[0] == "dense")
+        signed = self._signed_key_slots(key_encoders)
         staging = DeviceStaging(self.device)
         self._build_kernels()
         buf: list = []
@@ -1788,7 +1860,7 @@ class TorchStageExec(ExecutionPlan):
                 # order statistics need every row in ONE sort: refuse the
                 # unbounded buffer before the device runs out of memory
                 raise _KeyedFallback("keyed buffer budget exceeded by median/corr")
-            states, key_codes, n_groups, _post = self._keyed_reduce(buf, prep)
+            states, key_codes, n_groups, _post = self._keyed_reduce(buf, prep, signed)
             chunks.append((states, key_codes, n_groups))
             self.metrics.add("keyed_chunks", 1)
             buf, buffered = [], 0
@@ -1822,41 +1894,47 @@ class TorchStageExec(ExecutionPlan):
 
             if chunks:
                 flush()
+                merge = (K.merge_keyed_host_x32 if self._mode == "x32"
+                         else K.merge_keyed_host)
                 with self.metrics.timer("keyed_merge_time_ns"):
-                    merged, merged_keys, n_groups = K.merge_keyed_host(
-                        self.specs, chunks
-                    )
+                    merged, merged_keys, n_groups = merge(self.specs, chunks)
                 if n_groups > self.max_capacity:
                     raise _CapacityExceeded()
                 return (merged, _KeyedGroups(merged_keys, n_groups), n_rows_in,
                         {"median": [], "corr": []})
 
-            states, key_codes, n_groups, post = self._keyed_reduce(buf, prep)
+            states, key_codes, n_groups, post = self._keyed_reduce(buf, prep, signed)
             inv, codes, extras, perm, gids, cap = post
             med_results: list = []
             corr_results: list = []
+            x32 = self._mode == "x32"
             with self.metrics.timer("device_time_ns"):
                 for j in range(len(self._median_cols)):
                     ohi, olo, ovalid = extras[3 * j:3 * j + 3]
-                    med = K.keyed_median(inv, codes, ohi, olo, ovalid, cap)
+                    med = K.keyed_median(inv, codes, ohi, olo, ovalid, cap,
+                                         K.index_dtype(self._mode))
                     med_results.append(med.cpu().numpy())
                 base = 3 * len(self._median_cols)
+                w = 3 if x32 else 2  # buffered tensors per corr argument
                 for sx, sy in self._corr_pairs:
-                    x, xv = extras[base + 2 * sx:base + 2 * sx + 2]
-                    y, yv = extras[base + 2 * sy:base + 2 * sy + 2]
-                    packed = K.keyed_corr(gids["s2"], perm, gids["gid_in"],
-                                          x, xv, y, yv, cap)
+                    xa = extras[base + w * sx:base + w * sx + w]
+                    ya = extras[base + w * sy:base + w * sy + w]
+                    corr = K.keyed_corr_x32 if x32 else K.keyed_corr
+                    packed = corr(gids["s2"], perm, gids["gid_in"], *xa, *ya, cap)
                     corr_results.append(packed.cpu().numpy())
         aux = {"median": med_results, "corr": corr_results}
         return states, _KeyedGroups(key_codes, n_groups), n_rows_in, aux
 
-    def _keyed_reduce(self, buf: list, prep):
+    def _keyed_reduce(self, buf: list, prep, signed: tuple = ()):
         """ONE sort + segmented scan + packed fetch over the buffered
         batches.  Returns ``(host_states, key_codes, n_groups, post)`` with
         ``post = (inv, codes, extras, perm, gids, cap)`` for the median and
         corr passes; raises :class:`_CapacityExceeded` past
         tpu.max_capacity."""
-        columns_layout, ops, cols = prep.layout
+        if self._mode == "x32":
+            ops = cols = None
+        else:
+            _columns, ops, cols = prep.layout
         n_keys = self._n_encoded_groups
         with self.metrics.timer("device_time_ns"):
             lengths = [b.inv.shape[0] for b in buf]
@@ -1867,22 +1945,37 @@ class TorchStageExec(ExecutionPlan):
             inv = field(lambda b: b.inv)
             codes = [field(lambda b, k=k: b.codes[k]) for k in range(n_keys)]
             values = [field(lambda b, c=c: b.values[c])
-                      for c in range(len(columns_layout))]
+                      for c in range(len(buf[0].values))]
             valids = [field(lambda b, c=c: b.valids[c])
-                      for c in range(len(columns_layout))]
+                      for c in range(len(buf[0].values))]
             extras = [field(lambda b, e=e: b.extras[e])
                       for e in range(len(self._median_extra_names()))]
             perm, gids, n_groups = K.keyed_sort(inv, codes)
         if n_groups > self.max_capacity:
             raise _CapacityExceeded()
         cap = max(64, 1 << (max(n_groups, 1) - 1).bit_length())
-        columns, field_col = K._build_scan_plan(values, valids, ops, cols)
+        if self._mode == "x32":
+            layout = prep.layout
+            columns, field_col = K._x32_scan_plan(layout, values, valids)
+            finish, ops = K.keyed_finish_x32, layout.ops
+        else:
+            columns, field_col = K._build_scan_plan(values, valids, ops, cols)
+            finish = K.keyed_finish
         with self.metrics.timer("device_time_ns"):
-            packed = K.keyed_finish(self.specs, columns, field_col, ops, perm, gids,
-                                    n_groups, cap)
+            packed = finish(self.specs, columns, field_col, ops, perm, gids,
+                            n_groups, cap)
             host = packed.cpu().numpy()
-        states, key_codes = K.unpack_keyed_host(self.specs, host, n_keys)
+        states, key_codes = K.unpack_keyed_host(self.specs, host, n_keys, signed)
         return states, key_codes, n_groups, (inv, codes, extras, perm, gids, cap)
+
+    @staticmethod
+    def _signed_key_slots(key_encoders) -> tuple:
+        """Encoded key slots whose x32 code words widen signed: f32 bit
+        patterns (the rest are non-negative codes below 2^32)."""
+        from .bridge import FloatKeyEncoder
+
+        return tuple(k for k, enc in enumerate(key_encoders)
+                     if isinstance(enc, FloatKeyEncoder))
 
     def _fetch_states(
         self, state, n_groups: Optional[int] = None
@@ -1995,10 +2088,19 @@ class TorchStageExec(ExecutionPlan):
                 raise ExecutionError(f"{tag} requires the keyed route")
             if tag == "corr":
                 pkd = aux["corr"][entry[1]]
-                sxy = pkd[0][keep].view(np.float64)
-                sxx = pkd[1][keep].view(np.float64)
-                syy = pkd[2][keep].view(np.float64)
-                n_arr = pkd[3][keep]
+                if self._mode == "x32":
+                    # double-float moments: hi + lo in f64
+                    sxy, sxx, syy = (
+                        pkd[2 * j][keep].view(np.float32).astype(np.float64)
+                        + pkd[2 * j + 1][keep].view(np.float32)
+                        for j in range(3)
+                    )
+                    n_arr = pkd[6][keep]
+                else:
+                    sxy = pkd[0][keep].view(np.float64)
+                    sxx = pkd[1][keep].view(np.float64)
+                    syy = pkd[2][keep].view(np.float64)
+                    n_arr = pkd[3][keep]
                 empty = (n_arr < 2) | (sxx <= 0) | (syy <= 0)
                 with np.errstate(all="ignore"):
                     r = sxy / np.sqrt(sxx * syy)
@@ -2026,9 +2128,15 @@ class TorchStageExec(ExecutionPlan):
                 continue
             if tag == "var":
                 _, si, qi, ddof, use_sqrt = entry
-                s_v = host[offs[si]][keep].astype(np.float64)
-                n_arr = host[offs[si] + 1][keep]
-                q_v = host[offs[qi]][keep].astype(np.float64)
+                if self._mode == "x32":
+                    # double-float moments: hi + lo in f64
+                    s_v = host[offs[si]][keep].astype(np.float64) + host[offs[si] + 1][keep]
+                    q_v = host[offs[qi]][keep].astype(np.float64) + host[offs[qi] + 1][keep]
+                    n_arr = host[offs[si] + 2][keep]
+                else:
+                    s_v = host[offs[si]][keep].astype(np.float64)
+                    n_arr = host[offs[si] + 1][keep]
+                    q_v = host[offs[qi]][keep].astype(np.float64)
                 n_f = n_arr.astype(np.float64)
                 empty = n_arr < (ddof + 1)
                 with np.errstate(all="ignore"):
@@ -2037,11 +2145,13 @@ class TorchStageExec(ExecutionPlan):
                     )
                     m2 = q_v / np.maximum(n_f, 1.0)
                 # conditioning guard: when the subtraction consumed more
-                # digits than f64 moments carry (var below 1e-8 of the mean
-                # square, a constant column included), only the exact CPU
-                # operators can answer
+                # digits than the moments carry (var below 1e-8 of the mean
+                # square for f64 moments, 1e-6 for x32's ~48-bit ones, a
+                # constant column included), only the exact CPU operators
+                # can answer
                 live = (~empty) & (m2 > 0)
-                if bool(np.any(live & (var < m2 * 1e-8))):
+                kmax = 1e-6 if self._mode == "x32" else 1e-8
+                if bool(np.any(live & (var < m2 * kmax))):
                     raise _VarianceGuard()
                 var = np.where(var < 0, 0.0, var)
                 out_v = np.sqrt(var) if use_sqrt else var
@@ -2124,6 +2234,20 @@ class TorchStageExec(ExecutionPlan):
                     schema=schema.append(pa.field(SHUFFLE_PID_COLUMN, pa.int32())),
                 )
         yield out
+
+
+def _fits_x32_code(c: np.ndarray) -> bool:
+    """Whether host key codes ship as x32's 32-bit words: zigzag,
+    dictionary and bool codes below 2^32, f32 bit patterns (signed)."""
+    return len(c) == 0 or (int(c.min()) >= -(1 << 31) and int(c.max()) < (1 << 32))
+
+
+def _fits_x32_ident(values: np.ndarray) -> bool:
+    """Whether identity key values ship as int32 with zigzag codes below
+    2^32: every value in (-2^31, 2^31)."""
+    return len(values) == 0 or (
+        int(values.min()) > -(1 << 31) and int(values.max()) < (1 << 31)
+    )
 
 
 def _concat(parts: list, lengths: list) -> Optional[torch.Tensor]:

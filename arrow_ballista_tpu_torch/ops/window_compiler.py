@@ -1,9 +1,9 @@
 """Device lowering of WindowExec on one torch device.
 
-Counterpart of ``arrow_ballista_tpu/ops/window_compiler.py`` (x64 only):
-each eligible window stage evaluates as ONE device program per window
-signature (``ops/window_kernel.py``): multi-key radix sort, boundary
-flags, segmented scans, gathers, packed fetch.
+Counterpart of ``arrow_ballista_tpu/ops/window_compiler.py``, in both
+dtype modes: each eligible window stage evaluates as ONE device program
+per window signature (``ops/window_kernel.py``): multi-key radix sort,
+boundary flags, segmented scans, gathers, packed fetch.
 
 Host responsibilities here:
 * eligibility (plan time): supported function set, default RANGE or
@@ -12,15 +12,18 @@ Host responsibilities here:
   sorted uniques), numeric arguments — anything else stays on the
   vectorized CPU path (``exec/window.py``), which remains the oracle;
 * ORDER-preserving integer key encoding: every ORDER BY key becomes a
-  null-rank flag plus an i64 key whose SIGNED order equals the SQL order;
+  null-rank flag plus an i64 key whose SIGNED order equals the SQL order
+  (x32: an (hi, lo) i32 pair in that order; integer sum/avg arguments
+  cross as exact 48-bit (hi, lo) f32 pairs, NotLowerable past 2^48);
 * PARTITION BY keys ride the group-key encoders (identity / dict codes —
   equality-only, which is all partitioning needs);
 * output materialization: bitcast unpack, empty-frame NULL masks, dtype
   casts mirroring the CPU operator.
 
 Unlike the reference, a device, bridge or kernel failure raises: only a
-partition under ``ballista.tpu.min_rows`` and a ``NotLowerable`` from the
-host encoding of this partition's data run on the CPU operator.
+partition under ``ballista.tpu.min_rows``, a ``NotLowerable`` from the
+host encoding of this partition's data and (x32) a value past int32 run
+on the CPU operator.
 """
 
 from __future__ import annotations
@@ -35,7 +38,13 @@ from ..config import BallistaConfig
 from ..exec.operators import ExecutionPlan, Partitioning, TaskContext
 from ..exec.window import RANKING, VALUE_FNS, WindowExec, WindowSpec
 from . import kernels as K
-from .bridge import DeviceStaging, arrow_to_numpy, make_key_encoder, to_u64_order
+from .bridge import (
+    DeviceStaging,
+    arrow_to_numpy,
+    make_key_encoder,
+    split_u64_i32,
+    to_u64_order,
+)
 
 _AGG_FNS = {"sum", "avg", "min", "max", "count"}
 
@@ -73,10 +82,12 @@ def _arg_type_ok(t: pa.DataType) -> bool:
 
 
 # ------------------------------------------------------- key encoding
-def _split_u64(u: np.ndarray) -> list:
-    """The i64 key whose SIGNED order equals the unsigned order of ``u``
-    (the reference's x64 branch)."""
-    return [(u ^ (np.uint64(1) << np.uint64(63))).view(np.int64)]
+def _split_u64(u: np.ndarray, mode: str = "x64") -> list:
+    """Integer keys whose SIGNED order equals the unsigned order of ``u``:
+    one i64 (x64) or an (hi, lo) i32 pair (x32), as the reference's."""
+    if mode == "x64":
+        return [(u ^ (np.uint64(1) << np.uint64(63))).view(np.int64)]
+    return list(split_u64_i32(u))
 
 
 def _string_order_ranks(arr: pa.Array):
@@ -116,7 +127,8 @@ def _string_order_ranks(arr: pa.Array):
     return rank_of[code_vals], validity
 
 
-def _order_keys(arr: pa.Array, asc: bool, nulls_first: Optional[bool]) -> list:
+def _order_keys(arr: pa.Array, asc: bool, nulls_first: Optional[bool],
+                mode: str = "x64") -> list:
     """[null_rank, key] integer arrays for one ORDER BY expression."""
     if nulls_first is None:
         nulls_first = not asc  # SQL default: NULLS LAST for ASC
@@ -145,7 +157,7 @@ def _order_keys(arr: pa.Array, asc: bool, nulls_first: Optional[bool]) -> list:
         null_rank = np.where(is_null, 0 if nulls_first else 1,
                              1 if nulls_first else 0).astype(np.int32)
         u = np.where(is_null, np.uint64(0), u)  # nulls are peers
-    return [null_rank] + _split_u64(u)
+    return [null_rank] + _split_u64(u, mode)
 
 
 def _partition_codes(t: pa.DataType, arr: pa.Array) -> np.ndarray:
@@ -192,10 +204,8 @@ class TorchWindowExec(ExecutionPlan):
                 tuple((str(e), a, nf) for e, a, nf in spec.order_by),
             )
             self._groups.setdefault(sig, []).append((pos, spec))
-        if K.precision_mode() == "x32":
-            # the reference lowers this window in x32 too; the port's x32
-            # windows wait for ROADMAP A7b
-            raise K.x32_deferred("a window")
+        # the dtype mode is pinned when the node is built, as for stages
+        self._mode = K.precision_mode()
 
     def _check_spec(self, spec: WindowSpec) -> None:
         if spec.frame is not None and spec.func not in (
@@ -252,9 +262,9 @@ class TorchWindowExec(ExecutionPlan):
         try:
             with self.metrics.timer("window_time_ns"):
                 win_cols = self._device_eval(batches, n)
-        except K.NotLowerable:
-            # this partition's data has no device encoding; bridge, build
-            # and kernel errors are not caught
+        except (K.NotLowerable, K.X32RangeError):
+            # this partition's data has no device encoding (x32: a value
+            # past int32); bridge, build and kernel errors are not caught
             self.metrics.add("tpu_fallback", 1)
             yield from self._cpu(batches, partition, ctx)
             return
@@ -309,10 +319,10 @@ class TorchWindowExec(ExecutionPlan):
                     K._infer_pa_type(p, self.input.schema), eval_col(p)
                 )
                 u = to_u64_order(codes.astype(np.int64))
-                part_keys.extend(K._pad(k, n_pad) for k in _split_u64(u))
+                part_keys.extend(K._pad(k, n_pad) for k in _split_u64(u, self._mode))
             order_keys: list = []
             for e, asc, nf in spec0.order_by:
-                for k in _order_keys(eval_col(e), asc, nf):
+                for k in _order_keys(eval_col(e), asc, nf, self._mode):
                     order_keys.append(K._pad(k, n_pad))
 
             # ---- args (deduped per expression)
@@ -323,16 +333,21 @@ class TorchWindowExec(ExecutionPlan):
                 kspecs.append(self._kernel_spec(spec, slot_of, args,
                                                 eval_col, n_pad))
             kernel = make_window_kernel(
-                tuple(kspecs), len(part_keys), len(order_keys), len(args)
+                tuple(kspecs), len(part_keys), len(order_keys), len(args), self._mode
             )
             host = {f"k{i}": k for i, k in enumerate(part_keys + order_keys)}
             for i, (v, m) in enumerate(args):
-                host[f"v{i}"], host[f"m{i}"] = v, m
+                if isinstance(v, tuple):  # an x32 pair slot
+                    host[f"v{i}h"], host[f"v{i}l"] = v
+                else:
+                    host[f"v{i}"] = v
+                host[f"m{i}"] = m
             dev = staging.put(host)
             keys = [dev[f"k{i}"] for i in range(len(part_keys) + len(order_keys))]
             packed = kernel(
                 keys[: len(part_keys)], keys[len(part_keys):],
-                [(dev[f"v{i}"], dev[f"m{i}"]) for i in range(len(args))],
+                [((dev[f"v{i}h"], dev[f"v{i}l"]) if isinstance(v, tuple) else dev[f"v{i}"],
+                  dev[f"m{i}"]) for i, (v, _m) in enumerate(args)],
             )
             host_packed = packed.cpu().numpy()
             del dev, keys, packed  # free the signature's device arrays
@@ -349,6 +364,30 @@ class TorchWindowExec(ExecutionPlan):
                 return ("aggf", "count", None, spec.frame[0], spec.frame[1])
             return ("agg", "count", None)
         key = str(spec.arg)
+        if (
+            self._mode == "x32"
+            and spec.func in ("sum", "avg")
+            and pa.types.is_integer(K._infer_pa_type(spec.arg, self.input.schema))
+        ):
+            # x32 integer sum/avg: an f32 cast loses the low bits past
+            # 2^24, so the argument crosses as an exact (hi, lo) f32 pair
+            # (the aggregate's 48-bit pair discipline)
+            pkey = (key, "pair")
+            slot = slot_of.get(pkey)
+            if slot is None:
+                values, validity = arrow_to_numpy(eval_col(spec.arg))
+                v = values.astype(np.float64)
+                if len(v) and np.abs(v).max() >= float(1 << 48):
+                    raise K.NotLowerable("int window sum exceeds 48-bit pair range in x32")
+                hi = v.astype(np.float32)
+                lo = (v - hi.astype(np.float64)).astype(np.float32)
+                slot = len(args)
+                args.append(((K._pad(hi, n_pad), K._pad(lo, n_pad)),
+                             None if validity is None else K._pad(validity, n_pad)))
+                slot_of[pkey] = slot
+            if spec.frame is not None:
+                return ("aggf", spec.func, slot, spec.frame[0], spec.frame[1])
+            return ("agg", spec.func, slot)
         # plain argument slot (value + validity or None), padded & coerced
         slot = slot_of.get(key)
         if slot is None:
@@ -361,7 +400,7 @@ class TorchWindowExec(ExecutionPlan):
 
                 arr = pc.cast(arr, pa.float64())
             values, validity = arrow_to_numpy(arr)
-            values = K.coerce_host_values(values)
+            values = K.coerce_host_values(values, self._mode)
             slot = len(args)
             args.append(
                 (
@@ -378,6 +417,7 @@ class TorchWindowExec(ExecutionPlan):
 
     # -------------------------------------------------------- unpack
     def _unpack(self, packed, members, kspecs, n, win_cols) -> None:
+        x32 = self._mode == "x32"
         ri = 0
 
         def int_row():
@@ -388,9 +428,13 @@ class TorchWindowExec(ExecutionPlan):
 
         def float_row():
             nonlocal ri
-            r = packed[ri][:n].view(np.float64)
+            r = packed[ri][:n].view(np.float32 if x32 else np.float64).astype(np.float64)
             ri += 1
             return r
+
+        def sum_row():
+            """A sum's row: x32's double-float total is two rows, hi + lo."""
+            return float_row() + float_row() if x32 else float_row()
 
         for (pos, spec), kspec in zip(members, kspecs):
             kind = kspec[0]
@@ -401,7 +445,7 @@ class TorchWindowExec(ExecutionPlan):
                 if fn == "count":
                     col = pa.array(int_row().astype(np.int64), pa.int64())
                 elif fn in ("sum", "avg"):
-                    v = float_row()
+                    v = sum_row()
                     cnt = int_row()
                     empty = cnt == 0
                     if fn == "avg":
@@ -453,8 +497,8 @@ class TorchWindowExec(ExecutionPlan):
                             mask=empty,
                         )
                 else:
-                    hi_v = float_row()
-                    lo_v = float_row()
+                    hi_v = sum_row()
+                    lo_v = sum_row()
                     cnt = int_row()
                     v = hi_v - lo_v
                     emptym = cnt == 0

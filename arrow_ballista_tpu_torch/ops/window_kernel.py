@@ -1,7 +1,7 @@
 """Device window-function kernel (sort + segmented scans + gathers).
 
 Counterpart of ``arrow_ballista_tpu/ops/window_kernel.py`` for one torch
-device, x64 only.  One window signature runs as:
+device, in both dtype modes.  One window signature runs as:
 
 * ONE stable multi-key radix argsort (``kernels.radix_argsort``, K1) of
   the rows by (pad flag, PARTITION BY codes, per-ORDER-BY null rank and
@@ -23,15 +23,19 @@ Every step is a function on tensors: on CUDA tensors it launches its
 hand-written kernel (``ops/cuda/``), on CPU tensors it runs its plain
 PyTorch twin beside it.
 
-Spec encoding (as the reference's, without the x32 pair flag):
+Spec encoding (as the reference's, without the x32 pair flag: a pair
+slot's value is itself an ``(hi, lo)`` f32 tuple):
   ("row_number",) | ("rank",) | ("dense_rank",) | ("ntile", k)
   | ("agg", fn, arg_slot)            # fn in sum|count|avg|min|max, RANGE
   | ("aggf", fn, arg_slot, a, b)     # ROWS frame [i+a, i+b]; None=UNBOUNDED
   | ("val", fn, arg_slot, offset)    # fn in lag|lead|first_value|last_value
-Per-spec packed layout (the reference's x64 layout; ``_unpack`` reads it):
-  ranking/ntile → 1 int row; agg count → 1 int row; agg sum/avg → val, cnt;
-  agg min/max → val, cnt; aggf count(*)/count → 1 int row; aggf sum/avg →
-  P@hi, P@lo-1, cnt; aggf min/max → val, cnt; val fns → val, ok flag.
+Per-spec packed layout (the reference's; ``_unpack`` reads it):
+  ranking/ntile → 1 int row; agg count → 1 int row; agg sum/avg → val, cnt
+  (x32: hi, lo, cnt); agg min/max → val, cnt; aggf count(*)/count → 1 int
+  row; aggf sum/avg → P@hi, P@lo-1, cnt (x32: P_hi@hi, P_lo@hi, P_hi@lo-1,
+  P_lo@lo-1, cnt); aggf min/max → val, cnt; val fns → val, ok flag.
+x64 packs int64 words (floats as f64 bits), x32 int32 words (floats as
+f32 bits; its sums are K2's double-float scans, its extrema f32/int32).
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ WP_VALUE = 10
 WP_VALUE_OK = 11
 _VALUE_FN = {"first_value": 0, "last_value": 1, "lag": 2, "lead": 3}
 MAX_KEYS = 32
+# how an x32 pack keeps a row's word (window_epilogue.h: PackNarrow)
+WN_LO32, WN_HI32, WN_F32 = 0, 1, 2
 
 
 # ---------------------------------------------------------- K4: flags
@@ -172,7 +178,7 @@ def range_extremum_cuda(values, valid, perm, sf, sl, a, b, op: int) -> torch.Ten
     ):
         raise ValueError(f"range_extremum: op {op} on {device}")
     K._check_cuda_tensor(perm, "perm", (torch.int32,), n, device)
-    dtypes = (I64,) if K._OP_ROLE[op][1] else (F64, I64)
+    dtypes = (I64, K.I32) if K._OP_ROLE[op][1] else (F64, I64, K.F32, K.I32)
     K._check_cuda_tensor(values, "values", dtypes, n, device)
     if valid is not None:
         K._check_cuda_tensor(valid, "validity", (torch.bool,), n, device)
@@ -183,7 +189,7 @@ def range_extremum_cuda(values, valid, perm, sf, sl, a, b, op: int) -> torch.Ten
     load().range_extremum(
         op, depth, perm, values,
         torch.empty(0, dtype=torch.bool, device=device) if valid is None else valid,
-        values.dtype == I64, sf, sl,
+        not values.is_floating_point(), sf, sl,
         a is not None, 0 if a is None else a, b is not None, 0 if b is None else b,
         torch.empty((depth + 1) * n, dtype=I64, device=device), out,
     )
@@ -213,8 +219,9 @@ class PackRow:
     has_a: int = 0
     has_b: int = 0
     x: Optional[torch.Tensor] = None       # [n] words, sorted order
-    values: Optional[torch.Tensor] = None  # [n] f64/i64, input order
+    values: Optional[torch.Tensor] = None  # [n] f64/i64 (x32: f32/i32), input order
     valid: Optional[torch.Tensor] = None   # [n] bool, input order
+    narrow: int = WN_LO32  # x32: how the int32 pack keeps the row's word
 
 
 def _pack_row_reference(row: PackRow, perm, sf, sl, pf, pl, n: int):
@@ -253,7 +260,9 @@ def _pack_row_reference(row: PackRow, perm, sf, sl, pf, pl, n: int):
         at = perm.long()[torch.clamp(src, 0, n - 1)]
         if kind == WP_VALUE:
             v = row.values[at]
-            return v.view(I64) if v.dtype == F64 else v
+            if v.dtype == K.F32:
+                return v.view(K.I32).to(I64)
+            return v.view(I64) if v.dtype == F64 else v.to(I64)
         if row.valid is not None:
             ok = ok & row.valid[at]
         return ok.to(I64)
@@ -273,16 +282,28 @@ def _pack_row_reference(row: PackRow, perm, sf, sl, pf, pl, n: int):
     return torch.where(empty, zero, at_hi - at_lom1)  # WP_FRAME_DIFF
 
 
-def window_pack_reference(rows: list, perm, sf, sl, pf, pl) -> torch.Tensor:
+def _narrow(w: torch.Tensor, how: int) -> torch.Tensor:
+    """An int64 word row as x32's int32 word (see :data:`WN_LO32`)."""
+    if how == WN_HI32:
+        return (w >> 32).to(K.I32)
+    if how == WN_F32:
+        return w.view(F64).to(K.F32).view(K.I32)
+    return K._wrap_i32(w)
+
+
+def window_pack_reference(rows: list, perm, sf, sl, pf, pl,
+                          out_dtype=I64) -> torch.Tensor:
     """Plain twin of ``window_pack``: every row computed in sorted order,
-    then gathered back to input order through the inverse permutation."""
+    then gathered back to input order through the inverse permutation
+    (``out_dtype`` int32: x32's pack, each row narrowed)."""
     n = perm.shape[0]
     p = perm.long()
     inv = torch.empty_like(p)
     inv[p] = torch.arange(n, dtype=I64, device=perm.device)
-    out = torch.empty((len(rows), n), dtype=I64, device=perm.device)
+    out = torch.empty((len(rows), n), dtype=out_dtype, device=perm.device)
     for r, row in enumerate(rows):
-        out[r] = _pack_row_reference(row, perm, sf, sl, pf, pl, n)[inv]
+        w = _pack_row_reference(row, perm, sf, sl, pf, pl, n)[inv]
+        out[r] = w if out_dtype == I64 else _narrow(w, row.narrow)
     return out
 
 
@@ -300,16 +321,17 @@ def _needs(row: PackRow) -> str:
     }.get(row.kind, "")
 
 
-def window_pack_cuda(rows: list, perm, sf, sl, pf, pl) -> torch.Tensor:
+def window_pack_cuda(rows: list, perm, sf, sl, pf, pl, out_dtype=I64) -> torch.Tensor:
     """Launch the pack kernel (ops/cuda/window_epilogue.cu): the per-row
     arithmetic, gathers, inverse permutation and packed output of
-    ``arrow_ballista_tpu/ops/window_kernel.py:make_window_kernel``."""
+    ``arrow_ballista_tpu/ops/window_kernel.py:make_window_kernel``;
+    ``out_dtype`` int32 is its x32 form."""
     from .cuda.build import load
 
     device = perm.device
     n = perm.shape[0]
-    if device.type != "cuda":
-        raise ValueError("window_pack runs on CUDA tensors")
+    if device.type != "cuda" or out_dtype not in (I64, K.I32):
+        raise ValueError("window_pack runs on CUDA tensors, int64 or int32 out")
     K._check_cuda_tensor(perm, "perm", (torch.int32,), n, device)
     for name, t in (("seg_first", sf), ("seg_last", sl),
                     ("peer_first", pf), ("peer_last", pl)):
@@ -330,13 +352,17 @@ def window_pack_cuda(rows: list, perm, sf, sl, pf, pl) -> torch.Tensor:
         ):
             raise ValueError(f"pack row {r} needs its column")
         if row.kind == WP_VALUE:
-            K._check_cuda_tensor(row.values, f"pack row {r} values", (F64, I64), n, device)
+            K._check_cuda_tensor(row.values, f"pack row {r} values",
+                                 (F64, I64, K.F32, K.I32), n, device)
+        if row.narrow not in (WN_LO32, WN_HI32, WN_F32):
+            raise ValueError(f"pack row {r}: narrowing {row.narrow}")
         if row.valid is not None:
             K._check_cuda_tensor(row.valid, f"pack row {r} validity", (torch.bool,), n, device)
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
         desc.append([row.kind, row.a, row.b, row.has_a, row.has_b,
-                     ptr(row.x), ptr(row.values), ptr(row.valid)])
-    out = torch.empty((len(rows), n), dtype=I64, device=device)
+                     ptr(row.x), ptr(row.values), ptr(row.valid), row.narrow,
+                     8 if row.values is None else row.values.element_size()])
+    out = torch.empty((len(rows), n), dtype=out_dtype, device=device)
     if not rows:
         return out
     empty = torch.empty(0, dtype=I64, device=device)
@@ -350,11 +376,11 @@ def window_pack_cuda(rows: list, perm, sf, sl, pf, pl) -> torch.Tensor:
     return out
 
 
-def window_pack(rows: list, perm, sf, sl, pf, pl) -> torch.Tensor:
-    """``[len(rows), n]`` int64 words in input row order."""
+def window_pack(rows: list, perm, sf, sl, pf, pl, out_dtype=I64) -> torch.Tensor:
+    """``[len(rows), n]`` int64 words (x32: int32) in input row order."""
     if perm.device.type == "cpu":
-        return window_pack_reference(rows, perm, sf, sl, pf, pl)
-    return window_pack_cuda(rows, perm, sf, sl, pf, pl)
+        return window_pack_reference(rows, perm, sf, sl, pf, pl, out_dtype)
+    return window_pack_cuda(rows, perm, sf, sl, pf, pl, out_dtype)
 
 
 # ------------------------------------------------------------ the kernel
@@ -363,14 +389,16 @@ def _iota_col(op: int) -> K.ScanColumn:
 
 
 def make_window_kernel(specs: tuple, n_part_keys: int, n_order_keys: int,
-                       n_args: int):
+                       n_args: int, mode: str = "x64"):
     """``fn(part_keys, order_keys, args) -> packed`` on the arrays' device.
 
     ``part_keys``/``order_keys`` are int32/int64 tensors (the pad flag is
-    part_keys[0]); ``args`` are (value f64/i64, validity bool) pairs.
-    ``packed`` is an [n_out_rows, n] int64 tensor in INPUT row order,
-    floats as their bits, laid out as the module docstring says.
+    part_keys[0]); ``args`` are (value f64/i64, validity bool) pairs (x32:
+    f32/i32 values, or an ``(hi, lo)`` f32 tuple for an integer sum/avg).
+    ``packed`` is an [n_out_rows, n] int64 tensor (int32 in x32) in INPUT
+    row order, floats as their bits, laid out as the module docstring says.
     """
+    x32 = mode == "x32"
 
     def kernel(part_keys, order_keys, args):
         keys = list(part_keys) + list(order_keys)
@@ -405,8 +433,10 @@ def make_window_kernel(specs: tuple, n_part_keys: int, n_order_keys: int,
                 K.SS_COUNT, K.OP_ADD_I64, valid=args[slot][1]))
 
         def value_col(slot, op) -> int:
+            v = args[slot][0]
+            hi, lo = v if isinstance(v, tuple) else (v, None)
             return column(("value", slot, op), lambda: K.ScanColumn(
-                K.SS_VALUES, op, values=args[slot][0], valid=args[slot][1]))
+                K.SS_VALUES, op, values=hi, valid=args[slot][1], values2=lo))
 
         def extremum_op(slot, fn) -> int:
             is_int = not args[slot][0].is_floating_point()
@@ -421,7 +451,10 @@ def make_window_kernel(specs: tuple, n_part_keys: int, n_order_keys: int,
                 fn, slot = spec[1], spec[2]
                 cnt = count_col(slot)
                 if fn in ("sum", "avg"):
-                    plan.append((spec, cnt, value_col(slot, K.OP_ADD_F64)))
+                    # x32: K2's double-float scan (an integer argument's
+                    # exact pair 2Summed per row)
+                    op = K.OP_DF32 if x32 else K.OP_ADD_F64
+                    plan.append((spec, cnt, value_col(slot, op)))
                 elif fn in ("min", "max") and kind == "agg":
                     plan.append((spec, cnt, value_col(slot, extremum_op(slot, fn))))
                 else:
@@ -442,6 +475,17 @@ def make_window_kernel(specs: tuple, n_part_keys: int, n_order_keys: int,
             (pl,) = K.seg_scan([_iota_col(K.OP_MAX_I64)], n, flag=peer_flag,
                                reverse=True)
 
+        def word_rows(kind, x, **kw) -> list:
+            """A df32 word row as x32's (hi, lo) rows, else itself."""
+            if x32:
+                return [PackRow(kind, x=x, narrow=WN_LO32, **kw),
+                        PackRow(kind, x=x, narrow=WN_HI32, **kw)]
+            return [PackRow(kind, x=x, **kw)]
+
+        def ext_narrow(slot) -> int:
+            """x32: an f32 extremum (widened to f64 by K2/K3) packs as f32."""
+            return WN_F32 if args[slot][0].is_floating_point() else WN_LO32
+
         rows: list = []
         for spec, cnt, val in plan:
             kind = spec[0]
@@ -457,8 +501,11 @@ def make_window_kernel(specs: tuple, n_part_keys: int, n_order_keys: int,
                 if cnt is None:  # count(*): rows through the last peer
                     rows.append(PackRow(WP_RANGE_COUNT))
                     continue
-                if val is not None:
-                    rows.append(PackRow(WP_AT_PEER_LAST, x=scanned[val]))
+                if val is not None and spec[1] in ("sum", "avg"):
+                    rows.extend(word_rows(WP_AT_PEER_LAST, scanned[val]))
+                elif val is not None:
+                    rows.append(PackRow(WP_AT_PEER_LAST, x=scanned[val],
+                                        narrow=ext_narrow(spec[2])))
                 rows.append(PackRow(WP_AT_PEER_LAST, x=scanned[cnt]))
             elif kind == "aggf":
                 fn, slot, a, b = spec[1], spec[2], spec[3], spec[4]
@@ -474,13 +521,12 @@ def make_window_kernel(specs: tuple, n_part_keys: int, n_order_keys: int,
                     v, m = args[slot]
                     res = range_extremum(v, m, perm, sf, sl, a, b,
                                          extremum_op(slot, fn))
-                    rows.extend([PackRow(WP_AT_ROW, x=res), cnt_row])
+                    rows.extend([PackRow(WP_AT_ROW, x=res, narrow=ext_narrow(slot)),
+                                 cnt_row])
                 else:
-                    rows.extend([
-                        PackRow(WP_FRAME_HI, x=scanned[val], **frame),
-                        PackRow(WP_FRAME_LO, x=scanned[val], **frame),
-                        cnt_row,
-                    ])
+                    rows.extend(word_rows(WP_FRAME_HI, scanned[val], **frame)
+                                + word_rows(WP_FRAME_LO, scanned[val], **frame)
+                                + [cnt_row])
             elif kind == "val":
                 fn, slot, offset = spec[1], spec[2], spec[3]
                 v, m = args[slot]
@@ -489,6 +535,6 @@ def make_window_kernel(specs: tuple, n_part_keys: int, n_order_keys: int,
                 rows.append(PackRow(WP_VALUE_OK, a=offset, has_a=code, valid=m))
             else:
                 raise ValueError(f"window spec {spec}")
-        return window_pack(rows, perm, sf, sl, pf, pl)
+        return window_pack(rows, perm, sf, sl, pf, pl, K.index_dtype(mode))
 
     return kernel

@@ -370,7 +370,10 @@ class BatchExchanger:
     """Schema-aware host bridge around :func:`ici_batch_exchange`.
 
     Turns RecordBatches into device columns (value + validity per field;
-    strings as shared dictionary codes), runs the mesh exchange, and
+    strings as shared dictionary codes; in x32, int64, uint64, date64,
+    timestamp and f64 fields as exact (lo, hi) int32 words, f64 by its
+    bits: the reference's "i64pair" layout, which the 4-byte words of
+    ``mesh_route`` move unchanged), runs the mesh exchange, and
     reassembles per-destination RecordBatches.
     """
 
@@ -403,11 +406,15 @@ class BatchExchanger:
                 pa.types.is_int64(t) or pa.types.is_uint64(t) or pa.types.is_date64(t)
                 or pa.types.is_timestamp(t) or pa.types.is_float64(t)
             ):
-                # the reference's x32 "i64pair" layout
-                raise K.x32_deferred("the exchange's int64 pair layout")
+                # the exchange only moves data, so a 64-bit value crosses
+                # as its two 32-bit words and comes back bit for bit
+                self.layout.append(("i64pair", i))
             else:
                 self.layout.append(("num", i))
-        self.n_cols = 2 * len(self.layout)  # value + validity per field
+        # value (two words for a pair) + validity per field
+        self.n_cols = sum(2 if kind == "i64pair" else 1 for kind, _ in self.layout) + len(
+            self.layout
+        )
         self._fn = ici_batch_exchange(mesh, self.n_cols, capacity)
 
     # ------------------------------------------------------------- host →
@@ -428,15 +435,21 @@ class BatchExchanger:
                     else np.ones(len(arr), bool)
                 )
                 cols.append(codes)
-            elif kind == "num":
+            elif kind in ("num", "i64pair"):
                 values, validity = arrow_to_numpy(
                     arr.combine_chunks() if hasattr(arr, "combine_chunks") else arr
                 )
                 if validity is None:
                     validity = np.ones(len(values), bool)
-                cols.append(values)
+                if kind == "i64pair":
+                    v = (values.view(np.int64) if values.dtype == np.float64
+                         else values.astype(np.int64))
+                    cols.append((v & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+                    cols.append((v >> 32).astype(np.int32))
+                else:
+                    cols.append(values)
             else:
-                raise ExecutionError(f"exchange layout {kind} is not ported")
+                raise ExecutionError(f"exchange layout {kind}")
             cols.append(validity)
         return cols
 
@@ -468,7 +481,17 @@ class BatchExchanger:
             ci = 0
             for kind, i in self.layout:
                 f = self.schema.field(i)
-                values = recv_cols[ci][sl][mask]
+                if kind == "i64pair":
+                    lo = recv_cols[ci][sl][mask].view(np.uint32).astype(np.int64)
+                    hi = recv_cols[ci + 1][sl][mask].astype(np.int64)
+                    values = (hi << 32) | lo
+                    if pa.types.is_float64(f.type):
+                        values = values.view(np.float64)
+                    elif pa.types.is_uint64(f.type):
+                        values = values.view(np.uint64)
+                    ci += 1
+                else:
+                    values = recv_cols[ci][sl][mask]
                 validity = recv_cols[ci + 1][sl][mask]
                 ci += 2
                 if kind == "dict":

@@ -140,8 +140,6 @@ class MeshGangExec(ExecutionPlan):
                 yield from batches
                 return
             except _MeshKeyedRoute as route:
-                if inner._mode == "x32":
-                    raise K.x32_deferred("the keyed gang")
                 try:
                     batches = list(
                         self._execute_mesh_keyed(inner, ctx, route.n_dev)
@@ -307,6 +305,9 @@ class MeshGangExec(ExecutionPlan):
                             if kind == "code" else None
                             for slot, (kind, enc) in enumerate(zip(kinds, key_encoders))
                         ]
+                    # x32: a key past 32-bit codes is the gang's data exit
+                    # (_KeyedFallback), as the reference's "gang keys
+                    # exceed i32"
                     host_keys = tpu._keyed_key_ops(batch, kinds, key_encoders, codes)
                     with self.metrics.timer("bridge_time_ns"):
                         args, keys = tpu._kernel_args(
@@ -327,11 +328,12 @@ class MeshGangExec(ExecutionPlan):
             with self.metrics.timer("device_time_ns"):
                 for buf in per_dev_buf:
                     if buf:
-                        states, key_codes, n_groups, _post = tpu._keyed_reduce(buf, prep)
+                        states, key_codes, n_groups, _post = tpu._keyed_reduce(
+                            buf, prep, tpu._signed_key_slots(key_encoders)
+                        )
                         per_dev.append((states, key_codes, n_groups))
-            merged_states, merged_keys, n_groups = K.merge_keyed_host(
-                tpu.specs, per_dev
-            )
+            merge = K.merge_keyed_host_x32 if tpu._mode == "x32" else K.merge_keyed_host
+            merged_states, merged_keys, n_groups = merge(tpu.specs, per_dev)
         self.metrics.add("mesh_rows_in", n_rows)
         self.metrics.add("mesh_devices", n_dev)
         self.metrics.add("mesh_keyed", 1)
@@ -436,7 +438,6 @@ class MeshRepartitionExec(ExecutionPlan):
     ) -> Iterator[tuple[int, pa.RecordBatch]]:
         """Yield (output_partition, batch) pairs after the mesh exchange."""
         from ..errors import ExecutionError
-        from ..ops.kernels import X32Deferred
         from ..shuffle.execution_plans import partition_indices
         from . import mesh as M
 
@@ -528,8 +529,6 @@ class MeshRepartitionExec(ExecutionPlan):
                             "mesh exchange capacity ceiling exceeded"
                         )
                     self.metrics.add("capacity_growths", 1)
-            except X32Deferred:
-                raise
             except ExecutionError as e:
                 # column didn't cross the bridge (dtype slipped past the
                 # plan-time check): an exchange failure, not a plan failure

@@ -79,7 +79,11 @@ Phases; any failure exits non-zero and prints no result line:
             (``df32_agg``'s scatter form) and the sort route (``seg_scan``'s
             df32 fold), a q1 min/max query against its own CPU run (f64
             extrema bit-exact, ``ord_extremum``) and q1 over 8 partitions as
-            one ``MeshGangExec`` (``mesh_reduce``'s x32 form); then
+            one ``MeshGangExec`` (``mesh_reduce``'s x32 form), and the
+            variance family (``X32_VAR_SQL``: stddev and var_pop square
+            their exact f32 pairs in ``expr_eval``'s ``sqpair_lo`` opcode,
+            B12f, and the stage takes the sort route) against its own CPU
+            run; then
             ``df32_agg`` (both forms), ``ord_extremum``, ``x32_merge``, the
             x32 ops of ``seg_scan``, ``mesh_reduce`` (4 shards) and
             ``expr_eval`` against their twins at the first main-path shape
@@ -110,9 +114,19 @@ Phases; any failure exits non-zero and prints no result line:
             row, pinned keyed) over db-benchmark's G1_1e7_1e2 table
             (``benchmarks/h2o``'s ``gen_groupby``, seed 42), each against
             the CPU operators with its route asserted from the metrics;
+            each again under ``set_precision("x32")`` against the same CPU
+            answer at rel 1e-6 (legs ``x32 q3 keyed``, ``x32 h2o q6`` ...):
+            int32 key codes, the x32 finish and chunk merge, q6's stddev
+            through B12f beside the int32 median, q9's x32 corr (its r²
+            to ``X32_CORR_ATOL`` absolute: the reference's f32 centring
+            keeps r near 0 only to about 1e-8);
 8. window — the per-supplier running revenue / moving average query over
             lineitem's first ``WINDOW_BATCHES`` batches: TorchWindowExec
-            against the CPU WindowExec;
+            against the CPU WindowExec; the star join (phase 6) and the
+            window each again under ``set_precision("x32")`` against the
+            same CPU answer at rel 1e-6 (int32 probe and build keys and
+            an f32 build column; (hi, lo) int32 order keys, f32 arguments,
+            double-float sums, ``window_epilogue``'s int32 pack);
 9. distributed — TPC-H q3 and q1 over the parquet files through
             ``BallistaContext.standalone(device="cuda", num_executors=1,
             concurrent_tasks=4)`` (the port's scheduler, executor, shuffle
@@ -140,18 +154,32 @@ Phases; any failure exits non-zero and prints no result line:
             q3's repartition stages are ``MeshRepartitionExec`` tasks
             (``mesh_exchange_rows`` above 0, ``mesh_route`` launched; a
             writer's fallback past the row ceiling is printed); each equal
-            to the CPU operators' answer of the mesh-off legs;
+            to the CPU operators' answer of the mesh-off legs; then q3
+            once more under ``set_precision("x32")`` (leg ``x32 dist. q3
+            mesh``): its exchanges move 64-bit columns as (lo, hi) int32
+            words (the ``i64pair`` layout), against the same answer at
+            rel 1e-6;
 11. timing — every kernel at the first shape its main path gave it
             (``mesh_route`` at the largest, dist. q3's lineitem exchange): the
             kernel, its twin and, where one PyTorch call computes the same
             function, that call (CUDA events, median of 20 launches),
             beside the least time the card could take (the bytes the call
-            must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s).
+            must move at 3.35 TB/s, or its f64 operations at 34 TFLOP/s);
+            then the x32 forms at the x32 legs' first shapes: B12f in the
+            variance leg's program (kernel, twin and closures bit for bit)
+            and over ``sqpair_edge_grid`` (±0, NaN, ±inf, past 1.8e19,
+            past the Veltkamp split, f32 extremes, subnormals) beside
+            random pairs (bit for bit, NaN as NaN); the int32 forms of
+            ``key_encode``, ``keyed_gids``, ``keyed_median``,
+            ``join_probe`` and ``join_build_table``; the x32
+            ``keyed_finish`` and ``keyed_corr`` (pairs within rel 1e-6);
+            the window's x32 sort, scans, K3 and int32 pack; the i64pair
+            exchange's ``mesh_route``: each entry's ``x32`` shapes.
 
 Launch counts are set to 0 just before each main-path run (q1/q6 three ways
 each, the x32 legs, q3, keyed q3, h2o q6/q9/q10, star join, window,
-distributed q3 and q1, the fusion leg, the mesh legs) and read just after; a kernel of that path that never
-launched fails the run.  ``expr_eval`` launches on every leg whose stage
+distributed q3 and q1, the fusion leg, the mesh legs, each x32 leg) and
+read just after; a kernel of that path that never launched fails the run.  ``expr_eval`` launches on every leg whose stage
 computes a filter or an argument (one a batch or entry); h2o q9 and q10,
 whose programs pass bare columns through, and the window leg launch it
 no time.  ``segment_agg_entries`` is timed at the cold q1
@@ -827,6 +855,14 @@ def _compare_words(TK, cols, got, want, what: str) -> float:
                 worst = max(worst, float(diff.max()))
             if np.any(diff > REL * np.abs(wf[ok])):
                 raise AssertionError(f"{what} column {k}: sum off by {diff.max()}")
+        elif c.op == TK.OP_DF32:  # x32: hi + lo within X32_REL
+            gf = sum(x.double() for x in TK._df32_split(g)).cpu().numpy()
+            wf = sum(x.double() for x in TK._df32_split(w)).cpu().numpy()
+            diff = np.abs(gf - wf)
+            if diff.size:
+                worst = max(worst, float(diff.max()))
+            if np.any(diff > X32_REL * np.abs(wf)):
+                raise AssertionError(f"{what} column {k}: df32 sum off by {diff.max()}")
         elif not torch.equal(g, w):
             raise AssertionError(f"{what} column {k}: words differ")
     return worst
@@ -958,15 +994,15 @@ def _time_pack(WK, captured) -> dict:
     want = WK.window_pack_reference(*args)
     if not torch.equal(got, want):
         raise AssertionError("window_pack differs from the twin")
-    rows, perm, sf, sl, pf, pl = args
+    rows, perm, sf, sl, pf, pl = args[:6]
     n = perm.numel()
     read = _nbytes(perm, sf, sl, pf, pl)
     read += sum(_nbytes(r.x, r.values, r.valid) for r in rows)
-    out = dict(rows=n, packed_rows=len(rows),
+    out = dict(rows=n, packed_rows=len(rows), out_dtype=str(got.dtype),
                ms=_median_ms(lambda: WK.window_pack_cuda(*args)),
                plain_ms=_median_ms(lambda: WK.window_pack_reference(*args), 5),
                library_ms=None, max_abs_err=0.0)
-    out.update(_bound(read + 8 * n * len(rows)))
+    out.update(_bound(read + got.element_size() * n * len(rows)))
     return out
 
 
@@ -1148,9 +1184,10 @@ def _join_build_cols(m: int, seed: int, device):
 def _same_probe(a, b) -> bool:
     import torch
 
+    words = {torch.float64: torch.int64, torch.float32: torch.int32}
     for x, y in zip(a[0] + a[1] + [a[2]], b[0] + b[1] + [b[2]]):
-        if x.dtype == torch.float64:
-            x, y = x.view(torch.int64), y.view(torch.int64)
+        if x.dtype in words:
+            x, y = x.view(words[x.dtype]), y.view(words[y.dtype])
         if not torch.equal(x, y):
             return False
     return True
@@ -1162,7 +1199,7 @@ def _probe_bytes(args, form: dict) -> int:
     columns at most one entry per probe row."""
     pkey, pkey_valid, valid, bvals, bvalids = args
     n = pkey.numel()
-    total = 8 * n + _nbytes(pkey_valid, valid) + n
+    total = pkey.element_size() * n + _nbytes(pkey_valid, valid) + n
     keys = form.get("table", form.get("bkeys"))
     total += min(n, keys.numel()) * keys.element_size()
     for v, bv in zip(bvals, bvalids):
@@ -1195,6 +1232,7 @@ def _time_probe(TK, args, form: dict) -> dict:
 
     out = dict(rows=pkey.numel(), columns=len(bvals),
                form="sorted" if "bkeys" in form else f"dense {form['table'].numel()} slots",
+               key_dtype=str(pkey.dtype), column_dtypes=[str(v.dtype) for v in bvals],
                ms=_median_ms(lambda: TK.join_probe_cuda(*args, **form)),
                plain_ms=_median_ms(lambda: TK.join_probe_twin(*args, **form), 5),
                library_ms=_median_ms(library), max_abs_err=0.0)
@@ -1208,15 +1246,15 @@ def _time_build(TK, bkeys, kmin: int, span: int) -> dict:
     import torch
 
     m = bkeys.numel()
-    slots = bkeys - kmin
+    slots = bkeys.long() - kmin
     rows = torch.arange(1, m + 1, dtype=torch.int32, device=bkeys.device)
-    out = dict(keys=m, slots=span,
+    out = dict(keys=m, slots=span, key_dtype=str(bkeys.dtype),
                ms=_median_ms(lambda: TK.join_build_table_cuda(bkeys, kmin, span)),
                plain_ms=_median_ms(lambda: TK.join_build_table_twin(bkeys, kmin, span), 5),
                library_ms=_median_ms(lambda: torch.zeros(
                    span, dtype=torch.int32, device=bkeys.device).index_put_((slots,), rows)),
                max_abs_err=0.0)
-    out.update(_bound(8 * m + 4 * span))
+    out.update(_bound(bkeys.element_size() * m + 4 * span))
     return out
 
 
@@ -1564,10 +1602,14 @@ def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
 # ------------------------------------------------------------- keyed route
 KEYED_CAPTURES = ("key_encode_cuda", "keyed_sort", "keyed_finish_cuda",
                   "keyed_median_cuda", "keyed_corr_cuda")
+# x32's keyed wrappers: the same encode, sort and median (their int32
+# forms), the x32 finish and corr
+KEYED_CAPTURES_X32 = ("key_encode_cuda", "keyed_sort", "keyed_finish_x32_cuda",
+                      "keyed_median_cuda", "keyed_corr_x32_cuda")
 KEYED_KERNELS = ("key_encode", "radix_sort", "keyed_gids", "seg_scan", "keyed_finish")
 
 
-def _keyed_run(TK, ctx, plan, stages, what: str):
+def _keyed_run(TK, ctx, plan, stages, what: str, captures=KEYED_CAPTURES):
     """One main-path run of a keyed stage: counts zeroed just before, the
     keyed wrappers' first calls captured, the counts and metrics read
     just after."""
@@ -1577,7 +1619,7 @@ def _keyed_run(TK, ctx, plan, stages, what: str):
 
     _reset_counts(TK)
     with contextlib.ExitStack() as stack:
-        caps = {name: stack.enter_context(Capture(TK, name)) for name in KEYED_CAPTURES}
+        caps = {name: stack.enter_context(Capture(TK, name)) for name in captures}
         t0 = time.perf_counter()
         got = ctx.execute(plan)
         torch.cuda.synchronize()
@@ -1590,24 +1632,36 @@ def _keyed_run(TK, ctx, plan, stages, what: str):
     return got, dev_s, launches, metrics, {k: c.args for k, c in caps.items()}
 
 
-def _sorted_close(a, b, what: str) -> None:
+def _sorted_close(a, b, what: str, rel: float = REL, atol: dict = None) -> None:
     """_tables_close after sorting both by every non-float column."""
     import pyarrow as pa
 
     key = [(c, "ascending") for c in a.column_names
            if not pa.types.is_floating(a.schema.field(c).type)]
-    _tables_close(a.sort_by(key), b.sort_by(key), what)
+    _tables_close(a.sort_by(key), b.sort_by(key), what, rel, atol)
 
 
-def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device) -> dict:
+def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device, x32=False) -> dict:
     """TPC-H q3 on the keyed route (``highcard_mode=device``): the identity
     group key encodes on the device, so the reference's rule routes the
     stage keyed at its first batch and keeps the fold; the probe runs once
     per batch inside the keyed prep, and ``Q3_KEYED_BUFFER_MB`` flushes the
     buffer into chunks that merge on the host.  Against the CPU leg of the
-    q3 phase."""
+    q3 phase.  ``x32``: the same under ``set_precision("x32")`` (int32 key
+    codes and probe keys, the x32 finish, x32 chunk merges), at rel 1e-6;
+    the x32 buffer is about half as large, so its chunk count is printed,
+    not held to 2."""
+    if x32:
+        TK.set_precision("x32")
+        try:
+            return q3_keyed_phase(tbt, TK, batches, orders, customer, want, device)
+        finally:
+            TK.set_precision(None)
     from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
     from benchmarks.tpch.queries import QUERIES
+
+    x32 = TK.precision_mode() == "x32"
+    what = "x32 q3 keyed" if x32 else "q3 keyed"
 
     n_rows = sum(b.num_rows for b in batches)
     cfg = dict(SETTINGS, **{"ballista.tpu.highcard_mode": "device",
@@ -1619,27 +1673,29 @@ def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device) -> dict:
     plan = ctx.sql(QUERIES[3]).physical_plan()
     stages = _stage_nodes(plan, TorchStageExec)
     if [s.fused.join is not None for s in stages] != [True]:
-        raise AssertionError(f"q3 keyed: the join did not fold ({[str(s) for s in stages]})")
+        raise AssertionError(f"{what}: the join did not fold ({[str(s) for s in stages]})")
     expect = dict(keyed_path=1, dense_join=1, join_fallback=0, tpu_fallback=0,
                   cpu_fallback=0, highcard_fallback=0,
                   probed=sum(1 for b in batches if b.num_rows))
-    got, dev_s, launches, metrics, caps = _keyed_run(TK, ctx, plan, stages, "q3 keyed")
+    got, dev_s, launches, metrics, caps = _keyed_run(
+        TK, ctx, plan, stages, what, KEYED_CAPTURES_X32 if x32 else KEYED_CAPTURES)
     for k, want_k in expect.items():
         if k != "probed" and metrics.get(k, 0) != want_k:
-            raise AssertionError(f"q3 keyed: {k}={metrics.get(k, 0)}, the reference's rule "
+            raise AssertionError(f"{what}: {k}={metrics.get(k, 0)}, the reference's rule "
                                  f"gives {want_k} ({json.dumps(metrics)})")
     if launches["join_probe"] != expect["probed"] or launches["join_build_table"] != 1:
-        raise AssertionError(f"q3 keyed: launches {json.dumps(launches)} against "
+        raise AssertionError(f"{what}: launches {json.dumps(launches)} against "
                              f"{json.dumps(expect)}")
-    _check_expr_launches(launches, "q3 keyed")
-    if metrics.get("keyed_chunks", 0) < 2 or metrics.get("keyed_merge_time_ns", 0) <= 0:
-        raise AssertionError(f"q3 keyed: the buffer never flushed ({json.dumps(metrics)})")
-    _tables_equal(want, got, "q3 keyed")
+    _check_expr_launches(launches, what)
+    if not x32 and (metrics.get("keyed_chunks", 0) < 2
+                    or metrics.get("keyed_merge_time_ns", 0) <= 0):
+        raise AssertionError(f"{what}: the buffer never flushed ({json.dumps(metrics)})")
+    _tables_equal(want, got, what, rel=X32_REL if x32 else REL)
     breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
         "join_build_time_ns", "keyed_chunks", "keyed_merge_time_ns",
         "device_encode_batches", "input_rows", "output_rows")}
     print(
-        f"q3 keyed: lineitem_rows={n_rows} expected={json.dumps(expect)} "
+        f"{what}: lineitem_rows={n_rows} expected={json.dumps(expect)} "
         f"launches={json.dumps(launches)} cuda_rows_per_s={n_rows / dev_s!r} "
         f"cuda_s={dev_s!r} breakdown={json.dumps(breakdown)}"
     )
@@ -1665,7 +1721,11 @@ def h2o_phase(tbt, TK, batches, device) -> dict:
     ``highcard_mode=device`` pins it.  Every leg must report
     ``keyed_path`` 1, no fallback and device-encoded batches; q6's int32
     keys encode on the device only (``key_encode_time_ns`` 0), q9's string
-    key is host-coded."""
+    key is host-coded.  Each question then runs again under
+    ``set_precision("x32")`` against the same CPU answer at rel 1e-6
+    (legs ``x32 q6`` ...): int32 key codes, the x32 finish, q6's stddev
+    squaring its exact f32 pair in B3 (B12f) beside the int32 median, q9's
+    x32 corr."""
     from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
     from benchmarks.h2o.__main__ import QUESTIONS
 
@@ -1684,40 +1744,66 @@ def h2o_phase(tbt, TK, batches, device) -> dict:
         want = cpu_ctx.execute(plan)
         cpu_s = time.perf_counter() - t0
         del cpu_ctx, plan
-        ctx = session(True)
-        plan = ctx.sql(sqls[q]).physical_plan()
-        stages = _stage_nodes(plan, TorchStageExec)
-        if len(stages) != 1:
-            raise AssertionError(f"h2o {q}: {len(stages)} device stages")
-        got, dev_s, launches, metrics, caps = _keyed_run(TK, ctx, plan, stages, f"h2o {q}")
-        for k, want_k in (("keyed_path", 1), ("tpu_fallback", 0), ("cpu_fallback", 0),
-                          ("highcard_fallback", 0)):
-            if metrics.get(k, 0) != want_k:
-                raise AssertionError(f"h2o {q}: {k}={metrics.get(k, 0)} ({json.dumps(metrics)})")
-        if metrics.get("device_encode_batches", 0) < 1:
-            raise AssertionError(f"h2o {q}: no batch encoded its keys on the device")
-        if q == "q6" and metrics.get("key_encode_time_ns", 0) != 0:
-            raise AssertionError(f"h2o q6: host key encode {metrics['key_encode_time_ns']} ns")
-        need = {"q6": "keyed_median", "q9": "keyed_corr"}.get(q)
-        if need and launches[need] < 1:
-            raise AssertionError(f"h2o {q}: {need} never launched")
-        # q6's stddev squares v3; q9 (corr) and q10 (sums of bare columns)
-        # pass env tensors through
-        _check_expr_launches(launches, f"h2o {q}", computes=q == "q6")
-        t0 = time.perf_counter()
-        _sorted_close(want, got, f"h2o {q}")
-        cmp_s = time.perf_counter() - t0
-        breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
-            "device_encode_batches", "input_rows", "output_rows")}
-        print(
-            f"h2o {q}: rows={H2O_ROWS} groups={got.num_rows} launches={json.dumps(launches)} "
-            f"cuda_rows_per_s={H2O_ROWS / dev_s!r} cpu_rows_per_s={H2O_ROWS / cpu_s!r} "
-            f"cuda_s={dev_s!r} cpu_s={cpu_s!r} compare_s={cmp_s!r} "
-            f"breakdown={json.dumps(breakdown)}"
-        )
-        out[q] = dict(launches=launches, caps=caps)
-        del want, got, ctx, plan, stages
+        for x32 in (False, True):
+            if x32:
+                TK.set_precision("x32")
+            try:
+                out[f"x32 {q}" if x32 else q] = _h2o_leg(
+                    TK, TorchStageExec, session, sqls[q], q, want, cpu_s, x32)
+            finally:
+                TK.set_precision(None)
+        del want
     return out
+
+
+def _h2o_leg(TK, TorchStageExec, session, sql, q, want, cpu_s, x32) -> dict:
+    what = f"x32 h2o {q}" if x32 else f"h2o {q}"
+    ctx = session(True)
+    plan = ctx.sql(sql).physical_plan()
+    stages = _stage_nodes(plan, TorchStageExec)
+    if len(stages) != 1:
+        raise AssertionError(f"{what}: {len(stages)} device stages")
+    got, dev_s, launches, metrics, caps = _keyed_run(
+        TK, ctx, plan, stages, what, KEYED_CAPTURES_X32 if x32 else KEYED_CAPTURES)
+    for k, want_k in (("keyed_path", 1), ("tpu_fallback", 0), ("cpu_fallback", 0),
+                      ("highcard_fallback", 0)):
+        if metrics.get(k, 0) != want_k:
+            raise AssertionError(f"{what}: {k}={metrics.get(k, 0)} ({json.dumps(metrics)})")
+    if metrics.get("device_encode_batches", 0) < 1:
+        raise AssertionError(f"{what}: no batch encoded its keys on the device")
+    if q == "q6" and metrics.get("key_encode_time_ns", 0) != 0:
+        raise AssertionError(f"{what}: host key encode {metrics['key_encode_time_ns']} ns")
+    need = {"q6": "keyed_median", "q9": "keyed_corr"}.get(q)
+    if need and launches[need] < 1:
+        raise AssertionError(f"{what}: {need} never launched")
+    # q6's stddev squares v3 (x32: its square pair); q9 (corr) and q10
+    # (sums of bare columns) pass env tensors through
+    _check_expr_launches(launches, what, computes=q == "q6")
+    t0 = time.perf_counter()
+    # x32's corr is the reference's arithmetic: f32 centring and f32
+    # products, so r² of q9's weakly correlated groups (|r| down to 1e-5)
+    # carries an absolute error near 1e-9 that no relative bar holds
+    atol = X32_CORR_ATOL if x32 and q == "q9" else None
+    _sorted_close(want, got, what, X32_REL if x32 else REL, atol)
+    cmp_s = time.perf_counter() - t0
+    if atol:
+        key = [(c, "ascending") for c in ("id2", "id4")]
+        w = want.sort_by(key).column("r2").to_numpy(zero_copy_only=False)
+        g = got.sort_by(key).column("r2").to_numpy(zero_copy_only=False)
+        ok = ~(np.isnan(w) | np.isnan(g))
+        diff = np.abs(w[ok] - g[ok])
+        print(f"{what}: r2 max_abs_err={float(diff.max(initial=0.0))!r} "
+              f"groups_past_rel_1e-6={int((diff > X32_REL * np.abs(w[ok])).sum())} "
+              f"of {int(ok.sum())}")
+    breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
+        "device_encode_batches", "input_rows", "output_rows")}
+    print(
+        f"{what}: rows={H2O_ROWS} groups={got.num_rows} launches={json.dumps(launches)} "
+        f"cuda_rows_per_s={H2O_ROWS / dev_s!r} cpu_rows_per_s={H2O_ROWS / cpu_s!r} "
+        f"cuda_s={dev_s!r} cpu_s={cpu_s!r} compare_s={cmp_s!r} "
+        f"breakdown={json.dumps(breakdown)}"
+    )
+    return dict(launches=launches, caps=caps)
 
 
 def star_tables():
@@ -1748,9 +1834,9 @@ STAR_SQL = ("select g, sum(v * dv) as s, count(*) as c "
 def star_phase(tbt, TK, device) -> dict:
     """The star join through ``SessionContext`` on the card (the dense
     device join, no fallback, ``join_probe`` once per batch) against the
-    CPU operators."""
-    import torch
-
+    CPU operators; then again under ``set_precision("x32")`` against the
+    same answer at rel 1e-6 (leg ``x32 star``: int32 probe and build keys,
+    the build column as f32, x32's aggregate)."""
     from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
 
     t0 = time.perf_counter()
@@ -1773,12 +1859,27 @@ def star_phase(tbt, TK, device) -> dict:
     want = cpu_ctx.execute(plan)
     cpu_s = time.perf_counter() - t0
     del cpu_ctx, plan
+    out = _star_leg(TK, TorchStageExec, session, want, cpu_s, len(batches), n_rows,
+                    dim.num_rows, False)
+    TK.set_precision("x32")
+    try:
+        out["x32"] = _star_leg(TK, TorchStageExec, session, want, cpu_s, len(batches),
+                               n_rows, dim.num_rows, True)
+    finally:
+        TK.set_precision(None)
+    return out
 
+
+def _star_leg(TK, TorchStageExec, session, want, cpu_s, n_batches, n_rows, dim_rows,
+              x32) -> dict:
+    import torch
+
+    what = "x32 star" if x32 else "star"
     ctx = session(True)
     plan = ctx.sql(STAR_SQL).physical_plan()
     stages = _stage_nodes(plan, TorchStageExec)
     if [s.fused.join is not None for s in stages] != [True]:
-        raise AssertionError(f"star: the join did not fold ({[str(s) for s in stages]})")
+        raise AssertionError(f"{what}: the join did not fold ({[str(s) for s in stages]})")
     _reset_counts(TK)
     with Capture(TK, "join_probe_cuda") as probe, Capture(TK, "join_build_table_cuda") as build:
         t0 = time.perf_counter()
@@ -1790,19 +1891,23 @@ def star_phase(tbt, TK, device) -> dict:
     for k, want_k in (("dense_join", 1), ("join_fallback", 0), ("tpu_fallback", 0),
                       ("cpu_fallback", 0), ("highcard_fallback", 0)):
         if metrics.get(k, 0) != want_k:
-            raise AssertionError(f"star: {k}={metrics.get(k, 0)} ({json.dumps(metrics)})")
-    if launches["join_probe"] != len(batches) or launches["join_build_table"] != 1:
-        raise AssertionError(f"star: launches {json.dumps(launches)}, {len(batches)} batches")
-    if launches["segment_agg"] + launches["seg_scan"] < 1:
-        raise AssertionError("star: the aggregate's kernel never launched")
-    _check_expr_launches(launches, "star")
-    if launches["expr_eval"] != len(batches):
-        raise AssertionError(f"star: expr_eval {launches['expr_eval']}, {len(batches)} batches")
-    _tables_equal(want, got, "star")
+            raise AssertionError(f"{what}: {k}={metrics.get(k, 0)} ({json.dumps(metrics)})")
+    if launches["join_probe"] != n_batches or launches["join_build_table"] != 1:
+        raise AssertionError(f"{what}: launches {json.dumps(launches)}, {n_batches} batches")
+    if x32:
+        _check_x32_launches(launches, "matmul", what)
+        if probe.args[0][0].dtype != torch.int32:
+            raise AssertionError(f"{what}: the probe keys are {probe.args[0][0].dtype}")
+    elif launches["segment_agg"] + launches["seg_scan"] < 1:
+        raise AssertionError(f"{what}: the aggregate's kernel never launched")
+    _check_expr_launches(launches, what)
+    if launches["expr_eval"] != n_batches:
+        raise AssertionError(f"{what}: expr_eval {launches['expr_eval']}, {n_batches} batches")
+    _tables_equal(want, got, what, rel=X32_REL if x32 else REL)
     breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
         "join_build_time_ns", "input_rows", "output_rows")}
     print(
-        f"star: fact_rows={n_rows} dim_rows={dim.num_rows} launches={json.dumps(launches)} "
+        f"{what}: fact_rows={n_rows} dim_rows={dim_rows} launches={json.dumps(launches)} "
         f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
         f"cuda_s={dev_s!r} cpu_s={cpu_s!r} breakdown={json.dumps(breakdown)}"
     )
@@ -1819,10 +1924,11 @@ WINDOW_SQL = """select l_orderkey, l_linenumber,
 from lineitem"""
 
 
-def _tables_close(a, b, what: str) -> None:
+def _tables_close(a, b, what: str, rel: float = REL, atol: dict = None) -> None:
     """Vectorised _tables_equal for large results, row by row in the
     order both legs produce (a window keeps its input order): floats
-    within REL with NaN matching NaN, all else exact."""
+    within ``rel`` (or, for a column in ``atol``, within that absolute
+    bound) with NaN matching NaN, all else exact."""
     import pyarrow as pa
     import pyarrow.compute as pc
 
@@ -1844,7 +1950,10 @@ def _tables_close(a, b, what: str) -> None:
             if not np.array_equal(np.isnan(xn), np.isnan(yn)):
                 raise AssertionError(f"{what}.{name}: NaN positions differ")
             ok = ~np.isnan(xn)
-            bad = ~(np.abs(xn[ok] - yn[ok]) <= REL * np.abs(xn[ok]))
+            diff = np.abs(xn[ok] - yn[ok])
+            bad = ~(diff <= rel * np.abs(xn[ok]))
+            if atol and name in atol:
+                bad &= diff > atol[name]
             if bad.any():
                 i = int(np.argmax(bad))
                 raise AssertionError(f"{what}.{name}: {xn[ok][i]!r} vs {yn[ok][i]!r}")
@@ -1853,11 +1962,10 @@ def _tables_close(a, b, what: str) -> None:
 
 
 def window_phase(tbt, TK, WK, batches, device) -> dict:
-    """The window query: TorchWindowExec against the CPU WindowExec."""
-    import torch
-
-    from arrow_ballista_tpu_torch.ops.window_compiler import TorchWindowExec
-
+    """The window query: TorchWindowExec against the CPU WindowExec; then
+    again under ``set_precision("x32")`` against the same answer at rel
+    1e-6 (leg ``x32``: (hi, lo) int32 order keys, f32 arguments,
+    double-float sums, K4's int32 pack)."""
     n_rows = sum(b.num_rows for b in batches)
 
     def session(enable: bool):
@@ -1871,12 +1979,27 @@ def window_phase(tbt, TK, WK, batches, device) -> dict:
     t0 = time.perf_counter()
     want = cpu_ctx.execute(plan)
     cpu_s = time.perf_counter() - t0
+    del cpu_ctx, plan
+    out = _window_leg(TK, WK, session, want, cpu_s, n_rows, False)
+    TK.set_precision("x32")
+    try:
+        out["x32"] = _window_leg(TK, WK, session, want, cpu_s, n_rows, True)
+    finally:
+        TK.set_precision(None)
+    return out
 
+
+def _window_leg(TK, WK, session, want, cpu_s, n_rows, x32) -> dict:
+    import torch
+
+    from arrow_ballista_tpu_torch.ops.window_compiler import TorchWindowExec
+
+    what = "x32 window" if x32 else "window"
     ctx = session(True)
     plan = ctx.sql(WINDOW_SQL).physical_plan()
     nodes = _stage_nodes(plan, TorchWindowExec)
     if not nodes:
-        raise AssertionError("window: no TorchWindowExec in the plan")
+        raise AssertionError(f"{what}: no TorchWindowExec in the plan")
     _reset_counts(TK)
     with Capture(TK, "radix_argsort_cuda") as sort, \
             Capture(TK, "seg_scan_cuda") as scan, \
@@ -1890,20 +2013,22 @@ def window_phase(tbt, TK, WK, batches, device) -> dict:
     launches = dict(TK.LAUNCHES)
     metrics = _stage_metrics(nodes)
     print(
-        f"window: rows={n_rows} launches={json.dumps(launches)} "
+        f"{what}: rows={n_rows} launches={json.dumps(launches)} "
         f"cuda_rows_per_s={n_rows / dev_s!r} cpu_rows_per_s={n_rows / cpu_s!r} "
         f"cuda_s={dev_s!r} cpu_s={cpu_s!r} "
         f"window_time_ns={metrics.get('window_time_ns', 0)}"
     )
     if metrics.get("tpu_window", 0) < 1 or metrics.get("tpu_fallback", 0):
-        raise AssertionError(f"window: metrics {json.dumps(metrics)}")
+        raise AssertionError(f"{what}: metrics {json.dumps(metrics)}")
     for k in ("radix_sort", "seg_scan", "range_extremum", "window_epilogue"):
         if launches[k] < 1:
-            raise AssertionError(f"window: {k} never launched")
-    _check_expr_launches(launches, "window", computes=False)  # no aggregate prologue
+            raise AssertionError(f"{what}: {k} never launched")
+    if x32 and (pack.args[0][-1] != torch.int32 or sort.args[0][0][-1].dtype != torch.int32):
+        raise AssertionError(f"{what}: the pack or the order keys are not x32's int32")
+    _check_expr_launches(launches, what, computes=False)  # no aggregate prologue
     t0 = time.perf_counter()
-    _tables_close(want, got, "window")
-    print(f"window: equal to the CPU WindowExec, compared in s={time.perf_counter() - t0!r}")
+    _tables_close(want, got, what, X32_REL if x32 else REL)
+    print(f"{what}: equal to the CPU WindowExec, compared in s={time.perf_counter() - t0!r}")
     return dict(launches=launches, sort=sort.args, scan=scan.args, rx=rx.args,
                 flags=flags.args, pack=pack.args)
 
@@ -2138,9 +2263,65 @@ def mesh_dist_phase(tbt, TK, root: str, lineitem_rows: int, dist: dict, device) 
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
             out[q] = dict(launches=launches, reduce=red.args, route=route.args)
+        out["x32 q3"] = _x32_dist_q3(TK, TM, ctx, lineitem_rows, dist)
     finally:
         ctx.close()
     return out
+
+
+def _x32_dist_q3(TK, TM, ctx, lineitem_rows: int, dist: dict) -> dict:
+    """Distributed q3 with the mesh on under ``set_precision("x32")``: its
+    ``MeshRepartitionExec`` stages move their int64, date and f64 columns
+    as exact (lo, hi) int32 words (the ``i64pair`` layout), the join folds
+    with int32 keys; against the mesh-off legs' CPU answer at rel 1e-6."""
+    from benchmarks.tpch.queries import QUERIES
+
+    layouts: list = []
+    plain = TM.BatchExchanger
+
+    class Recording(plain):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            layouts.append([kind for kind, _ in self.layout])
+
+    TM.BatchExchanger = Recording
+    TK.set_precision("x32")
+    _reset_counts(TK)
+    try:
+        with CaptureLargest(TM, "mesh_route_cuda") as route:
+            got, dev_s, metrics = _run_job(ctx, QUERIES[3])
+    finally:
+        TK.set_precision(None)
+        TM.BatchExchanger = plain
+    launches = dict(TK.LAUNCHES)
+    what = "x32 dist. q3 mesh"
+    _tables_equal(dist[3]["want"], got, what, rel=X32_REL)
+    rep = metrics.get("MeshRepartitionExec", {})
+    writer = metrics.get("ShuffleWriterExec", {})
+    stage = metrics.get("TorchStageExec", {})
+    for k in ("cpu_fallback", "highcard_fallback"):
+        if stage.get(k, 0):
+            raise AssertionError(f"{what}: {k}={stage[k]}")
+    if stage.get("tpu_fallback", 0) != stage.get("join_fallback", 0):
+        raise AssertionError(f"{what}: a fallback other than the join bail "
+                             f"({json.dumps(stage)})")
+    if rep.get("mesh_exchange_rows", 0) < 1:
+        raise AssertionError(f"{what}: no exchange ran ({json.dumps(rep)})")
+    if not any("i64pair" in lay for lay in layouts):
+        raise AssertionError(f"{what}: no exchange took the i64pair layout ({layouts})")
+    for k in ("mesh_route", "join_build_table", "expr_eval"):
+        if launches[k] < 1:
+            raise AssertionError(f"{what}: {k} never launched ({json.dumps(launches)})")
+    pairs = sum(lay.count("i64pair") for lay in layouts)
+    print(
+        f"{what}: lineitem_rows={lineitem_rows} launches={json.dumps(launches)} "
+        f"cuda_s={dev_s!r} cpu_s={dist[3]['cpu_s']!r} "
+        f"cuda_rows_per_s={lineitem_rows / dev_s!r} exchangers={len(layouts)} "
+        f"i64pair_fields={pairs} mesh_exchange_rows={rep.get('mesh_exchange_rows', 0)} "
+        f"mesh_exchange_fallback={writer.get('mesh_exchange_fallback', 0)} "
+        f"stage={json.dumps(stage)}"
+    )
+    return dict(launches=launches, route=route.args)
 
 
 FUSION_SETTINGS = {  # the fusion leg's cluster
@@ -2561,12 +2742,23 @@ def _check_expr_launches(launches: dict, what: str, computes: bool = True) -> No
 
 # --------------------------------------------------------------- x32 phase
 X32_REL = 1e-6  # the reference's x32 bar (double-float sums)
+# h2o q9's r² under x32 (f32 centring and products, as the reference's
+# x32 corr_fn): an f32 product rounds at 6e-8 of its size, so a group of
+# 1,000 rows whose r is near 0 keeps r² only to about 1e-8 absolute; the
+# leg prints how far it lands
+X32_CORR_ATOL = {"r2": 1e-7}
 X32_MINMAX_SQL = (
     "select l_returnflag, l_linestatus, min(l_extendedprice) as min_price, "
     "max(l_extendedprice) as max_price, max(l_quantity) as max_qty, "
     "min(l_shipdate) as min_ship, count(*) as count_order from lineitem "
     "where l_shipdate <= date '1998-09-02' group by l_returnflag, l_linestatus "
     "order by l_returnflag, l_linestatus"
+)
+# the variance family's x32 leg (B12f): its own CPU run, the sort route
+X32_VAR_SQL = (
+    "select l_returnflag, l_linestatus, stddev(l_extendedprice) as sd_price, "
+    "var_pop(l_quantity) as vp_qty, avg(l_discount) as avg_disc from lineitem "
+    "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"
 )
 X32_GANG_PARTITIONS = 8
 X32_WIDE_ROWS = 1 << 23
@@ -2723,6 +2915,22 @@ def _x32_legs(tbt, TK, batches, wants: dict, device) -> dict:
     if run_["launches"]["ord_extremum"] < 1:
         raise AssertionError("x32 min/max: ord_extremum never launched")
     out["q1 min/max"] = run_
+    del ctx
+
+    # the variance family: stddev and var_pop square their exact f32 pairs
+    # in B3 (B12f) and the stage takes the sort route; its own CPU run
+    cpu_ctx = session(False, {})
+    t0 = time.perf_counter()
+    want = cpu_ctx.sql(X32_VAR_SQL).collect()
+    print(f"x32 q1 variance: cpu_s={time.perf_counter() - t0!r}")
+    del cpu_ctx
+    ctx = session(True, {})
+    _, _, run_ = leg(ctx, X32_VAR_SQL, "q1 variance", "sort", want,
+                     captures=[("expr_eval_cuda", _keep_expr_call)])
+    program = run_["captured"]["expr_eval_cuda"][0][0]
+    if "sqpair_lo" not in [TK.EXPR_OPS[r[0]] for r in program.code]:
+        raise AssertionError("x32 q1 variance: the program has no square pair")
+    out["q1 variance"] = run_
     del ctx
 
     # q1 over 8 partitions: the partial aggregate as one mesh gang
@@ -3231,7 +3439,7 @@ def _words_close(got, twin, f64_rows=()) -> float:
 
 
 def _time_key_encode(TK, captured) -> dict:
-    (kinds, keys, masks, n, device), _ = captured
+    (kinds, keys, masks, n, device, *code_dtype), _ = captured
     got, twin = TK.key_encode_cuda(*captured[0]), TK.key_encode_reference(*captured[0])
     import torch
 
@@ -3242,10 +3450,12 @@ def _time_key_encode(TK, captured) -> dict:
     plain = _median_ms(lambda: TK.key_encode_reference(*captured[0]), 5)
     dev = [(k, o) for k, o in zip(kinds, keys) if k != "code"]
     read = _nbytes(*masks) + sum(_nbytes(*o) for _k, o in dev)
-    out = dict(rows=n, keys=list(kinds), ms=ms, plain_ms=plain, library_ms=None,
+    width = got[1][0].element_size() if got[1] else 8
+    out = dict(rows=n, keys=list(kinds), code_bytes=width, ms=ms, plain_ms=plain,
+               library_ms=None,
                library="none: coding several key kinds and folding three masks is no "
                        "one PyTorch call", max_abs_err=0.0)
-    out.update(_bound(read + 4 * n + 8 * n * len(dev)))
+    out.update(_bound(read + 4 * n + width * n * len(dev)))
     return out
 
 
@@ -3324,8 +3534,8 @@ def _time_keyed_median(TK, captured) -> dict:
     got, twin = TK.keyed_median_cuda(*args), TK.keyed_median_reference(*args)
     if not torch.equal(got, twin):
         raise AssertionError("keyed_median differs from the twin at a main-path shape")
-    inv, keys, ohi, olo, ovalid, cap = args
-    out = dict(rows=inv.numel(), keys=len(keys), capacity=cap,
+    inv, keys, ohi, olo, ovalid, cap = args[:6]
+    out = dict(rows=inv.numel(), keys=len(keys), capacity=cap, out_dtype=str(got.dtype),
                ms=_median_ms(lambda: TK.keyed_median_cuda(*args)),
                plain_ms=_median_ms(lambda: TK.keyed_median_reference(*args), 5),
                library_ms=None,
@@ -3368,6 +3578,253 @@ def keyed_timing(TK, legs: dict) -> dict:
                 t = fn(TK, caps[cap])
                 out.setdefault(name, {})[leg] = t
                 print(f"timing {name} {leg}: {json.dumps(t)}")
+    return out
+
+
+# the x32 window kernel's specs and inputs (the CPU tests hold the twin to
+# the reference with them, the card tests the kernel to the twin)
+X32_WINDOW_SPECS = (
+    ("row_number",), ("rank",), ("dense_rank",), ("ntile", 3),
+    ("agg", "sum", 0), ("agg", "avg", 2), ("agg", "min", 1), ("agg", "max", 3),
+    ("agg", "count", 0), ("agg", "count", None),
+    ("aggf", "sum", 0, -3, 0), ("aggf", "avg", 2, -2, 1), ("aggf", "min", 1, -5, 0),
+    ("aggf", "max", 3, None, 0), ("aggf", "count", None, -2, 0),
+    ("val", "lag", 1, 2), ("val", "lead", 3, 1), ("val", "first_value", 0, 0),
+    ("val", "last_value", 1, 0),
+)
+
+
+def x32_window_inputs(seed: int, n: int = 3000):
+    """(partition keys, order keys, arguments) of an x32 window signature
+    as the compiler builds them: (hi, lo) int32 key pairs behind the pad
+    flag; f32, f32, an integer's exact (hi, lo) f32 pair, int32 args."""
+    from arrow_ballista_tpu_torch.ops.bridge import split_u64_i32, to_u64_order
+
+    rng = np.random.default_rng(seed)
+    part = rng.integers(0, 20, n).astype(np.int64)
+    order = rng.integers(0, 300, n).astype(np.int64)
+    pkeys = [np.zeros(n, np.int32)] + list(split_u64_i32(to_u64_order(part)))
+    okeys = [np.zeros(n, np.int32)] + list(split_u64_i32(to_u64_order(order)))
+    x = rng.uniform(0.5, 50, n).astype(np.float32)
+    f = rng.uniform(-3, 3, n).astype(np.float32)
+    w = rng.integers(-(2**40), 2**40, n).astype(np.float64)
+    wh = w.astype(np.float32)
+    wl = (w - wh.astype(np.float64)).astype(np.float32)
+    i = rng.integers(-1000, 1000, n).astype(np.int32)
+    valid = [rng.random(n) > 0.1 for _ in range(4)]
+    args = [(x, valid[0]), (f, valid[1]), ((wh, wl), valid[2]), (i, valid[3])]
+    return pkeys, okeys, args
+
+
+def x32_window_float_rows(specs, args) -> dict:
+    """Packed row -> "pair" (the first of a sum's hi, lo words), "f32" (an
+    f32 value) or "ext" (an int32 extremum, masked where its count is 0)."""
+    out, r = {}, 0
+    for s in specs:
+        kind = s[0]
+        if kind in ("row_number", "rank", "dense_rank", "ntile"):
+            r += 1
+        elif kind in ("agg", "aggf") and (s[2] is None or s[1] == "count"):
+            r += 1
+        elif kind == "agg" and s[1] in ("sum", "avg"):
+            out[r] = "pair"
+            r += 3
+        elif kind == "aggf" and s[1] in ("sum", "avg"):
+            out[r] = out[r + 2] = "pair"
+            r += 5
+        elif kind in ("agg", "aggf"):  # min / max
+            out[r] = "f32" if np.asarray(args[s[2]][0]).dtype == np.float32 else "ext"
+            r += 2
+        else:  # val
+            if np.asarray(args[s[2]][0]).dtype == np.float32:
+                out[r] = "f32"
+            r += 2
+    return out
+
+
+# ------------------------------------------------------------ x32 forms
+SQPAIR_RANDOM_ROWS = 1 << 20  # beside the edge grid: random normal pairs
+
+
+def sqpair_edge_grid():
+    """(hi, lo) float32 pairs at B12f's edges: zeros, NaN, infinities, the
+    overflow of hi² past about 1.8e19, the Veltkamp split's past about
+    8.3e34, the f32 extremes, subnormals, each beside a lo of every
+    kind."""
+    his = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.0, -3.0, 1.8e19, 1.84e19,
+                    1.85e19, -1.9e19, 1e20, 8.2e34, 8.4e34, 1.7e38, 3.4028235e38,
+                    -3.4028235e38, 1.17549435e-38, 1e-45, 1e-20, 16777217.0, 123456.789],
+                   np.float32)
+    los = np.array([0.0, -0.0, 1e-3, -2.5e-8, 1e-30, 1e-42, np.nan, np.inf], np.float32)
+    return np.repeat(his, len(los)), np.tile(los, len(his))
+
+
+def sqpair_program(TK):
+    """B3's program of the square pair of one f64 column's exact f32 pair
+    (p: ``square`` of hi, e: ``sqpair_lo`` of hi and lo), as a variance
+    stage lowers it."""
+    import pyarrow as pa
+
+    from arrow_ballista_tpu_torch.exec import expressions as tpe
+
+    comp = TK.TorchExprCompiler(pa.schema([("x", pa.float64())]), "x32")
+    sq = TK.square_pair_closure(comp.pair_column(tpe.Col(0, "x")))
+    return TK.ExprProgram(None, list(sq.halves), [(0, TK.F32), (1, TK.F32)], mode="x32")
+
+
+def sqpair_diff(a, b):
+    """None when two lists of float32 arrays agree bit for bit, NaN
+    matching NaN (the card and the CPU give NaN other payloads), else what
+    differs."""
+    for k, (x, y) in enumerate(zip(a, b)):
+        nan = np.isnan(x)
+        if not np.array_equal(nan, np.isnan(y)):
+            return f"output {k}: NaN positions differ"
+        xs, ys = x[~nan], y[~nan]
+        bad = np.nonzero(xs.view(np.int32) != ys.view(np.int32))[0]
+        if bad.size:
+            return f"output {k}: {bad.size} rows differ, e.g. {xs[bad[:3]]} vs {ys[bad[:3]]}"
+    return None
+
+
+def sqpair_edge_check(TK, device) -> dict:
+    """B12f's opcode against its twin on the card over the edge grid and
+    SQPAIR_RANDOM_ROWS random normal pairs: bit-identical, NaN as NaN."""
+    import torch
+
+    hi, lo = sqpair_edge_grid()
+    rng = np.random.default_rng(31)
+    x = rng.uniform(-1, 1, SQPAIR_RANDOM_ROWS) * 10.0 ** rng.uniform(-6, 9, SQPAIR_RANDOM_ROWS)
+    rh = x.astype(np.float32)
+    hi = np.concatenate([hi, rh])
+    lo = np.concatenate([lo, (x - rh.astype(np.float64)).astype(np.float32)])
+    n = len(hi)
+    program = sqpair_program(TK)
+    env = {"col_0__pair__hi": torch.from_numpy(hi).to(device),
+           "col_0__pair__lo": torch.from_numpy(lo).to(device), "col_0__pair__valid": None}
+    got = TK.expr_eval_cuda(program, env, n, device)[2]
+    twin = TK.expr_program_reference(program, env, n, device)[2]
+    diff = sqpair_diff([g.cpu().numpy() for g in got], [t.cpu().numpy() for t in twin])
+    if diff is not None:
+        raise AssertionError(f"B12f square pair against its twin on the edge grid: {diff}")
+    moved = 4 * n * 4
+    return dict(rows=n, edge_pairs=n - SQPAIR_RANDOM_ROWS, max_abs_err=0.0,
+                ms=_median_ms(lambda: TK.expr_eval_cuda(program, env, n, device)),
+                plain_ms=_median_ms(lambda: TK.expr_program_reference(program, env, n, device)),
+                library_ms=None, **_bound(moved))
+
+
+def _x32_rows_close(TK, got, twin, ops, what: str) -> float:
+    """x32 state rows (then key rows): a double-float pair's hi + lo within
+    X32_REL (NaN matching NaN), every other row bit for bit."""
+    g, t = got.cpu().numpy(), twin.cpu().numpy()
+    if g.shape != t.shape or g.dtype != t.dtype:
+        raise AssertionError(f"{what}: {g.dtype}{g.shape} vs {t.dtype}{t.shape}")
+    worst = 0.0
+    for r in range(g.shape[0]):
+        op = ops[r] if r < len(ops) else None
+        if op == TK.XM_SUM_HI:
+            gs = g[r].view(np.float32).astype(np.float64) + g[r + 1].view(np.float32)
+            ts = t[r].view(np.float32).astype(np.float64) + t[r + 1].view(np.float32)
+            if not np.array_equal(np.isnan(gs), np.isnan(ts)):
+                raise AssertionError(f"{what} row {r}: NaN positions differ")
+            ok = ~np.isnan(ts)
+            diff = np.abs(gs[ok] - ts[ok])
+            if diff.size:
+                worst = max(worst, float(diff.max()))
+            if np.any(diff > X32_REL * np.abs(ts[ok])):
+                raise AssertionError(f"{what} row {r}: off by {diff.max()!r}")
+        elif op != TK.XM_SUM_LO and not np.array_equal(g[r], t[r]):
+            raise AssertionError(f"{what} row {r}: words differ")
+    return worst
+
+
+def _time_keyed_finish_x32(TK, captured) -> dict:
+    """x32's finish (K2's x32 epilogue into the int32 state, the key
+    gather's int32 form) against its twin; the yardstick is one
+    index_add_ of the f32 sum columns by group id."""
+    import torch
+
+    args, _ = captured
+    specs, columns, field_col, ops, perm, gids, ng, cap = args
+    got = TK.keyed_finish_x32_cuda(*args)
+    twin = TK.keyed_finish_x32_reference(*args)
+    err = _x32_rows_close(TK, got, twin, ops, "keyed_finish x32")
+    n = perm.numel()
+    sums = [c for c in columns if c.op == TK.OP_DF32]
+    library = None
+    if sums:
+        gid = gids["gid_in"].long()
+        g = torch.where(gid < cap, gid, torch.full_like(gid, cap))
+        V = torch.stack([c.values if c.valid is None
+                         else torch.where(c.valid, c.values, 0.0) for c in sums], 1)
+        acc = torch.zeros(cap + 1, V.shape[1], dtype=V.dtype, device=V.device)
+        library = _median_ms(lambda: acc.index_add_(0, g, V))
+    read = 8 * n + sum(_nbytes(c.values, c.valid, c.values2) for c in columns)
+    read += 4 * len(gids["sk"]) * ng + 4 * ng
+    out = dict(rows=n, capacity=cap, groups=ng, fields=len(ops),
+               ms=_median_ms(lambda: TK.keyed_finish_x32_cuda(*args)),
+               plain_ms=_median_ms(lambda: TK.keyed_finish_x32_reference(*args), 5),
+               library_ms=library, max_abs_err=err)
+    out.update(_bound(read + _nbytes(got)))
+    return out
+
+
+def _time_keyed_corr_x32(TK, captured) -> dict:
+    args, _ = captured
+    got, twin = TK.keyed_corr_x32_cuda(*args), TK.keyed_corr_x32_reference(*args)
+    err = _x32_rows_close(TK, got, twin, [TK.XM_SUM_HI, TK.XM_SUM_LO] * 3 + [None],
+                          "keyed_corr x32")
+    s2, perm, gid_in, xh, xl, xv, yh, yl, yv, cap = args
+    n = perm.numel()
+    out = dict(rows=n, capacity=cap, ms=_median_ms(lambda: TK.keyed_corr_x32_cuda(*args)),
+               plain_ms=_median_ms(lambda: TK.keyed_corr_x32_reference(*args), 5),
+               library_ms=None,
+               library="none: torch.corrcoef takes one dense matrix, not a "
+                       "correlation per group of sorted rows",
+               max_abs_err=err)
+    out.update(_bound(_nbytes(s2, perm, gid_in, xh, xl, xv, yh, yl, yv) + _nbytes(got)))
+    return out
+
+
+def x32_forms_phase(TK, WK, legs: dict, device) -> dict:
+    """The x32 forms of the keyed, join, window and exchange kernels, and
+    B12f, at the first shape the x32 legs gave each, against their twins,
+    timed beside their bounds: ``{kernel name: {shape: timing}}``."""
+    from arrow_ballista_tpu_torch.parallel import mesh as TM
+
+    t0 = time.perf_counter()
+    out: dict = {}
+
+    def put(name, shape, t):
+        out.setdefault(name, {})[shape] = t
+        print(f"timing {name} x32 {shape}: {json.dumps(t)}")
+
+    (program, env, n, dev), _ = legs["q1 variance"]["captured"]["expr_eval_cuda"]
+    put("expr_eval", "sqpair q1 variance", expr_check(TK, program, env, n, dev,
+                                                      "x32 q1 variance"))
+    put("expr_eval", "sqpair edge grid", sqpair_edge_check(TK, device))
+    for leg in ("x32 h2o q6", "x32 h2o q9", "x32 h2o q10", "x32 q3 keyed"):
+        caps = legs[leg]["caps"]
+        for name, fn, cap in (("key_encode", _time_key_encode, "key_encode_cuda"),
+                              ("keyed_gids", _time_keyed_sort, "keyed_sort"),
+                              ("keyed_finish", _time_keyed_finish_x32, "keyed_finish_x32_cuda"),
+                              ("keyed_median", _time_keyed_median, "keyed_median_cuda"),
+                              ("keyed_corr", _time_keyed_corr_x32, "keyed_corr_x32_cuda")):
+            if caps.get(cap) is not None:
+                put(name, leg[4:], fn(TK, caps[cap]))
+    star = legs["x32 star"]
+    put("join_probe", "star", _checked_probe(TK, star["probe"]))
+    put("join_build_table", "star", _checked_build(TK, *star["build"][0]))
+    win = legs["x32 window"]
+    put("radix_sort", "window", _checked_sort(TK, win["sort"]))
+    put("seg_scan", "window", _checked_scan(TK, win["scan"]))
+    put("range_extremum", "window", _checked_extremum(WK, win["rx"]))
+    put("window_epilogue", "window pack", _time_pack(WK, win["pack"]))
+    put("window_epilogue", "window flags", _time_flags(WK, win["flags"]))
+    put("mesh_route", "dist. q3 mesh (its largest call)",
+        _time_route(TM, *legs["x32 dist. q3 mesh"]["route"][0]))
+    print(f"x32 forms phase: ok s={time.perf_counter() - t0!r}")
     return out
 
 
@@ -3519,12 +3976,15 @@ def run(opts, device) -> list:
         del rows, state0
     x32_legs = x32_phase(tbt, TK, batches, wants, device)
     x32_times = x32_kernel_phase(TK, device, x32_legs)
-    for leg_ in x32_legs.values():
-        leg_.pop("captured")
+    for name, leg_ in x32_legs.items():
+        if name != "q1 variance":  # its program is checked with the x32 forms
+            leg_.pop("captured")
     del wants
     q3 = q3_phase(tbt, TK, batches, orders, customer, device)
-    q3k = q3_keyed_phase(tbt, TK, batches, orders, customer, q3.pop("want"), device)
-    del orders, customer
+    q3_want = q3.pop("want")
+    q3k = q3_keyed_phase(tbt, TK, batches, orders, customer, q3_want, device)
+    q3k32 = q3_keyed_phase(tbt, TK, batches, orders, customer, q3_want, device, x32=True)
+    del orders, customer, q3_want
     g1 = h2o_batches()
     h2o = h2o_phase(tbt, TK, g1, device)
     star = star_phase(tbt, TK, device)
@@ -3538,9 +3998,9 @@ def run(opts, device) -> list:
     with tempfile.TemporaryDirectory(prefix="g1-parquet-") as g1_root:
         fusion = fusion_phase(tbt, TK, g1, g1_root, device)
     del g1
-    runs = [*queries[1].values(), *queries[6].values(), q3, q3k, *h2o.values(), star,
-            window, dist[3], dist[1], fusion, mesh_dist[1], mesh_dist[3],
-            *x32_legs.values()]
+    runs = [*queries[1].values(), *queries[6].values(), q3, q3k, q3k32, *h2o.values(), star,
+            star["x32"], window, window["x32"], dist[3], dist[1], fusion, mesh_dist[1],
+            mesh_dist[3], mesh_dist["x32 q3"], *x32_legs.values()]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
@@ -3564,6 +4024,11 @@ def run(opts, device) -> list:
     (red_specs, red_states), _ = mesh_dist[1]["reduce"]
     reduce_shape = _time_reduce(TM, red_specs, red_states)
     route_shape = _time_route(TM, *mesh_dist[3]["route"][0])
+    forms = x32_forms_phase(TK, WK, {
+        "q1 variance": x32_legs["q1 variance"], "x32 h2o q6": h2o["x32 q6"],
+        "x32 h2o q9": h2o["x32 q9"], "x32 h2o q10": h2o["x32 q10"], "x32 q3 keyed": q3k32,
+        "x32 star": star["x32"], "x32 window": window["x32"],
+        "x32 dist. q3 mesh": mesh_dist["x32 q3"]}, device)
     del red_states, mesh_dist
     for name, t in [*shapes.items(), *(("radix_sort " + k, v) for k, v in sort_shapes.items()),
                     *(("seg_scan " + k, v) for k, v in scan_shapes.items()),
@@ -3630,11 +4095,15 @@ def run(opts, device) -> list:
         entries.append(_entry(name, shapes_x[head], launches[name],
                               max(t["max_abs_err"] for t in shapes_x.values()),
                               shapes=shapes_x))
-    # the x32 ops of B3, K2 and the mesh reduce beside their x64 entries
+    # the x32 ops of B3, K2 and the mesh reduce, and every kernel's x32 form
+    # (B12f's square pair in B3, the int32 keyed, join and window forms,
+    # x32 corr and finish, the i64pair exchange) beside their x64 entries
     for e in entries:
-        if e["name"] in ("expr_eval", "seg_scan", "mesh_reduce"):
-            e["x32"] = x32_times[e["name"]]
-
+        x32 = dict(x32_times[e["name"]]) if e["name"] in (
+            "expr_eval", "seg_scan", "mesh_reduce") else {}
+        x32.update(forms.get(e["name"], {}))
+        if x32:
+            e["x32"] = x32
     return entries
 
 

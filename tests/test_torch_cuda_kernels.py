@@ -625,8 +625,8 @@ def test_join_probe_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="build columns of"):  # rows != build keys
         TK.join_probe_cuda(pkey, pkey_valid, valid, [v[:50] for v in bvals],
                            [None] * 3, bkeys=bkeys)
-    with pytest.raises(ValueError, match="bkeys"):
-        TK.join_build_table_cuda(bkeys.int(), 0, 1 << 10)
+    with pytest.raises(ValueError, match="bkeys"):  # int64 or x32's int32 keys only
+        TK.join_build_table_cuda(bkeys.to(torch.int16), 0, 1 << 10)
     with pytest.raises(ValueError, match="slots"):
         TK.join_build_table_cuda(bkeys, int(bkeys[0]), 0)
 
@@ -1351,3 +1351,192 @@ def test_tpch_x32_on_cuda_matches_cpu_operators(cuda, x32, q, algo):
                 assert y == pytest.approx(x, rel=X32_REL), name
             else:
                 assert x == y, name
+
+
+# ------------------------------------------------- x32's forms (A7b, B12f)
+def test_sqpair_opcode_matches_twin_on_the_edge_grid(cuda):
+    """B12f's square-pair opcode in B3: bit-identical to its twin over the
+    edge grid and random normal pairs (NaN as NaN), two runs identical."""
+    SMOKE.sqpair_edge_check(TK, cuda)
+    program = SMOKE.sqpair_program(TK)
+    hi, lo = SMOKE.sqpair_edge_grid()
+    env = {"col_0__pair__hi": torch.from_numpy(hi).to(cuda),
+           "col_0__pair__lo": torch.from_numpy(lo).to(cuda),
+           "col_0__pair__valid": torch.from_numpy(np.arange(len(hi)) % 3 > 0).to(cuda)}
+    runs = [TK.expr_eval_cuda(program, env, len(hi), cuda) for _ in range(2)]
+    assert SMOKE.expr_diff(runs[0], runs[1]) is None
+    twin = TK.expr_program_reference(program, env, len(hi), cuda)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][3], twin[3]))
+
+
+def _x32_keyed_inputs(n, seed, device):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    inv = t((rng.random(n) < 0.2).astype(np.int32))
+    keys = [t(rng.integers(-(2**31) + 1, 2**31 - 1, n).astype(np.int32) % 997),
+            t(rng.integers(0, 3, n).astype(np.int32))]
+    return rng, t, inv, keys
+
+
+@pytest.mark.parametrize("n", [1, 5000, 300_001])
+def test_key_encode_int32_form_matches_twin(cuda, n):
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    keys = ((t(rng.integers(-(2**31) + 1, 2**31 - 1, n).astype(np.int32)),
+             t(rng.random(n) > 0.1)), (t(rng.random(n) > 0.5), None),
+            (t(rng.normal(0, 9, n).astype(np.float32)), t(rng.random(n) > 0.2)),
+            (t(rng.integers(0, 2**31 - 1, n).astype(np.int32)),))
+    args = (("ident", "bool", "f32", "code"), keys, (t(rng.random(n) > 0.3), None, None),
+            n, cuda, torch.int32)
+    got, twin = TK.key_encode_cuda(*args), TK.key_encode_reference(*args)
+    assert torch.equal(got[0], twin[0])
+    assert all(a.dtype == torch.int32 and torch.equal(a, b) for a, b in zip(got[1], twin[1]))
+
+
+@pytest.mark.parametrize("n", [5000, 300_001])
+def test_keyed_median_and_gather_int32_forms_match_twin(cuda, n):
+    rng, t, inv, keys = _x32_keyed_inputs(n, n, cuda)
+    vals = rng.normal(0, 5, n)
+    from arrow_ballista_tpu_torch.ops.bridge import split_u64_i32, to_u64_order
+
+    ohi, olo = (t(a) for a in split_u64_i32(to_u64_order(vals)))
+    ovalid = t(rng.random(n) > 0.1)
+    got = TK.keyed_median_cuda(inv, keys, ohi, olo, ovalid, 1024, torch.int32)
+    twin = TK.keyed_median_reference(inv, keys, ohi, olo, ovalid, 1024, torch.int32)
+    assert got.dtype == torch.int32 and torch.equal(got, twin)
+    perm, gids, ng = TK.keyed_sort(inv, keys)
+    out = torch.zeros((2, 4096), dtype=torch.int32, device=cuda)
+    want = out.clone().cpu()
+    TK.keyed_keys_cuda(gids["sk"], gids["starts"], ng, out)
+    TK.keyed_keys_reference([k.cpu() for k in gids["sk"]], gids["starts"].cpu(), ng, want)
+    assert torch.equal(out.cpu(), want)
+
+
+def test_keyed_finish_x32_matches_twin(cuda):
+    """The x32 finish: K2's x32 epilogue into int32 state rows and the key
+    gather's int32 form, against the twins (pair sums within rel 1e-6,
+    the rest bit for bit)."""
+    n = 300_001
+    rng, t, inv, keys = _x32_keyed_inputs(n, 3, cuda)
+    v = torch.from_numpy(rng.uniform(-50, 50, n).astype(np.float32)).to(cuda)
+    ok = torch.from_numpy(rng.random(n) > 0.1).to(cuda)
+    KS = TK.KernelAggSpec
+    specs = [KS("count_star", False), KS("sum", True), KS("max", True)]
+    columns = [TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=v, valid=ok),
+               TK.ScanColumn(TK.SS_COUNT, TK.OP_ADD_I64),
+               TK.ScanColumn(TK.SS_COUNT, TK.OP_ADD_I64, valid=ok),
+               TK.ScanColumn(TK.SS_VALUES, TK.OP_MAX_F64, values=v, valid=ok)]
+    ops = TK.x32_merge_ops(specs)
+    field_col = [1, 0, 0, 2, 3, 2, 1]
+    perm, gids, ng = TK.keyed_sort(inv, keys)
+    cap = 1 << (ng - 1).bit_length()
+    args = (specs, columns, field_col, ops, perm, gids, ng, cap)
+    got = TK.keyed_finish_x32_cuda(*args)
+    twin = TK.keyed_finish_x32_reference(*args)
+    assert got.dtype == torch.int32
+    SMOKE._x32_rows_close(TK, got, twin, ops, "keyed_finish x32")
+
+
+def test_keyed_corr_x32_matches_twin(cuda):
+    n = 300_001
+    rng, t, inv, keys = _x32_keyed_inputs(n, 9, cuda)
+    perm, gids, ng = TK.keyed_sort(inv, keys)
+    x = rng.normal(1e3, 7.0, n)
+    y = 0.3 * x + rng.normal(0, 2.0, n)
+    x[::31] = np.nan
+    xh, yh = x.astype(np.float32), y.astype(np.float32)
+    xl = (x - xh.astype(np.float64)).astype(np.float32)
+    yl = (y - yh.astype(np.float64)).astype(np.float32)
+    args = (gids["s2"], perm, gids["gid_in"], t(xh), t(xl), t(rng.random(n) > 0.05),
+            t(yh), t(yl), None, 1 << (ng - 1).bit_length())
+    got, twin = TK.keyed_corr_x32_cuda(*args), TK.keyed_corr_x32_reference(*args)
+    assert got.dtype == torch.int32 and got.shape[0] == 7
+    SMOKE._x32_rows_close(TK, got, twin, [TK.XM_SUM_HI, TK.XM_SUM_LO] * 3 + [None],
+                          "keyed_corr x32")
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_join_probe_int32_form_matches_twin(cuda, dense):
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    bk = np.unique(rng.integers(-50_000, 50_000, 20_000)).astype(np.int32)
+    pk = t(rng.integers(-60_000, 60_000, 300_001).astype(np.int32))
+    bvals = [t(rng.normal(0, 1, len(bk)).astype(np.float32)),
+             t(rng.integers(-9, 9, len(bk)).astype(np.int32)), t(rng.random(len(bk)) > 0.5)]
+    bvalids = [t(rng.random(len(bk)) > 0.1), None, None]
+    bkeys = t(bk)
+    if dense:
+        kmin = int(bk[0])
+        table = TK.join_build_table_cuda(bkeys, kmin, 1 << 17)
+        assert torch.equal(table, TK.join_build_table_twin(bkeys, kmin, 1 << 17))
+        form = dict(table=table, kmin=kmin)
+    else:
+        form = dict(bkeys=bkeys)
+    args = (pk, t(rng.random(300_001) > 0.05), None, bvals, bvalids)
+    assert SMOKE._same_probe(TK.join_probe_cuda(*args, **form), TK.join_probe_twin(*args, **form))
+
+
+def test_window_x32_forms_match_twin(cuda):
+    """K4's int32 pack and K3 over f32/int32 arguments inside the x32
+    window kernel, against the whole kernel's twin on the CPU (sums within
+    rel 1e-6, all else bit for bit)."""
+    from arrow_ballista_tpu_torch.ops import window_kernel as TW
+
+    specs = SMOKE.X32_WINDOW_SPECS
+    pkeys, okeys, args = SMOKE.x32_window_inputs(2, n=200_001)
+    fn = TW.make_window_kernel(specs, len(pkeys), len(okeys), len(args), "x32")
+
+    def run(dev):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        targs = [((t(v[0]), t(v[1])) if isinstance(v, tuple) else t(v), t(m)) for v, m in args]
+        return fn([t(k) for k in pkeys], [t(k) for k in okeys], targs).cpu().numpy()
+
+    got, twin = run(cuda), run(torch.device("cpu"))
+    assert got.dtype == np.int32
+    floats = SMOKE.x32_window_float_rows(specs, args)
+    for r in range(got.shape[0]):
+        if floats.get(r) == "pair":
+            g = got[r].view(np.float32).astype(np.float64) + got[r + 1].view(np.float32)
+            w = twin[r].view(np.float32).astype(np.float64) + twin[r + 1].view(np.float32)
+            np.testing.assert_allclose(g, w, rtol=X32_REL, atol=1e-3)
+        elif floats.get(r - 1) != "pair":
+            assert np.array_equal(got[r], twin[r]), r
+
+
+@pytest.mark.parametrize("sql", [
+    "select k, median(v) as md, stddev(v) as sd, var_pop(v) as vp, count(distinct w) as cd "
+    "from t group by k",
+    "select k, corr(v, y) as r from t group by k",
+    "select k, sum(v) as s, min(x) as mn, max(w) as mx from t group by k",
+])
+def test_x32_routes_on_cuda_match_cpu_operators(cuda, x32, sql):
+    """The keyed route's statistical aggregates and B12f in x32 on the card
+    (100 groups of about 500 rows) against the CPU operators at rel 1e-6."""
+    rng = np.random.default_rng(3)
+    n = 50_000
+    t = pa.table({"k": pa.array(rng.integers(0, 100, n)),
+                  "v": pa.array(rng.uniform(0, 100, n), mask=rng.random(n) < 0.05),
+                  "x": pa.array(rng.normal(10, 3, n)),
+                  "w": pa.array(rng.integers(-1000, 1000, n))})
+    # corr over correlated columns, as tests/test_device_median.py's x32
+    # case: x32's f32 centring keeps r only to about 1e-7 absolute, which
+    # no relative bar holds for r near 0 (the smoke's h2o q9 leg bounds
+    # that case absolutely)
+    v = t.column("v").to_numpy(zero_copy_only=False)
+    t = t.append_column("y", pa.array(3.0 * np.nan_to_num(v) + rng.normal(0, 25, n)))
+    outs = []
+    for enable in ("false", "true"):
+        ctx = tbt.SessionContext(tbt.BallistaConfig({
+            "ballista.tpu.enable": enable, "ballista.tpu.min_rows": "0",
+            "ballista.mesh.enable": "false", "ballista.tpu.highcard_mode": "device"}),
+            device=cuda)
+        ctx.register_arrow_table("t", t)
+        outs.append(ctx.sql(sql).collect().sort_by([("k", "ascending")]))
+    want, got = outs
+    assert want.num_rows == got.num_rows
+    for name in want.column_names:
+        for a, b in zip(want.column(name).to_pylist(), got.column(name).to_pylist()):
+            if isinstance(a, float):
+                assert b == pytest.approx(a, rel=X32_REL), name
+            else:
+                assert a == b, name

@@ -17,9 +17,11 @@ against the reference's x32 functions on the same seeded inputs:
   ``make_partial_agg_kernel`` under x32 on every route (its states through
   ``states_from_numpy``); B3's f32/i32 programs against
   ``JaxExprCompiler`` in x32 over the opcode grid;
-* each x32 route that waits for ROADMAP A7b raises where the reference
-  would take it; an x32 range error re-runs on the CPU operators while
-  any other device error raises; a cache entry never crosses modes.
+* the statistical aggregates, the keyed route, a window, the join fold
+  and the exchange's int64 pairs answer in x32 as the reference does
+  (``test_torch_x32_routes.x32_three``); an x32 range error re-runs on
+  the CPU operators while any other device error raises; a cache entry
+  never crosses modes.
 """
 
 import jax
@@ -526,7 +528,7 @@ def test_expr_program_x32_matches_jax_compiler(name):
         np.testing.assert_array_equal(got, want)
 
 
-# ------------------------------------------------- exits, deferred routes
+# ------------------------------------------------ exits, the other routes
 def _session(**extra):
     return tbt.SessionContext(tbt.BallistaConfig(settings(True, **extra)), device="cpu")
 
@@ -545,51 +547,90 @@ def _stats_table(n=4000, seed=17):
     "select k, stddev(x) from t group by k",
     "select k, var_pop(x) from t group by k",
 ])
-def test_x32_statistical_aggregates_raise_at_plan_time(sql):
-    ctx = _session(**{"ballista.mesh.enable": "false"})
-    ctx.register_arrow_table("t", _stats_table(), partitions=1)
-    with pytest.raises(TK.X32Deferred, match="A7b"):
-        ctx.sql(sql).collect()
+def test_x32_statistical_aggregates_match_reference(sql):
+    """Median, count distinct, corr and the variance family in x32: the
+    port answers as the reference does, on the same route."""
+    from test_torch_x32_routes import x32_three
+
+    pm, _jm, _ = x32_three(sql, {"t": _stats_table()})
+    assert pm.get("tpu_fallback", 0) == 0 and pm.get("device_time_ns", 0) > 0, pm
 
 
-def test_x32_keyed_route_raises_at_run_time(monkeypatch):
-    """Groups ~ rows under highcard_mode=device: the stage would switch to
-    the keyed route on its first batch, which x32 does not have yet."""
+def test_x32_keyed_route_matches_reference(monkeypatch):
+    """Groups ~ rows under highcard_mode=device: the stage switches to the
+    keyed route on its first batch, in x32 as in x64."""
+    import arrow_ballista_tpu.ops.stage_compiler as JSC
     import arrow_ballista_tpu_torch.ops.stage_compiler as SC
+    from test_torch_x32_routes import x32_three
 
     monkeypatch.setattr(SC, "HIGHCARD_MIN_GROUPS", 16)
+    monkeypatch.setattr(JSC, "_HIGHCARD_MIN_GROUPS", 16)
     n = 4000
     t = pa.table({"k": pa.array(np.arange(n) * 7), "v": pa.array(np.ones(n))})
-    ctx = _session(**{"ballista.tpu.highcard_mode": "device", "ballista.mesh.enable": "false"})
-    ctx.register_arrow_table("t", t, partitions=1)
-    plan = ctx.sql("select k, sum(v) from t group by k").physical_plan()
-    with pytest.raises(TK.X32Deferred, match="keyed route"):
-        ctx.execute(plan)
+    pm, jm, _ = x32_three("select k, sum(v) from t group by k", {"t": t},
+                          **{"ballista.tpu.highcard_mode": "device"})
+    assert pm.get("keyed_path", 0) >= 1 and jm.get("keyed_path", 0) >= 1, (pm, jm)
 
 
-def test_x32_window_raises_at_plan_time():
-    ctx = _session()
-    ctx.register_arrow_table("t", _stats_table(), partitions=1)
-    with pytest.raises(TK.X32Deferred, match="window"):
-        ctx.sql("select k, sum(x) over (partition by k order by y) as s from t").collect()
+def test_x32_window_matches_reference():
+    from arrow_ballista_tpu.ops.window_compiler import TpuWindowExec
+    from arrow_ballista_tpu_torch.ops.window_compiler import TorchWindowExec
+    from test_torch_x32_routes import assert_x32_equal, stages
+
+    import arrow_ballista_tpu as jbt
+
+    sql = "select k, sum(x) over (partition by k order by y) as s from t"
+    outs = []
+    for mod, cls, tpu in ((tbt, TorchWindowExec, True), (jbt, TpuWindowExec, True),
+                          (jbt, None, False)):
+        cfg = mod.BallistaConfig(settings(tpu))
+        ctx = (mod.SessionContext(cfg, device="cpu") if mod is tbt
+               else mod.SessionContext(cfg))
+        ctx.register_arrow_table("t", _stats_table(), partitions=1)
+        plan = ctx.sql(sql).physical_plan()
+        outs.append((ctx.execute(plan), stages(plan, cls) if cls else []))
+    (got, tn), (jgot, jn), (want, _) = outs
+    assert tn and jn and all(n._mode == "x32" for n in tn)
+    assert_x32_equal(want, got, "port")
+    assert_x32_equal(want, jgot, "JAX")
 
 
-def test_x32_join_fold_raises_at_plan_time():
-    ctx = _session(**{"ballista.mesh.enable": "false"})
-    for name in ("lineitem", "orders", "customer"):
-        ctx.register_arrow_table(name, tpch(name), partitions=1)
+def test_x32_join_fold_matches_reference():
     from benchmarks.tpch.queries import QUERIES
+    from test_torch_x32_routes import x32_three
 
-    with pytest.raises(TK.X32Deferred, match="join fold"):
-        ctx.sql(QUERIES[3]).collect()
+    pm, _jm, _ = x32_three(QUERIES[3], {n: tpch(n) for n in ("lineitem", "orders",
+                                                              "customer")})
+    assert pm.get("join_fallback", 0) == 0 and pm.get("tpu_fallback", 0) == 0, pm
 
 
-def test_x32_exchange_int64_pair_layout_raises():
-    mesh = TM.make_mesh(2, "cpu")
-    TM.BatchExchanger(mesh, pa.schema([("s", pa.string()), ("i", pa.int32())]), 8)
-    for t in (pa.int64(), pa.float64(), pa.timestamp("us")):
-        with pytest.raises(TK.X32Deferred, match="int64 pair"):
-            TM.BatchExchanger(mesh, pa.schema([("v", t)]), 8)
+def test_x32_exchange_int64_pair_layout_matches_reference():
+    """The exchange's layouts in x32: strings as dictionary codes, int32 as
+    itself, int64, f64 and timestamps as (lo, hi) int32 words; each
+    schema's exchanged batches equal to the reference's."""
+    for schema, cols in (
+        (pa.schema([("s", pa.string()), ("i", pa.int32())]),
+         [pa.array(["a", None, "b", "a"] * 4), pa.array(np.arange(16, dtype=np.int32))]),
+        (pa.schema([("v", pa.int64())]),
+         [pa.array(np.arange(16, dtype=np.int64) * (1 << 40) - (1 << 43))]),
+        (pa.schema([("v", pa.float64())]), [pa.array(np.linspace(-1e300, 1e300, 16))]),
+        (pa.schema([("v", pa.timestamp("us"))]),
+         [pa.array((np.arange(16) * 10**15).astype("datetime64[us]"))]),
+    ):
+        batch = pa.RecordBatch.from_arrays(cols, schema=schema)
+        dest = (np.arange(16) % 2).astype(np.int32)
+        outs = []
+        for M, mesh in ((JM, JM.make_mesh(2)), (TM, TM.make_mesh(2, "cpu"))):
+            ex = M.BatchExchanger(mesh, schema, 8)
+            recv, rv, dropped = ex.exchange(dest, np.ones(16, bool), ex.to_columns(batch))
+            assert dropped == 0
+            outs.append(([k for k, _ in ex.layout], ex.to_batches(recv, rv)))
+        (jl, jb), (tl, tb) = outs
+        assert jl == tl
+        assert all(a.equals(b) for a, b in zip(jb, tb))
+        assert pa.Table.from_batches(tb).sort_by(
+            [(schema.names[-1], "ascending")]).equals(
+            pa.Table.from_batches([batch]).sort_by([(schema.names[-1], "ascending")]))
 
 
 def test_x32_range_error_reruns_and_other_device_errors_raise(monkeypatch):
