@@ -19,6 +19,7 @@
 #include "expr_eval.h"
 #include "join_probe.h"
 #include "keyed.h"
+#include "keyed_fold.h"
 #include "mesh_reduce.h"
 #include "mesh_route.h"
 #include "ord_extremum.h"
@@ -484,6 +485,107 @@ void key_encode_(int64_t n, const std::vector<at::Tensor>& masks, at::Tensor inv
   launched(key_encode_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
+// The sort operands of every pending batch of a keyed stage in one
+// launch: inv and either the folded word (comb) or one code column a key
+// (outs).  Per entry: its row masks (three; empty = none) and per key its
+// values (or host codes) and validity (empty = all valid).  code_bytes is
+// the stage's code width (8, or x32's 4): the fold rebases the words K1
+// would sort unfolded.
+void keyed_encode_entries_(at::Tensor inv, at::Tensor comb, const std::vector<at::Tensor>& outs,
+                           int64_t code_bytes, const std::vector<int64_t>& kinds,
+                           const std::vector<int64_t>& in_types,
+                           const std::vector<int64_t>& fold_min,
+                           const std::vector<int64_t>& fold_shift,
+                           const std::vector<std::vector<at::Tensor>>& masks,
+                           const std::vector<std::vector<at::Tensor>>& values,
+                           const std::vector<std::vector<at::Tensor>>& valids) {
+  const at::Device dev = inv.device();
+  c10::cuda::CUDAGuard guard(dev);
+  const size_t n_entries = masks.size();
+  TORCH_CHECK(n_entries >= 1 && n_entries <= (size_t)kFoldMaxEntries &&
+                  values.size() == n_entries && valids.size() == n_entries,
+              "keyed_encode_entries: 1 to ", kFoldMaxEntries, " entries");
+  const int n_keys = (int)kinds.size();
+  TORCH_CHECK(n_keys >= 1 && n_keys <= kKeyedMaxKeys, "keyed_encode_entries: keys");
+  const bool fold = comb.numel() > 0;
+  TORCH_CHECK(fold ? fold_min.size() == (size_t)n_keys && fold_shift.size() == (size_t)n_keys
+                   : outs.size() == (size_t)n_keys,
+              "keyed_encode_entries: a fold plan or one output a key");
+  TORCH_CHECK(code_bytes == 4 || code_bytes == 8, "keyed_encode_entries: code width");
+  for (const at::Tensor& o : outs) {
+    TORCH_CHECK(o.element_size() == code_bytes, "keyed_encode_entries: output width");
+  }
+  std::vector<KeyedEntry> table(n_entries);
+  long long offset = 0;
+  for (size_t e = 0; e < n_entries; ++e) {
+    KeyedEntry& en = table[e];
+    en = KeyedEntry{};
+    TORCH_CHECK(masks[e].size() == 3 && values[e].size() == (size_t)n_keys &&
+                    valids[e].size() == (size_t)n_keys,
+                "keyed_encode_entries: entry ", e);
+    en.offset = offset;
+    en.n = values[e][0].size(0);
+    for (int j = 0; j < 3; ++j) en.masks[j] = opt<const uint8_t>(masks[e][j]);
+    for (int k = 0; k < n_keys; ++k) {
+      en.values[k] = values[e][k].data_ptr();
+      en.valid[k] = opt<const uint8_t>(valids[e][k]);
+      en.in_type[k] = (int8_t)in_types[e * n_keys + k];
+    }
+    offset += en.n;
+  }
+  TORCH_CHECK(offset == inv.size(0), "keyed_encode_entries: ", offset, " rows for inv of ",
+              inv.size(0));
+  at::Tensor d_table = at::from_blob(table.data(),
+                                     {(int64_t)(n_entries * sizeof(KeyedEntry))},
+                                     at::TensorOptions().dtype(at::kByte))
+                           .to(dev);  // a blocking copy: `table` may go after it
+  KeyedEncodeEntriesParams p{};
+  p.total = offset;
+  p.n_entries = (int)n_entries;
+  p.entries = reinterpret_cast<const KeyedEntry*>(d_table.data_ptr());
+  p.n_keys = n_keys;
+  p.inv = inv.data_ptr<int32_t>();
+  p.fold = fold ? 1 : 0;
+  p.comb = opt<int32_t>(comb);
+  p.out_bytes = (int)code_bytes;
+  for (int k = 0; k < n_keys; ++k) {
+    p.kind[k] = (int8_t)kinds[k];
+    if (fold) {
+      p.fold_min[k] = fold_min[k];
+      p.fold_shift[k] = (int)fold_shift[k];
+    } else {
+      p.out[k] = outs[k].data_ptr();
+    }
+  }
+  launched(keyed_encode_entries_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+// Each group's key codes from the folded word of its first sorted row.
+void keyed_unfold_(const at::Tensor& sk, const at::Tensor& starts, int64_t n_groups,
+                   const std::vector<int64_t>& fold_min,
+                   const std::vector<int64_t>& fold_shift,
+                   const std::vector<int64_t>& fold_width, at::Tensor out) {
+  c10::cuda::CUDAGuard guard(out.device());
+  const int n_keys = (int)fold_min.size();
+  TORCH_CHECK(n_keys <= kKeyedMaxKeys && fold_shift.size() == (size_t)n_keys &&
+                  fold_width.size() == (size_t)n_keys && out.size(0) == n_keys,
+              "keyed_unfold: one plan entry a key row");
+  KeyedUnfoldParams p{};
+  p.capacity = out.size(1);
+  p.n_groups = n_groups;
+  p.sk = sk.data_ptr<int32_t>();
+  p.starts = starts.data_ptr<int32_t>();
+  p.n_keys = n_keys;
+  for (int k = 0; k < n_keys; ++k) {
+    p.fold_min[k] = fold_min[k];
+    p.fold_shift[k] = (int)fold_shift[k];
+    p.fold_width[k] = (int)fold_width[k];
+  }
+  p.out = out.data_ptr();
+  p.out_bytes = (int)out.element_size();
+  launched(keyed_unfold_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
 void keyed_gids_(const at::Tensor& perm, const at::Tensor& inv,
                  const std::vector<at::Tensor>& keys, at::Tensor s2,
                  at::Tensor gid_in, const std::vector<at::Tensor>& sk,
@@ -839,6 +941,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("join_build_table", &join_build_table_, "dense slot table of unique build keys");
   m.def("join_probe", &join_probe_, "PK-FK probe: gathered build columns and the row mask");
   m.def("key_encode", &key_encode_, "keyed route: key codes and the sort operand");
+  m.def("keyed_encode_entries", &keyed_encode_entries_,
+        "keyed runner: every pending batch's sort operands, folded or per key");
+  m.def("keyed_unfold", &keyed_unfold_, "keyed runner: each group's key codes from its word");
   m.def("keyed_gids", &keyed_gids_, "keyed route: group ids of the sorted rows");
   m.def("keyed_keys", &keyed_keys_, "keyed route: each group's key codes");
   m.def("keyed_median", &keyed_median_, "keyed route: per-group median and distinct count");

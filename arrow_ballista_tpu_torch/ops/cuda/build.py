@@ -30,6 +30,7 @@ SOURCES = [
     os.path.join(_HERE, "partition_id.cu"),
     os.path.join(_HERE, "join_probe.cu"),
     os.path.join(_HERE, "keyed_gids.cu"),
+    os.path.join(_HERE, "keyed_fold.cu"),
     os.path.join(_HERE, "keyed_finish.cu"),
     os.path.join(_HERE, "keyed_median.cu"),
     os.path.join(_HERE, "keyed_corr.cu"),

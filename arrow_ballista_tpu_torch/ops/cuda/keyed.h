@@ -1,6 +1,8 @@
 // Launch interface of the keyed route's kernels (keyed_gids.cu,
-// keyed_finish.cu, keyed_median.cu, keyed_corr.cu), shared with the
-// PyTorch binding.
+// keyed_finish.cu, keyed_median.cu, keyed_corr.cu, keyed_fold.cu), shared
+// with the PyTorch binding, and the per-kind key codes that the two
+// encode kernels (keyed_gids.cu: key_encode, keyed_fold.cu:
+// keyed_encode_entries) both compile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,10 +13,55 @@ constexpr int kGidsThreads = 256;
 constexpr int kGidsItems = 8;  // consecutive sorted rows per thread
 constexpr int kGidsTile = kGidsThreads * kGidsItems;
 
-// Key kinds of the encode kernel (ops/kernels.py: KEY_KINDS).
-enum KeyKind : int8_t { KK_IDENT = 1, KK_BOOL = 2, KK_F32 = 3, KK_F64 = 4 };
+// Key kinds of the encode kernels (ops/kernels.py: KEY_KINDS); KK_CODE is
+// a host-coded key, whose shipped word passes through.
+enum KeyKind : int8_t { KK_CODE = 0, KK_IDENT = 1, KK_BOOL = 2, KK_F32 = 3, KK_F64 = 4 };
 // Value types it reads (ops/kernels.py: KEY_IN_TYPES).
 enum KeyIn : int8_t { KI_I32 = 0, KI_I64 = 1, KI_F32 = 2, KI_F64 = 3, KI_BOOL = 4 };
+
+constexpr long long kF32NullBits = (long long)(int32_t)0xFFC00001u;
+constexpr long long kF64NullBits = (long long)0xFFF8000000000001ull;
+
+#ifdef __CUDACC__
+// The code of row i of one key, bit for bit the port's host encoder's:
+// ident the zigzag image 2v+1 / -2v (null 0), bool null 0 / false 1 /
+// true 2, floats their raw bits (null the reserved NaN), a host code its
+// shipped word.
+__device__ __forceinline__ long long key_code(int kind, int in_type, const void* values,
+                                              const uint8_t* valid, long long i) {
+  if (kind == KK_CODE) {
+    return in_type == KI_I32 ? (long long)static_cast<const int32_t*>(values)[i]
+                             : static_cast<const long long*>(values)[i];
+  }
+  long long code = 0;
+  long long null_code = 0;
+  switch (kind) {
+    case KK_IDENT: {
+      const long long v = in_type == KI_I32 ? (long long)static_cast<const int32_t*>(values)[i]
+                                            : static_cast<const long long*>(values)[i];
+      code = v >= 0 ? 2 * v + 1 : -2 * v;
+      break;
+    }
+    case KK_BOOL:
+      code = static_cast<const uint8_t*>(values)[i] ? 2 : 1;
+      break;
+    case KK_F32:
+      code = (long long)static_cast<const int32_t*>(values)[i];
+      null_code = kF32NullBits;
+      break;
+    default:  // KK_F64
+      code = static_cast<const long long*>(values)[i];
+      null_code = kF64NullBits;
+      break;
+  }
+  return valid == nullptr || valid[i] != 0 ? code : null_code;
+}
+
+// The word a code is sorted as: itself, or x32's low 32 bits (signed).
+__device__ __forceinline__ long long code_word(long long code, int out_bytes) {
+  return out_bytes == 4 ? (long long)(int32_t)(uint32_t)(unsigned long long)code : code;
+}
+#endif
 
 struct KeyEncodeParams {
   long long n;

@@ -8,11 +8,10 @@
 //
 // key_encode: one thread per row in a grid-stride loop.  The row masks
 // fold into the sort's major key (inv); each device key's code is the
-// port's host encoder's, bit for bit: ident the zigzag image 2v+1 / -2v
-// (null 0), bool null 0 / false 1 / true 2, floats their raw bits (null
-// the reserved NaN).  x32's form writes each code's low 32 bits (the
-// wrapper admits only keys whose codes fit them: zigzag images below
-// 2^32, f32 bits).  Bound: bytes, each input read once, inv and the codes
+// port's host encoder's, bit for bit (keyed.h: key_code, which
+// keyed_fold.cu's entry-wise encode compiles too).  x32's form writes each
+// code's low 32 bits (the wrapper admits only keys whose codes fit them:
+// zigzag images below 2^32, f32 bits).  Bound: bytes, each input read once, inv and the codes
 // written once.
 //
 // keyed_gids: three passes over tiles of kGidsTile sorted rows.  (1) each
@@ -32,8 +31,6 @@
 
 namespace {
 
-constexpr long long kF32NullBits = (long long)(int32_t)0xFFC00001u;
-constexpr long long kF64NullBits = (long long)0xFFF8000000000001ull;
 constexpr int kEncodeThreads = 256;
 constexpr unsigned kMaxBlocks = 132 * 16;
 constexpr unsigned kFull = 0xffffffffu;
@@ -48,32 +45,9 @@ __global__ void key_encode_kernel(KeyEncodeParams p) {
     }
     p.inv[i] = keep ? 0 : 1;
     for (int k = 0; k < p.n_keys; ++k) {
-      const bool ok = p.valid[k] == nullptr || p.valid[k][i] != 0;
-      long long code = 0;
-      long long null_code = 0;
-      switch (p.kind[k]) {
-        case KK_IDENT: {
-          const long long v = p.in_type[k] == KI_I32
-                                  ? (long long)static_cast<const int32_t*>(p.values[k])[i]
-                                  : static_cast<const long long*>(p.values[k])[i];
-          code = v >= 0 ? 2 * v + 1 : -2 * v;
-          break;
-        }
-        case KK_BOOL:
-          code = static_cast<const uint8_t*>(p.values[k])[i] ? 2 : 1;
-          break;
-        case KK_F32:
-          code = (long long)static_cast<const int32_t*>(p.values[k])[i];
-          null_code = kF32NullBits;
-          break;
-        default:  // KK_F64
-          code = static_cast<const long long*>(p.values[k])[i];
-          null_code = kF64NullBits;
-          break;
-      }
-      const long long w = ok ? code : null_code;
+      const long long w = key_code(p.kind[k], p.in_type[k], p.values[k], p.valid[k], i);
       if (p.out_bytes == 4) {
-        static_cast<int32_t*>(p.out[k])[i] = (int32_t)(uint32_t)(unsigned long long)w;
+        static_cast<int32_t*>(p.out[k])[i] = (int32_t)code_word(w, 4);
       } else {
         static_cast<long long*>(p.out[k])[i] = w;
       }

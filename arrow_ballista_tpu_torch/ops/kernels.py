@@ -339,6 +339,7 @@ class TorchExprCompiler:
         def run(env: dict):
             return (env[f"{name}__ohi"], env[f"{name}__olo"]), env[vname]
 
+        run.valid_name = vname
         return run
 
     def pair_column(self, e: pe.Col) -> TorchClosure:
@@ -1189,8 +1190,8 @@ def states_from_numpy(
 LAUNCHES = dict.fromkeys(
     ("expr_eval", "segment_agg", "segment_agg_entries", "radix_sort", "seg_scan", "range_extremum", "window_epilogue",
      "partition_ids", "join_build_table", "join_probe", "key_encode", "keyed_gids",
-     "keyed_finish", "keyed_median", "keyed_corr", "mesh_reduce", "mesh_route",
-     "df32_agg", "ord_extremum", "x32_merge"), 0
+     "keyed_finish", "keyed_median", "keyed_corr", "keyed_encode_entries", "keyed_unfold",
+     "mesh_reduce", "mesh_route", "df32_agg", "ord_extremum", "x32_merge"), 0
 )
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -3837,7 +3838,7 @@ def make_join_kernel(inner_fn, flat_names: list[str], join_slots: dict[str, int]
     n_probe = sum(1 for n in flat_names if n not in join_slots)
     head = 4 if dense else 3
 
-    def fn(seg_ids, valid, *args, state=None):
+    def fn(seg_ids, valid, *args, **kw):
         probe_args = args[:n_probe]
         pkey, pkey_valid = args[n_probe:n_probe + 2]
         if dense:
@@ -3857,7 +3858,7 @@ def make_join_kernel(inner_fn, flat_names: list[str], join_slots: dict[str, int]
                 full.append(valids[j])
             else:
                 full.append(vals[j])
-        return inner_fn(seg_ids, mask, *full, state=state)
+        return inner_fn(seg_ids, mask, *full, **kw)
 
     return fn
 
@@ -3875,7 +3876,7 @@ def make_join_kernel(inner_fn, flat_names: list[str], join_slots: dict[str, int]
 # the same sort.  Counterpart of ``arrow_ballista_tpu/ops/kernels.py``'s
 # device_encode_keys, _keyed_sort_fn, keyed_finish_kernel,
 # keyed_median_kernel and keyed_corr_kernel.
-KEY_KINDS = {"ident": 1, "bool": 2, "f32": 3, "f64": 4}  # keyed_gids.h
+KEY_KINDS = {"code": 0, "ident": 1, "bool": 2, "f32": 3, "f64": 4}  # keyed.h
 KEY_IN_TYPES = {torch.int32: 0, I64: 1, torch.float32: 2, F64: 3, torch.bool: 4}
 KEYED_MAX_KEYS = 16
 INT32_MAX = (1 << 31) - 1
@@ -4168,6 +4169,171 @@ def keyed_keys_cuda(sk: list, starts: torch.Tensor, n_groups: int,
     return out
 
 
+# ------------------------------------------ keyed single dispatch (B7c)
+# The keyed route's single-dispatch runner: a keyed stream of at most
+# FOLD_MAX_ENTRIES batches within the buffer budget codes every batch's
+# keys and row masks in ONE entry-wise launch straight into the
+# concatenated sort operands.  When every key's min-rebased code span fits
+# and the widths sum to 31 bits at most (the stage compiler's
+# ``_radix_combine_bits`` plan, ``fold``: one ``(min, width)`` a key), the
+# keys fold into one non-negative int32 word, so K1 sorts one operand; the
+# finish unfolds each group's word back into its key codes.  Counterpart
+# of ``arrow_ballista_tpu/ops/stage_compiler.py``'s _keyed_reduce_fused,
+# _keyed_fused_sort_for and _radix_combine_bits.
+FOLD_MAX_ENTRIES = 32  # keyed_fold.h: kFoldMaxEntries
+FOLD_MAX_BITS = 31
+
+
+def fold_shifts(fold) -> list:
+    """Each key's shift in the folded word: the widths of the keys after
+    it (the first key is the most significant)."""
+    shifts, acc = [], 0
+    for _lo, width in reversed(fold):
+        shifts.append(acc)
+        acc += width
+    return shifts[::-1]
+
+
+def _check_fold(kinds: tuple, fold) -> None:
+    if len(fold) != len(kinds) or any(k in ("f32", "f64") for k in kinds):
+        raise ValueError(f"fold plan {fold} for key kinds {kinds}")
+    widths = [w for _lo, w in fold]
+    if min(widths) < 1 or sum(widths) > FOLD_MAX_BITS:
+        raise ValueError(f"fold widths {widths}: 1 bit or more each, {FOLD_MAX_BITS} in all")
+
+
+def keyed_encode_entries_reference(kinds: tuple, entries: list, fold=None,
+                                   code_dtype=I64) -> tuple:
+    """Plain twin of the entry-wise encode.  ``entries`` are the pending
+    batches' ``(keys, masks, n)`` as :func:`key_encode_reference` takes
+    them; each runs that twin, and the batches' ``inv`` and code columns
+    are joined in entry order, each column as ``code_dtype`` (host codes
+    may ship as int32).  With a ``fold`` plan the codes fold into
+    one int32 word in int64 arithmetic, ``comb = (comb << width) | (code -
+    min)`` key by key (x32's codes as their signed int32 words).  Returns
+    ``(inv, sort keys)``: ``[comb]`` folded, else one column a key."""
+    device = entries[0][0][0][0].device
+    invs, cols = [], [[] for _ in kinds]
+    for keys, masks, n in entries:
+        inv, codes = key_encode_reference(kinds, keys, masks, n, device, code_dtype)
+        invs.append(inv)
+        for col, c in zip(cols, codes):
+            col.append(c)
+    inv = torch.cat(invs)
+    # host codes may ship as int32 words in x64: every column is code_dtype
+    codes = [torch.cat(col).to(code_dtype) for col in cols]
+    if fold is None:
+        return inv, codes
+    comb = torch.zeros(inv.shape[0], dtype=I64, device=device)
+    for (lo, width), c in zip(fold, codes):
+        comb = (comb << width) | (c.to(I64) - lo)
+    return inv, [comb.to(I32)]
+
+
+def keyed_encode_entries_cuda(kinds: tuple, entries: list, fold=None,
+                              code_dtype=I64) -> tuple:
+    """Launch the hand-written entry-wise encode (ops/cuda/keyed_fold.cu)
+    over every pending batch: the same outputs as
+    :func:`keyed_encode_entries_reference`, bit for bit.
+
+    Replaces the encode, concatenate and radix-combine half of
+    ``arrow_ballista_tpu/ops/stage_compiler.py:_keyed_fused_sort_for``
+    (B7c)."""
+    from .cuda.build import load
+
+    if code_dtype not in (I64, I32):
+        raise ValueError(f"keyed_encode_entries: code dtype {code_dtype}")
+    if not 1 <= len(entries) <= FOLD_MAX_ENTRIES:
+        raise ValueError(f"keyed_encode_entries: {len(entries)} entries")
+    device = torch.empty(0, device=entries[0][0][0][0].device).device
+    masks_l, values_l, valids_l, in_types = [], [], [], []
+    empty = torch.empty(0, dtype=torch.bool, device=device)
+    total = 0
+    for keys, masks, n in entries:
+        masks = tuple(masks)
+        if len(masks) > 3:
+            raise ValueError("keyed_encode_entries: at most 3 masks an entry")
+        _check_encode_args(kinds, keys, masks, n, device)
+        masks_l.append([empty if m is None else m
+                        for m in masks + (None,) * (3 - len(masks))])
+        values_l.append([ops[0] for ops in keys])
+        valids_l.append([empty if len(ops) < 2 or ops[1] is None else ops[1]
+                         for ops in keys])
+        in_types += [KEY_IN_TYPES[ops[0].dtype] for ops in keys]
+        total += n
+    if fold is not None:
+        _check_fold(kinds, fold)
+    inv = torch.empty(total, dtype=torch.int32, device=device)
+    if fold is None:
+        comb = torch.empty(0, dtype=torch.int32, device=device)
+        outs = [torch.empty(total, dtype=code_dtype, device=device) for _ in kinds]
+    else:
+        comb = torch.empty(total, dtype=torch.int32, device=device)
+        outs = []
+    load().keyed_encode_entries(
+        inv, comb, outs, torch.empty(0, dtype=code_dtype).element_size(),
+        [KEY_KINDS[k] for k in kinds], in_types,
+        [lo for lo, _w in fold or ()], fold_shifts(fold) if fold else [],
+        masks_l, values_l, valids_l,
+    )
+    count_launch("keyed_encode_entries")
+    return inv, ([comb] if fold is not None else outs)
+
+
+def keyed_encode_entries(kinds: tuple, entries: list, fold=None, code_dtype=I64) -> tuple:
+    """Sort operands of every pending batch: the CUDA kernel for CUDA
+    tensors, its plain twin for tensors on the CPU."""
+    if entries[0][0][0][0].device.type == "cpu":
+        return keyed_encode_entries_reference(kinds, entries, fold, code_dtype)
+    return keyed_encode_entries_cuda(kinds, entries, fold, code_dtype)
+
+
+def keyed_unfold_reference(sk: torch.Tensor, starts: torch.Tensor, n_groups: int, fold,
+                           out: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the unfold kernel: ``out[k][g]`` is key k's code of
+    group g, ``((word >> shift_k) & (2^width_k - 1)) + min_k`` of the
+    folded word at the group's first sorted row, for g < ``n_groups``,
+    else 0 (int64 words, or x32's int32 words): what
+    :func:`keyed_keys_reference` gives from the unfolded sorted keys."""
+    cap = out.shape[1]
+    g = torch.arange(cap, device=out.device)
+    live = g < n_groups
+    if sk.shape[0] == 0:
+        out.zero_()
+        return out
+    at = starts[torch.clamp(g, max=max(n_groups - 1, 0))].long()
+    w = sk[torch.clamp(at, max=sk.shape[0] - 1)].to(I64)
+    for k, ((lo, width), shift) in enumerate(zip(fold, fold_shifts(fold))):
+        v = ((w >> shift) & ((1 << width) - 1)) + lo
+        out[k] = torch.where(live, v, torch.zeros_like(v)).to(out.dtype)
+    return out
+
+
+def keyed_unfold_cuda(sk: torch.Tensor, starts: torch.Tensor, n_groups: int, fold,
+                      out: torch.Tensor) -> torch.Tensor:
+    """Launch the unfold kernel (ops/cuda/keyed_fold.cu): the same key rows
+    as :func:`keyed_unfold_reference`, bit for bit.
+
+    Replaces the shift unpack after the sort of ``arrow_ballista_tpu/ops/
+    stage_compiler.py:_keyed_fused_sort_for`` (B7c)."""
+    from .cuda.build import load
+
+    device, n = out.device, sk.shape[0]
+    if device.type != "cuda" or out.dtype not in (I64, I32) or out.dim() != 2 or (
+        not out.is_contiguous() or out.shape[0] != len(fold)
+    ):
+        raise ValueError("out must be a contiguous CUDA int64 or int32 [n_keys, capacity]")
+    if not 0 <= n_groups <= min(n, out.shape[1]):
+        raise ValueError(f"n_groups {n_groups} for {n} rows, capacity {out.shape[1]}")
+    _check_fold(("code",) * len(fold), fold)
+    _check_cuda_tensor(sk, "sorted words", (torch.int32,), n, device)
+    _check_cuda_tensor(starts, "starts", (torch.int32,), n + 1, device)
+    load().keyed_unfold(sk, starts, int(n_groups), [lo for lo, _w in fold],
+                        fold_shifts(fold), [w for _lo, w in fold], out)
+    count_launch("keyed_unfold")
+    return out
+
+
 def _scan_into_state_reference(columns, field_col, ops, state, n, perm, key):
     """Twin of K2's sorted-aggregate epilogue: every segment's totals (a
     segment is a run of equal ``key[perm[r]]``, non-decreasing) merge into
@@ -4197,101 +4363,126 @@ def _scan_into_state_cuda(columns, field_col, ops, state, n, perm, key):
     return state
 
 
-def _finish_packed(specs: list, ops: list, gids: dict, capacity: int, device):
+def _finish_packed(specs: list, ops: list, n_keys: int, capacity: int, device):
     """The finish's output with every state row at its identity."""
     flags = _field_flags(specs)
     if len(ops) != len(flags):
         raise ValueError(f"{len(ops)} ops for {len(flags)} state fields")
     words = torch.tensor([_ident_bits(r, i) for r, i in flags], dtype=I64).to(device)
-    packed = torch.empty((len(flags) + len(gids["sk"]), capacity), dtype=I64, device=device)
+    packed = torch.empty((len(flags) + n_keys, capacity), dtype=I64, device=device)
     packed[:len(flags)] = words[:, None]
     return packed, len(flags)
 
 
+def _key_rows(gids: dict, fold) -> int:
+    """Key rows of the finish: one a key; a folded sort has one sorted
+    word for all of them."""
+    return len(gids["sk"]) if fold is None else len(fold)
+
+
 def keyed_finish_reference(specs, columns, field_col, ops, perm, gids, n_groups: int,
-                           capacity: int) -> torch.Tensor:
+                           capacity: int, fold=None) -> torch.Tensor:
     """Plain twin of :func:`keyed_finish_cuda`: the segmented scan's twin
-    into the state rows, the key gather's twin into the key rows."""
-    packed, n_state = _finish_packed(specs, ops, gids, capacity, perm.device)
+    into the state rows, the key gather's (or the unfold's) twin into the
+    key rows."""
+    packed, n_state = _finish_packed(specs, ops, _key_rows(gids, fold), capacity,
+                                     perm.device)
     _scan_into_state_reference(columns, field_col, ops, packed[:n_state], perm.shape[0],
                                perm, gids["gid_in"])
-    keyed_keys_reference(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    _key_rows_reference(gids, n_groups, fold, packed[n_state:])
     return packed
 
 
+def _key_rows_reference(gids: dict, n_groups: int, fold, out: torch.Tensor) -> None:
+    if fold is None:
+        keyed_keys_reference(gids["sk"], gids["starts"], n_groups, out)
+    else:
+        keyed_unfold_reference(gids["sk"][0], gids["starts"], n_groups, fold, out)
+
+
+def _key_rows_cuda(gids: dict, n_groups: int, fold, out: torch.Tensor) -> None:
+    if fold is not None:
+        keyed_unfold_cuda(gids["sk"][0], gids["starts"], n_groups, fold, out)
+    elif gids["sk"]:
+        keyed_keys_cuda(gids["sk"], gids["starts"], n_groups, out)
+
+
 def keyed_finish_cuda(specs, columns, field_col, ops, perm, gids, n_groups: int,
-                      capacity: int) -> torch.Tensor:
+                      capacity: int, fold=None) -> torch.Tensor:
     """The keyed route's finish on the card: ``[n_fields + n_keys,
     capacity]`` int64, the state rows (presence last, floats as their bits)
     and then each group's key codes, fetched by the host in ONE copy.  K2
     reduces the scan columns through ``perm`` segmented by
     ``gids["gid_in"]`` straight into the state rows; the finish kernel
-    (ops/cuda/keyed_finish.cu) gathers the key rows.
+    (ops/cuda/keyed_finish.cu) gathers the key rows, or, after a folded
+    sort (``fold``, the plan of :func:`keyed_encode_entries`), the unfold
+    kernel (ops/cuda/keyed_fold.cu) recovers them from each group's word.
 
     Replaces ``arrow_ballista_tpu/ops/kernels.py:keyed_finish_kernel`` (B8)."""
-    packed, n_state = _finish_packed(specs, ops, gids, capacity, perm.device)
+    packed, n_state = _finish_packed(specs, ops, _key_rows(gids, fold), capacity,
+                                     perm.device)
     _scan_into_state_cuda(columns, field_col, ops, packed[:n_state], perm.shape[0],
                           perm, gids["gid_in"])
-    if gids["sk"]:
-        keyed_keys_cuda(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    _key_rows_cuda(gids, n_groups, fold, packed[n_state:])
     return packed
 
 
 def keyed_finish(specs, columns, field_col, ops, perm, gids, n_groups: int,
-                 capacity: int) -> torch.Tensor:
+                 capacity: int, fold=None) -> torch.Tensor:
     """The keyed finish: the CUDA kernels for CUDA tensors, the twins for
     tensors on the CPU."""
     if perm.device.type == "cpu":
         return keyed_finish_reference(specs, columns, field_col, ops, perm, gids,
-                                      n_groups, capacity)
+                                      n_groups, capacity, fold)
     return keyed_finish_cuda(specs, columns, field_col, ops, perm, gids, n_groups,
-                             capacity)
+                             capacity, fold)
 
 
 def keyed_finish_x32_reference(specs, columns, field_col, ops, perm, gids,
-                               n_groups: int, capacity: int) -> torch.Tensor:
+                               n_groups: int, capacity: int, fold=None) -> torch.Tensor:
     """Plain twin of :func:`keyed_finish_x32_cuda`."""
     n_state = len(ops)
-    packed = torch.empty((n_state + len(gids["sk"]), capacity), dtype=I32,
+    packed = torch.empty((n_state + _key_rows(gids, fold), capacity), dtype=I32,
                          device=perm.device)
     packed[:n_state] = init_states(specs, capacity, perm.device, "x32")
     _scan_into_state_x32_reference(columns, field_col, ops, packed[:n_state],
                                    perm.shape[0], perm, gids["gid_in"])
-    keyed_keys_reference(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    _key_rows_reference(gids, n_groups, fold, packed[n_state:])
     return packed
 
 
 def keyed_finish_x32_cuda(specs, columns, field_col, ops, perm, gids, n_groups: int,
-                          capacity: int) -> torch.Tensor:
+                          capacity: int, fold=None) -> torch.Tensor:
     """The keyed finish in x32 (the reference's ``keyed_finish_kernel``
     in x32, int32 words): K2 reduces :func:`_x32_scan_plan`'s columns
     through ``perm`` segmented by ``gids["gid_in"]`` and its x32 epilogue
     merges the totals into the int32 state rows (identities first), then
     the finish kernel's int32 form gathers the key codes into the rows
-    after them: ``[n_fields + n_keys, capacity]`` int32, one fetch."""
+    after them (the unfold kernel after a folded sort): ``[n_fields +
+    n_keys, capacity]`` int32, one fetch."""
     n_state = len(ops)
     device = perm.device
-    packed = torch.empty((n_state + len(gids["sk"]), capacity), dtype=I32, device=device)
+    packed = torch.empty((n_state + _key_rows(gids, fold), capacity), dtype=I32,
+                         device=device)
     packed[:n_state] = init_states(specs, capacity, device, "x32")
     n = perm.shape[0]
     if n:
         _check_scan_args(columns, n, perm, None, gids["gid_in"], None, device)
         _launch_scan(columns, n, perm, None, gids["gid_in"], None, False,
                      [None] * len(columns), packed[:n_state], field_col, ops)
-    if gids["sk"]:
-        keyed_keys_cuda(gids["sk"], gids["starts"], n_groups, packed[n_state:])
+    _key_rows_cuda(gids, n_groups, fold, packed[n_state:])
     return packed
 
 
 def keyed_finish_x32(specs, columns, field_col, ops, perm, gids, n_groups: int,
-                     capacity: int) -> torch.Tensor:
+                     capacity: int, fold=None) -> torch.Tensor:
     """The x32 keyed finish: the CUDA kernels for CUDA tensors, the twins
     for tensors on the CPU."""
     if perm.device.type == "cpu":
         return keyed_finish_x32_reference(specs, columns, field_col, ops, perm, gids,
-                                          n_groups, capacity)
+                                          n_groups, capacity, fold)
     return keyed_finish_x32_cuda(specs, columns, field_col, ops, perm, gids,
-                                 n_groups, capacity)
+                                 n_groups, capacity, fold)
 
 
 def unpack_keyed_host(specs: list, packed: np.ndarray, n_keys: int,
@@ -4722,13 +4913,21 @@ class KeyedBatch:
     """One batch's buffered operands on the device: the sort operand
     ``inv`` (int32, 1 = the row is dropped), the key codes, the scan
     columns' values and validities (None = absent or all valid) and the
-    raw extras of the median and corr passes."""
+    raw extras of the median and corr passes.  A batch whose encode waits
+    for the single-dispatch runner has no ``inv`` or codes yet: ``keys``
+    and ``masks`` hold what :func:`keyed_encode_entries` takes."""
 
-    inv: torch.Tensor
+    inv: Optional[torch.Tensor]
     codes: list
     values: list
     valids: list
     extras: list
+    keys: tuple = ()
+    masks: tuple = ()
+
+    @property
+    def rows(self) -> int:
+        return (self.inv if self.inv is not None else self.keys[0][0]).shape[0]
 
     @property
     def nbytes(self) -> int:
@@ -4748,12 +4947,14 @@ def make_keyed_prep_kernel(
     """Per-batch half of the keyed aggregation (the reference's
     ``make_keyed_prep_kernel``).
 
-    ``fn(keys, valid, *leaf_arrays, state=None) -> KeyedBatch``: the filter
-    and arguments run through the expression program (B3, as in the basic
-    route),
-    then :func:`key_encode` derives the key codes and the sort operand
-    from ``keys`` (per key ``(codes,)`` for kind ``code``, else ``(values,
-    validity)``) and the row masks.  ``keys`` rides the group-id slot, so
+    ``fn(keys, valid, *leaf_arrays, state=None, encode=True) ->
+    KeyedBatch``: the filter and arguments run through the expression
+    program (B3, as in the basic route), then :func:`key_encode` derives
+    the key codes and the sort operand from ``keys`` (per key ``(codes,)``
+    for kind ``code``, else ``(values, validity)``) and the row masks;
+    with ``encode`` False the batch keeps ``keys`` and the masks for the
+    single-dispatch runner's one :func:`keyed_encode_entries` launch over
+    every pending batch.  ``keys`` rides the group-id slot, so
     :func:`make_join_kernel` wraps this function unchanged; ``state`` is
     accepted for that signature and ignored.  ``extra_names`` are env
     arrays buffered raw for the median and corr passes.  The keyed route
@@ -4771,16 +4972,18 @@ def make_keyed_prep_kernel(
         layout = (columns, ops, cols)
     code_dtype = index_dtype(mode)
 
-    def fn(keys, valid, *arrays, state=None):
+    def fn(keys, valid, *arrays, state=None, encode=True):
         env = dict(zip(flat_names, arrays))
         n, device = keys[0][0].shape[0], keys[0][0].device
         if mode == "x32":
             pred, pvalid, values, valids = _x32_batch(layout, program, env, n, device)
         else:
             pred, pvalid, values, valids = expr_eval(program, env, n, device)
-        inv, codes = key_encode(key_kinds, tuple(keys), (valid, pred, pvalid), n, device,
-                                code_dtype)
         extras = [env[nm] for nm in extra_names]
+        masks = (valid, pred, pvalid)
+        if not encode:
+            return KeyedBatch(None, [], values, valids, extras, tuple(keys), masks)
+        inv, codes = key_encode(key_kinds, tuple(keys), masks, n, device, code_dtype)
         return KeyedBatch(inv, list(codes), values, valids, extras)
 
     fn.layout = layout

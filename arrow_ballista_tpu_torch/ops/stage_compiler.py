@@ -19,11 +19,16 @@ partition id, computed by the partition-id kernel (B4).
 The keyed route (:meth:`TorchStageExec._run_keyed`) takes a stage whose
 groups ~ rows under ``ballista.tpu.highcard_mode=device``, and every
 stage with median, count distinct or corr: raw key columns cross to the
-device, the key encode kernel (B7) codes them per batch, and at the end
-of the stream one radix sort orders the buffered rows by key, the gid
-kernel numbers the groups, the segmented scan reduces every aggregate and
-the finish kernel (B8) gathers the group keys into one fetch; the median
-(B9) and corr (B10) passes reuse that sort.
+device, and at the end of the stream one radix sort orders the buffered
+rows by key, the gid kernel numbers the groups, the segmented scan
+reduces every aggregate and the finish kernel (B8) gathers the group keys
+into one fetch; the median (B9) and corr (B10) passes reuse that sort.
+A stream of at most ``_FUSED_MAX_ENTRIES`` batches within the keyed
+buffer budget is one single dispatch (B7c, ``_keyed_reduce_fused``): one
+entry-wise launch codes every batch's keys into the sort operands, folded
+into one int32 word when the stream's code spans fit 31 bits
+(``_radix_combine_bits``), and the finish unfolds each group's word;
+past either bound the batches drain into the per-batch key encode (B7).
 A join-free basic-route stage over a scan retains its batches instead
 of folding each on arrival (``ballista.tpu.cache_columns``, on by
 default): each batch's group ids and leaf tensors stay on the device as
@@ -1722,15 +1727,28 @@ class TorchStageExec(ExecutionPlan):
                     return None
         return encs
 
-    def _keyed_key_ops(self, batch, kinds, key_encoders, codes) -> list:
+    def _keyed_key_ops(self, batch, kinds, key_encoders, codes,
+                       key_state: Optional[dict] = None) -> list:
         """Per-key host operands of one batch: ``(codes,)`` for kind "code"
         (``codes`` reuses the routing batch's host codes), else the RAW key
         column as ``(values, validity-or-None)``.  A key the device cannot
         code raises: an identity key of magnitude 2^61 or more needs a wider
         code (:class:`_CapacityExceeded`, as the host encoder's
         RadixOverflow), and a float key holding the reserved null pattern
-        has no code (:class:`_KeyedFallback`)."""
+        has no code (:class:`_KeyedFallback`).
+
+        ``key_state`` tracks each key's running span of the words K1 sorts
+        (the reference's ``note_range``) over every row of the batch, the
+        filtered ones too: host codes as shipped (x32: their signed 32-bit
+        words), identity keys their zigzag images (null 0; x32: the signed
+        words), booleans 0..2; a float key has none (signed bit patterns:
+        no fold).  :func:`_radix_combine_bits` plans the fold from it."""
         from .bridge import arrow_to_numpy
+
+        def note(slot: int, span) -> None:
+            if key_state is None:
+                return
+            _note_range(key_state, slot, span)
 
         ops: list = []
         for slot, (kind, enc) in enumerate(zip(kinds, key_encoders)):
@@ -1746,6 +1764,8 @@ class TorchStageExec(ExecutionPlan):
                     if not _fits_x32_code(c):
                         raise _KeyedFallback("group key codes outgrew 32 bits")
                     c = (c.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+                if len(c):
+                    note(slot, (int(c.min()), int(c.max())))
                 ops.append((c,))
                 continue
             vals, valid = arrow_to_numpy(_eval_arr(g, batch))
@@ -1772,6 +1792,12 @@ class TorchStageExec(ExecutionPlan):
                     raise _KeyedFallback(
                         "float group key collides with the reserved null pattern"
                     )
+            if kind == "ident" and len(vals):
+                note(slot, _zigzag_span(vals, valid, self._mode == "x32"))
+            elif kind == "bool":
+                note(slot, (0, 2))
+            elif kind in ("f32", "f64"):
+                note(slot, None)
             ops.append((vals, valid))
         return ops
 
@@ -1827,9 +1853,21 @@ class TorchStageExec(ExecutionPlan):
         columns buffer there beside the key codes; at the end of the stream
         ONE radix sort assigns group ids from key changes, one segmented
         scan reduces every aggregate, and one packed fetch returns the
-        states and the unique key codes.  Past ``keyed_buffer_bytes`` the
-        buffered block is reduced now and the blocks merge by key on the
-        host at the end (``merge_keyed_host``).
+        states and the unique key codes.
+
+        Single dispatch (the reference's ``pending`` / ``fuse``): each
+        batch is bridged as it comes and waits in ``pending``; a stream of
+        at most ``_FUSED_MAX_ENTRIES`` batches whose host bytes (args and
+        key operands, not the shared join build) stay under
+        ``keyed_buffer_bytes`` codes every batch's keys in ONE entry-wise
+        launch at the end (:meth:`_keyed_reduce_fused`), folded into one
+        sort word when the stream's code spans allow.  Past either bound
+        the pending batches drain through the per-batch prep and the rest
+        streams: past ``keyed_buffer_bytes`` the buffered block is reduced
+        now and the blocks merge by key on the host at the end
+        (``merge_keyed_host``).  Both budgets count the bytes the
+        reference buffers for the batch (:class:`_BudgetWidths`), so the
+        drain and every flush fall where the reference's do.
 
         Returns ``(host_states, _KeyedGroups, n_rows_in, aux)``, ``aux``
         holding the median and corr passes' packed results; raises
@@ -1846,11 +1884,17 @@ class TorchStageExec(ExecutionPlan):
         signed = self._signed_key_slots(key_encoders)
         staging = DeviceStaging(self.device)
         self._build_kernels()
+        n_keys = self._n_encoded_groups
         buf: list = []
         chunks: list = []
         buffered = 0
         n_rows_in = 0
         device_kinds = any(k != "code" for k in kinds)
+        key_state: dict = {}
+        pending: list = []  # (device key tuples, args) of each waiting batch
+        pending_bytes = 0
+        fuse = True
+        widths = _BudgetWidths(self, kinds, build is not None)
 
         def flush():
             nonlocal buf, buffered
@@ -1865,22 +1909,41 @@ class TorchStageExec(ExecutionPlan):
             self.metrics.add("keyed_chunks", 1)
             buf, buffered = [], 0
 
-        def feed(batch, codes):
+        def dispatch_prep(keys, args):
             nonlocal buffered
+            with self.metrics.timer("device_time_ns"):
+                out = prep(keys, None, *args)
+            buf.append(out)
+            buffered += widths.device_bytes(out)
+            if self.keyed_buffer_bytes and buffered >= self.keyed_buffer_bytes:
+                flush()
+
+        def feed(batch, codes):
+            nonlocal pending_bytes, fuse
             n = batch.num_rows
-            host_keys = self._keyed_key_ops(batch, kinds, key_encoders, codes)
+            host_keys = self._keyed_key_ops(batch, kinds, key_encoders, codes, key_state)
             with self.metrics.timer("bridge_time_ns"):
                 args, keys = self._kernel_args(batch, n, None, staging, build,
                                                keys=host_keys)
             args.pop()  # no host group ids on this route
             if device_kinds:
                 self.metrics.add("device_encode_batches", 1)
-            with self.metrics.timer("device_time_ns"):
-                out = prep(keys, None, *args)
-            buf.append(out)
-            buffered += out.nbytes
-            if self.keyed_buffer_bytes and buffered >= self.keyed_buffer_bytes:
-                flush()
+            widths.note_keys(host_keys)
+            if fuse:
+                ebytes = widths.host_bytes(n, args)
+                if len(pending) < _FUSED_MAX_ENTRIES and (
+                    not self.keyed_buffer_bytes
+                    or pending_bytes + ebytes < self.keyed_buffer_bytes
+                ):
+                    pending.append((keys, args))
+                    pending_bytes += ebytes
+                    return
+                # past the entry cap or the budget: drain into streaming mode
+                fuse = False
+                for entry in pending:
+                    dispatch_prep(*entry)
+                pending.clear()
+            dispatch_prep(keys, args)
 
         with self.metrics.timer("tpu_stage_time_ns"):
             for batch, codes in first:
@@ -1903,7 +1966,14 @@ class TorchStageExec(ExecutionPlan):
                 return (merged, _KeyedGroups(merged_keys, n_groups), n_rows_in,
                         {"median": [], "corr": []})
 
-            states, key_codes, n_groups, post = self._keyed_reduce(buf, prep, signed)
+            if pending:
+                # the fold belongs to the device encode, as in the reference:
+                # a stage whose keys are all host-coded sorts them unfolded
+                fold = _radix_combine_bits(key_state, n_keys) if device_kinds else None
+                states, key_codes, n_groups, post = self._keyed_reduce_fused(
+                    pending, prep, kinds, signed, fold)
+            else:
+                states, key_codes, n_groups, post = self._keyed_reduce(buf, prep, signed)
             inv, codes, extras, perm, gids, cap = post
             med_results: list = []
             corr_results: list = []
@@ -1925,31 +1995,67 @@ class TorchStageExec(ExecutionPlan):
         aux = {"median": med_results, "corr": corr_results}
         return states, _KeyedGroups(key_codes, n_groups), n_rows_in, aux
 
+    def _buffered_fields(self, buf: list) -> tuple:
+        """The buffered batches' scan values, validities and extras, each
+        joined over the batches: ``(values, valids, extras)``."""
+        lengths = [b.rows for b in buf]
+
+        def field(get) -> Optional[torch.Tensor]:
+            return _concat([get(b) for b in buf], lengths)
+
+        values = [field(lambda b, c=c: b.values[c]) for c in range(len(buf[0].values))]
+        valids = [field(lambda b, c=c: b.valids[c]) for c in range(len(buf[0].values))]
+        extras = [field(lambda b, e=e: b.extras[e])
+                  for e in range(len(self._median_extra_names()))]
+        return values, valids, extras
+
     def _keyed_reduce(self, buf: list, prep, signed: tuple = ()):
         """ONE sort + segmented scan + packed fetch over the buffered
         batches.  Returns ``(host_states, key_codes, n_groups, post)`` with
         ``post = (inv, codes, extras, perm, gids, cap)`` for the median and
         corr passes; raises :class:`_CapacityExceeded` past
         tpu.max_capacity."""
+        n_keys = self._n_encoded_groups
+        with self.metrics.timer("device_time_ns"):
+            lengths = [b.rows for b in buf]
+            inv = _concat([b.inv for b in buf], lengths)
+            codes = [_concat([b.codes[k] for b in buf], lengths) for k in range(n_keys)]
+            fields = self._buffered_fields(buf)
+        return self._keyed_sort_finish(inv, codes, fields, prep, signed)
+
+    def _keyed_reduce_fused(self, pending: list, prep, kinds: tuple, signed: tuple,
+                            fold: Optional[tuple]):
+        """The single-dispatch runner over the pending batches (the
+        reference's ``_keyed_reduce_fused``): each batch's B3 program and
+        join probe run once per batch, then ONE entry-wise launch
+        (:func:`K.keyed_encode_entries`) writes every batch's sort operand
+        and key codes, folded into one word by ``fold``
+        (:func:`_radix_combine_bits`), straight into the concatenated
+        operands; K1 sorts ``[inv, comb]`` (or ``[inv, *codes]``) once, and
+        the finish unfolds each group's word into its key codes.  Same
+        return contract as :meth:`_keyed_reduce`; with ``fold`` the codes
+        in ``post`` are ``[comb]``, which orders the rows as the keys do."""
+        code_dtype = K.index_dtype(self._mode)
+        with self.metrics.timer("device_time_ns"):
+            buf = [prep(keys, None, *args, encode=False) for keys, args in pending]
+            entries = [(b.keys, b.masks, b.rows) for b in buf]
+            inv, codes = K.keyed_encode_entries(kinds, entries, fold, code_dtype)
+            self.metrics.add("fused_keyed_dispatches", 1)
+            fields = self._buffered_fields(buf)
+        return self._keyed_sort_finish(inv, codes, fields, prep, signed, fold)
+
+    def _keyed_sort_finish(self, inv, codes: list, fields: tuple, prep, signed: tuple,
+                           fold: Optional[tuple] = None):
+        """K1 and the gid kernel over ``[inv, *codes]``, the one read of
+        ``n_groups``, the capacity check, and the finish into the packed
+        layout; ``fold`` when ``codes`` is the folded word."""
         if self._mode == "x32":
             ops = cols = None
         else:
             _columns, ops, cols = prep.layout
         n_keys = self._n_encoded_groups
+        values, valids, extras = fields
         with self.metrics.timer("device_time_ns"):
-            lengths = [b.inv.shape[0] for b in buf]
-
-            def field(get) -> Optional[torch.Tensor]:
-                return _concat([get(b) for b in buf], lengths)
-
-            inv = field(lambda b: b.inv)
-            codes = [field(lambda b, k=k: b.codes[k]) for k in range(n_keys)]
-            values = [field(lambda b, c=c: b.values[c])
-                      for c in range(len(buf[0].values))]
-            valids = [field(lambda b, c=c: b.valids[c])
-                      for c in range(len(buf[0].values))]
-            extras = [field(lambda b, e=e: b.extras[e])
-                      for e in range(len(self._median_extra_names()))]
             perm, gids, n_groups = K.keyed_sort(inv, codes)
         if n_groups > self.max_capacity:
             raise _CapacityExceeded()
@@ -1963,7 +2069,7 @@ class TorchStageExec(ExecutionPlan):
             finish = K.keyed_finish
         with self.metrics.timer("device_time_ns"):
             packed = finish(self.specs, columns, field_col, ops, perm, gids,
-                            n_groups, cap)
+                            n_groups, cap, fold)
             host = packed.cpu().numpy()
         states, key_codes = K.unpack_keyed_host(self.specs, host, n_keys, signed)
         return states, key_codes, n_groups, (inv, codes, extras, perm, gids, cap)
@@ -2236,6 +2342,72 @@ class TorchStageExec(ExecutionPlan):
         yield out
 
 
+def _note_range(key_state: dict, slot: int, span) -> None:
+    """Widen key ``slot``'s running code span (the reference's
+    ``note_range``): ``span`` is ``(min, max)`` of one batch's words, or
+    None for a key with no bounded code space, which stays None."""
+    if span is None or key_state.get(("max", slot), 0) is None:
+        key_state[("max", slot)] = None
+        return
+    lo, hi = span
+    key_state[("max", slot)] = max(key_state.get(("max", slot), hi), hi)
+    cur = key_state.get(("min", slot))
+    key_state[("min", slot)] = lo if cur is None else min(cur, lo)
+
+
+def _zigzag_span(vals: np.ndarray, valid: Optional[np.ndarray], x32: bool) -> tuple:
+    """(min, max) of an identity key's codes as K1 sorts them: the zigzag
+    images ``2v + 1`` / ``-2v`` of the valid values, 0 for a null, and in
+    x32 each code's signed 32-bit word.  Zigzag is not monotone (``zz(-1)
+    = 2``, ``zz(1) = 3``), so a key whose values take both signs codes
+    every value; one sign needs only the values' min and max."""
+    has_null = valid is not None and not bool(valid.all())
+    v = vals[valid] if has_null else vals
+    if len(v) == 0:
+        return (0, 0)
+    lo, hi = int(v.min()), int(v.max())
+    if lo >= 0 and not (x32 and 2 * hi + 1 >= 1 << 31):
+        span = (2 * lo + 1, 2 * hi + 1)
+    elif hi < 0 and not (x32 and -2 * lo >= 1 << 31):
+        span = (-2 * hi, -2 * lo)
+    else:
+        # both signs, or x32 codes from 2^31, which wrap to negative words
+        w = v.astype(np.int64)
+        zz = np.where(w >= 0, 2 * w + 1, -2 * w)
+        if x32:
+            zz = np.where(zz >= 1 << 31, zz - (1 << 32), zz)
+        span = (int(zz.min()), int(zz.max()))
+    if has_null:
+        span = (min(span[0], 0), max(span[1], 0))
+    return span
+
+
+def _radix_combine_bits(key_state: dict, n_keys: int) -> Optional[tuple]:
+    """Per-key ``(min_code, width)`` plan when every key's min-rebased
+    codes fold into one non-negative int32 sort word (None otherwise), the
+    reference's rule on the port's code words: fewer than 2 keys, a key
+    with no span, a code past 2^31 - 2 or widths summing past 31 bits
+    decline.  The spans are the whole stream's (``_keyed_key_ops``), so
+    the plan is right by construction: no key regrows after it."""
+    if n_keys < 2:
+        return None
+    plan = []
+    total = 0
+    for slot in range(n_keys):
+        m = key_state.get(("max", slot), None)
+        if m is None:
+            return None  # float bit-pattern codes are signed: no fold
+        if int(m) > (1 << 31) - 2:
+            return None
+        lo = key_state.get(("min", slot), 0) or 0
+        width = max(1, int(m - lo).bit_length())
+        plan.append((int(lo), width))
+        total += width
+    if total > 31:
+        return None
+    return tuple(plan)
+
+
 def _fits_x32_code(c: np.ndarray) -> bool:
     """Whether host key codes ship as x32's 32-bit words: zigzag,
     dictionary and bool codes below 2^32, f32 bit patterns (signed)."""
@@ -2248,6 +2420,102 @@ def _fits_x32_ident(values: np.ndarray) -> bool:
     return len(values) == 0 or (
         int(values.min()) > -(1 << 31) and int(values.max()) < (1 << 31)
     )
+
+
+def _valid_source(closure):
+    """What the reference's scan plan takes an argument's validity to be
+    when it shares count columns (by identity): the env name of the leaf
+    validity it passes through unchanged, None when it has none, or a new
+    object for one computed anew at each call (two operands' validities
+    ANDed)."""
+    node = getattr(closure, "node", None)
+    if node is None and getattr(closure, "halves", None):
+        node = closure.halves[0].node
+    if node is None:
+        return getattr(closure, "valid_name", object())
+
+    def source(nd):
+        if nd.op == "leaf":
+            return nd.const[1]
+        srcs = [v for v in map(source, nd.args) if v is not None]
+        if len(srcs) == 1:
+            return srcs[0]
+        return object() if srcs else None
+
+    return source(node)
+
+
+class _BudgetWidths:
+    """The bytes a row of a keyed batch costs the reference's budgets, so
+    that the port drains its pending batches and flushes its buffer where
+    the reference does (its ``keyed_chunks``).  The reference pads every
+    batch to :func:`K.bucket_rows` rows and counts, while batches wait,
+    the host arrays it ships (each leaf and its validity, the probe key
+    and its validity, each key's operands: an identity key as int32 when
+    the first batch allows, a validity for every device kind) and, once
+    it streams, its prep's outputs (a bool mask, each key's code, the
+    scan-form columns: a count column per distinct argument and one
+    column per sum, avg, min or max, then the raw extras).  An absent
+    validity (all valid) counts as the reference's bool array."""
+
+    def __init__(self, stage, kinds: tuple, join: bool):
+        self.kinds = kinds
+        self.word = 4 if stage._mode == "x32" else 8
+        # the batch's own args: the non-join leaves, then the probe key and
+        # its validity (the build's tensors are one shared allocation)
+        self.n_own = sum(1 for nm in stage._flat_names if nm not in stage._join_slots)
+        self.n_own += 2 if join else 0
+        self.scan = self._scan_width(stage.specs, stage._arg_closures)
+        self.keys: Optional[tuple] = None  # (host, device) bytes a row of the keys
+
+    def _scan_width(self, specs, arg_closures) -> int:
+        seen: list = []
+        width = 0
+        for spec, closure in zip(specs, arg_closures):
+            if spec.func == "count_star":
+                continue
+            src = _valid_source(closure)
+            if src is not None and not any(s is src or s == src for s in seen):
+                seen.append(src)
+                width += self.word  # the argument validity's count column
+            if spec.func == "count":
+                continue
+            if self.word == 8 or spec.func in ("sum", "avg") or spec.ord_pair:
+                width += 8  # f64 / i64, or x32's (hi, lo) pair
+            else:
+                width += 4
+        return width
+
+    def note_keys(self, host_keys) -> None:
+        """The keys' widths, fixed by the first batch as the reference's
+        identity dtype is."""
+        if self.keys is not None:
+            return
+        host = dev = 0
+        for kind, ops in zip(self.kinds, host_keys):
+            if kind == "code":
+                host += ops[0].dtype.itemsize
+                dev += ops[0].dtype.itemsize
+                continue
+            if kind == "ident":
+                vals = ops[0]
+                fits = self.word == 4 or not len(vals) or int(vals.max()) <= (1 << 31) - 2
+                w = 4 if fits else 8
+            else:
+                w = {"bool": 1, "f32": 4, "f64": 8}[kind]
+            host += w + 1  # values and validity
+            dev += 4 if kind == "bool" else w
+        self.keys = (host, dev)
+
+    def host_bytes(self, n: int, args: list) -> int:
+        """A waiting batch's bytes: its own args and its key operands."""
+        own = sum(1 if t is None else t.element_size() for t in args[:self.n_own])
+        return K.bucket_rows(n) * (own + self.keys[0])
+
+    def device_bytes(self, out) -> int:
+        """A streamed batch's bytes: the prep's outputs."""
+        extras = sum(1 if t is None else t.element_size() for t in out.extras)
+        return K.bucket_rows(out.rows) * (1 + self.keys[1] + self.scan + extras)
 
 
 def _concat(parts: list, lengths: list) -> Optional[torch.Tensor]:

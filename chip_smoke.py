@@ -59,6 +59,17 @@ Phases; any failure exits non-zero and prints no result line:
               the exact capacity and one below the exact need (n_dropped
               the surplus, the exchange at twice that capacity delivering
               every row); all bit-identical to the twins;
+            * ``keyed_encode_entries`` and ``keyed_unfold`` (B7c) on four
+              cases of H2O_ROWS rows in two entries (2^23 rows and the
+              rest): h2o q6's keys (two int32 keys, folded), q9's (a host
+              code and an int32 key, folded), q10's six (the fold
+              declined: per-key columns) and an x32 case whose host codes
+              wrap to negative words (folded): the encode folded and per
+              key against its twin and against one ``key_encode`` an entry
+              + ``torch.cat``, the unfold against its twin and against the
+              key rows of the unfolded sort, all bit for bit, each with K1's
+              pass count, and K1 + the gid kernel's ms, over ``[inv, comb]``
+              and over ``[inv, *codes]``;
 4. query  — TPC-H q1 and q6 over ``--sf`` lineitem (``gen_lineitem``'s
             seed, streamed as ``ballista.batch.size`` = 2^23-row batches,
             ``ballista.shuffle.partitions`` = 1) through
@@ -105,14 +116,20 @@ Phases; any failure exits non-zero and prints no result line:
             probing a 1e6-row dimension, ``default_rng(9)``, 2^23-row
             batches) the same way: the dense device join with no fallback,
             ``join_probe`` once per batch;
-7. keyed  — the keyed route (B7-B10): TPC-H q3 again with
+7. keyed  — the keyed route (B7-B10, B7c): TPC-H q3 again with
             ``ballista.tpu.highcard_mode=device`` and a
             ``tpu.keyed_buffer_mb`` of ``Q3_KEYED_BUFFER_MB`` (the fold kept,
-            one probe per batch, the buffer flushed into chunks merged on
-            the host), and the h2o groupby questions q6 (median, stddev),
-            q9 (corr²) and q10 (sum, count by six keys, about one group a
-            row, pinned keyed) over db-benchmark's G1_1e7_1e2 table
-            (``benchmarks/h2o``'s ``gen_groupby``, seed 42), each against
+            one probe per batch; the stream passes the buffer, so its
+            pending batches drain into the per-batch prep, no single
+            dispatch, and the buffer flushes into chunks merged on the
+            host), and the h2o groupby questions q6 (median, stddev), q9
+            (corr²) and q10 (sum, count by six keys, about one group a row,
+            pinned keyed) over db-benchmark's G1_1e7_1e2 table
+            (``benchmarks/h2o``'s ``gen_groupby``, seed 42), each a single
+            dispatch (``fused_keyed_dispatches`` 1: one
+            ``keyed_encode_entries`` launch over both batches, no
+            ``key_encode``; q6's and q9's keys folded into one sort word and
+            unfolded by ``keyed_unfold``, q10's six keys not), each against
             the CPU operators with its route asserted from the metrics;
             each again under ``set_precision("x32")`` against the same CPU
             answer at rel 1e-6 (legs ``x32 q3 keyed``, ``x32 h2o q6`` ...):
@@ -170,8 +187,9 @@ Phases; any failure exits non-zero and prints no result line:
             and over ``sqpair_edge_grid`` (±0, NaN, ±inf, past 1.8e19,
             past the Veltkamp split, f32 extremes, subnormals) beside
             random pairs (bit for bit, NaN as NaN); the int32 forms of
-            ``key_encode``, ``keyed_gids``, ``keyed_median``,
-            ``join_probe`` and ``join_build_table``; the x32
+            ``key_encode``, ``keyed_encode_entries``, ``keyed_unfold``,
+            ``keyed_gids``, ``keyed_median``, ``join_probe`` and
+            ``join_build_table``; the x32
             ``keyed_finish`` and ``keyed_corr`` (pairs within rel 1e-6);
             the window's x32 sort, scans, K3 and int32 pack; the i64pair
             exchange's ``mesh_route``: each entry's ``x32`` shapes.
@@ -183,7 +201,8 @@ read just after; a kernel of that path that never launched fails the run.  ``exp
 computes a filter or an argument (one a batch or entry); h2o q9 and q10,
 whose programs pass bare columns through, and the window leg launch it
 no time.  ``segment_agg_entries`` is timed at the cold q1
-run's shape beside its twin and one ``segment_agg`` launch per entry.  Then one ``{"kernels": [...]}`` line and, last,
+run's shape beside its twin and one ``segment_agg`` launch per entry.  Then
+the whole run's seconds, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, ...}``.
 """
 
@@ -220,12 +239,14 @@ MESH_ROUTE_DESTS = 4
 STAR_ROWS, STAR_DIM = 60_000_000, 1_000_000  # bench_suite.py:bench_starjoin
 WINDOW_BATCHES = 2  # the window leg reads lineitem's first 2 batches (2^24 rows)
 H2O_ROWS, H2O_K = 10_000_000, 100  # db-benchmark's G1_1e7_1e2_0_0
+H2O_BATCH_ROWS = 1 << 23  # the h2o legs' batches (two: 2^23 rows and the rest)
 H2O_LEGS = (  # (question, session settings)
     ("q6", {}),
     ("q9", {}),
     ("q10", {"ballista.tpu.highcard_mode": "device",
              "ballista.tpu.max_capacity": str(1 << 24)}),
 )
+H2O_FOLDED = ("q6", "q9")  # their two keys fold into one sort word; q10's six do not
 Q3_KEYED_BUFFER_MB = 400  # flushes q3's keyed buffer into chunks at SF10
 PARQUET_FILES = 8  # per table (one file for the small ones)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -250,6 +271,9 @@ KERNELS = {
     "keyed_finish": ("keyed_finish.cu", "arrow_ballista_tpu/ops/kernels.py:1886"),
     "keyed_median": ("keyed_median.cu", "arrow_ballista_tpu/ops/kernels.py:1582"),
     "keyed_corr": ("keyed_corr.cu", "arrow_ballista_tpu/ops/kernels.py:1949"),
+    "keyed_encode_entries": ("keyed_fold.cu",
+                             "arrow_ballista_tpu/ops/stage_compiler.py:2252"),
+    "keyed_unfold": ("keyed_fold.cu", "arrow_ballista_tpu/ops/stage_compiler.py:2252"),
     "mesh_reduce": ("mesh_reduce.cu", "arrow_ballista_tpu/parallel/mesh.py:33"),
     "mesh_route": ("mesh_route.cu", "arrow_ballista_tpu/parallel/mesh.py:113"),
     "df32_agg": ("df32_agg.cu", "arrow_ballista_tpu/ops/kernels.py:900"),
@@ -1600,19 +1624,30 @@ def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
 
 
 # ------------------------------------------------------------- keyed route
-KEYED_CAPTURES = ("key_encode_cuda", "keyed_sort", "keyed_finish_cuda",
-                  "keyed_median_cuda", "keyed_corr_cuda")
-# x32's keyed wrappers: the same encode, sort and median (their int32
-# forms), the x32 finish and corr
-KEYED_CAPTURES_X32 = ("key_encode_cuda", "keyed_sort", "keyed_finish_x32_cuda",
-                      "keyed_median_cuda", "keyed_corr_x32_cuda")
-KEYED_KERNELS = ("key_encode", "radix_sort", "keyed_gids", "seg_scan", "keyed_finish")
+KEYED_CAPTURES = ("key_encode_cuda", "keyed_encode_entries_cuda", "keyed_sort",
+                  "keyed_finish_cuda", "keyed_unfold_cuda", "keyed_median_cuda",
+                  "keyed_corr_cuda")
+# x32's keyed wrappers: the same encodes, sort, unfold and median (their
+# int32 forms), the x32 finish and corr
+KEYED_CAPTURES_X32 = ("key_encode_cuda", "keyed_encode_entries_cuda", "keyed_sort",
+                      "keyed_finish_x32_cuda", "keyed_unfold_cuda", "keyed_median_cuda",
+                      "keyed_corr_x32_cuda")
+KEYED_KERNELS = ("radix_sort", "keyed_gids", "seg_scan")
 
 
-def _keyed_run(TK, ctx, plan, stages, what: str, captures=KEYED_CAPTURES):
+def keyed_kernels(fused: bool, folded: bool) -> tuple:
+    """The kernels a keyed leg must launch: the single dispatch's
+    entry-wise encode or (drained) the per-batch one, K1, the gid kernel,
+    K2, and the key rows' gather or (folded) the unfold."""
+    return (("keyed_encode_entries" if fused else "key_encode",) + KEYED_KERNELS
+            + ("keyed_unfold" if folded else "keyed_finish",))
+
+
+def _keyed_run(TK, ctx, plan, stages, what: str, captures=KEYED_CAPTURES,
+               kernels=keyed_kernels(False, False)):
     """One main-path run of a keyed stage: counts zeroed just before, the
     keyed wrappers' first calls captured, the counts and metrics read
-    just after."""
+    just after; each of ``kernels`` must have launched."""
     import contextlib
 
     import torch
@@ -1626,7 +1661,7 @@ def _keyed_run(TK, ctx, plan, stages, what: str, captures=KEYED_CAPTURES):
         dev_s = time.perf_counter() - t0
     launches = dict(TK.LAUNCHES)
     metrics = _stage_metrics(stages)
-    for k in KEYED_KERNELS:
+    for k in kernels:
         if launches[k] < 1:
             raise AssertionError(f"{what}: {k} never launched ({json.dumps(launches)})")
     return got, dev_s, launches, metrics, {k: c.args for k, c in caps.items()}
@@ -1678,7 +1713,14 @@ def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device, x32=False) 
                   cpu_fallback=0, highcard_fallback=0,
                   probed=sum(1 for b in batches if b.num_rows))
     got, dev_s, launches, metrics, caps = _keyed_run(
-        TK, ctx, plan, stages, what, KEYED_CAPTURES_X32 if x32 else KEYED_CAPTURES)
+        TK, ctx, plan, stages, what, KEYED_CAPTURES_X32 if x32 else KEYED_CAPTURES,
+        keyed_kernels(fused=False, folded=False))
+    # the stream's host bytes pass the budget: the pending batches drain
+    # into the per-batch prep, no single dispatch
+    if (metrics.get("fused_keyed_dispatches", 0) != 0
+            or launches["keyed_encode_entries"] != 0):
+        raise AssertionError(f"{what}: the stream did not drain ({json.dumps(metrics)}, "
+                             f"{json.dumps(launches)})")
     for k, want_k in expect.items():
         if k != "probed" and metrics.get(k, 0) != want_k:
             raise AssertionError(f"{what}: {k}={metrics.get(k, 0)}, the reference's rule "
@@ -1693,7 +1735,7 @@ def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device, x32=False) 
     _tables_equal(want, got, what, rel=X32_REL if x32 else REL)
     breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
         "join_build_time_ns", "keyed_chunks", "keyed_merge_time_ns",
-        "device_encode_batches", "input_rows", "output_rows")}
+        "device_encode_batches", "fused_keyed_dispatches", "input_rows", "output_rows")}
     print(
         f"{what}: lineitem_rows={n_rows} expected={json.dumps(expect)} "
         f"launches={json.dumps(launches)} cuda_rows_per_s={n_rows / dev_s!r} "
@@ -1708,7 +1750,7 @@ def h2o_batches() -> list:
 
     t0 = time.perf_counter()
     x = gen_groupby(H2O_ROWS, H2O_K, seed=42)
-    batches = x.combine_chunks().to_batches(max_chunksize=1 << 23)
+    batches = x.combine_chunks().to_batches(max_chunksize=H2O_BATCH_ROWS)
     print(f"h2o: G1_1e7_1e2 rows={x.num_rows} batches={len(batches)} "
           f"s={time.perf_counter() - t0!r}")
     return batches
@@ -1763,8 +1805,18 @@ def _h2o_leg(TK, TorchStageExec, session, sql, q, want, cpu_s, x32) -> dict:
     stages = _stage_nodes(plan, TorchStageExec)
     if len(stages) != 1:
         raise AssertionError(f"{what}: {len(stages)} device stages")
+    # two batches within the budget: one single dispatch; q6's and q9's
+    # two keys fold into one sort word, q10's six do not
+    folded = q in H2O_FOLDED
     got, dev_s, launches, metrics, caps = _keyed_run(
-        TK, ctx, plan, stages, what, KEYED_CAPTURES_X32 if x32 else KEYED_CAPTURES)
+        TK, ctx, plan, stages, what, KEYED_CAPTURES_X32 if x32 else KEYED_CAPTURES,
+        keyed_kernels(fused=True, folded=folded))
+    fold = caps["keyed_encode_entries_cuda"][0][2]
+    if (metrics.get("fused_keyed_dispatches", 0) != 1
+            or launches["keyed_encode_entries"] != 1 or launches["key_encode"] != 0
+            or launches["keyed_unfold"] != int(folded) or (fold is not None) != folded):
+        raise AssertionError(f"{what}: single dispatch, fold {folded} expected: fold={fold} "
+                             f"{json.dumps(metrics)} {json.dumps(launches)}")
     for k, want_k in (("keyed_path", 1), ("tpu_fallback", 0), ("cpu_fallback", 0),
                       ("highcard_fallback", 0)):
         if metrics.get(k, 0) != want_k:
@@ -1796,9 +1848,10 @@ def _h2o_leg(TK, TorchStageExec, session, sql, q, want, cpu_s, x32) -> dict:
               f"groups_past_rel_1e-6={int((diff > X32_REL * np.abs(w[ok])).sum())} "
               f"of {int(ok.sum())}")
     breakdown = {k: metrics.get(k, 0) for k in BREAKDOWN + (
-        "device_encode_batches", "input_rows", "output_rows")}
+        "device_encode_batches", "fused_keyed_dispatches", "input_rows", "output_rows")}
     print(
-        f"{what}: rows={H2O_ROWS} groups={got.num_rows} launches={json.dumps(launches)} "
+        f"{what}: rows={H2O_ROWS} groups={got.num_rows} fold={json.dumps(fold)} "
+        f"launches={json.dumps(launches)} "
         f"cuda_rows_per_s={H2O_ROWS / dev_s!r} cpu_rows_per_s={H2O_ROWS / cpu_s!r} "
         f"cuda_s={dev_s!r} cpu_s={cpu_s!r} compare_s={cmp_s!r} "
         f"breakdown={json.dumps(breakdown)}"
@@ -3502,7 +3555,7 @@ def _time_keyed_finish(TK, captured) -> dict:
     import torch
 
     args, _ = captured
-    specs, columns, field_col, ops, perm, gids, ng, cap = args
+    specs, columns, field_col, ops, perm, gids, ng, cap = args[:8]
     got = TK.keyed_finish_cuda(*args)
     twin = TK.keyed_finish_reference(*args)
     f64 = {f for f, op in enumerate(ops) if op == TK.OP_ADD_F64}
@@ -3518,7 +3571,7 @@ def _time_keyed_finish(TK, captured) -> dict:
         acc = torch.zeros(cap + 1, V.shape[1], dtype=torch.float64, device=V.device)
         library = _median_ms(lambda: acc.index_add_(0, g, V))
     read = 8 * n + sum(_nbytes(c.values, c.valid) for c in columns)
-    read += 8 * len(gids["sk"]) * ng + 4 * ng
+    read += 8 * (got.shape[0] - len(ops)) * ng + 4 * ng
     out = dict(rows=n, capacity=cap, groups=ng, fields=len(ops),
                ms=_median_ms(lambda: TK.keyed_finish_cuda(*args)),
                plain_ms=_median_ms(lambda: TK.keyed_finish_reference(*args), 5),
@@ -3563,6 +3616,196 @@ def _time_keyed_corr(TK, captured) -> dict:
     return out
 
 
+def _entries_io_bytes(kinds, entries, out_keys) -> int:
+    """Bytes the entry-wise encode must move: every entry's masks, key
+    values and validities read once, inv and the sort keys written once."""
+    total = 0
+    for keys, masks, _n in entries:
+        total += _nbytes(*masks) + sum(_nbytes(*ops) for ops in keys)
+    return total + _nbytes(*out_keys)
+
+
+def _encode_library(TK, kinds, entries, code_dtype):
+    """The nearest composition of existing calls, the unfused route's: one
+    ``key_encode`` launch an entry, then ``torch.cat`` of the operands."""
+    import torch
+
+    parts = [TK.key_encode_cuda(kinds, keys, masks, n, keys[0][0].device, code_dtype)
+             for keys, masks, n in entries]
+    return (torch.cat([p[0] for p in parts]),
+            [torch.cat([p[1][k] for p in parts]) for k in range(len(kinds))])
+
+
+def check_encode_entries(TK, kinds, entries, fold, code_dtype, reps: int = 20) -> dict:
+    """``keyed_encode_entries`` against its twin bit for bit (two kernel
+    runs), timed beside its bound, its twin and the per-entry encode +
+    ``torch.cat`` (``per_entry_ms``); K1's pass count over the operands it
+    writes and over the unfolded ones."""
+    import torch
+
+    runs = [TK.keyed_encode_entries_cuda(kinds, entries, fold, code_dtype) for _ in range(2)]
+    twin = TK.keyed_encode_entries_reference(kinds, entries, fold, code_dtype)
+    for inv, keys in runs:
+        if not torch.equal(inv, twin[0]) or len(keys) != len(twin[1]) or not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(keys, twin[1])):
+            raise AssertionError(f"keyed_encode_entries differs from the twin (fold {fold})")
+    inv, keys = runs[0]
+    lib_inv, lib_codes = _encode_library(TK, kinds, entries, code_dtype)
+    if not torch.equal(lib_inv, inv):
+        raise AssertionError("keyed_encode_entries: inv differs from per-entry key_encode")
+    if fold is None and not all(torch.equal(a, b) for a, b in zip(lib_codes, keys)):
+        raise AssertionError("keyed_encode_entries: codes differ from per-entry key_encode")
+    out = dict(
+        rows=int(inv.numel()), entries=len(entries), keys=list(kinds),
+        fold=None if fold is None else [list(f) for f in fold],
+        ms=_median_ms(lambda: TK.keyed_encode_entries_cuda(kinds, entries, fold, code_dtype),
+                      reps),
+        plain_ms=_median_ms(
+            lambda: TK.keyed_encode_entries_reference(kinds, entries, fold, code_dtype), 5),
+        library_ms=None,
+        library="none: no PyTorch call codes several key kinds, folds row masks or folds "
+                "keys; per_entry_ms is the nearest composition",
+        per_entry_ms=_median_ms(lambda: _encode_library(TK, kinds, entries, code_dtype),
+                                reps),
+        k1_passes=TK.radix_sort_pass_count([inv] + keys),
+        k1_passes_unfolded=TK.radix_sort_pass_count([lib_inv] + lib_codes),
+        max_abs_err=0.0,
+    )
+    out.update(_bound(_entries_io_bytes(kinds, entries, [inv] + keys)))
+    return out
+
+
+def check_unfold(TK, sk, starts, ng: int, fold, out_like, want=None) -> dict:
+    """``keyed_unfold`` against its twin (and, where given, the key rows
+    the gather writes from the unfolded sort), bit for bit, timed beside
+    its bound and its twin."""
+    import torch
+
+    def run(fn):
+        return fn(sk, starts, ng, fold, torch.empty_like(out_like))
+
+    got = [run(TK.keyed_unfold_cuda) for _ in range(2)]
+    twin = run(TK.keyed_unfold_reference)
+    if not (torch.equal(got[0], got[1]) and torch.equal(got[0], twin)):
+        raise AssertionError("keyed_unfold differs from the twin")
+    if want is not None and not torch.equal(got[0], want):
+        raise AssertionError("keyed_unfold differs from the unfolded sort's key rows")
+    out = dict(groups=ng, capacity=int(out_like.shape[1]), keys=len(fold),
+               ms=_median_ms(lambda: run(TK.keyed_unfold_cuda)),
+               plain_ms=_median_ms(lambda: run(TK.keyed_unfold_reference), 5),
+               library_ms=None,
+               library="none: a gather and shifts a key; the unfolded route's key gather "
+                       "is this repo's own kernel",
+               max_abs_err=0.0)
+    out.update(_bound(8 * ng + _nbytes(out_like)))  # starts and words read, rows written
+    return out
+
+
+def _time_encode_entries(TK, captured) -> dict:
+    (kinds, entries, fold, code_dtype), _ = captured
+    return check_encode_entries(TK, kinds, entries, fold, code_dtype)
+
+
+def _time_unfold(TK, captured) -> dict:
+    (sk, starts, ng, fold, out), _ = captured
+    return check_unfold(TK, sk, starts, ng, fold, out)
+
+
+FOLD_CASES = ("h2o q6 keys", "h2o q9 keys", "h2o q10 keys", "x32 wrapped words")
+
+
+def _fold_case(TK, TSC, case: str, device):
+    """(kinds, entries, fold, code dtype) of one kernel-phase case: H2O_ROWS
+    rows in an H2O_BATCH_ROWS entry and the rest (the h2o legs' two
+    batches), keys drawn like
+    ``gen_groupby``'s (1..100 int32 keys, 100 and 1e5 int32 host codes), and the
+    fold plan the stage computes from the entries' spans."""
+    import torch
+
+    rng = np.random.default_rng(FOLD_CASES.index(case) + 51)
+    sizes = (H2O_BATCH_ROWS, H2O_ROWS - H2O_BATCH_ROWS)
+    x32 = case.startswith("x32")
+    dt = torch.int32 if x32 else torch.int64
+    hi = H2O_ROWS // H2O_K
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def ident(n, top):
+        return rng.integers(1, top + 1, n).astype(np.int32), None
+
+    def code(n, card):
+        # a string key's dictionary codes ship as int32, as on the h2o legs
+        c = rng.integers(0, card, n).astype(np.int32)
+        if x32:  # host codes near 2^32 ship as negative words
+            c = ((c.astype(np.int64) + (1 << 32) - card) & 0xFFFFFFFF).astype(
+                np.uint32).view(np.int32)
+        return (c,)
+
+    layout = {"h2o q6 keys": (("ident", H2O_K), ("ident", H2O_K)),
+              "h2o q9 keys": (("code", H2O_K), ("ident", H2O_K)),
+              "h2o q10 keys": (("code", H2O_K), ("code", H2O_K), ("code", hi),
+                               ("ident", H2O_K), ("ident", H2O_K), ("ident", hi)),
+              "x32 wrapped words": (("code", H2O_K), ("ident", H2O_K))}[case]
+    kinds = tuple(k for k, _c in layout)
+    ks: dict = {}
+    entries = []
+    for n in sizes:
+        keys = []
+        for slot, (kind, card) in enumerate(layout):
+            ops = ident(n, card) if kind == "ident" else code(n, card)
+            span = (TSC._zigzag_span(ops[0], None, x32) if kind == "ident"
+                    else (int(ops[0].min()), int(ops[0].max())))
+            TSC._note_range(ks, slot, span)
+            keys.append(tuple(None if a is None else t(a) for a in ops))
+        masks = (None, t(rng.random(n) > 0.1), None) if x32 else (None, None, None)
+        entries.append((tuple(keys), masks, n))
+    return kinds, entries, TSC._radix_combine_bits(ks, len(kinds)), dt
+
+
+def keyed_fold_phase(TK, device) -> dict:
+    """B7c's kernels against their twins on FOLD_CASES: the entry-wise
+    encode folded (q6's and q9's keys, the x32 case) and per key (q10's
+    six keys decline the fold; the folded cases run that form too), and,
+    after K1 and the gid kernel over ``[inv, comb]`` (timed beside the same
+    over ``[inv, *codes]``), the unfold against its twin and against the
+    key rows of the unfolded sort."""
+    import torch
+
+    from arrow_ballista_tpu_torch.ops import stage_compiler as TSC
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    for case in FOLD_CASES:
+        kinds, entries, fold, dt = _fold_case(TK, TSC, case, device)
+        if (fold is not None) != (case != "h2o q10 keys"):
+            raise AssertionError(f"{case}: fold plan {fold}")
+        out[f"encode {case}"] = check_encode_entries(TK, kinds, entries, fold, dt)
+        if fold is None:
+            continue
+        out[f"encode {case} unfolded"] = check_encode_entries(TK, kinds, entries, None, dt)
+        inv, (comb,) = TK.keyed_encode_entries_cuda(kinds, entries, fold, dt)
+        _inv, codes = TK.keyed_encode_entries_cuda(kinds, entries, None, dt)
+        perm, gids, ng = TK.keyed_sort(inv, [comb])
+        uperm, ugids, ung = TK.keyed_sort(inv, codes)
+        if ng != ung or not torch.equal(perm, uperm):
+            raise AssertionError(f"{case}: the folded sort's order differs")
+        # K1 + the gid kernel over the folded word and over the codes
+        out[f"encode {case}"].update(
+            k1_gids_ms=_median_ms(lambda: TK.keyed_sort(inv, [comb])),
+            k1_gids_unfolded_ms=_median_ms(lambda: TK.keyed_sort(inv, codes)))
+        cap = max(64, 1 << (max(ng, 1) - 1).bit_length())
+        rows = torch.empty((len(kinds), cap), dtype=dt, device=device)
+        want = TK.keyed_keys_cuda(ugids["sk"], ugids["starts"], ng, torch.empty_like(rows))
+        out[f"unfold {case}"] = check_unfold(TK, gids["sk"][0], gids["starts"], ng, fold,
+                                             rows, want)
+        del inv, comb, codes, perm, gids, uperm, ugids
+    for k, v in out.items():
+        print(f"keyed fold {k}: {json.dumps(v)}")
+    print(f"keyed fold phase: ok s={time.perf_counter() - t0!r}")
+    return out
+
+
 def keyed_timing(TK, legs: dict) -> dict:
     """B7-B10 at each keyed leg's first main-path call: checked against
     the twins, timed, beside their bounds."""
@@ -3570,6 +3813,9 @@ def keyed_timing(TK, legs: dict) -> dict:
     for leg, r in legs.items():
         caps = r["caps"]
         for name, fn, cap in (("key_encode", _time_key_encode, "key_encode_cuda"),
+                              ("keyed_encode_entries", _time_encode_entries,
+                               "keyed_encode_entries_cuda"),
+                              ("keyed_unfold", _time_unfold, "keyed_unfold_cuda"),
                               ("keyed_gids", _time_keyed_sort, "keyed_sort"),
                               ("keyed_finish", _time_keyed_finish, "keyed_finish_cuda"),
                               ("keyed_median", _time_keyed_median, "keyed_median_cuda"),
@@ -3746,7 +3992,7 @@ def _time_keyed_finish_x32(TK, captured) -> dict:
     import torch
 
     args, _ = captured
-    specs, columns, field_col, ops, perm, gids, ng, cap = args
+    specs, columns, field_col, ops, perm, gids, ng, cap = args[:8]
     got = TK.keyed_finish_x32_cuda(*args)
     twin = TK.keyed_finish_x32_reference(*args)
     err = _x32_rows_close(TK, got, twin, ops, "keyed_finish x32")
@@ -3761,7 +4007,7 @@ def _time_keyed_finish_x32(TK, captured) -> dict:
         acc = torch.zeros(cap + 1, V.shape[1], dtype=V.dtype, device=V.device)
         library = _median_ms(lambda: acc.index_add_(0, g, V))
     read = 8 * n + sum(_nbytes(c.values, c.valid, c.values2) for c in columns)
-    read += 4 * len(gids["sk"]) * ng + 4 * ng
+    read += 4 * (got.shape[0] - len(ops)) * ng + 4 * ng
     out = dict(rows=n, capacity=cap, groups=ng, fields=len(ops),
                ms=_median_ms(lambda: TK.keyed_finish_x32_cuda(*args)),
                plain_ms=_median_ms(lambda: TK.keyed_finish_x32_reference(*args), 5),
@@ -3807,6 +4053,9 @@ def x32_forms_phase(TK, WK, legs: dict, device) -> dict:
     for leg in ("x32 h2o q6", "x32 h2o q9", "x32 h2o q10", "x32 q3 keyed"):
         caps = legs[leg]["caps"]
         for name, fn, cap in (("key_encode", _time_key_encode, "key_encode_cuda"),
+                              ("keyed_encode_entries", _time_encode_entries,
+                               "keyed_encode_entries_cuda"),
+                              ("keyed_unfold", _time_unfold, "keyed_unfold_cuda"),
                               ("keyed_gids", _time_keyed_sort, "keyed_sort"),
                               ("keyed_finish", _time_keyed_finish_x32, "keyed_finish_x32_cuda"),
                               ("keyed_median", _time_keyed_median, "keyed_median_cuda"),
@@ -3873,6 +4122,7 @@ def main() -> int:
     ap.add_argument("--verbose-build", action="store_true",
                     help="print the compiler's output (registers, spills)")
     opts = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -3893,6 +4143,7 @@ def main() -> int:
     )
     if leaked:
         raise AssertionError(f"JAX-side modules loaded: {leaked[:5]}")
+    print(f"smoke: total s={time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,
@@ -3950,6 +4201,7 @@ def run(opts, device) -> list:
     pid_times = pid_phase(TK, device)
     probe_times, build_times = join_phase(TK, device)
     mesh_times = mesh_phase(TK, device)
+    fold_times = keyed_fold_phase(TK, device)
     t1 = time.perf_counter()
     expr_grid = expr_grid_phase(TK, device)
     print(f"expr_eval grid: {len(expr_grid)} cases bit-identical to the twin and the "
@@ -4076,13 +4328,19 @@ def run(opts, device) -> list:
         _entry("join_probe", probe_shapes["star"], launches["join_probe"], 0.0,
                shapes=probe_shapes, kernel_phase=probe_times),
     ]
-    for name, head in (("key_encode", "h2o q10"), ("keyed_gids", "h2o q10"),
+    for name, head in (("key_encode", "q3 keyed"), ("keyed_gids", "h2o q10"),
                        ("keyed_finish", "h2o q10"), ("keyed_median", "h2o q6"),
-                       ("keyed_corr", "h2o q9")):
+                       ("keyed_corr", "h2o q9"), ("keyed_encode_entries", "h2o q6"),
+                       ("keyed_unfold", "h2o q6")):
         shapes_k = keyed[name]
+        extra = {}
+        if name in ("keyed_encode_entries", "keyed_unfold"):
+            pre = "encode " if name == "keyed_encode_entries" else "unfold "
+            extra["kernel_phase"] = {k[len(pre):]: t for k, t in fold_times.items()
+                                     if k.startswith(pre)}
         entries.append(_entry(name, shapes_k[head], launches[name],
                               max(t["max_abs_err"] for t in shapes_k.values()),
-                              shapes=shapes_k))
+                              shapes=shapes_k, **extra))
     entries.append(_entry("mesh_reduce", reduce_shape, launches["mesh_reduce"], 0.0,
                           kernel_phase={k: t for k, t in mesh_times.items()
                                         if k.startswith("reduce")}))

@@ -788,6 +788,94 @@ def test_keyed_corr_matches_twin(cuda, ints):
                                    rtol=1e-9, atol=0)
 
 
+def _fold_entries(sizes, device, x32: bool, seed: int):
+    """Pending batches of h2o-q6-like keys (two identity keys, one with
+    negatives and nulls) and a host code, their row masks and the fold plan
+    of their spans: ``(kinds, entries, plan)``."""
+    from arrow_ballista_tpu_torch.ops import stage_compiler as TSC
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    idt = np.int32 if x32 else np.int64
+    kinds = ("ident", "ident", "code")
+    entries, ks = [], {}
+    for n in sizes:
+        a = rng.integers(1, 101, n).astype(np.int32)
+        b = rng.integers(-60, 60, n).astype(idt)
+        bvalid = rng.random(n) > 0.1
+        c = rng.integers(0, 100, n).astype(np.int32)  # host codes may ship as int32
+        if x32:
+            # host codes near 2^32 ship as negative words
+            c = ((c.astype(np.int64) + (1 << 32) - 100) & 0xFFFFFFFF).astype(
+                np.uint32).view(np.int32)
+        if n:  # an empty batch notes no span
+            TSC._note_range(ks, 0, TSC._zigzag_span(a, None, x32))
+            TSC._note_range(ks, 1, TSC._zigzag_span(b, bvalid, x32))
+            TSC._note_range(ks, 2, (int(c.min()), int(c.max())))
+        masks = (t(rng.random(n) > 0.1), None, t(rng.random(n) > 0.02))
+        entries.append((((t(a), None), (t(b), t(bvalid)), (t(c),)), masks, n))
+    return kinds, entries, TSC._radix_combine_bits(ks, 3)
+
+
+@pytest.mark.parametrize("x32", [False, True])
+@pytest.mark.parametrize("sizes", [(1,), (2047, 0, 2049), (300_001, 5000)])
+def test_keyed_encode_entries_and_unfold_match_twins(cuda, sizes, x32):
+    """B7c's entry-wise encode, folded and not, and the unfold against
+    their twins, bit for bit; the folded sort gives the unfolded sort's
+    permutation and key rows."""
+    dt = torch.int32 if x32 else torch.int64
+    kinds, entries, plan = _fold_entries(sizes, cuda, x32, seed=sum(sizes))
+    assert plan is not None
+    for fold in (None, plan):
+        runs = [TK.keyed_encode_entries_cuda(kinds, entries, fold, dt) for _ in range(2)]
+        twin = TK.keyed_encode_entries_reference(kinds, entries, fold, dt)
+        torch.cuda.synchronize()
+        for inv, keys in runs:
+            assert torch.equal(inv, twin[0])
+            assert len(keys) == len(twin[1])
+            for a, b in zip(keys, twin[1]):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    inv, codes = TK.keyed_encode_entries_cuda(kinds, entries, None, dt)
+    _finv, (comb,) = TK.keyed_encode_entries_cuda(kinds, entries, plan, dt)
+    perm, gids, ng = TK.keyed_sort(inv, codes)
+    fperm, fgids, fng = TK.keyed_sort(inv, [comb])
+    assert ng == fng and torch.equal(perm, fperm)
+    cap = 1 << max(ng - 1, 0).bit_length()
+    want = TK.keyed_keys_cuda(gids["sk"], gids["starts"], ng,
+                              torch.empty((3, cap), dtype=dt, device=cuda))
+    got = TK.keyed_unfold_cuda(fgids["sk"][0], fgids["starts"], ng, plan,
+                               torch.empty((3, cap), dtype=dt, device=cuda))
+    twin = TK.keyed_unfold_reference(fgids["sk"][0], fgids["starts"], ng, plan,
+                                     torch.empty((3, cap), dtype=dt, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, twin) and torch.equal(got, want)
+
+
+def test_keyed_fold_rebases_wide_x64_codes(cuda):
+    """x64 host codes near -2^40 with a 4-bit span: the kernel rebases the
+    full int64 code, as the twin does."""
+    rng = np.random.default_rng(17)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    entries = [(((t(-(1 << 40) + rng.integers(0, 11, n)),), (t(rng.integers(0, 9, n)), None)),
+                (t(rng.random(n) > 0.1), None, None), n) for n in (5000, 70_001)]
+    plan = ((-(1 << 40), 4), (0, 5))
+    got = TK.keyed_encode_entries_cuda(("code", "ident"), entries, plan, torch.int64)
+    twin = TK.keyed_encode_entries_reference(("code", "ident"), entries, plan, torch.int64)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], twin[0]) and torch.equal(got[1][0], twin[1][0])
+    assert int(twin[1][0].min()) >= 0
+
+
+def test_keyed_fold_kernels_reject_bad_input(cuda):
+    kinds, entries, plan = _fold_entries((100,), cuda, False, seed=3)
+    with pytest.raises(ValueError, match="code dtype"):
+        TK.keyed_encode_entries_cuda(kinds, entries, None, torch.float64)
+    with pytest.raises(ValueError, match="fold widths"):
+        TK.keyed_encode_entries_cuda(kinds, entries, ((0, 16), (0, 16), (0, 1)))
+    with pytest.raises(ValueError, match="entries"):
+        TK.keyed_encode_entries_cuda(kinds, entries * 33, plan)
+
+
 def test_keyed_kernels_reject_bad_input(cuda):
     c = _keyed_case(1000, cuda)
     with pytest.raises(ValueError, match="key 0 values"):
@@ -825,7 +913,9 @@ def test_keyed_stage_on_cuda_matches_cpu_operators(cuda, sql):
         before = dict(TK.LAUNCHES)
         out.append(ctx.sql(sql).collect().sort_by([("k", "ascending")]))
         if enable == "true":
-            for k in ("key_encode", "keyed_gids", "keyed_finish"):
+            # one batch: the single dispatch's entry-wise encode, one key
+            # (no fold), so the finish gathers the key rows
+            for k in ("keyed_encode_entries", "keyed_gids", "keyed_finish"):
                 assert TK.LAUNCHES[k] > before[k], k
     a, b = out
     assert a.num_rows == b.num_rows

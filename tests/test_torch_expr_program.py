@@ -638,8 +638,9 @@ STAGE_CASES = {
     "keyed": ("keyed", "select k, median(v) as md, stddev(v) as sd, sum(v * 2) as s "
               "from t where v > 0.1 group by k order by k",
               {"ballista.shuffle.partitions": "1"},
-              ["bridge_time_ns", "device_encode_batches", "device_time_ns", "input_rows",
-               "keyed_path", "output_rows", "tpu_stage_time_ns"]),
+              ["bridge_time_ns", "device_encode_batches", "device_time_ns",
+               "fused_keyed_dispatches", "input_rows", "keyed_path", "output_rows",
+               "tpu_stage_time_ns"]),
 }
 
 

@@ -6,8 +6,9 @@ int64 column past int32 ships only its validity, avg over one rides an
 exact f32 (hi, lo) pair while sum re-runs on the CPU operators (an INT
 output must be exact), a udaf stays on the CPU at plan time, groups ~
 rows with ``highcard_mode=cpu`` go to the CPU hash aggregate, and null
-int group keys stay on the device.  ``test_q3_with_big_orderkeys_no_
-fallback`` needs x32's join fold (ROADMAP A7b, the next slice).
+int group keys stay on the device.  The sixth,
+``test_q3_with_big_orderkeys_no_fallback``, needs x32's join fold; its
+twin is in ``tests/test_torch_x32_routes.py``.
 """
 
 import collections

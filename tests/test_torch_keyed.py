@@ -569,6 +569,7 @@ def test_keyed_budget_chunks_and_merges():
                         {"t": _many_batch_table()}, batches=2500, budget=256 * 1024)
     _keyed(pm, jm)
     assert pm.get("keyed_chunks", 0) >= 2 and jm.get("keyed_chunks", 0) >= 2
+    assert pm["keyed_chunks"] == jm["keyed_chunks"]
     assert pm.get("keyed_merge_time_ns", 0) > 0
 
 
@@ -591,6 +592,7 @@ def test_keyed_budget_with_device_join():
     _keyed(pm, jm)
     for m in (pm, jm):
         assert m.get("keyed_chunks", 0) >= 2 and m.get("join_fallback", 0) == 0, m
+    assert pm["keyed_chunks"] == jm["keyed_chunks"]
 
 
 # ------------------------------------------- device key encode, end to end
@@ -622,7 +624,24 @@ def test_negative_int_keys_stay_on_the_keyed_route():
     assert jm.get("tpu_fallback", 0) == 1, jm
 
 
-def test_wide_i64_multikey_stays_exact():
+def _record_fold_plans(monkeypatch) -> dict:
+    """Every plan each package's ``_radix_combine_bits`` returns."""
+    seen = {"port": [], "jax": []}
+    for mod, name in ((TSC, "port"), (JSC, "jax")):
+        inner = mod._radix_combine_bits
+
+        def rec(key_state, n_keys, inner=inner, name=name):
+            seen[name].append(inner(key_state, n_keys))
+            return seen[name][-1]
+
+        monkeypatch.setattr(mod, "_radix_combine_bits", rec)
+    return seen
+
+
+def test_wide_i64_multikey_stays_exact(monkeypatch):
+    """A key past 2^40 with a narrow span: both packages decline the fold
+    (codes past int32) and sort the keys unfolded in one dispatch."""
+    plans = _record_fold_plans(monkeypatch)
     rng = np.random.default_rng(7)
     n = 3000
     t = pa.table({"k": pa.array((rng.integers(0, 300, n) + (1 << 40)).astype(np.int64)),
@@ -631,17 +650,25 @@ def test_wide_i64_multikey_stays_exact():
     pm, jm = three_ways("select k, p, count(*) as c, sum(v) as s from t group by k, p",
                         {"t": t})
     _keyed(pm, jm)
+    assert plans["port"] == plans["jax"] == [None], plans
+    assert pm["fused_keyed_dispatches"] == jm["fused_keyed_dispatches"] == 1
 
 
-def test_late_key_growth_past_i32_stays_exact():
+def test_late_key_growth_past_i32_stays_exact(monkeypatch):
     """Batch 1 fits 32 bits, a later batch does not: the port ships
-    identity keys as they come (no narrowing), so it stays keyed."""
+    identity keys as they come (no narrowing), so it stays keyed and runs
+    its one key through the single dispatch unfolded; the reference
+    re-runs the partition on the CPU before it plans a fold."""
+    plans = _record_fold_plans(monkeypatch)
     rng = np.random.default_rng(8)
     k = rng.integers(0, 500, 6000).astype(np.int64)
     k[4000:] += 1 << 35
     t = pa.table({"k": pa.array(k), "v": pa.array(rng.uniform(0, 10, 6000))})
     pm, jm = three_ways("select k, sum(v) as s from t group by k", {"t": t}, batches=2000)
     assert pm.get("keyed_path", 0) == 1 and pm.get("tpu_fallback", 0) == 0, pm
+    assert pm["fused_keyed_dispatches"] == 1 and plans["port"] == [None], (pm, plans)
+    assert jm.get("tpu_fallback", 0) == 1 and jm.get("fused_keyed_dispatches", 0) == 0, jm
+    assert plans["jax"] == [], plans
 
 
 def test_device_encode_off_uses_host_codes():

@@ -7,7 +7,7 @@ timestamp that does not lower, and the bit-exact f64 min/max over the
 matmul, scatter and sort routes.  The other six (the TPC-H sweep, the
 keyed min/max, the variance family three ways and its cancellation
 guard) need x32 on the keyed route, the statistical aggregates and the
-join fold: ROADMAP A7b, the next slice.
+join fold; their twins are in ``tests/test_torch_x32_routes.py``.
 
 Both packages are forced to x32 (``set_precision("x32")``), the port on
 ``device="cpu"`` (the kernels' plain twins), the same seeded inputs go to

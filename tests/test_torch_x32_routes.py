@@ -119,27 +119,39 @@ def x32_three(sql: str, tables: dict, parts: int = 1, batches=None, budget=None,
     fold and route alike.  ``batches`` cuts each table into record
     batches of that many rows, ``budget`` sets every device stage's keyed
     buffer budget in bytes.  Returns (port metrics, JAX metrics, port
-    answer)."""
+    answer).
+
+    pyarrow's hash join cuts its output into chunks as its pool threads
+    finish, and a stage routes on its first batch (groups ~ rows), so the
+    three runs use one pool thread: both device stages then see the same
+    batches and the route comparison compares like with like."""
     from arrow_ballista_tpu.catalog import MemoryTable as JMem
     from arrow_ballista_tpu_torch.catalog import MemoryTable as TMem
 
     out = []
-    for mod, mem, cls, tpu in ((tbt, TMem, TSC.TorchStageExec, True),
-                               (jbt, JMem, JSC.TpuStageExec, True),
-                               (jbt, JMem, None, False)):
-        cfg = mod.BallistaConfig(settings(tpu, extra))
-        ctx = mod.SessionContext(cfg, device="cpu") if mod is tbt else mod.SessionContext(cfg)
-        for name, t in tables.items():
-            if batches:
-                ctx.register_table(name, mem([t.to_batches(max_chunksize=batches)], t.schema))
-            else:
-                ctx.register_table(name, mem.from_table(t, parts))
-        plan = ctx.sql(sql).physical_plan()
-        found = stages(plan, cls) if cls else []
-        if budget is not None:
-            for s in found:
-                s.keyed_buffer_bytes = budget
-        out.append((ctx.execute(plan), found))
+    threads = pa.cpu_count()
+    pa.set_cpu_count(1)
+    try:
+        for mod, mem, cls, tpu in ((tbt, TMem, TSC.TorchStageExec, True),
+                                   (jbt, JMem, JSC.TpuStageExec, True),
+                                   (jbt, JMem, None, False)):
+            cfg = mod.BallistaConfig(settings(tpu, extra))
+            ctx = (mod.SessionContext(cfg, device="cpu") if mod is tbt
+                   else mod.SessionContext(cfg))
+            for name, t in tables.items():
+                if batches:
+                    ctx.register_table(name, mem([t.to_batches(max_chunksize=batches)],
+                                                 t.schema))
+                else:
+                    ctx.register_table(name, mem.from_table(t, parts))
+            plan = ctx.sql(sql).physical_plan()
+            found = stages(plan, cls) if cls else []
+            if budget is not None:
+                for s in found:
+                    s.keyed_buffer_bytes = budget
+            out.append((ctx.execute(plan), found))
+    finally:
+        pa.set_cpu_count(threads)
     (port, pst), (jgot, jst), (want, _) = out
     assert_x32_equal(want, port, "port vs the CPU operators", exact=exact)
     assert_x32_equal(want, jgot, "JAX vs the CPU operators", exact=exact)
