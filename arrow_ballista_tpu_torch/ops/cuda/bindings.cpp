@@ -779,7 +779,8 @@ void mesh_reduce_(const std::vector<at::Tensor>& states, const std::vector<int64
 }
 
 // D: hi, lo [n_out, capacity] f32 and cnt [n_cnt, capacity] int32 written;
-// ``partial`` is the [blocks, slots + counts, capacity] scratch.  The
+// ``partial`` is the [blocks x runs a block, slots + counts, capacity]
+// scratch (df32_agg_plan: ceil(block / kDfRunRows) runs a block).  The
 // Python wrapper (ops/kernels.py:df32_agg_cuda) checks every tensor first.
 void df32_agg_(const at::Tensor& gid, const at::Tensor& tail, const at::Tensor& pred,
                const at::Tensor& pvalid, const std::vector<at::Tensor>& values,
@@ -817,10 +818,13 @@ void df32_agg_(const at::Tensor& gid, const at::Tensor& tail, const at::Tensor& 
   p.block = block;
   p.nb = nb;
   p.n_real = (p.n + block - 1) / block;
-  TORCH_CHECK(p.n_real <= 65535 && p.n_real <= nb, "df32_agg: blocks");
-  TORCH_CHECK(partial.numel() >= p.n_real * (p.n_slots + p.n_cnt) * capacity,
+  TORCH_CHECK(p.n_real <= nb && nb <= (1LL << kDfMaxLevels), "df32_agg: blocks");
+  df32_agg_plan(&p);
+  TORCH_CHECK(p.n_real * p.runs_per_block <= 0x7fffffffLL &&
+                  (p.n_out + p.n_cnt) * ((capacity + 31) / 32) * 32 <= 0x7fffffffLL,
+              "df32_agg: grid");
+  TORCH_CHECK(partial.numel() >= p.n_real * p.runs_per_block * (p.n_slots + p.n_cnt) * capacity,
               "df32_agg: scratch");
-  p.tile = df32_agg_tile(p.n_slots + p.n_cnt, capacity);
   p.partial = reinterpret_cast<int32_t*>(partial.data_ptr());
   p.hi = opt<float>(hi);
   p.lo = opt<float>(lo);

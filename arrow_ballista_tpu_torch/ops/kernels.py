@@ -1719,17 +1719,22 @@ def _check_df32_args(gid, tail, pred, pvalid, values, valids, sums, counts,
         not -1 <= c < len(values) for c in counts
     ):
         raise ValueError("df32_agg: column index out of range")
-    if block < 1 or capacity < 1 or n >= 1 << 31:
+    if block < 1 or capacity < 1 or n >= 1 << 31 or _df32_blocks(n, block) > 1 << 20:
+        # 2^20 blocks: df32_agg.h's kDfMaxLevels, the depth of pass 2's stack
         raise ValueError(f"df32_agg: block {block}, capacity {capacity}, {n} rows")
 
 
 def df32_agg_cuda(gid, tail, pred, pvalid, values, valids, sums, counts,
                   capacity: int, block: int) -> tuple:
     """Launch the hand-written double-float segment sum (ops/cuda/
-    df32_agg.cu): one pass folds every block's per-group f32 partials of
-    the summed columns and counts (no one-hot, no GEMM), a second runs the
-    pairwise 2Sum tree over the blocks.  Same results as
-    :func:`df32_agg_reference` within rel 1e-6 on hi + lo, counts exact.
+    df32_agg.cu).  Pass 1 reads each input once (up to capacity 8192):
+    a CTA sorts a run of rows (a 2^14-row block, or a slice of a larger
+    one) by group in shared memory and folds each summed column and count
+    of the sorted rows into per-group f32 partials in a fixed order (no
+    one-hot, no GEMM); pass 2 runs the pairwise 2Sum tree over the blocks,
+    parallel over blocks and groups.  Same results as
+    :func:`df32_agg_reference` within rel 1e-6 on hi + lo, counts exact,
+    two launches bit-identical.
 
     Replaces ``arrow_ballista_tpu/ops/kernels.py:_blocked_onehot_agg``
     (block 2^14, every sum and count column) and ``_segment_sum_df32``
@@ -1746,8 +1751,9 @@ def df32_agg_cuda(gid, tail, pred, pvalid, values, valids, sums, counts,
     hi = torch.empty((len(sums), capacity), dtype=F32, device=device)
     lo = torch.empty((len(sums), capacity), dtype=F32, device=device)
     cnt = torch.empty((len(counts), capacity), dtype=I32, device=device)
-    n_real = max(1, -(-n // block))
-    partial = torch.empty(n_real * (len(slots) + len(counts)) * capacity,
+    run_rows = 1 << 14  # df32_agg.h: kDfRunRows, a block's runs in pass 1
+    runs = max(1, -(-n // block)) * -(-block // run_rows)
+    partial = torch.empty(runs * (len(slots) + len(counts)) * capacity,
                           dtype=F32, device=device)
     empty = torch.empty(0, dtype=torch.bool, device=device)
 

@@ -98,10 +98,13 @@ Phases; any failure exits non-zero and prints no result line:
             ``df32_agg`` (both forms), ``ord_extremum``, ``x32_merge``, the
             x32 ops of ``seg_scan``, ``mesh_reduce`` (4 shards) and
             ``expr_eval`` against their twins at the first main-path shape
-            and a wide one (``df32_agg`` at capacity 8192,
-            ``ord_extremum`` and ``x32_merge`` at 2^20): ``df32_agg`` and
-            the df32 fold within rel 1e-6 on hi + lo, everything else
-            bit-identical, two launches bit-identical; and ``df32_agg``
+            and a wide one (``df32_agg`` at capacity 8192, uniform and
+            Zipf-skewed group ids, ``ord_extremum`` and ``x32_merge`` at
+            2^20): ``df32_agg`` and the df32 fold within rel 1e-6 on
+            hi + lo, everything else bit-identical, two launches
+            bit-identical; ``df32_agg``'s two passes timed apart
+            (torch.profiler) beside the bytes of its block partials; and
+            ``df32_agg``
             (both forms) and the df32 fold on the cancellation mix
             (``df32_cancel_inputs``: group sums near 0 beside large
             values) within rel 1e-6 of the f64 sum on every group, a bar
@@ -2821,6 +2824,7 @@ X32_MERGE_CAPACITY = 1 << 20
 X32_SCAN_ROWS = 1 << 23
 X32_CANCEL_ROWS = 1 << 20  # the cancellation mix: 16 cycles of 2^14-row runs
 X32_CANCEL_CAPACITY = 64
+X32_ZIPF_S = 1.1  # the skewed wide shape of D: group k of 8192 drawn with weight 1/k^1.1
 # the x32 kernels each leg must launch (beside expr_eval)
 X32_ROUTE_KERNELS = {
     "matmul": ("df32_agg", "x32_merge"),
@@ -3012,6 +3016,49 @@ def _df32_bytes(args) -> int:
     return total + (2 * len(sums) + len(counts)) * cap * 4
 
 
+DF32_RUN_ROWS = 1 << 14  # df32_agg.h: kDfRunRows, the most rows pass 1 sorts in one CTA
+
+
+def _df32_partial_bytes(args) -> int:
+    """The bytes of D's block partials, written by pass 1 and read back by
+    pass 2: [blocks x runs a block, summed columns + counts, capacity]
+    words (the reference's block structure makes them part of the work)."""
+    gid, _t, _p, _v, _vals, _ok, sums, counts, cap, block = args
+    n = gid.numel()
+    runs = -(-n // block) * -(-block // DF32_RUN_ROWS)
+    cols = len({a for a, _ in sums} | {b for _, b in sums if b >= 0}) + len(counts)
+    return 2 * runs * cols * cap * 4
+
+
+def _df32_pass_split(TK, args, reps: int = 10) -> dict:
+    """Device ms per launch of D's two passes, from torch.profiler's kernel
+    records: pass 1 (``df32_partial``: the block partials) and pass 2
+    (``df32_combine``: the 2Sum tree over the blocks, the counts); None
+    for both where the profiler records no kernel (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    TK.df32_agg_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            TK.df32_agg_cuda(*args)
+        torch.cuda.synchronize()
+    us = {"pass1_ms": 0.0, "pass2_ms": 0.0}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if "df32_partial" in e.key:
+            us["pass1_ms"] += t
+        elif "df32_combine" in e.key:
+            us["pass2_ms"] += t
+    if not us["pass1_ms"] and args[0].numel():
+        print("df32_agg pass split: the profiler recorded no df32_partial (not measured)")
+        return {k: None for k in us}
+    return {k: v / reps / 1e3 for k, v in us.items()}
+
+
 def _df32_check(TK, args, what: str) -> dict:
     """D against its twin: hi + lo within X32_REL, counts exact, two launches
     bit-identical; ms beside the bound and the library calls (index_add_,
@@ -3057,11 +3104,15 @@ def _df32_check(TK, args, what: str) -> dict:
             del onehot
         finally:
             torch.backends.cuda.matmul.allow_tf32 = old
+    partial_bytes = _df32_partial_bytes(args)
     return dict(rows=n, capacity=cap, block=block, sums=len(sums), counts=len(counts),
                 max_abs_err=float(diff.max()) if diff.size else 0.0,
                 ms=_median_ms(lambda: TK.df32_agg_cuda(*args)),
                 plain_ms=_median_ms(lambda: TK.df32_agg_reference(*args), reps=3),
-                library_ms=library, bmm_tf32_off_ms=bmm_ms, **_bound(_df32_bytes(args)))
+                library_ms=library, bmm_tf32_off_ms=bmm_ms, **_bound(_df32_bytes(args)),
+                partial_bytes=partial_bytes,
+                partial_ms=partial_bytes / HBM_BYTES_PER_S * 1e3,
+                **_df32_pass_split(TK, args))
 
 
 def _ord_check(TK, args, what: str) -> dict:
@@ -3328,6 +3379,60 @@ def _shard_states_x32(TK, specs, cap: int, n_shards: int, seed: int, device) -> 
     return states
 
 
+def zipf_gid(n: int, cap: int, s: float, seed: int) -> np.ndarray:
+    """Group ids drawn from a Zipf law of exponent ``s`` over ``cap``
+    groups (group rank k drawn with weight 1/k^s), ranks shuffled over the
+    ids."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, cap + 1, dtype=np.float64) ** s
+    g = rng.choice(cap, size=n, p=w / w.sum())
+    return rng.permutation(cap).astype(np.int32)[g]
+
+
+def _df32_q1_like(TK, device) -> tuple:
+    """Stand-ins for the two q1 captures when D runs without the legs:
+    X32_WIDE_ROWS rows in q1's 4 groups at capacity 64, a tail mask, five
+    f32 sums and the row count."""
+    w = _x32_wide_inputs(TK, X32_WIDE_ROWS, 4, 29, device)
+    base = (w["gid"], w["tail"], None, None, w["values"][:5], [None] * 5,
+            [(c, -1) for c in range(5)], [-1], 64)
+    return (base + (TK.DF32_BLOCK,),
+            base + (TK.df32_scatter_block(X32_WIDE_ROWS, 64, device),))
+
+
+def df32_phase(TK, device, q1=None, q1_scatter=None) -> dict:
+    """D against its twin (``_df32_check``: rel X32_REL on hi + lo, counts
+    exact, two launches bit-identical, ms and the two passes beside the
+    bound, the partials and the library calls) at q1's main-path calls
+    (``q1``, ``q1_scatter``: the legs' captured arguments, else
+    ``_df32_q1_like``), at the wide shape in both forms, at the wide matmul
+    form with Zipf-skewed group ids (exponent X32_ZIPF_S), and on the
+    cancellation mix in both forms."""
+    if q1 is None:
+        q1, q1_scatter = _df32_q1_like(TK, device)
+    out = {"q1 matmul form": _df32_check(TK, q1, "q1 matmul form"),
+           "q1 scatter form": _df32_check(TK, q1_scatter, "q1 scatter form")}
+    cap = X32_WIDE_D_CAPACITY
+    w = _x32_wide_inputs(TK, X32_WIDE_ROWS, cap, 31, device)
+    wide = (w["gid"], w["tail"], w["pred"], None, w["values"][:5], w["valids"][:5],
+            [(c, -1) for c in range(5)], [-1, 0], cap, TK.DF32_BLOCK)
+    out[f"wide cap {cap} matmul form"] = _df32_check(TK, wide, "wide matmul form")
+    block = TK.df32_scatter_block(X32_WIDE_ROWS, cap, device)
+    pair = (w["gid"], w["tail"], w["pred"], None, w["values"], w["valids"],
+            [(5, 6)], [5], cap, block)
+    out[f"wide cap {cap} scatter form, int64 pair"] = _df32_check(
+        TK, pair, "wide scatter form")
+    import torch
+
+    zipf = (torch.from_numpy(zipf_gid(X32_WIDE_ROWS, cap, X32_ZIPF_S, 33)).to(device),) + wide[1:]
+    out[f"wide cap {cap} matmul form, Zipf {X32_ZIPF_S}"] = _df32_check(
+        TK, zipf, "wide matmul form, Zipf")
+    del w, wide, pair, zipf
+    for form, r in _df32_cancel_check(TK, device).items():
+        out[f"cancellation {form} form"] = r
+    return out
+
+
 def x32_kernel_phase(TK, device, legs: dict) -> dict:
     """Every x32 kernel and op against its twin at the first main-path shape
     the legs captured and at a wide one, with its ms, bound and library
@@ -3341,23 +3446,8 @@ def x32_kernel_phase(TK, device, legs: dict) -> dict:
     out: dict = {"df32_agg": {}, "ord_extremum": {}, "x32_merge": {}, "seg_scan": {},
                  "mesh_reduce": {}, "expr_eval": {}}
     cap_ = legs["q1 cache_off"]["captured"]
-    (d_args, _) = cap_["df32_agg_cuda"]
-    out["df32_agg"]["q1 matmul form"] = _df32_check(TK, d_args, "q1 matmul form")
-    (d_args, _) = legs["q1 warm scatter"]["captured"]["df32_agg_cuda"]
-    out["df32_agg"]["q1 scatter form"] = _df32_check(TK, d_args, "q1 scatter form")
-    w = _x32_wide_inputs(TK, X32_WIDE_ROWS, X32_WIDE_D_CAPACITY, 31, device)
-    wide = (w["gid"], w["tail"], w["pred"], None, w["values"][:5], w["valids"][:5],
-            [(c, -1) for c in range(5)], [-1, 0], X32_WIDE_D_CAPACITY, TK.DF32_BLOCK)
-    out["df32_agg"][f"wide cap {X32_WIDE_D_CAPACITY} matmul form"] = _df32_check(
-        TK, wide, "wide matmul form")
-    block = TK.df32_scatter_block(X32_WIDE_ROWS, X32_WIDE_D_CAPACITY, device)
-    pair = (w["gid"], w["tail"], w["pred"], None, w["values"], w["valids"],
-            [(5, 6)], [5], X32_WIDE_D_CAPACITY, block)
-    out["df32_agg"][f"wide cap {X32_WIDE_D_CAPACITY} scatter form, int64 pair"] = _df32_check(
-        TK, pair, "wide scatter form")
-    del wide, pair
-    for form, r in _df32_cancel_check(TK, device).items():
-        out["df32_agg"][f"cancellation {form} form"] = r
+    out["df32_agg"] = df32_phase(TK, device, cap_["df32_agg_cuda"][0],
+                                 legs["q1 warm scatter"]["captured"]["df32_agg_cuda"][0])
 
     (e_args, _) = legs["q1 min/max"]["captured"]["ord_extremum_cuda"]
     out["ord_extremum"]["q1 min/max first call"] = _ord_check(TK, e_args, "q1 min/max")

@@ -1276,6 +1276,76 @@ def test_df32_agg_matches_twin(cuda, form, cap):
     assert torch.equal(runs[0][2], twin[2])
 
 
+def _df32_case(n, cap, seed):
+    """D's edge-case inputs as numpy: two f32 columns in [1, 1e5) (the
+    first with nulls), an int64 pair's f32 halves with nulls, a tail and a
+    filter; sums (0), (1) and the pair, counts of the row mask and of two
+    validities."""
+    rng = np.random.default_rng(seed)
+    big = rng.integers(1 << 33, 1 << 40, n)
+    hi = big.astype(np.float32)
+    ok = rng.random(n) >= 0.05
+    return dict(
+        gid=rng.integers(0, cap, n, dtype=np.int32), tail=np.arange(n) < n - n // 97,
+        pred=rng.random(n) >= 0.2,
+        values=[rng.uniform(1.0, 1e5, n).astype(np.float32),
+                rng.uniform(1.0, 1e5, n).astype(np.float32), hi,
+                (big - hi.astype(np.float64)).astype(np.float32)],
+        valids=[rng.random(n) >= 0.05, None, ok, ok])
+
+
+def _df32_edge(name, n, cap):
+    d = _df32_case(n, cap, n + cap)
+    if name == "one group":
+        d["gid"][:] = cap // 3
+    elif name == "zipf":
+        d["gid"] = SMOKE.zipf_gid(n, cap, SMOKE.X32_ZIPF_S, 7)
+    elif name == "all masked":
+        d["pred"][:] = False
+    elif name == "nan inf":
+        rows = np.flatnonzero(d["gid"] == 3)[:9]
+        d["values"][0][rows[:3]] = np.nan
+        d["values"][0][rows[3:6]] = np.inf
+        d["values"][0][rows[6:]] = -np.inf
+        d["tail"][rows] = d["pred"][rows] = d["valids"][0][rows] = True
+    return d
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("name,n,cap", [
+    ("one group", 300_001, 64), ("one group", 300_001, 8192), ("zipf", 1 << 20, 8192),
+    ("all masked", 300_001, 64), ("n", 0, 64), ("n", 1, 64), ("n", 31, 64),
+    ("n", (1 << 14) - 1, 64), ("n", (1 << 14) + 1, 8192), ("n", 300_001, 100),
+    ("n", (1 << 23) + 1, 64), ("n", (1 << 23) + 1, 8192), ("tiled", 300_001, 70_000),
+    ("nan inf", 300_001, 64)])
+def test_df32_agg_edge_cases_match_twin(cuda, name, n, cap):
+    """D in both forms on its edge cases: hi + lo within rel 1e-6 of the
+    twin (NaN where the twin is NaN), counts exact, two launches
+    bit-identical.  n = 2^23 + 1 gives a scatter block (131,073 rows) that
+    is no multiple of its runs and, at capacity 8192, 1024 matmul blocks
+    (pass 2's deep register stack); capacity 70,000 takes pass 1's group
+    tiles; the NaN and ±inf of group 3 stay in group 3."""
+    d = _df32_edge(name, n, cap)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(cuda)  # noqa: E731
+    for block in (TK.DF32_BLOCK, TK.df32_scatter_block(n, cap, cuda)):
+        args = (t(d["gid"]), t(d["tail"]), t(d["pred"]), None, [t(v) for v in d["values"]],
+                [t(v) for v in d["valids"]], [(0, -1), (1, -1), (2, 3)], [-1, 0, 2], cap, block)
+        runs = [TK.df32_agg_cuda(*args) for _ in range(2)]
+        twin = TK.df32_agg_reference(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(*runs)), block
+        _close_df32(runs[0][0], runs[0][1], twin[0], twin[1])
+        assert torch.equal(runs[0][2], twin[2]), block
+        if name == "nan inf":
+            bad = ~torch.isfinite(runs[0][0][0]).cpu().numpy()
+            assert bad[3] and bad.sum() == 1, block
+        if name == "all masked" or n == 0:
+            assert not runs[0][0].any() and not runs[0][2].any(), block
+
+
 @pytest.mark.parametrize("kind", ["pair", "f32", "i32"])
 @pytest.mark.parametrize("is_min", [True, False])
 @pytest.mark.parametrize("cap", [7, 70_000])

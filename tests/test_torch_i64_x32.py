@@ -7,8 +7,9 @@ exact f32 (hi, lo) pair while sum re-runs on the CPU operators (an INT
 output must be exact), a udaf stays on the CPU at plan time, groups ~
 rows with ``highcard_mode=cpu`` go to the CPU hash aggregate, and null
 int group keys stay on the device.  The sixth,
-``test_q3_with_big_orderkeys_no_fallback``, needs x32's join fold; its
-twin is in ``tests/test_torch_x32_routes.py``.
+``test_q3_with_big_orderkeys_no_fallback``, runs x32's join fold, which
+the port takes as the reference does; its twin is in
+``tests/test_torch_x32_routes.py`` beside the other join-fold cases.
 """
 
 import collections

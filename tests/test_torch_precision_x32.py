@@ -6,8 +6,10 @@ one, the non-pow2 mesh shards (8 CPU shards), the int64 range re-run, the
 timestamp that does not lower, and the bit-exact f64 min/max over the
 matmul, scatter and sort routes.  The other six (the TPC-H sweep, the
 keyed min/max, the variance family three ways and its cancellation
-guard) need x32 on the keyed route, the statistical aggregates and the
-join fold; their twins are in ``tests/test_torch_x32_routes.py``.
+guard) run x32 on the keyed route, the statistical aggregates and the
+join fold, which the port's x32 mode takes as the reference's does; their
+twins are in ``tests/test_torch_x32_routes.py`` beside the other cases of
+those routes.
 
 Both packages are forced to x32 (``set_precision("x32")``), the port on
 ``device="cpu"`` (the kernels' plain twins), the same seeded inputs go to

@@ -6,8 +6,8 @@ are held to these on the card by ``tests/test_torch_cuda_kernels.py``)
 against the reference's x32 functions on the same seeded inputs:
 
 * D (``df32_agg``) against ``_blocked_onehot_agg`` (matmul form) and
-  ``_segment_sum_df32`` (scatter form): hi + lo within rel 1e-6, counts
-  exact;
+  ``_segment_sum_df32`` (scatter form), on uniform ids and on every row in
+  one group or Zipf-skewed ids: hi + lo within rel 1e-6, counts exact;
 * E (``ord_extremum``) against ``_ord_segment_extremum`` and
   ``jax.ops.segment_min/max``: bit-exact (NaN as the canonical NaN, -0.0
   below +0.0);
@@ -95,10 +95,50 @@ def test_df32_matmul_form_tracks_f64_with_mixed_signs():
     np.testing.assert_allclose(_df(hi[0], lo[0]), oracle, rtol=REL)
 
 
-@pytest.mark.parametrize("cap", [1, 64, 5000])
+@pytest.mark.parametrize("cap", [1, 64, 5000, 8192])
 @pytest.mark.parametrize("n", [1000, 300_001])
 def test_df32_scatter_form_matches_segment_sum_df32(cap, n):
     seg, mask, vals, _ = _seg_inputs(n, cap, n + cap)
+    v = np.where(mask, vals[0], 0).astype(np.float32)
+    jhi, jlo = JK._segment_sum_df32(jnp.asarray(v), jnp.asarray(seg), cap)
+    hi, lo, _ = TK.df32_agg(_t(seg), _t(mask), None, None, [_t(vals[0])], [None],
+                            [(0, -1)], [], cap, TK.df32_scatter_block(n, cap, CPU))
+    np.testing.assert_allclose(_df(hi[0], lo[0]), _df(jhi, jlo), rtol=REL, atol=1e-3)
+    oracle = np.zeros(cap)
+    np.add.at(oracle, seg, v.astype(np.float64))
+    np.testing.assert_allclose(_df(hi[0], lo[0]), oracle, rtol=REL, atol=1e-3)
+
+
+def _skewed_seg(dist, n, cap, seed):
+    """Every row in one group, or Zipf-skewed group ids (the smoke's
+    exponent over ``cap`` groups)."""
+    if dist == "one group":
+        return np.full(n, cap // 2, np.int32)
+    return SMOKE.zipf_gid(n, cap, SMOKE.X32_ZIPF_S, seed)
+
+
+@pytest.mark.parametrize("dist", ["one group", "zipf"])
+def test_df32_matmul_form_matches_blocked_onehot_agg_skewed(dist):
+    n, cap = 50_001, 300
+    _, mask, vals, valid = _seg_inputs(n, cap, 11)
+    seg = _skewed_seg(dist, n, cap, 11)
+    m = mask & valid
+    V = np.stack([np.where(mask, vals[0], 0), np.where(m, vals[1], 0), mask.astype(np.float32),
+                  m.astype(np.float32)], axis=1).astype(np.float32)
+    jhi, jlo, jcnt = JK._blocked_onehot_agg(jnp.asarray(V), jnp.asarray(seg), cap, 2)
+    hi, lo, cnt = TK.df32_agg(_t(seg), _t(mask), None, None, [_t(v) for v in vals[:2]],
+                              [None, _t(valid)], [(0, -1), (1, -1)], [-1, 1], cap,
+                              TK.DF32_BLOCK)
+    np.testing.assert_allclose(_df(hi, lo).T, _df(jhi, jlo), rtol=REL, atol=1e-3)
+    np.testing.assert_array_equal(cnt.numpy().T, np.asarray(jcnt))
+
+
+@pytest.mark.parametrize("dist", ["one group", "zipf"])
+@pytest.mark.parametrize("cap", [64, 8192])
+def test_df32_scatter_form_matches_segment_sum_df32_skewed(dist, cap):
+    n = 300_001
+    _, mask, vals, _ = _seg_inputs(n, cap, 13)
+    seg = _skewed_seg(dist, n, cap, 13)
     v = np.where(mask, vals[0], 0).astype(np.float32)
     jhi, jlo = JK._segment_sum_df32(jnp.asarray(v), jnp.asarray(seg), cap)
     hi, lo, _ = TK.df32_agg(_t(seg), _t(mask), None, None, [_t(vals[0])], [None],
