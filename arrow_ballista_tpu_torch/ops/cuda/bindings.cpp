@@ -611,23 +611,72 @@ void keyed_gids_(const at::Tensor& perm, const at::Tensor& inv,
   launched(keyed_gids_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
-void keyed_keys_(const std::vector<at::Tensor>& sk, const at::Tensor& starts,
-                 int64_t n_groups, at::Tensor out) {
+// One pass of the keyed finish: the pass's columns reduced over the valid
+// sorted rows into their state rows of ``out``, and the key rows from
+// ``key_row0`` on (no column: the key rows alone).
+void keyed_finish_(const at::Tensor& perm, const at::Tensor& s2, const at::Tensor& starts,
+                   int64_t n_groups, const std::vector<at::Tensor>& values,
+                   const std::vector<at::Tensor>& valids,
+                   const std::vector<at::Tensor>& values2, const std::vector<int64_t>& src,
+                   const std::vector<int64_t>& op, const std::vector<int64_t>& in_i64,
+                   const std::vector<int64_t>& width, const std::vector<int64_t>& field_col,
+                   const std::vector<int64_t>& field_op,
+                   const std::vector<int64_t>& field_ident, bool x32,
+                   const std::vector<at::Tensor>& sk, int64_t key_row0, at::Tensor out,
+                   at::Tensor head, at::Tensor tail, at::Tensor rec) {
   c10::cuda::CUDAGuard guard(out.device());
-  TORCH_CHECK((int64_t)sk.size() <= kKeyedMaxKeys, "keyed_keys: keys");
-  KeyedKeysParams p{};
-  p.n = sk.empty() ? 0 : sk[0].size(0);
+  KeyedFinishParams p{};
+  p.n = perm.numel();
   p.capacity = out.size(1);
   p.n_groups = n_groups;
+  p.perm = opt<const int32_t>(perm);
+  p.s2 = opt<const int32_t>(s2);
+  p.starts = starts.data_ptr<int32_t>();
+  p.n_cols = (int)src.size();
+  TORCH_CHECK(p.n_cols >= 1 && p.n_cols <= kFinishMaxCols, "keyed_finish: columns");
+  for (int c = 0; c < p.n_cols; ++c) {
+    p.values[c] = opt<const void>(values[c]);
+    p.valid[c] = opt<const bool>(valids[c]);
+    p.values2[c] = opt<const void>(values2[c]);
+    p.src[c] = (int8_t)src[c];
+    p.op[c] = (int8_t)op[c];
+    p.in_i64[c] = (int8_t)in_i64[c];
+    p.width[c] = (int8_t)width[c];
+  }
+  // a non-empty rec: each row's element words of the columns that read
+  // memory (a count with no validity reads none), packed in column order
+  int n_rec = 0;
+  for (int c = 0; c < p.n_cols; ++c) {
+    const bool reads = p.values[c] != nullptr || p.valid[c] != nullptr;
+    p.slot[c] = (int8_t)(reads ? n_rec++ : -1);
+  }
+  p.rec = reinterpret_cast<long long*>(opt<int64_t>(rec));
+  p.rec_words = p.rec != nullptr && p.n > 0 ? (int)(rec.numel() / p.n) : 0;
+  TORCH_CHECK(p.rec == nullptr || (p.rec_words >= n_rec && rec.numel() == p.n * p.rec_words),
+              "keyed_finish: packed rows");
+  p.n_fields = (int)field_col.size();
+  TORCH_CHECK(p.n_fields <= kFinishMaxFields && field_op.size() == field_col.size() &&
+                  field_ident.size() == field_col.size(),
+              "keyed_finish: fields");
+  for (int f = 0; f < p.n_fields; ++f) {
+    p.field_col[f] = (int8_t)field_col[f];
+    p.field_op[f] = (int8_t)field_op[f];
+    p.field_ident[f] = field_ident[f];
+  }
+  p.x32 = x32 ? 1 : 0;
+  TORCH_CHECK((int64_t)sk.size() <= kKeyedMaxKeys, "keyed_finish: keys");
   p.n_keys = (int)sk.size();
+  p.key_row0 = (int)key_row0;
   for (int k = 0; k < p.n_keys; ++k) {
     p.sk[k] = sk[k].data_ptr();
     p.key_bytes[k] = (int)sk[k].element_size();
   }
-  p.starts = starts.data_ptr<int32_t>();
   p.out = out.data_ptr();
   p.out_bytes = (int)out.element_size();
-  launched(keyed_keys_launch(&p, at::cuda::getCurrentCUDAStream()));
+  p.n_tiles = (p.n + kFinishTile - 1) / kFinishTile;
+  p.head = reinterpret_cast<long long*>(opt<int64_t>(head));
+  p.tail = reinterpret_cast<long long*>(opt<int64_t>(tail));
+  launched(keyed_finish_launch(&p, at::cuda::getCurrentCUDAStream()));
 }
 
 void keyed_median_(const at::Tensor& perm, const at::Tensor& argnull,
@@ -949,7 +998,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "keyed runner: every pending batch's sort operands, folded or per key");
   m.def("keyed_unfold", &keyed_unfold_, "keyed runner: each group's key codes from its word");
   m.def("keyed_gids", &keyed_gids_, "keyed route: group ids of the sorted rows");
-  m.def("keyed_keys", &keyed_keys_, "keyed route: each group's key codes");
+  m.def("keyed_finish", &keyed_finish_,
+        "keyed route: segment totals into the state rows, each group's key codes");
   m.def("keyed_median", &keyed_median_, "keyed route: per-group median and distinct count");
   m.def("corr_mask", &corr_mask_, "keyed corr: pairwise-valid rows");
   m.def("corr_center", &corr_center_, "keyed corr: centred products");

@@ -92,16 +92,57 @@ struct KeyedGidsParams {
   long long* block;   // [2 * n_blocks] scratch: flags and valid rows per tile
 };
 
-struct KeyedKeysParams {
-  long long n;  // sorted rows
+// The keyed finish (keyed_finish.cu): one pass of at most kFinishMaxCols
+// columns over the valid sorted rows into the state rows of the packed
+// output, and each group's key codes into its key rows.
+constexpr int kFinishMaxCols = 4;
+constexpr int kFinishMaxFields = 64;
+constexpr int kFinishThreads = 128;
+constexpr int kFinishItems = 8;  // consecutive sorted rows per thread
+constexpr int kFinishTile = kFinishThreads * kFinishItems;
+
+struct KeyedFinishParams {
+  long long n;          // sorted rows (valid rows first)
   long long capacity;
   long long n_groups;
+  const int32_t* perm;    // [n] the sort's permutation
+  const int32_t* s2;      // [n] sorted order: group id (valid rows)
+  const int32_t* starts;  // [n_groups + 1] first sorted row of each group, then the valid count
+  // the pass's columns, read at input row perm[r] (seg_scan.h's sources,
+  // folds and widths: SS_VALUES or SS_COUNT, SA_*, SW_*)
+  int n_cols;
+  const void* values[kFinishMaxCols];
+  const bool* valid[kFinishMaxCols];
+  const void* values2[kFinishMaxCols];
+  int8_t src[kFinishMaxCols];
+  int8_t op[kFinishMaxCols];
+  int8_t in_i64[kFinishMaxCols];
+  int8_t width[kFinishMaxCols];
+  // packed rows (rec_words > 0): column c's element word of input row j at
+  // rec[j * rec_words + slot[c]], or 1 where slot[c] < 0 (a count with no
+  // validity); kf_pack writes them
+  int rec_words;
+  int8_t slot[kFinishMaxCols];
+  long long* rec;
+  // state rows: row f merges column field_col[f]'s segment total into its
+  // identity field_ident[f] with field_op[f] (SA_* in x64, x32's XM_*);
+  // field_col -1: a row of another pass
+  int n_fields;
+  int8_t field_col[kFinishMaxFields];
+  int8_t field_op[kFinishMaxFields];
+  long long field_ident[kFinishMaxFields];
+  int x32;        // int32 words, x32 merges
+  // key rows key_row0 + k: the code of key k at each group's first sorted row
   int n_keys;
+  int key_row0;
   const void* sk[kKeyedMaxKeys];  // [n] sorted key codes
   int key_bytes[kKeyedMaxKeys];
-  const int32_t* starts;  // [n + 1]
-  void* out;              // [n_keys][capacity]
-  int out_bytes;          // 8: int64 words; 4: x32's int32 words
+  void* out;      // [rows][capacity]
+  int out_bytes;  // 8: int64 words; 4: x32's int32 words
+  // scratch: each tile's first and last pieces, [n_tiles][n_cols] words
+  long long n_tiles;
+  long long* head;
+  long long* tail;
 };
 
 struct KeyedMedianParams {
@@ -168,7 +209,7 @@ struct CorrCenterX32Params {
 extern "C" cudaError_t key_encode_launch(const KeyEncodeParams* p, cudaStream_t s);
 extern "C" long long keyed_gids_blocks(long long n);
 extern "C" cudaError_t keyed_gids_launch(const KeyedGidsParams* p, cudaStream_t s);
-extern "C" cudaError_t keyed_keys_launch(const KeyedKeysParams* p, cudaStream_t s);
+extern "C" cudaError_t keyed_finish_launch(const KeyedFinishParams* p, cudaStream_t s);
 extern "C" cudaError_t keyed_median_launch(const KeyedMedianParams* p, cudaStream_t s);
 extern "C" cudaError_t corr_mask_launch(const CorrMaskParams* p, cudaStream_t s);
 extern "C" cudaError_t corr_center_launch(const CorrCenterParams* p, cudaStream_t s);

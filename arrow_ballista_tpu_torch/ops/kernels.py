@@ -14,7 +14,7 @@ window kernel shares).  A join-fused stage first probes the build side on
 the device (``ops/cuda/join_probe.cu``) and folds the misses into the row
 mask.  The keyed route assigns group ids on the device instead of the
 host: key encode and group ids (``ops/cuda/keyed_gids.cu``) around the
-radix sort, the segmented scan into the state and the key gather
+radix sort, the segment reduce into the state and the key gather
 (``keyed_finish.cu``), and the median (``keyed_median.cu``) and corr
 (``keyed_corr.cu``) passes over the same sort.  A stage that retains its
 batches (the column cache, whole-stage fusion) folds them all in one
@@ -4154,27 +4154,6 @@ def keyed_keys_reference(sk: list, starts: torch.Tensor, n_groups: int,
     return out
 
 
-def keyed_keys_cuda(sk: list, starts: torch.Tensor, n_groups: int,
-                    out: torch.Tensor) -> torch.Tensor:
-    """Launch the finish kernel's key gather (ops/cuda/keyed_finish.cu)."""
-    from .cuda.build import load
-
-    device = out.device
-    n = sk[0].shape[0] if sk else 0
-    if device.type != "cuda" or out.dtype not in (I64, I32) or out.dim() != 2 or (
-        not out.is_contiguous() or out.shape[0] != len(sk)
-    ):
-        raise ValueError("out must be a contiguous CUDA int64 or int32 [n_keys, capacity]")
-    if not 0 <= n_groups <= min(n, out.shape[1]):
-        raise ValueError(f"n_groups {n_groups} for {n} rows, capacity {out.shape[1]}")
-    _check_cuda_tensor(starts, "starts", (torch.int32,), n + 1, device)
-    for k, key in enumerate(sk):
-        _check_cuda_tensor(key, f"sorted key {k}", (torch.int32, I64), n, device)
-    load().keyed_keys(list(sk), starts, int(n_groups), out)
-    count_launch("keyed_finish")
-    return out
-
-
 # ------------------------------------------ keyed single dispatch (B7c)
 # The keyed route's single-dispatch runner: a keyed stream of at most
 # FOLD_MAX_ENTRIES batches within the buffer budget codes every batch's
@@ -4406,30 +4385,132 @@ def _key_rows_reference(gids: dict, n_groups: int, fold, out: torch.Tensor) -> N
         keyed_unfold_reference(gids["sk"][0], gids["starts"], n_groups, fold, out)
 
 
-def _key_rows_cuda(gids: dict, n_groups: int, fold, out: torch.Tensor) -> None:
-    if fold is not None:
-        keyed_unfold_cuda(gids["sk"][0], gids["starts"], n_groups, fold, out)
-    elif gids["sk"]:
-        keyed_keys_cuda(gids["sk"], gids["starts"], n_groups, out)
+FINISH_TILE = 1024  # sorted rows a CTA of the finish folds (keyed.h: kFinishTile)
+FINISH_MAX_COLUMNS = 4  # columns one pass carries (keyed.h: kFinishMaxCols)
+FINISH_MAX_FIELDS = 64
+
+
+def _check_finish_args(columns, field_col, ops, perm, gids, n_groups: int, keys: list,
+                       out: torch.Tensor) -> None:
+    """ValueError unless the finish kernel can read its inputs: ``perm``,
+    ``gids["s2"]`` and ``gids["starts"]`` of one sort on the card, sum,
+    count and extremum columns as K2 takes them, one column a state row,
+    the sorted key codes, and ``out`` a contiguous ``[rows, capacity]``
+    (checked before the binding: an exception inside the extension may
+    end the process)."""
+    device = perm.device
+    n = perm.shape[0] if perm.dim() == 1 else -1
+    if device.type != "cuda" or not 0 <= n < (1 << 31):
+        raise ValueError("keyed_finish runs on CUDA tensors, n < 2^31")
+    _check_cuda_tensor(gids["s2"], "s2", (torch.int32,), n, device)
+    _check_scan_args(columns, n, perm, None, gids["s2"], None, device)
+    _check_cuda_tensor(gids["starts"], "starts", (torch.int32,), n + 1, device)
+    for i, c in enumerate(columns):
+        if c.src not in (SS_VALUES, SS_COUNT):
+            raise ValueError(f"finish column {i}: source {c.src}")
+    if out.device != device or not out.is_contiguous() or out.dim() != 2:
+        raise ValueError("the finish's output must be a contiguous [rows, capacity] on the card")
+    if not 0 <= n_groups <= min(n, out.shape[1]):
+        raise ValueError(f"n_groups {n_groups} for {n} rows, capacity {out.shape[1]}")
+    if len(field_col) != len(ops) or len(ops) > FINISH_MAX_FIELDS or (
+        any(not 0 <= c < len(columns) for c in field_col)
+    ):
+        raise ValueError(f"finish fields: columns {list(field_col)} of {len(columns)}")
+    if len(keys) > KEYED_MAX_KEYS or out.shape[0] != len(ops) + len(keys):
+        raise ValueError(f"finish output rows {out.shape[0]}: {len(ops)} states, "
+                         f"{len(keys)} keys")
+    for k, key in enumerate(keys):
+        _check_cuda_tensor(key, f"sorted key {k}", (torch.int32, I64), n, device)
+
+
+def _finish_passes(columns: list) -> list:
+    """The finish's passes: runs of at most FINISH_MAX_COLUMNS consecutive
+    columns, every column of a row gathered in one pass."""
+    return [list(range(i, min(i + FINISH_MAX_COLUMNS, len(columns))))
+            for i in range(0, len(columns), FINISH_MAX_COLUMNS)]
+
+
+def _record_words(cols: list) -> int:
+    """Words of a pass's packed row: one for each column that reads memory
+    (a count with no validity reads none), rounded up to a power of two
+    so a record is one 16- or 32-byte piece of a sector; 0 (the columns
+    gathered directly) where one column or none reads memory."""
+    reads = sum(1 for c in cols if c.values is not None or c.valid is not None)
+    return 0 if reads < 2 else 1 << (reads - 1).bit_length()
+
+
+def _launch_finish(columns, field_col, ops, idents: list, perm, gids, n_groups: int,
+                   keys: list, out: torch.Tensor, x32: bool) -> None:
+    """The finish kernel over ``columns`` into ``out``: each pass
+    (:func:`_finish_passes`) writes its columns' state rows (``ops`` the
+    merges, ``idents`` the identity words), the first the key rows after
+    them."""
+    from .cuda.build import load
+
+    ext = load()
+    device = out.device
+    n = perm.shape[0]
+    tiles = -(-n // FINISH_TILE)
+    empty = torch.empty(0, dtype=torch.uint8, device=device)
+    for i, cols in enumerate(_finish_passes(columns)):
+        local = {c: k for k, c in enumerate(cols)}
+        pc = [columns[c] for c in cols]
+        words = _record_words(pc)
+        ext.keyed_finish(
+            perm, gids["s2"], gids["starts"], int(n_groups),
+            [empty if c.values is None else c.values for c in pc],
+            [empty if c.valid is None else c.valid for c in pc],
+            [empty if c.values2 is None else c.values2 for c in pc],
+            [c.src for c in pc], [c.op for c in pc],
+            [int(c.values is not None and c.values.dtype == I64) for c in pc],
+            [_scan_width(c) for c in pc],
+            [local.get(c, -1) for c in field_col], list(ops), list(idents), x32,
+            list(keys) if i == 0 else [], len(ops), out,
+            torch.empty(tiles * len(cols), dtype=I64, device=device),
+            torch.empty(tiles * len(cols), dtype=I64, device=device),
+            torch.empty(n * words, dtype=I64, device=device),
+        )
 
 
 def keyed_finish_cuda(specs, columns, field_col, ops, perm, gids, n_groups: int,
                       capacity: int, fold=None) -> torch.Tensor:
     """The keyed route's finish on the card: ``[n_fields + n_keys,
     capacity]`` int64, the state rows (presence last, floats as their bits)
-    and then each group's key codes, fetched by the host in ONE copy.  K2
-    reduces the scan columns through ``perm`` segmented by
-    ``gids["gid_in"]`` straight into the state rows; the finish kernel
-    (ops/cuda/keyed_finish.cu) gathers the key rows, or, after a folded
-    sort (``fold``, the plan of :func:`keyed_encode_entries`), the unfold
-    kernel (ops/cuda/keyed_fold.cu) recovers them from each group's word.
+    and then each group's key codes, fetched by the host in ONE copy.  The
+    finish kernel (ops/cuda/keyed_finish.cu) reduces the scan columns over
+    the valid sorted rows, segmented by ``gids["s2"]``, straight into the
+    state slots and gathers the key rows, or, after a folded sort
+    (``fold``, the plan of :func:`keyed_encode_entries`), the unfold kernel
+    (ops/cuda/keyed_fold.cu) recovers them from each group's word.
 
     Replaces ``arrow_ballista_tpu/ops/kernels.py:keyed_finish_kernel`` (B8)."""
-    packed, n_state = _finish_packed(specs, ops, _key_rows(gids, fold), capacity,
-                                     perm.device)
-    _scan_into_state_cuda(columns, field_col, ops, packed[:n_state], perm.shape[0],
-                          perm, gids["gid_in"])
-    _key_rows_cuda(gids, n_groups, fold, packed[n_state:])
+    return _finish_cuda(columns, field_col, ops, _finish_idents(specs, ops, "x64"), perm,
+                        gids, n_groups, capacity, fold, I64)
+
+
+def _finish_idents(specs, ops, mode: str) -> list:
+    """Each state row's identity word (int64 in x64, int32 in x32)."""
+    idents = [_ident_bits(r, i, mode) for r, i in _field_flags(specs, mode)]
+    if len(ops) != len(idents):
+        raise ValueError(f"{len(ops)} ops for {len(idents)} state rows")
+    return idents
+
+
+def _finish_cuda(columns, field_col, ops, idents, perm, gids, n_groups, capacity, fold,
+                 dtype) -> torch.Tensor:
+    """Both forms of the finish: the kernel into the state rows and the key
+    rows, or the unfold kernel into the key rows after a folded sort."""
+    n_state = len(ops)
+    keys = gids["sk"] if fold is None else []
+    packed = torch.empty((n_state + _key_rows(gids, fold), capacity), dtype=dtype,
+                         device=perm.device)
+    head = packed if fold is None else packed[:n_state]
+    _check_finish_args(columns, field_col, ops, perm, gids, n_groups, keys, head)
+    _launch_finish(columns, field_col, ops, idents, perm, gids, n_groups, keys, packed,
+                   dtype == I32)
+    count_launch("keyed_finish")
+    if fold is not None:
+        keyed_unfold_cuda(gids["sk"][0], gids["starts"], n_groups, fold, packed[n_state:])
     return packed
 
 
@@ -4460,24 +4541,13 @@ def keyed_finish_x32_reference(specs, columns, field_col, ops, perm, gids,
 def keyed_finish_x32_cuda(specs, columns, field_col, ops, perm, gids, n_groups: int,
                           capacity: int, fold=None) -> torch.Tensor:
     """The keyed finish in x32 (the reference's ``keyed_finish_kernel``
-    in x32, int32 words): K2 reduces :func:`_x32_scan_plan`'s columns
-    through ``perm`` segmented by ``gids["gid_in"]`` and its x32 epilogue
-    merges the totals into the int32 state rows (identities first), then
-    the finish kernel's int32 form gathers the key codes into the rows
-    after them (the unfold kernel after a folded sort): ``[n_fields +
+    in x32, int32 words): the finish kernel reduces :func:`_x32_scan_plan`'s
+    columns over the valid sorted rows and merges each group's totals into
+    its identities with the x32 merge (``ops``), then the key codes in the
+    rows after them (the unfold kernel after a folded sort): ``[n_fields +
     n_keys, capacity]`` int32, one fetch."""
-    n_state = len(ops)
-    device = perm.device
-    packed = torch.empty((n_state + _key_rows(gids, fold), capacity), dtype=I32,
-                         device=device)
-    packed[:n_state] = init_states(specs, capacity, device, "x32")
-    n = perm.shape[0]
-    if n:
-        _check_scan_args(columns, n, perm, None, gids["gid_in"], None, device)
-        _launch_scan(columns, n, perm, None, gids["gid_in"], None, False,
-                     [None] * len(columns), packed[:n_state], field_col, ops)
-    _key_rows_cuda(gids, n_groups, fold, packed[n_state:])
-    return packed
+    return _finish_cuda(columns, field_col, ops, _finish_idents(specs, ops, "x32"), perm,
+                        gids, n_groups, capacity, fold, I32)
 
 
 def keyed_finish_x32(specs, columns, field_col, ops, perm, gids, n_groups: int,

@@ -70,6 +70,15 @@ Phases; any failure exits non-zero and prints no result line:
               key rows of the unfolded sort, all bit for bit, each with K1's
               pass count, and K1 + the gid kernel's ms, over ``[inv, comb]``
               and over ``[inv, *codes]``;
+            * ``keyed_finish`` (B8) in both forms at FINISH_ROWS rows, a
+              tenth masked, in 10,000 uniform ids, 4 ids (each group over
+              hundreds of tiles) and Zipf 1.1 ids, with NaN, ±inf and
+              ±0.0 in a few groups (``finish_case``): against the twin
+              (f64 sums within rel 1e-9, x32 pair sums within rel 1e-6,
+              every other word bit for bit), two launches bit-identical;
+              timed with its device split (torch.profiler), beside the
+              gather floor and one ``index_add_``; the main path's shapes
+              the same in the timing phase;
 4. query  — TPC-H q1 and q6 over ``--sf`` lineitem (``gen_lineitem``'s
             seed, streamed as ``ballista.batch.size`` = 2^23-row batches,
             ``ballista.shuffle.partitions`` = 1) through
@@ -250,6 +259,12 @@ H2O_LEGS = (  # (question, session settings)
              "ballista.tpu.max_capacity": str(1 << 24)}),
 )
 H2O_FOLDED = ("q6", "q9")  # their two keys fold into one sort word; q10's six do not
+# the finish's shapes beside the main path's: 2^23 rows in 10,000 uniform
+# ids, in 4 (each group spans ~1,800 tiles of 1,024 rows), in Zipf 1.1 ids
+FINISH_ROWS = 1 << 23
+FINISH_SHAPES = ("uniform", "skew", "zipf")
+FINISH_KERNELS = ("kf_pack", "kf_tiles", "kf_cross", "kf_fill", "ss_reduce", "ss_carry",
+                  "ss_apply", "keyed_unfold")
 Q3_KEYED_BUFFER_MB = 400  # flushes q3's keyed buffer into chunks at SF10
 PARQUET_FILES = 8  # per table (one file for the small ones)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1635,15 +1650,15 @@ KEYED_CAPTURES = ("key_encode_cuda", "keyed_encode_entries_cuda", "keyed_sort",
 KEYED_CAPTURES_X32 = ("key_encode_cuda", "keyed_encode_entries_cuda", "keyed_sort",
                       "keyed_finish_x32_cuda", "keyed_unfold_cuda", "keyed_median_cuda",
                       "keyed_corr_x32_cuda")
-KEYED_KERNELS = ("radix_sort", "keyed_gids", "seg_scan")
+KEYED_KERNELS = ("radix_sort", "keyed_gids", "keyed_finish")
 
 
 def keyed_kernels(fused: bool, folded: bool) -> tuple:
     """The kernels a keyed leg must launch: the single dispatch's
     entry-wise encode or (drained) the per-batch one, K1, the gid kernel,
-    K2, and the key rows' gather or (folded) the unfold."""
+    the finish and (folded) the unfold beside it."""
     return (("keyed_encode_entries" if fused else "key_encode",) + KEYED_KERNELS
-            + ("keyed_unfold" if folded else "keyed_finish",))
+            + (("keyed_unfold",) if folded else ()))
 
 
 def _keyed_run(TK, ctx, plan, stages, what: str, captures=KEYED_CAPTURES,
@@ -1667,16 +1682,23 @@ def _keyed_run(TK, ctx, plan, stages, what: str, captures=KEYED_CAPTURES,
     for k in kernels:
         if launches[k] < 1:
             raise AssertionError(f"{what}: {k} never launched ({json.dumps(launches)})")
+    # K2 runs on a keyed leg only in corr's two scans (one a corr launch)
+    if launches["seg_scan"] != launches["keyed_corr"]:
+        raise AssertionError(f"{what}: seg_scan launched outside corr ({json.dumps(launches)})")
     return got, dev_s, launches, metrics, {k: c.args for k, c in caps.items()}
+
+
+def _sorted(t):
+    """``t`` sorted by every non-float column."""
+    import pyarrow as pa
+
+    return t.sort_by([(c, "ascending") for c in t.column_names
+                      if not pa.types.is_floating(t.schema.field(c).type)])
 
 
 def _sorted_close(a, b, what: str, rel: float = REL, atol: dict = None) -> None:
     """_tables_close after sorting both by every non-float column."""
-    import pyarrow as pa
-
-    key = [(c, "ascending") for c in a.column_names
-           if not pa.types.is_floating(a.schema.field(c).type)]
-    _tables_close(a.sort_by(key), b.sort_by(key), what, rel, atol)
+    _tables_close(_sorted(a), _sorted(b), what, rel, atol)
 
 
 def q3_keyed_phase(tbt, TK, batches, orders, customer, want, device, x32=False) -> dict:
@@ -1789,6 +1811,7 @@ def h2o_phase(tbt, TK, batches, device) -> dict:
         want = cpu_ctx.execute(plan)
         cpu_s = time.perf_counter() - t0
         del cpu_ctx, plan
+        want = _sorted(want)  # once for both modes (q10: 1e7 rows, six keys)
         for x32 in (False, True):
             if x32:
                 TK.set_precision("x32")
@@ -1839,7 +1862,7 @@ def _h2o_leg(TK, TorchStageExec, session, sql, q, want, cpu_s, x32) -> dict:
     # products, so r² of q9's weakly correlated groups (|r| down to 1e-5)
     # carries an absolute error near 1e-9 that no relative bar holds
     atol = X32_CORR_ATOL if x32 and q == "q9" else None
-    _sorted_close(want, got, what, X32_REL if x32 else REL, atol)
+    _tables_close(want, _sorted(got), what, X32_REL if x32 else REL, atol)
     cmp_s = time.perf_counter() - t0
     if atol:
         key = [(c, "ascending") for c in ("id2", "id4")]
@@ -3570,11 +3593,13 @@ def _words_close(got, twin, f64_rows=()) -> float:
             gf, tf = g[r].view(np.float64), t[r].view(np.float64)
             if not np.array_equal(np.isnan(gf), np.isnan(tf)):
                 raise AssertionError(f"row {r}: NaN positions differ")
-            ok = ~np.isnan(tf)
+            if not np.array_equal(gf[np.isinf(tf)], tf[np.isinf(tf)]):
+                raise AssertionError(f"row {r}: infinities differ")
+            ok = np.isfinite(tf)
             diff = np.abs(gf[ok] - tf[ok])
             if diff.size:
                 worst = max(worst, float(diff.max()))
-            if np.any(diff > REL * np.abs(tf[ok])):
+            if np.any(~(diff <= REL * np.abs(tf[ok]))):
                 raise AssertionError(f"row {r}: off by {diff.max()}")
         elif not np.array_equal(g[r], t[r]):
             raise AssertionError(f"row {r}: words differ")
@@ -3639,34 +3664,232 @@ def _time_keyed_sort(TK, captured) -> dict:
     return out
 
 
-def _time_keyed_finish(TK, captured) -> dict:
-    """K2 into the state rows + the key gather against the twins; the
-    yardstick is one index_add_ of the f64 sum columns by group id."""
+def _finish_gathered(columns) -> list:
+    """The arrays the finish gathers through perm: each column's values,
+    validity and second half."""
+    return [a for c in columns for a in (c.values, c.valid, c.values2) if a is not None]
+
+
+def _burst_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """The card's ms a call of ``fn``: CUDA events around ``calls`` calls
+    launched back to back (the host runs ahead, so the host's time a call
+    hides behind the card's), per call, median of ``reps``."""
     import torch
 
-    args, _ = captured
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def _finish_split(fn, burst_ms: float, reps: int = 10) -> dict:
+    """Device ms a call of ``fn`` by kernel, from torch.profiler's records:
+    the finish's kernels, K2's three passes and the unfold by name, every
+    other kernel or copy (PyTorch's fills and copies) as "torch".  Not
+    measured (None) where the records sum to less than half of
+    ``burst_ms``: late in a long run the profiler has been seen to drop
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t:
+            name = next((k for k in FINISH_KERNELS if k in e.key), "torch")
+            out[name] = out.get(name, 0.0) + t / reps / 1e3
+    if sum(out.values()) < 0.5 * burst_ms:
+        print(f"keyed_finish split: the profiler recorded {sum(out.values())!r} ms of "
+              f"{burst_ms!r} (not measured)")
+        return {"device_ms": None}
+    out["device_ms"] = sum(out.values())
+    return out
+
+
+def finish_timing(TK, args, x32: bool, what: str) -> dict:
+    """The finish against its twin (f64 sums within REL, x32 pair sums
+    within X32_REL, every other word bit for bit; two launches
+    bit-identical), then timed: CUDA events (``ms``), the card's time a
+    call with the host ahead (``burst_ms``) and its split by
+    torch.profiler, one ``index_select`` through perm of every gathered
+    array (``gather_ms``: the gather without packed records), and one
+    ``index_add_`` of the sum columns by group id (``library_ms``)."""
+    import torch
+
     specs, columns, field_col, ops, perm, gids, ng, cap = args[:8]
-    got = TK.keyed_finish_cuda(*args)
-    twin = TK.keyed_finish_reference(*args)
-    f64 = {f for f, op in enumerate(ops) if op == TK.OP_ADD_F64}
-    err = _words_close(got, twin, f64)
+    cuda = TK.keyed_finish_x32_cuda if x32 else TK.keyed_finish_cuda
+    twin_fn = TK.keyed_finish_x32_reference if x32 else TK.keyed_finish_reference
+    runs = [cuda(*args) for _ in range(2)]
+    twin = twin_fn(*args)
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(f"{what}: two launches differ")
+    if x32:
+        err = _x32_rows_close(TK, runs[0], twin, ops, what)
+    else:
+        err = _words_close(runs[0], twin, {f for f, op in enumerate(ops)
+                                           if op == TK.OP_ADD_F64})
+    del runs
     n = perm.numel()
-    sums = [c for c in columns if c.op == TK.OP_ADD_F64]
+    arrays = _finish_gathered(columns)
+    p = perm.long()
+    gather_ms = _median_ms(lambda: [a.index_select(0, p) for a in arrays])
+    sum_op = TK.OP_DF32 if x32 else TK.OP_ADD_F64
+    sums = [c for c in columns if c.op == sum_op]
     library = None
     if sums:
         gid = gids["gid_in"].long()
         g = torch.where(gid < cap, gid, torch.full_like(gid, cap))
-        V = torch.stack([c.values.double() if c.valid is None
-                         else torch.where(c.valid, c.values.double(), 0.0) for c in sums], 1)
-        acc = torch.zeros(cap + 1, V.shape[1], dtype=torch.float64, device=V.device)
+        dt = torch.float32 if x32 else torch.float64
+        V = torch.stack([c.values.to(dt) if c.valid is None
+                         else torch.where(c.valid, c.values.to(dt), 0.0) for c in sums], 1)
+        acc = torch.zeros(cap + 1, V.shape[1], dtype=dt, device=V.device)
         library = _median_ms(lambda: acc.index_add_(0, g, V))
-    read = 8 * n + sum(_nbytes(c.values, c.valid) for c in columns)
-    read += 8 * (got.shape[0] - len(ops)) * ng + 4 * ng
-    out = dict(rows=n, capacity=cap, groups=ng, fields=len(ops),
-               ms=_median_ms(lambda: TK.keyed_finish_cuda(*args)),
-               plain_ms=_median_ms(lambda: TK.keyed_finish_reference(*args), 5),
-               library_ms=library, max_abs_err=err)
-    out.update(_bound(read + _nbytes(got)))
+    word = 4 if x32 else 8
+    n_keys = twin.shape[0] - len(ops)
+    read = _nbytes(perm, gids["s2"]) + _nbytes(*arrays) + 4 * (ng + 1)
+    read += word * n_keys * ng  # each group's key codes
+    burst = _burst_ms(lambda: cuda(*args))
+    out = dict(rows=n, capacity=cap, groups=ng, fields=len(ops), columns=len(columns),
+               gathered=len(arrays), passes=len(TK._finish_passes(columns)),
+               ms=_median_ms(lambda: cuda(*args)), burst_ms=burst,
+               split=_finish_split(lambda: cuda(*args), burst),
+               plain_ms=_median_ms(lambda: twin_fn(*args), 5),
+               library_ms=library, gather_ms=gather_ms, max_abs_err=err)
+    out.update(_bound(read + _nbytes(twin)))
+    return out
+
+
+def _time_keyed_finish(TK, captured) -> dict:
+    """The finish at a main-path shape (:func:`finish_timing`)."""
+    return finish_timing(TK, captured[0], False, "keyed_finish main path")
+
+
+def finish_gids(name: str, n: int, rng) -> tuple:
+    """``(inv, group key)`` numpy operands of a finish shape over n rows, a
+    tenth masked: "uniform" 10,000 ids, "skew" 4, "zipf" Zipf 1.1 over
+    10,000 (:func:`zipf_gid`), "one_row" every row its own group, "skew90"
+    one id holding 90% of the rows, "full" 4,096 ids all present (the
+    capacity), "sparse" 100 ids (at capacity 2^16), "masked" every row
+    masked."""
+    inv = (rng.random(n) < 0.1).astype(np.int32)
+    if name == "uniform":
+        key = rng.integers(0, 10_000, n)
+    elif name == "skew":
+        key = rng.integers(0, 4, n)
+    elif name == "zipf":
+        key = zipf_gid(n, 10_000, 1.1, int(rng.integers(1 << 30)))
+    elif name == "one_row":
+        key = rng.permutation(n)
+    elif name == "skew90":
+        key = np.where(rng.random(n) < 0.9, 7, rng.integers(0, 1000, n))
+    elif name == "full":
+        key = rng.permutation(np.arange(n) % 4096)
+        inv[:] = 0
+    elif name == "sparse":
+        key = rng.integers(0, 100, n) * 997
+    elif name == "masked":
+        key = rng.integers(0, 50, n)
+        inv[:] = 1
+    else:
+        raise ValueError(f"finish shape {name}")
+    return inv, key.astype(np.int32)
+
+
+def finish_case(TK, name: str, n: int, x32: bool, device, seed: int = 0) -> tuple:
+    """The finish's arguments at a :func:`finish_gids` shape: the keyed
+    sort of its operands, then x64's sum, min and max of an f64 and an
+    int64 column with their counts (9 scan columns: three passes), or
+    x32's pair sum, order-pair min, f32 max and i32 max with their counts
+    (7 columns: two passes).  The f64 values carry NaN, +-inf and +-0.0 in a few groups."""
+    import torch
+
+    from arrow_ballista_tpu_torch.ops.bridge import split_u64_i32, to_u64_order
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    inv, key = finish_gids(name, n, rng)
+    if n:
+        perm, gids, ng = TK.keyed_sort(t(inv), [t(key)])
+    else:  # no rows: the twin's (empty) sort
+        perm = t(np.zeros(0, np.int32))
+        gids = TK.keyed_gids_reference(perm, t(inv), [t(key)])
+        ng = 0
+    cap = 1 << 16 if name == "sparse" else max(64, 1 << (max(ng, 1) - 1).bit_length())
+    v = np.round(rng.normal(0, 50, n), 3)
+    for special in (np.nan, np.inf, -np.inf, -0.0, 0.0):
+        v[rng.integers(0, max(n, 1), max(3, n // 50_000) if n else 0)] = special
+    vok = t(rng.random(n) > 0.1)
+    wok = t(rng.random(n) > 0.05)
+    KS = TK.KernelAggSpec
+    if not x32:
+        specs = [KS("count_star", False), KS("sum", True), KS("min", True), KS("max", True),
+                 KS("sum", True, int_sum=True), KS("min", True, int_minmax=True),
+                 KS("max", True, int_minmax=True)]
+        ops = [TK.OP_COUNT, TK.OP_ADD_F64, TK.OP_COUNT, TK.OP_MIN_F64, TK.OP_COUNT,
+               TK.OP_MAX_F64, TK.OP_COUNT, TK.OP_ADD_I64, TK.OP_COUNT, TK.OP_MIN_I64,
+               TK.OP_COUNT, TK.OP_MAX_I64, TK.OP_COUNT, TK.OP_COUNT]
+        cols = [-1, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1, -1]
+        w = t(rng.integers(-(1 << 40), 1 << 40, n))
+        columns, field_col = TK._build_scan_plan([t(v), w], [vok, wok], ops, cols)
+        return (specs, columns, field_col, ops, perm, gids, ng, cap)
+    hi = v.astype(np.float32)
+    lo = np.zeros(n, np.float32)
+    fin = np.isfinite(v)
+    lo[fin] = v[fin] - hi[fin].astype(np.float64)
+    ohi, olo = split_u64_i32(to_u64_order(v))
+    wi = t(rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32))
+    specs = [KS("count_star", False), KS("sum", True), KS("min", True, ord_pair=True),
+             KS("max", True), KS("max", True, int_minmax=True)]
+    SC = TK.ScanColumn
+    columns = [SC(TK.SS_VALUES, TK.OP_DF32, values=t(hi), valid=vok, values2=t(lo)),
+               SC(TK.SS_COUNT, TK.OP_ADD_I64),
+               SC(TK.SS_COUNT, TK.OP_ADD_I64, valid=vok),
+               SC(TK.SS_VALUES, TK.OP_UMIN_U64, values=t(ohi), valid=vok, values2=t(olo)),
+               SC(TK.SS_VALUES, TK.OP_MAX_F64, values=t(hi), valid=vok),
+               SC(TK.SS_VALUES, TK.OP_MAX_I64, values=wi, valid=wok),
+               SC(TK.SS_COUNT, TK.OP_ADD_I64, valid=wok)]
+    field_col = [1, 0, 0, 2, 3, 3, 2, 4, 2, 5, 6, 1]
+    return (specs, columns, field_col, TK.x32_merge_ops(specs), perm, gids, ng, cap)
+
+
+def finish_phase(TK, device) -> dict:
+    """Both forms of the finish at FINISH_ROWS rows in the uniform, skew
+    and Zipf shapes (:func:`finish_case`), against the twins and timed
+    (:func:`finish_timing`); the skew shape's device time beside the
+    uniform one's."""
+    import torch
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    for x32 in (False, True):
+        for i, name in enumerate(FINISH_SHAPES):
+            what = ("x32 " if x32 else "") + name
+            args = finish_case(TK, name, FINISH_ROWS, x32, device, seed=70 + i)
+            out[what] = finish_timing(TK, args, x32, "keyed_finish " + what)
+            print(f"keyed_finish {what}: {json.dumps(out[what])}")
+            del args
+            torch.cuda.empty_cache()
+        pre = "x32 " if x32 else ""
+        dev = {k: out[pre + k]["burst_ms"] for k in ("uniform", "skew")}
+        print(f"keyed_finish {pre}skew against uniform: "
+              f"{dev['skew'] / dev['uniform']!r} of the card's time")
+    print(f"keyed_finish phase: ok s={time.perf_counter() - t0!r}")
     return out
 
 
@@ -3767,8 +3990,8 @@ def check_encode_entries(TK, kinds, entries, fold, code_dtype, reps: int = 20) -
 
 def check_unfold(TK, sk, starts, ng: int, fold, out_like, want=None) -> dict:
     """``keyed_unfold`` against its twin (and, where given, the key rows
-    the gather writes from the unfolded sort), bit for bit, timed beside
-    its bound and its twin."""
+    of the unfolded sort), bit for bit, timed beside its bound and its
+    twin."""
     import torch
 
     def run(fn):
@@ -3886,7 +4109,8 @@ def keyed_fold_phase(TK, device) -> dict:
             k1_gids_unfolded_ms=_median_ms(lambda: TK.keyed_sort(inv, codes)))
         cap = max(64, 1 << (max(ng, 1) - 1).bit_length())
         rows = torch.empty((len(kinds), cap), dtype=dt, device=device)
-        want = TK.keyed_keys_cuda(ugids["sk"], ugids["starts"], ng, torch.empty_like(rows))
+        want = TK.keyed_keys_reference(ugids["sk"], ugids["starts"], ng,
+                                       torch.empty_like(rows))
         out[f"unfold {case}"] = check_unfold(TK, gids["sk"][0], gids["starts"], ng, fold,
                                              rows, want)
         del inv, comb, codes, perm, gids, uperm, ugids
@@ -4064,11 +4288,13 @@ def _x32_rows_close(TK, got, twin, ops, what: str) -> float:
             ts = t[r].view(np.float32).astype(np.float64) + t[r + 1].view(np.float32)
             if not np.array_equal(np.isnan(gs), np.isnan(ts)):
                 raise AssertionError(f"{what} row {r}: NaN positions differ")
-            ok = ~np.isnan(ts)
+            if not np.array_equal(gs[np.isinf(ts)], ts[np.isinf(ts)]):
+                raise AssertionError(f"{what} row {r}: infinities differ")
+            ok = np.isfinite(ts)
             diff = np.abs(gs[ok] - ts[ok])
             if diff.size:
                 worst = max(worst, float(diff.max()))
-            if np.any(diff > X32_REL * np.abs(ts[ok])):
+            if np.any(~(diff <= X32_REL * np.abs(ts[ok]))):
                 raise AssertionError(f"{what} row {r}: off by {diff.max()!r}")
         elif op != TK.XM_SUM_LO and not np.array_equal(g[r], t[r]):
             raise AssertionError(f"{what} row {r}: words differ")
@@ -4076,34 +4302,8 @@ def _x32_rows_close(TK, got, twin, ops, what: str) -> float:
 
 
 def _time_keyed_finish_x32(TK, captured) -> dict:
-    """x32's finish (K2's x32 epilogue into the int32 state, the key
-    gather's int32 form) against its twin; the yardstick is one
-    index_add_ of the f32 sum columns by group id."""
-    import torch
-
-    args, _ = captured
-    specs, columns, field_col, ops, perm, gids, ng, cap = args[:8]
-    got = TK.keyed_finish_x32_cuda(*args)
-    twin = TK.keyed_finish_x32_reference(*args)
-    err = _x32_rows_close(TK, got, twin, ops, "keyed_finish x32")
-    n = perm.numel()
-    sums = [c for c in columns if c.op == TK.OP_DF32]
-    library = None
-    if sums:
-        gid = gids["gid_in"].long()
-        g = torch.where(gid < cap, gid, torch.full_like(gid, cap))
-        V = torch.stack([c.values if c.valid is None
-                         else torch.where(c.valid, c.values, 0.0) for c in sums], 1)
-        acc = torch.zeros(cap + 1, V.shape[1], dtype=V.dtype, device=V.device)
-        library = _median_ms(lambda: acc.index_add_(0, g, V))
-    read = 8 * n + sum(_nbytes(c.values, c.valid, c.values2) for c in columns)
-    read += 4 * (got.shape[0] - len(ops)) * ng + 4 * ng
-    out = dict(rows=n, capacity=cap, groups=ng, fields=len(ops),
-               ms=_median_ms(lambda: TK.keyed_finish_x32_cuda(*args)),
-               plain_ms=_median_ms(lambda: TK.keyed_finish_x32_reference(*args), 5),
-               library_ms=library, max_abs_err=err)
-    out.update(_bound(read + _nbytes(got)))
-    return out
+    """x32's finish at a main-path shape (:func:`finish_timing`)."""
+    return finish_timing(TK, captured[0], True, "keyed_finish x32 main path")
 
 
 def _time_keyed_corr_x32(TK, captured) -> dict:
@@ -4292,6 +4492,7 @@ def run(opts, device) -> list:
     probe_times, build_times = join_phase(TK, device)
     mesh_times = mesh_phase(TK, device)
     fold_times = keyed_fold_phase(TK, device)
+    finish_times = finish_phase(TK, device)
     t1 = time.perf_counter()
     expr_grid = expr_grid_phase(TK, device)
     print(f"expr_eval grid: {len(expr_grid)} cases bit-identical to the twin and the "
@@ -4428,6 +4629,8 @@ def run(opts, device) -> list:
             pre = "encode " if name == "keyed_encode_entries" else "unfold "
             extra["kernel_phase"] = {k[len(pre):]: t for k, t in fold_times.items()
                                      if k.startswith(pre)}
+        if name == "keyed_finish":
+            extra["kernel_phase"] = finish_times
         entries.append(_entry(name, shapes_k[head], launches[name],
                               max(t["max_abs_err"] for t in shapes_k.values()),
                               shapes=shapes_k, **extra))

@@ -754,6 +754,91 @@ def test_keyed_finish_matches_twin(cuda):
     assert np.array_equal(g[len(flags):], w[len(flags):])
 
 
+def _finish_close(got, twin, ops, x32, what):
+    if x32:
+        SMOKE._x32_rows_close(TK, got, twin, ops, what)
+    else:
+        SMOKE._words_close(got, twin, {f for f, op in enumerate(ops) if op == TK.OP_ADD_F64})
+
+
+@pytest.mark.parametrize("x32", [False, True])
+@pytest.mark.parametrize("shape", ["one_row", "skew90", "zipf", "masked", "empty", "full",
+                                   "sparse", "uniform"])
+def test_keyed_finish_shapes_match_twin(cuda, shape, x32):
+    """The finish kernel against its twin where its segments are hard: all
+    groups of one row, one group of 90% of the rows, Zipf ids, every row
+    masked, no rows, n_groups == capacity, n_groups far below it; NaN, +-inf
+    and +-0.0 in the sums and extrema; x64's 9 columns in three passes, x32's
+    pair sums and order pairs.  Two launches are bit-identical."""
+    n = 0 if shape == "empty" else 300_001
+    args = SMOKE.finish_case(TK, "uniform" if shape == "empty" else shape, n, x32, cuda,
+                             seed=len(shape))
+    fn = TK.keyed_finish_x32_cuda if x32 else TK.keyed_finish_cuda
+    runs = [fn(*args) for _ in range(2)]
+    twin = (TK.keyed_finish_x32_reference if x32 else TK.keyed_finish_reference)(*args)
+    torch.cuda.synchronize()
+    assert runs[0].dtype == twin.dtype
+    assert torch.equal(runs[0], runs[1])
+    _finish_close(runs[0], twin, args[3], x32, f"keyed_finish {shape}")
+
+
+@pytest.mark.parametrize("x32", [False, True])
+def test_keyed_finish_folded_matches_twin(cuda, x32):
+    """After a folded sort: the finish kernel into the state rows, the
+    unfold into the key rows, one launch each."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    dt = torch.int32 if x32 else torch.int64
+    kinds, entries, plan = _fold_entries((300_001, 5000), cuda, x32, seed=8)
+    inv, (comb,) = TK.keyed_encode_entries_cuda(kinds, entries, plan, dt)
+    perm, gids, ng = TK.keyed_sort(inv, [comb])
+    n = inv.numel()
+    rng = np.random.default_rng(8)
+    v = rng.normal(0, 9, n)
+    v[::53] = np.nan
+    ok = t(rng.random(n) > 0.1)
+    KS = TK.KernelAggSpec
+    specs = [KS("count_star", False), KS("sum", True)]
+    if x32:
+        columns = [TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=t(v.astype(np.float32)),
+                                 valid=ok),
+                   TK.ScanColumn(TK.SS_COUNT, TK.OP_ADD_I64),
+                   TK.ScanColumn(TK.SS_COUNT, TK.OP_ADD_I64, valid=ok)]
+        ops, field_col = TK.x32_merge_ops(specs), [1, 0, 0, 2, 1]
+    else:
+        ops = [TK.OP_COUNT, TK.OP_ADD_F64, TK.OP_COUNT, TK.OP_COUNT]
+        columns, field_col = TK._build_scan_plan([t(v)], [ok], ops, [-1, 0, 0, -1])
+    args = (specs, columns, field_col, ops, perm, gids, ng,
+            max(64, 1 << (ng - 1).bit_length()), plan)
+    before = dict(TK.LAUNCHES)
+    fn = TK.keyed_finish_x32_cuda if x32 else TK.keyed_finish_cuda
+    got = fn(*args)
+    assert {k: TK.LAUNCHES[k] - before[k] for k in ("keyed_finish", "keyed_unfold",
+                                                     "seg_scan")} == {
+        "keyed_finish": 1, "keyed_unfold": 1, "seg_scan": 0}
+    twin = (TK.keyed_finish_x32_reference if x32 else TK.keyed_finish_reference)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fn(*args))
+    _finish_close(got, twin, ops, x32, "keyed_finish folded")
+
+
+def test_keyed_finish_rejects_bad_input(cuda):
+    args = SMOKE.finish_case(TK, "uniform", 5000, False, cuda, seed=1)
+    specs, columns, field_col, ops, perm, gids, ng, cap = args
+    with pytest.raises(ValueError, match="source"):
+        TK.keyed_finish_cuda(specs, columns[:-1] + [TK.ScanColumn(TK.SS_IOTA, TK.OP_ADD_I64)],
+                             field_col, ops, perm, gids, ng, cap)
+    with pytest.raises(ValueError, match="n_groups"):
+        TK.keyed_finish_cuda(specs, columns, field_col, ops, perm, gids, ng, ng - 1)
+    with pytest.raises(ValueError, match="fields"):
+        TK.keyed_finish_cuda(specs, columns, field_col[:-1] + [len(columns)], ops, perm, gids,
+                             ng, cap)
+    with pytest.raises(ValueError, match="s2"):
+        TK.keyed_finish_cuda(specs, columns, field_col, ops, perm, dict(gids, s2=gids["s2"][1:]),
+                             ng, cap)
+    with pytest.raises(ValueError, match="0 columns"):
+        TK._finish_cuda([], [], [], [], perm, gids, ng, cap, None, torch.int64)
+
+
 @pytest.mark.parametrize("cap_extra", [1, 4])
 def test_keyed_median_matches_twin(cuda, cap_extra):
     n = 400_000
@@ -841,8 +926,8 @@ def test_keyed_encode_entries_and_unfold_match_twins(cuda, sizes, x32):
     fperm, fgids, fng = TK.keyed_sort(inv, [comb])
     assert ng == fng and torch.equal(perm, fperm)
     cap = 1 << max(ng - 1, 0).bit_length()
-    want = TK.keyed_keys_cuda(gids["sk"], gids["starts"], ng,
-                              torch.empty((3, cap), dtype=dt, device=cuda))
+    want = TK.keyed_keys_reference(gids["sk"], gids["starts"], ng,
+                                   torch.empty((3, cap), dtype=dt, device=cuda))
     got = TK.keyed_unfold_cuda(fgids["sk"][0], fgids["starts"], ng, plan,
                                torch.empty((3, cap), dtype=dt, device=cuda))
     twin = TK.keyed_unfold_reference(fgids["sk"][0], fgids["starts"], ng, plan,
@@ -1564,12 +1649,15 @@ def test_keyed_median_and_gather_int32_forms_match_twin(cuda, n):
     got = TK.keyed_median_cuda(inv, keys, ohi, olo, ovalid, 1024, torch.int32)
     twin = TK.keyed_median_reference(inv, keys, ohi, olo, ovalid, 1024, torch.int32)
     assert got.dtype == torch.int32 and torch.equal(got, twin)
+    # the key gather's int32 form: the x32 finish's key rows
     perm, gids, ng = TK.keyed_sort(inv, keys)
-    out = torch.zeros((2, 4096), dtype=torch.int32, device=cuda)
-    want = out.clone().cpu()
-    TK.keyed_keys_cuda(gids["sk"], gids["starts"], ng, out)
+    specs = [TK.KernelAggSpec("count_star", False)]
+    ops = TK.x32_merge_ops(specs)
+    out = TK.keyed_finish_x32_cuda(specs, [TK.ScanColumn(TK.SS_COUNT, TK.OP_ADD_I64)],
+                                   [0] * len(ops), ops, perm, gids, ng, 4096)
+    want = torch.zeros((2, 4096), dtype=torch.int32)
     TK.keyed_keys_reference([k.cpu() for k in gids["sk"]], gids["starts"].cpu(), ng, want)
-    assert torch.equal(out.cpu(), want)
+    assert out.dtype == torch.int32 and torch.equal(out[len(ops):].cpu(), want)
 
 
 def test_keyed_finish_x32_matches_twin(cuda):

@@ -260,8 +260,33 @@ def test_radix_sort_twin_orders_int64_like_lexsort(width):
 
 
 # ----------------------------------------------------- keyed finish (B8)
+FINISH_CASES = [3, 4, "skew", "one_row", "all_masked", "full"]
+
+
+def finish_keys(case: str, rng, n: int, mask):
+    """The row mask and two int32 key columns of a named finish shape:
+    "skew" 4 groups, one holding 90% of the rows; "one_row" every row its
+    own group; "all_masked" no valid row; "full" 256 groups, all present,
+    so n_groups is the capacity."""
+    if case == "skew":
+        g = np.where(rng.random(n) < 0.9, 0, rng.integers(1, 4, n))
+        return mask, [(g // 2).astype(np.int32), (g % 2).astype(np.int32)]
+    if case == "one_row":
+        return mask, [rng.permutation(n).astype(np.int32), np.zeros(n, np.int32)]
+    if case == "all_masked":
+        return np.zeros(n, bool), [rng.integers(0, 300, n).astype(np.int32),
+                                   rng.integers(0, 3, n).astype(np.int32)]
+    if case == "full":
+        return mask, [rng.integers(0, 128, n).astype(np.int32),
+                      rng.integers(0, 2, n).astype(np.int32)]
+    raise ValueError(case)
+
+
 def _finish_inputs(seed=3, n=4000):
-    rng = np.random.default_rng(seed)
+    """Seeded finish inputs; a named case (:func:`finish_keys`) draws its
+    values from seed 5 and replaces the mask and keys."""
+    case = seed
+    rng = np.random.default_rng(seed if isinstance(seed, int) else 5)
     v = rng.uniform(-50, 50, n)
     v[::23] = np.nan
     w = rng.integers(-(10**12), 10**12, n)
@@ -271,6 +296,8 @@ def _finish_inputs(seed=3, n=4000):
     })
     mask = rng.random(n) > 0.2
     keys = [rng.integers(0, 300, n).astype(np.int32), rng.integers(0, 3, n).astype(np.int32)]
+    if not isinstance(case, int):
+        mask, keys = finish_keys(case, rng, n, mask)
     return batch, mask, keys
 
 
@@ -324,12 +351,14 @@ def _port_finish(batch, mask, keys):
     return packed.numpy(), specs, n_groups, cap
 
 
-@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("seed", FINISH_CASES)
 def test_keyed_finish_twin_matches_reference(seed):
     batch, mask, keys = _finish_inputs(seed)
     jp, jspecs, jng, jcap = _jax_finish(batch, mask, keys)
     tp, tspecs, tng, tcap = _port_finish(batch, mask, keys)
     assert (jng, jcap) == (tng, tcap)
+    assert {"full": jng == jcap, "all_masked": jng == 0, "one_row": jng == mask.sum(),
+            "skew": jng == 4}.get(seed, True)
     jstates, jkeys = JK.unpack_keyed_host(jspecs, jp, "x64", len(keys))
     tstates, tkeys = TK.unpack_keyed_host(tspecs, tp, len(keys))
     for a, b in zip(jkeys, tkeys):
@@ -343,6 +372,9 @@ def test_keyed_finish_twin_matches_reference(seed):
             ok = ~np.isnan(a)
             np.testing.assert_allclose(b[ok], a[ok], rtol=REL, atol=0)
         else:
+            assert np.array_equal(a, b.astype(a.dtype)), f
+    if seed == "all_masked":  # every slot holds its identity
+        for f, (a, b) in enumerate(zip(jstates, tstates)):
             assert np.array_equal(a, b.astype(a.dtype)), f
 
 

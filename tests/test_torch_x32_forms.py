@@ -35,6 +35,7 @@ from arrow_ballista_tpu_torch.exec import expressions as tpe
 from arrow_ballista_tpu_torch.ops import bridge as TB
 from arrow_ballista_tpu_torch.ops import kernels as TK
 from arrow_ballista_tpu_torch.ops import window_kernel as TW
+from test_torch_keyed import FINISH_CASES, finish_keys
 
 REL = 1e-6  # the reference's x32 bar
 CPU = torch.device("cpu")
@@ -182,17 +183,24 @@ def test_keyed_corr_x32_twin_matches_reference(seed):
 
 # ------------------------------------------------------- keyed finish x32
 def _finish_batch(seed, n=4000):
-    rng = np.random.default_rng(seed)
+    """Seeded finish inputs; a named case (test_torch_keyed.py:
+    finish_keys) draws its values from seed 5 and replaces the mask and
+    keys."""
+    rng = np.random.default_rng(seed if isinstance(seed, int) else 5)
     v = rng.uniform(-50, 50, n)
     v[::23] = np.nan
-    return pa.RecordBatch.from_pydict({
+    batch = pa.RecordBatch.from_pydict({
         "v": pa.array(v, mask=rng.random(n) < 0.1),
         "w": pa.array(rng.integers(-(10**12), 10**12, n), pa.int64(),
                       mask=rng.random(n) < 0.05),
         "f": pa.array(rng.uniform(1, 2, n) * (1 + 1e-12 * rng.integers(0, 5, n))),
         "i": pa.array(rng.integers(-1000, 1000, n).astype(np.int32)),
-    }), rng.random(n) > 0.2, [rng.integers(0, 300, n).astype(np.int32),
-                              rng.integers(0, 3, n).astype(np.int32)]
+    })
+    mask = rng.random(n) > 0.2
+    keys = [rng.integers(0, 300, n).astype(np.int32), rng.integers(0, 3, n).astype(np.int32)]
+    if not isinstance(seed, int):
+        mask, keys = finish_keys(seed, rng, n, mask)
+    return batch, mask, keys
 
 
 def _specs(mod, comp, schema, Col):
@@ -211,7 +219,7 @@ def _specs(mod, comp, schema, Col):
     return specs, closures
 
 
-@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("seed", FINISH_CASES)
 def test_keyed_finish_x32_twin_matches_reference(seed):
     batch, mask, keys = _finish_batch(seed)
     comp = JK.JaxExprCompiler(batch.schema)
