@@ -260,29 +260,25 @@ RadixSortParams radix_params(const std::vector<at::Tensor>& keys) {
   return p;
 }
 
-void radix_sort_plan_(const std::vector<at::Tensor>& keys, at::Tensor hist,
-                      at::Tensor plan) {
-  c10::cuda::CUDAGuard guard(hist.device());
+void radix_sort_plan_(const std::vector<at::Tensor>& keys, at::Tensor scratch) {
+  c10::cuda::CUDAGuard guard(scratch.device());
   RadixSortParams p = radix_params(keys);
-  p.hist = static_cast<unsigned*>(hist.data_ptr());
-  launched(radix_sort_plan(&p, plan.data_ptr<int32_t>(),
+  launched(radix_sort_plan(&p, scratch.data_ptr(), (size_t)scratch.nbytes(),
                            at::cuda::getCurrentCUDAStream()));
 }
 
-void radix_sort_passes_(const std::vector<at::Tensor>& keys,
-                        const at::Tensor& hist, const at::Tensor& plan,
-                        at::Tensor perm, at::Tensor perm_scratch,
-                        at::Tensor key_a, at::Tensor key_b, at::Tensor counts) {
+int64_t radix_sort_scratch_bytes_(const std::vector<at::Tensor>& keys) {
+  RadixSortParams p = radix_params(keys);
+  return (int64_t)radix_sort_scratch_bytes(p.n, p.n_keys, radix_sort_candidates(&p));
+}
+
+void radix_sort_(const std::vector<at::Tensor>& keys, at::Tensor perm,
+                 const at::Tensor& scratch, bool small) {
   c10::cuda::CUDAGuard guard(perm.device());
   RadixSortParams p = radix_params(keys);
-  p.hist = static_cast<unsigned*>(hist.data_ptr());
-  p.counts = static_cast<unsigned*>(counts.data_ptr());
-  p.key_buf[0] = static_cast<unsigned long long*>(key_a.data_ptr());
-  p.key_buf[1] = static_cast<unsigned long long*>(key_b.data_ptr());
-  p.perm_scratch = perm_scratch.data_ptr<int32_t>();
-  launched(radix_sort_passes(&p, plan.data_ptr<int32_t>(),
-                             perm.data_ptr<int32_t>(),
-                             at::cuda::getCurrentCUDAStream()));
+  launched(radix_sort(&p, perm.data_ptr<int32_t>(), small ? nullptr : scratch.data_ptr(),
+                      small ? 0 : (size_t)scratch.nbytes(), small,
+                      at::cuda::getCurrentCUDAStream()));
 }
 
 void seg_scan_(int64_t n, const at::Tensor& perm, const at::Tensor& flag,
@@ -983,9 +979,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("segment_agg_entries", &segment_agg_entries_,
         "every retained entry's segment aggregate folded into one state");
   m.def("radix_sort_plan", &radix_sort_plan_,
-        "byte histograms and the pass plan of a stable multi-key argsort");
-  m.def("radix_sort_passes", &radix_sort_passes_,
-        "the LSD passes of a stable multi-key argsort");
+        "the bounds, histograms, packing and pass plan of a stable multi-key argsort");
+  m.def("radix_sort_scratch_bytes", &radix_sort_scratch_bytes_,
+        "bytes of device scratch the multi-CTA argsort of these keys needs");
+  m.def("radix_sort", &radix_sort_,
+        "a stable multi-key argsort: one CTA (small), else one pass a digit in scratch");
   m.def("seg_scan", &seg_scan_, "inclusive segmented scan over columns");
   m.def("range_extremum", &range_extremum_, "ROWS-frame min/max");
   m.def("window_flags", &window_flags_, "partition and peer start flags");

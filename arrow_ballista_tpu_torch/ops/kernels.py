@@ -1969,7 +1969,11 @@ def _check_cuda_tensor(x, name: str, dtypes, n: int, device) -> None:
 
 
 # ------------------------------------------------------------- radix sort
-RADIX_TILE = 4096  # rows per tile of a pass (radix_sort.h: kRadixTile)
+RADIX_TILE = 6144  # rows per tile of a pass (radix_sort.h: kRadixTile)
+# at most this many rows sort in one launch of one CTA (radix_sort.h:
+# kRadixSmallMax): on one key, faster than the tiled passes below it,
+# level at it (PERF.md §6)
+RADIX_SMALL_ROWS = 16384
 
 
 def radix_argsort_reference(keys: list) -> torch.Tensor:
@@ -1983,12 +1987,9 @@ def radix_argsort_reference(keys: list) -> torch.Tensor:
     return perm.to(torch.int32)
 
 
-def _radix_plan(keys: list):
-    """Check the key columns, then launch the whole-column byte histograms
-    and the sort's device plan (ops/cuda/radix_sort.h).  Returns
-    (extension, hist, plan); nothing is read back."""
-    from .cuda.build import load
-
+def _radix_keys(keys: list) -> tuple:
+    """Check the key columns (before any binding is called: an exception
+    inside the extension may end the process); returns (n, device)."""
     if not keys or len(keys) > 32:
         raise ValueError(f"radix sort: {len(keys)} key columns")
     device = keys[0].device
@@ -1997,12 +1998,7 @@ def _radix_plan(keys: list):
         raise ValueError("radix sort keys must be [n] CUDA tensors, n < 2^31")
     for i, k in enumerate(keys):
         _check_cuda_tensor(k, f"key {i}", (torch.int32, I64), n, device)
-    ext = load()
-    hist = torch.empty((len(keys), 8, 256), dtype=torch.int32, device=device)
-    cands = sum(k.element_size() for k in keys)
-    plan = torch.empty(1 + cands + len(keys), dtype=torch.int32, device=device)
-    ext.radix_sort_plan(list(keys), hist, plan)
-    return ext, hist, plan
+    return n, device
 
 
 def radix_argsort_cuda(keys: list) -> torch.Tensor:
@@ -2011,28 +2007,42 @@ def radix_argsort_cuda(keys: list) -> torch.Tensor:
 
     Replaces the multi-key ``lax.sort`` of ``arrow_ballista_tpu/ops/
     window_kernel.py:make_window_kernel`` and the ``gid<<31 | row`` sort of
-    ``ops/kernels.py:_sorted_segment_agg``.  The whole-column byte
-    histograms decide on the device which passes run: a byte that is the
-    same on every row costs an empty launch, and the host never waits."""
-    ext, hist, plan = _radix_plan(keys)
-    n, device = keys[0].shape[0], keys[0].device
+    ``ops/kernels.py:_sorted_segment_agg``.  Up to ``RADIX_SMALL_ROWS``
+    rows one launch of one CTA sorts in shared memory; above, one launch a
+    digit over tiles, after one read of the columns (bounds and byte
+    histograms) decides on the device whether to pack the columns into one
+    key and which passes run (a byte that is the same on every row costs
+    an empty launch; the host never waits).  Both give the same
+    permutation."""
+    from .cuda.build import load
+
+    n, device = _radix_keys(keys)
+    small = n <= RADIX_SMALL_ROWS
+    ext = load()
     perm = torch.empty(n, dtype=torch.int32, device=device)
-    tiles = max(1, -(-n // RADIX_TILE))
-    ext.radix_sort_passes(
-        list(keys), hist, plan, perm,
-        torch.empty(n, dtype=torch.int32, device=device),
-        torch.empty(n, dtype=I64, device=device),
-        torch.empty(n, dtype=I64, device=device),
-        torch.empty(256 * tiles, dtype=torch.int32, device=device),
-    )
+    # the one-CTA sort needs no scratch: perm stands in, unread
+    scratch = perm if small else _radix_scratch(ext, keys, device)
+    ext.radix_sort(list(keys), perm, scratch, small)
     count_launch("radix_sort")
     return perm
 
 
+def _radix_scratch(ext, keys: list, device) -> torch.Tensor:
+    return torch.empty(ext.radix_sort_scratch_bytes(list(keys)), dtype=torch.uint8,
+                       device=device)
+
+
 def radix_sort_pass_count(keys: list) -> int:
-    """How many LSD passes the radix sort runs on ``keys``: its device
-    plan's count, read back (for reports and tests; not a sort launch)."""
-    return int(_radix_plan(keys)[2][0].item())
+    """How many LSD passes the multi-CTA radix sort runs on ``keys``: its
+    device plan's count (the scratch's first int32), read back (for
+    reports and tests; not a sort launch)."""
+    from .cuda.build import load
+
+    _, device = _radix_keys(keys)
+    ext = load()
+    scratch = _radix_scratch(ext, keys, device)
+    ext.radix_sort_plan(list(keys), scratch)
+    return int(scratch[:4].view(torch.int32)[0].item())
 
 
 def radix_argsort(keys: list) -> torch.Tensor:

@@ -23,7 +23,14 @@ Phases; any failure exits non-zero and prints no result line:
               scan, B6) against B1, with both routes' ms per launch;
             * ``radix_sort`` at n in {2^20, 2^23, 2^26}: B6's one key at
               capacity in {2^13, 2^16, 2^20} and the window key set, its
-              permutation equal to the twin's;
+              permutation equal to the twin's, two runs bit-identical, one
+              call's ms beside ``burst_ms`` (20 calls back to back: the
+              card's ms where one call's events measure the host) and
+              ``torch.sort(stable=True)``'s, and the scratch a call
+              allocates; then one key at rows around the one-CTA sort's
+              bound (its last size and the tiled passes' first), checked
+              and timed beside torch.sort; the main-path legs print K1's
+              calls by path;
             * ``seg_scan``, ``range_extremum`` and ``window_epilogue`` at
               n in {2^20, 2^23}, and the whole window kernel against its
               twin;
@@ -187,9 +194,14 @@ Phases; any failure exits non-zero and prints no result line:
             once more under ``set_precision("x32")`` (leg ``x32 dist. q3
             mesh``): its exchanges move 64-bit columns as (lo, hi) int32
             words (the ``i64pair`` layout), against the same answer at
-            rel 1e-6;
+            rel 1e-6; over all of lineitem both q3 legs' join stage bails
+            (``join_fallback`` above 0) and their aggregate sorts each
+            batch after it (more ``radix_sort`` launches than bails, on
+            the one-CTA sort);
 11. timing — every kernel at the first shape its main path gave it
-            (``mesh_route`` at the largest, dist. q3's lineitem exchange): the
+            (``mesh_route`` at the largest, dist. q3's lineitem exchange;
+            ``radix_sort`` at q3's, the window's, dist. q3's and dist. q3
+            mesh's, each two runs bit for bit against the twin): the
             kernel, its twin and, where one PyTorch call computes the same
             function, that call (CUDA events, median of 20 launches),
             beside the least time the card could take (the bytes the call
@@ -746,9 +758,49 @@ class CaptureLargest(Capture):
         return self
 
 
+class SortPaths:
+    """K1's calls by path from ``_reset_counts`` to ``_launches`` (a leg):
+    the one-CTA sort (``RADIX_SMALL_ROWS`` rows or fewer) or the tiled
+    passes, and the fewest rows of a call.  A wrapper on
+    ``radix_argsort_cuda`` for that span; not a launch count."""
+
+    def __init__(self):
+        self.inner, self.counts = None, {}
+
+    def start(self, TK) -> None:
+        self.counts = {"radix_sort one-CTA": 0, "radix_sort tiled": 0,
+                       "radix_sort fewest rows": None}
+        if self.inner is not None:
+            return
+        inner = self.inner = TK.radix_argsort_cuda
+
+        def hook(keys):
+            n, c = keys[0].numel(), self.counts
+            c["radix_sort one-CTA" if n <= TK.RADIX_SMALL_ROWS else "radix_sort tiled"] += 1
+            fewest = c["radix_sort fewest rows"]
+            c["radix_sort fewest rows"] = n if fewest is None else min(fewest, n)
+            return inner(keys)
+
+        TK.radix_argsort_cuda = hook
+
+    def stop(self, TK) -> dict:
+        if self.inner is not None:
+            TK.radix_argsort_cuda, self.inner = self.inner, None
+        return self.counts
+
+
+SORT_PATHS = SortPaths()
+
+
 def _reset_counts(TK) -> None:
     for k in TK.LAUNCHES:
         TK.LAUNCHES[k] = 0
+    SORT_PATHS.start(TK)
+
+
+def _launches(TK) -> dict:
+    """The launch counts since ``_reset_counts``, with K1's calls by path."""
+    return dict(TK.LAUNCHES, **SORT_PATHS.stop(TK))
 
 
 def _bound(bytes_: int, f64_ops: int = 0) -> dict:
@@ -804,22 +856,59 @@ def _window_keys(n: int, seed: int) -> list:
             np.zeros(n, np.int32), rng.integers(1, 8, n).astype(np.int64)]
 
 
-def _time_sort(TK, keys) -> dict:
+def _scratch_bytes(fn) -> int:
+    """Peak device bytes one call of ``fn`` allocates (its outputs too)."""
     import torch
 
-    out = dict(rows=keys[0].numel(), keys=len(keys),
-               ms=_median_ms(lambda: TK.radix_argsort_cuda(keys)),
-               passes=TK.radix_sort_pass_count(keys),
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _time_sort(TK, keys) -> dict:
+    """K1 at ``keys``: one call's events (``ms``, the host's time where it
+    exceeds the card's) and ``burst_ms`` (20 calls back to back: the
+    card's), beside torch.sort(stable=True) on one key."""
+    import torch
+
+    sort = lambda: TK.radix_argsort_cuda(keys)  # noqa: E731
+    one = len(keys) == 1
+    lib = lambda: torch.sort(keys[0], stable=True)  # noqa: E731
+    out = dict(rows=keys[0].numel(), keys=len(keys), ms=_median_ms(sort),
+               burst_ms=_burst_ms(sort), passes=TK.radix_sort_pass_count(keys),
+               path="one-CTA" if keys[0].numel() <= TK.RADIX_SMALL_ROWS else "tiled",
                plain_ms=_median_ms(lambda: TK.radix_argsort_reference(keys), 5),
-               library_ms=(_median_ms(lambda: torch.sort(keys[0], stable=True))
-                           if len(keys) == 1 else None),
-               max_abs_err=0.0)
+               library_ms=_median_ms(lib) if one else None,
+               library_burst_ms=_burst_ms(lib) if one else None,
+               scratch_bytes=_scratch_bytes(sort), max_abs_err=0.0)
     out.update(_bound(_sort_bytes(keys)))
     return out
 
 
+def _sort_bound_rows(TK) -> tuple:
+    """One key's rows around the one-CTA sort's bound: its last size
+    beside the tiled passes' first, and smaller and larger sorts."""
+    return (2048, 8192, TK.RADIX_SMALL_ROWS, TK.RADIX_SMALL_ROWS + 1, 32768)
+
+
+def _checked_same(TK, keys, what: str) -> None:
+    import torch
+
+    twin = TK.radix_argsort_reference(keys)
+    runs = [TK.radix_argsort_cuda(keys) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(f"radix_sort {what}: two runs differ")
+    if not torch.equal(runs[0], twin):
+        raise AssertionError(f"radix_sort {what}: perm differs from the twin")
+
+
 def sort_phase(TK, device) -> dict:
-    """radix_sort vs its twin: B6's one key and the window key set."""
+    """radix_sort vs its twin: B6's one key and the window key set; then
+    one key around the one-CTA sort's bound."""
     import torch
 
     times: dict = {}
@@ -829,19 +918,21 @@ def sort_phase(TK, device) -> dict:
         cases.append(("window keys", lambda: _window_keys(n, n)))
         for name, make in cases:
             keys = [torch.from_numpy(k).to(device) for k in make()]
-            runs = [TK.radix_argsort_cuda(keys) for _ in range(2)]
-            twin = TK.radix_argsort_reference(keys)
-            torch.cuda.synchronize()
-            if not torch.equal(runs[0], runs[1]):
-                raise AssertionError(f"radix_sort n={n} {name}: two runs differ")
-            if not torch.equal(runs[0], twin):
-                raise AssertionError(f"radix_sort n={n} {name}: perm differs from the twin")
-            del runs, twin
+            _checked_same(TK, keys, f"n={n} {name}")
             t = _time_sort(TK, keys)
             times[f"n={n},{name}"] = t
             print(f"radix_sort n={n} {name}: ok, passes={t['passes']} ms={t['ms']!r} "
-                  f"library_ms={t['library_ms']!r} bound_ms={t['bound_ms']!r}")
+                  f"burst_ms={t['burst_ms']!r} library_ms={t['library_ms']!r} "
+                  f"library_burst_ms={t['library_burst_ms']!r} bound_ms={t['bound_ms']!r}")
             del keys
+    for n in _sort_bound_rows(TK):
+        keys = [torch.from_numpy(_gid_key(n, 16384, n)).to(device)]
+        _checked_same(TK, keys, f"n={n} bound")
+        t = dict(path="one-CTA" if n <= TK.RADIX_SMALL_ROWS else "tiled",
+                 burst_ms=_burst_ms(lambda: TK.radix_argsort_cuda(keys)),
+                 library_burst_ms=_burst_ms(lambda: torch.sort(keys[0], stable=True)))
+        times[f"n={n},small-sort bound"] = t
+        print(f"radix_sort n={n} small-sort bound (burst ms): {json.dumps(t)}")
     return times
 
 
@@ -1487,7 +1578,7 @@ def query_phase(tbt, TK, batches, device, wants: dict) -> dict:
                 got = ctx.execute(plan)
                 torch.cuda.synchronize()
                 dev_s = time.perf_counter() - t0
-            launches = dict(TK.LAUNCHES)
+            launches = _launches(TK)
             peak = torch.cuda.max_memory_allocated()
             metrics = _stage_metrics(stages)
             for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
@@ -1612,7 +1703,7 @@ def q3_phase(tbt, TK, batches, orders, customer, device) -> dict:
         got = ctx.execute(plan)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
-    launches = dict(TK.LAUNCHES)
+    launches = _launches(TK)
     metrics = _stage_metrics(stages)
     bail = int(expect["bail"])
     for k, want_k in (("join_fallback", bail), ("tpu_fallback", bail), ("dense_join", 1),
@@ -1677,7 +1768,7 @@ def _keyed_run(TK, ctx, plan, stages, what: str, captures=KEYED_CAPTURES,
         got = ctx.execute(plan)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
-    launches = dict(TK.LAUNCHES)
+    launches = _launches(TK)
     metrics = _stage_metrics(stages)
     for k in kernels:
         if launches[k] < 1:
@@ -1965,7 +2056,7 @@ def _star_leg(TK, TorchStageExec, session, want, cpu_s, n_batches, n_rows, dim_r
         got = ctx.execute(plan)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
-    launches = dict(TK.LAUNCHES)
+    launches = _launches(TK)
     metrics = _stage_metrics(stages)
     for k, want_k in (("dense_join", 1), ("join_fallback", 0), ("tpu_fallback", 0),
                       ("cpu_fallback", 0), ("highcard_fallback", 0)):
@@ -2089,7 +2180,7 @@ def _window_leg(TK, WK, session, want, cpu_s, n_rows, x32) -> dict:
         got = ctx.execute(plan)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
-    launches = dict(TK.LAUNCHES)
+    launches = _launches(TK)
     metrics = _stage_metrics(nodes)
     print(
         f"{what}: rows={n_rows} launches={json.dumps(launches)} "
@@ -2215,9 +2306,10 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
             _reset_counts(TK)
             with Capture(TK, "partition_ids_cuda") as first, PidCheck(TK) as pids, \
                     Capture(TK, "join_probe_cuda") as probe, \
-                    Capture(TK, "join_build_table_cuda") as build:
+                    Capture(TK, "join_build_table_cuda") as build, \
+                    Capture(TK, "radix_argsort_cuda") as sort:
                 got, dev_s, metrics = _run_job(ctx, QUERIES[q])
-            launches = dict(TK.LAUNCHES)
+            launches = _launches(TK)
             stage = metrics.get("TorchStageExec", {})
             writer = metrics.get("ShuffleWriterExec", {})
             if stage.get("input_rows", 0) < 1:
@@ -2252,7 +2344,7 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
             out[q] = dict(launches=launches, pids=first.args, probe=probe.args,
-                          build=build.args, want=want, cpu_s=cpu_s)
+                          build=build.args, sort=sort.args, want=want, cpu_s=cpu_s)
     finally:
         ctx.close()
     return out
@@ -2286,9 +2378,10 @@ def mesh_dist_phase(tbt, TK, root: str, lineitem_rows: int, dist: dict, device) 
         for q in (1, 3):
             _reset_counts(TK)
             with Capture(TM, "mesh_reduce_cuda") as red, \
-                    CaptureLargest(TM, "mesh_route_cuda") as route:
+                    CaptureLargest(TM, "mesh_route_cuda") as route, \
+                    Capture(TK, "radix_argsort_cuda") as sort:
                 got, dev_s, metrics = _run_job(ctx, QUERIES[q])
-            launches = dict(TK.LAUNCHES)
+            launches = _launches(TK)
             _tables_equal(dist[q]["want"], got, f"dist. q{q} mesh")
             gang = metrics.get("MeshGangExec", {})
             rep = metrics.get("MeshRepartitionExec", {})
@@ -2322,8 +2415,10 @@ def mesh_dist_phase(tbt, TK, root: str, lineitem_rows: int, dist: dict, device) 
                     print(f"dist. q3 mesh: mesh_exchange_fallback="
                           f"{writer['mesh_exchange_fallback']} (a stage passed "
                           f"mesh.exchange_max_rows or the capacity ceiling)")
-                need = ("mesh_route", "join_build_table", "expr_eval")
+                need = ("mesh_route", "join_build_table", "expr_eval", "radix_sort",
+                        "seg_scan")
                 body = rep
+                _check_join_bail(stage, launches, f"dist. q{q} mesh")
             for k in need:
                 if launches[k] < 1:
                     raise AssertionError(f"dist. q{q} mesh: {k} never launched "
@@ -2341,11 +2436,22 @@ def mesh_dist_phase(tbt, TK, root: str, lineitem_rows: int, dist: dict, device) 
                 f"mesh_exchange_fallback={writer.get('mesh_exchange_fallback', 0)} "
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
-            out[q] = dict(launches=launches, reduce=red.args, route=route.args)
+            out[q] = dict(launches=launches, reduce=red.args, route=route.args, sort=sort.args)
         out["x32 q3"] = _x32_dist_q3(TK, TM, ctx, lineitem_rows, dist)
     finally:
         ctx.close()
     return out
+
+
+def _check_join_bail(stage: dict, launches: dict, what: str) -> None:
+    """Over all of lineitem the mesh q3 legs' join stage bails and their
+    aggregate runs on the sort route, a sort for each batch after the bail
+    (so more sorts than bailed tasks): the only legs that drive K1 and K2
+    after a MeshRepartitionExec."""
+    bails = stage.get("join_fallback", 0)
+    if bails < 1 or launches["radix_sort"] <= bails:
+        raise AssertionError(f"{what}: the join stage did not bail to the sort route "
+                             f"({json.dumps(stage)}, {json.dumps(launches)})")
 
 
 def _x32_dist_q3(TK, TM, ctx, lineitem_rows: int, dist: dict) -> dict:
@@ -2372,7 +2478,7 @@ def _x32_dist_q3(TK, TM, ctx, lineitem_rows: int, dist: dict) -> dict:
     finally:
         TK.set_precision(None)
         TM.BatchExchanger = plain
-    launches = dict(TK.LAUNCHES)
+    launches = _launches(TK)
     what = "x32 dist. q3 mesh"
     _tables_equal(dist[3]["want"], got, what, rel=X32_REL)
     rep = metrics.get("MeshRepartitionExec", {})
@@ -2388,9 +2494,10 @@ def _x32_dist_q3(TK, TM, ctx, lineitem_rows: int, dist: dict) -> dict:
         raise AssertionError(f"{what}: no exchange ran ({json.dumps(rep)})")
     if not any("i64pair" in lay for lay in layouts):
         raise AssertionError(f"{what}: no exchange took the i64pair layout ({layouts})")
-    for k in ("mesh_route", "join_build_table", "expr_eval"):
+    for k in ("mesh_route", "join_build_table", "expr_eval", "radix_sort", "seg_scan"):
         if launches[k] < 1:
             raise AssertionError(f"{what}: {k} never launched ({json.dumps(launches)})")
+    _check_join_bail(stage, launches, what)
     pairs = sum(lay.count("i64pair") for lay in layouts)
     print(
         f"{what}: lineitem_rows={lineitem_rows} launches={json.dumps(launches)} "
@@ -2489,7 +2596,7 @@ def fusion_phase(tbt, TK, h2o_batches, root: str, device) -> dict:
         _reset_counts(TK)
         with FusedPidCheck() as pids:
             got, dev_s, metrics = _run_job(ctx, sql)
-        launches = dict(TK.LAUNCHES)
+        launches = _launches(TK)
         stage = metrics.get("TorchStageExec", {})
         if stage.get("input_rows", 0) != n_rows:
             raise AssertionError(f"fusion q4: the device stages read {stage.get('input_rows', 0)} "
@@ -2924,7 +3031,7 @@ def _x32_legs(tbt, TK, batches, wants: dict, device) -> dict:
         finally:
             for c in caps:
                 c.__exit__()
-        launches = dict(TK.LAUNCHES)
+        launches = _launches(TK)
         metrics = _stage_metrics(stages + _stage_nodes(plan, MeshGangExec))
         for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback", "mesh_fallback"):
             if metrics.get(k, 0):
@@ -3657,7 +3764,10 @@ def _time_keyed_sort(TK, captured) -> dict:
     n = inv.numel()
     stacked = torch.stack([inv.long()] + [k.long() for k in keys], dim=1)
     library = _median_ms(lambda: torch.unique(stacked, dim=0, return_inverse=True), 5)
+    sort = lambda: TK.radix_argsort_cuda([inv] + keys)  # noqa: E731
     out = dict(rows=n, keys=len(keys), groups=ng, ms=_median_ms(kernel),
+               burst_ms=_burst_ms(kernel), k1_ms=_median_ms(sort), k1_burst_ms=_burst_ms(sort),
+               gids_burst_ms=_burst_ms(lambda: TK.keyed_gids_cuda(perm, inv, keys)),
                plain_ms=_median_ms(plain, 5), library_ms=library,
                radix_passes=TK.radix_sort_pass_count([inv] + keys), max_abs_err=0.0)
     out.update(_bound(_nbytes(inv, *keys) + 12 * n + _nbytes(*keys) + 4 * (ng + 1)))
@@ -4381,11 +4491,8 @@ def _entry(name: str, head: dict, launches: int, err: float, **extra) -> dict:
 
 
 def _checked_sort(TK, captured) -> dict:
-    import torch
-
     (keys,), _ = captured
-    if not torch.equal(TK.radix_argsort_cuda(keys), TK.radix_argsort_reference(keys)):
-        raise AssertionError("radix_sort differs from the twin at a main-path shape")
+    _checked_same(TK, keys, "main-path shape")
     return _time_sort(TK, keys)
 
 
@@ -4548,7 +4655,9 @@ def run(opts, device) -> list:
 
     shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
     sort_shapes = {"q3": _checked_sort(TK, q3["sort"]),
-                   "window": _checked_sort(TK, window["sort"])}
+                   "window": _checked_sort(TK, window["sort"]),
+                   "distributed q3": _checked_sort(TK, dist[3]["sort"]),
+                   "dist. q3 mesh": _checked_sort(TK, mesh_dist[3]["sort"])}
     route = _time_sort_route(TK, q3["route"])
     scan_shapes = {"window": _checked_scan(TK, window["scan"]), "q3_sort_route": route}
     rx_shape = _checked_extremum(WK, window["rx"])

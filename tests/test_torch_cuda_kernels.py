@@ -16,6 +16,7 @@ import arrow_ballista_tpu_torch as tbt
 from arrow_ballista_tpu_torch.ops import kernels as TK
 from benchmarks.tpch.datagen import gen_lineitem
 from benchmarks.tpch.queries import QUERIES
+from radix_cases import RADIX_EDGE_CASES, radix_edge_keys, radix_edge_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -308,6 +309,31 @@ def test_radix_sort_one_key_and_skipped_passes(cuda):
     assert torch.equal(TK.radix_argsort_cuda([same]),
                        torch.arange(1000, dtype=torch.int32, device=cuda))
     assert TK.radix_sort_pass_count([same]) == 0
+
+
+@pytest.mark.parametrize("n", radix_edge_rows(TK.RADIX_TILE, TK.RADIX_SMALL_ROWS))
+@pytest.mark.parametrize("case", RADIX_EDGE_CASES)
+def test_radix_sort_edge_keys(cuda, case, n):
+    """Two runs bit-identical and equal to the twin, on each side of the
+    one-CTA sort's bound and at the tiled passes' tile edges."""
+    keys = [torch.from_numpy(k).to(cuda) for k in radix_edge_keys(case, n, seed=n)]
+    runs = [TK.radix_argsort_cuda(keys) for _ in range(2)]
+    want = TK.radix_argsort_reference(keys)
+    torch.cuda.synchronize()
+    for got in runs:
+        assert torch.equal(got, want)
+
+
+def test_radix_sort_each_side_of_the_small_bound(cuda):
+    """The last one-CTA size and the first tiled one, on the window-like
+    key set and on one int32 key, equal to the twin; the tiled plan's pass
+    count."""
+    for n in (TK.RADIX_SMALL_ROWS, TK.RADIX_SMALL_ROWS + 1):
+        keys = _sort_keys(n, cuda, seed=n)
+        assert torch.equal(TK.radix_argsort_cuda(keys), TK.radix_argsort_reference(keys))
+        key = torch.arange(n, 0, -1, dtype=torch.int32, device=cuda) % 300
+        assert torch.equal(TK.radix_argsort_cuda([key]), TK.radix_argsort_reference([key]))
+    assert TK.radix_sort_pass_count([key]) == 2
 
 
 def _scan_inputs(n, device, seed=0):

@@ -9,6 +9,9 @@ and the segmented scan's plain twins), and both are held to the CPU
 operators: floats within rel 1e-9, everything else exact.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pyarrow as pa
@@ -22,6 +25,7 @@ from arrow_ballista_tpu_torch.ops import kernels as TK
 from arrow_ballista_tpu_torch.ops.stage_compiler import TorchStageExec
 from benchmarks.tpch.datagen import ALL_TABLES, gen_table
 from benchmarks.tpch.queries import QUERIES
+from radix_cases import RADIX_EDGE_CASES, radix_edge_keys, radix_edge_rows
 
 REL = 1e-9
 _TPCH: dict = {}
@@ -276,19 +280,47 @@ def test_segment_algo_routes_by_device_and_capacity():
         TK.set_agg_algorithm("onehot")
 
 
-def test_radix_argsort_twin_is_lax_sort_order():
+def _mixed_keys(n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 3, n).astype(np.int32),
+            rng.integers(-(2**62), 2**62, n) // (2**58),
+            rng.integers(-5, 5, n).astype(np.int32)]
+
+
+# the card tests' shapes
+_EDGE_ROWS = radix_edge_rows(TK.RADIX_TILE, TK.RADIX_SMALL_ROWS)
+
+
+@pytest.mark.parametrize("case,n", [("mixed", 5000)] + [
+    (case, n) for case in ("mixed", *RADIX_EDGE_CASES) for n in _EDGE_ROWS])
+def test_radix_argsort_twin_is_lax_sort_order(case, n):
     """The radix sort's twin gives ``lax.sort(keys + (iota,))``'s order."""
     import jax
 
-    rng = np.random.default_rng(1)
-    n = 5000
-    keys = [rng.integers(0, 3, n).astype(np.int32),
-            rng.integers(-(2**62), 2**62, n) // (2**58),
-            rng.integers(-5, 5, n).astype(np.int32)]
+    keys = _mixed_keys(n, 1) if case == "mixed" else radix_edge_keys(case, n, seed=n)
     iota = jnp.arange(n, dtype=jnp.int32)
-    want = jax.lax.sort(tuple(jnp.asarray(k) for k in keys) + (iota,), num_keys=4)[-1]
+    want = jax.lax.sort(tuple(jnp.asarray(k) for k in keys) + (iota,),
+                        num_keys=len(keys) + 1)[-1]
     got = TK.radix_argsort([torch.from_numpy(k) for k in keys])
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kRadixTile", TK.RADIX_TILE), ("kRadixSmallMax", TK.RADIX_SMALL_ROWS)])
+def test_radix_sizes_match_the_header(name, value):
+    """The tile and the one-CTA sort's bound in ``ops/kernels.py`` are the
+    CUDA header's, and the one-CTA sort's rows (a 4-byte word and a 2-byte
+    row index each) fit the block's shared memory beside 32 KB of per-warp
+    counts."""
+    src = open(os.path.join(os.path.dirname(TK.__file__), "cuda", "radix_sort.h")).read()
+    consts = {k: v for k, v in re.findall(r"constexpr int (\w+) = (\w+(?: \* \w+)?);", src)}
+
+    def value_of(k):
+        a, _, b = consts[k].partition(" * ")
+        return (int(a) if a.isdigit() else value_of(a)) * (value_of(b) if b else 1)
+
+    assert value_of(name) == value
+    assert 6 * TK.RADIX_SMALL_ROWS <= 232_448 - 32_768
 
 
 # ------------------------------------------------------------------ x32
