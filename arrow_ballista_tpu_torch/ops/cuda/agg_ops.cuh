@@ -88,4 +88,52 @@ __device__ __forceinline__ long long combine(int op, long long a, long long b) {
   }
 }
 
+// The same folds with the op fixed at compile time (no switch in a loop).
+// An f64 sum that is NaN is the one quiet NaN word: which operand's NaN an
+// add returns depends on the operand order the compiler picks, so the
+// segment aggregate's folds (segment_agg.cuh) would otherwise give NaN
+// words that differ between paths that add the same values in the same
+// order.  ``raw_of`` adds without that step, for a run of adds whose end
+// goes through ``canon_of``: whether a sum is NaN does not depend on the
+// order, so the canonical word is the same.
+constexpr long long kQuietNan = 0x7ff8000000000000LL;
+
+template <int kOp>
+__device__ __forceinline__ long long identity_of() {
+  if constexpr (kOp == SA_MIN_F64) return 0x7ff0000000000000LL;
+  if constexpr (kOp == SA_MAX_F64) return (long long)0xfff0000000000000ULL;
+  if constexpr (kOp == SA_MIN_I64) return LLONG_MAX;
+  if constexpr (kOp == SA_MAX_I64) return LLONG_MIN;
+  return 0;
+}
+
+template <int kOp>
+__device__ __forceinline__ long long canon_of(long long a) {
+  if constexpr (kOp == SA_ADD_F64) return isnan(as_f64(a)) ? kQuietNan : a;
+  return a;
+}
+
+template <int kOp>
+__device__ __forceinline__ long long combine_of(long long a, long long b);
+
+template <int kOp>
+__device__ __forceinline__ long long raw_of(long long a, long long b) {
+  if constexpr (kOp == SA_ADD_F64) return as_word(as_f64(a) + as_f64(b));
+  return combine_of<kOp>(a, b);
+}
+
+template <int kOp>
+__device__ __forceinline__ long long combine_of(long long a, long long b) {
+  if constexpr (kOp == SA_ADD_F64) {
+    const double r = as_f64(a) + as_f64(b);
+    return isnan(r) ? kQuietNan : as_word(r);
+  }
+  if constexpr (kOp == SA_MIN_F64) return as_word(min_nan(as_f64(a), as_f64(b)));
+  if constexpr (kOp == SA_MAX_F64) return as_word(max_nan(as_f64(a), as_f64(b)));
+  if constexpr (kOp == SA_MIN_I64) return a < b ? a : b;
+  if constexpr (kOp == SA_MAX_I64) return a > b ? a : b;
+  // SA_COUNT, SA_ADD_I64: two's-complement wrap
+  return (long long)((unsigned long long)a + (unsigned long long)b);
+}
+
 }  // namespace agg_ops

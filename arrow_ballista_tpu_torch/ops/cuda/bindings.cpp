@@ -34,35 +34,27 @@
 
 namespace {
 
-constexpr int64_t kSmemBudget = 64 << 10;      // dynamic shared memory per CTA
-constexpr int64_t kScratchBudget = 256 << 20;  // chunk partials in device memory
+// A rejected input raises ValueError, as the Python wrappers' own checks
+// do: the segment aggregate's wrappers leave their per-batch checks to
+// the binding, where they cost no Python time.
+#define SEG_CHECK(cond, ...)                                                \
+  do {                                                                      \
+    if (!(cond)) throw pybind11::value_error(c10::str(__VA_ARGS__));        \
+  } while (0)
 
 // An empty tensor stands for a null (all-true) mask.
 const bool* mask_ptr(const at::Tensor& t, int64_t n, const at::Device& dev,
                      const char* name) {
   if (t.numel() == 0) return nullptr;
-  TORCH_CHECK(t.device() == dev, name, " must be on ", dev);
-  TORCH_CHECK(t.scalar_type() == at::kBool, name, " must be bool");
-  TORCH_CHECK(t.dim() == 1 && t.size(0) == n, name, " must be [", n, "]");
-  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  SEG_CHECK(t.device() == dev, name, " must be on ", dev);
+  SEG_CHECK(t.scalar_type() == at::kBool, name, " must be bool");
+  SEG_CHECK(t.dim() == 1 && t.size(0) == n, name, " must be [", n, "]");
+  SEG_CHECK(t.is_contiguous(), name, " must be contiguous");
   return t.data_ptr<bool>();
 }
 
-// The one-batch kernel's row chunks for n rows: ~4 chunks per SM, each at
-// least one pass of the CTA's warps, and no more chunk partials than the
-// scratch budget holds.  Returns {chunks, rows per chunk}.
-std::pair<int64_t, int64_t> seg_agg_chunking(int64_t n, int64_t nf, int64_t cap) {
-  const int64_t sms = at::cuda::getCurrentDeviceProperties()->multiProcessorCount;
-  const int64_t min_rows = 32 * kSegAggWarps;
-  int64_t rows = std::max<int64_t>(min_rows, (n + 4 * sms - 1) / (4 * sms));
-  int64_t chunks = std::max<int64_t>(1, (n + rows - 1) / rows);
-  const int64_t max_chunks =
-      std::max<int64_t>(1, std::min<int64_t>(65535, kScratchBudget / (nf * cap * 8)));
-  if (chunks > max_chunks) {
-    chunks = max_chunks;
-    rows = (n + chunks - 1) / chunks;
-  }
-  return {chunks, rows};
+int sm_count() {
+  return at::cuda::getCurrentDeviceProperties()->multiProcessorCount;
 }
 
 // Fills a descriptor's per-row pointers from one entry's tensors.
@@ -70,7 +62,7 @@ void seg_agg_rows(SegAggParams& p, const at::Tensor& gid, const at::Tensor& tail
                   const at::Tensor& pred, const at::Tensor& pvalid,
                   const std::vector<at::Tensor>& values,
                   const std::vector<at::Tensor>& valids, const at::Device& dev) {
-  TORCH_CHECK(gid.device() == dev && gid.scalar_type() == at::kInt &&
+  SEG_CHECK(gid.device() == dev && gid.scalar_type() == at::kInt &&
                   gid.dim() == 1 && gid.is_contiguous(),
               "gid must be contiguous int32 [n] on ", dev);
   const int64_t n = gid.size(0);
@@ -82,7 +74,7 @@ void seg_agg_rows(SegAggParams& p, const at::Tensor& gid, const at::Tensor& tail
   p.tail = mask_ptr(tail, n, dev, "tail");
   p.pred = mask_ptr(pred, n, dev, "pred");
   p.pvalid = mask_ptr(pvalid, n, dev, "pvalid");
-  TORCH_CHECK(p.pvalid == nullptr || p.pred != nullptr, "pvalid without pred");
+  SEG_CHECK(p.pvalid == nullptr || p.pred != nullptr, "pvalid without pred");
   for (int64_t c = 0; c < kSegAggMaxCols; ++c) {
     p.values[c] = nullptr;
     p.valids[c] = nullptr;
@@ -91,50 +83,66 @@ void seg_agg_rows(SegAggParams& p, const at::Tensor& gid, const at::Tensor& tail
     const at::Tensor& v = values[c];
     p.valids[c] = mask_ptr(valids[c], n, dev, "validity");
     if (v.numel() == 0) continue;
-    TORCH_CHECK(v.device() == dev, "value column must be on ", dev);
-    TORCH_CHECK(v.scalar_type() == at::kDouble || v.scalar_type() == at::kLong,
-                "value column must be float64 or int64");
-    TORCH_CHECK(v.dim() == 1 && v.size(0) == n && v.is_contiguous(),
-                "value column must be contiguous [", n, "]");
+    SEG_CHECK(v.device() == dev && (v.scalar_type() == at::kDouble || v.scalar_type() == at::kLong) &&
+                  v.dim() == 1 && v.size(0) == n && v.is_contiguous(),
+              "column ", c, " must be contiguous f64/i64 [", n, "] on ", dev);
     p.values[c] = v.data_ptr();
   }
 }
 
-// Fills a descriptor's fields (ops, cols, n_fields, capacity, tile) from
-// the state; the field ops must match the entry's columns.
+// Fills a descriptor's fields (ops, the fold map, n_fields, n_folds,
+// capacity) from the state and the wrapper's fold map; each fold's op
+// must match its column, each field's op its fold's.
 void seg_agg_fields(SegAggParams& p, const std::vector<at::Tensor>& values,
-                    const std::vector<int64_t>& ops,
-                    const std::vector<int64_t>& cols, const at::Tensor& state) {
+                    const std::vector<int64_t>& ops, const std::vector<int64_t>& field_fold,
+                    const std::vector<int64_t>& fold_ops,
+                    const std::vector<int64_t>& fold_cols, const at::Tensor& state) {
   const int64_t nf = state.size(0);
   const int64_t cap = state.size(1);
   const int64_t n_cols = (int64_t)values.size();
-  TORCH_CHECK(nf >= 1 && nf <= kSegAggMaxFields, "n_fields ", nf);
-  TORCH_CHECK(cap >= 1, "capacity ", cap);
-  TORCH_CHECK((int64_t)ops.size() == nf && (int64_t)cols.size() == nf,
-              "one op and one column per state field");
-  for (int64_t f = 0; f < nf; ++f) {
-    const int64_t op = ops[f];
-    const int64_t c = cols[f];
-    TORCH_CHECK(op >= SA_COUNT && op <= SA_MAX_I64, "op ", op);
-    TORCH_CHECK(c >= -1 && c < n_cols, "field column ", c);
+  const int64_t n_folds = (int64_t)fold_ops.size();
+  SEG_CHECK(nf >= 1 && nf <= kSegAggMaxFields, "n_fields ", nf);
+  SEG_CHECK(cap >= 1, "capacity ", cap);
+  SEG_CHECK((int64_t)ops.size() == nf && (int64_t)field_fold.size() == nf,
+              "one op and one fold per state field");
+  SEG_CHECK(n_folds >= 1 && n_folds <= nf && (int64_t)fold_cols.size() == n_folds,
+              "folds ", n_folds);
+  for (int64_t k = 0; k < n_folds; ++k) {
+    const int64_t op = fold_ops[k];
+    const int64_t c = fold_cols[k];
+    SEG_CHECK(op >= SA_COUNT && op <= SA_MAX_I64, "op ", op);
+    SEG_CHECK(c >= -1 && c < n_cols, "fold column ", c);
     if (op != SA_COUNT) {
-      TORCH_CHECK(c >= 0 && p.values[c] != nullptr, "field ", f, " needs values");
+      SEG_CHECK(c >= 0 && p.values[c] != nullptr, "fold ", k, " needs values");
       const bool is_f64 = op == SA_ADD_F64 || op == SA_MIN_F64 || op == SA_MAX_F64;
-      TORCH_CHECK(values[c].scalar_type() == (is_f64 ? at::kDouble : at::kLong),
-                  "field ", f, ": value dtype does not match its op");
+      SEG_CHECK(values[c].scalar_type() == (is_f64 ? at::kDouble : at::kLong),
+                  "fold ", k, ": value dtype does not match its op");
     }
-    p.ops[f] = (int8_t)op;
-    p.cols[f] = (int8_t)c;
+    p.fold_ops[k] = (int8_t)op;
+    p.fold_cols[k] = (int8_t)c;
   }
+  for (int64_t f = 0; f < nf; ++f) {
+    const int64_t k = field_fold[f];
+    SEG_CHECK(k >= 0 && k < n_folds && ops[f] == fold_ops[k], "field ", f, ": fold ", k);
+    p.ops[f] = (int8_t)ops[f];
+    p.field_fold[f] = (int8_t)k;
+  }
+  int next = 0;  // the fields grouped by fold, each fold's in field order
+  for (int64_t k = 0; k < n_folds; ++k) {
+    p.fold_first[k] = (int8_t)next;
+    for (int64_t f = 0; f < nf; ++f) {
+      if (field_fold[f] == k) p.fold_fields[next++] = (int8_t)f;
+    }
+  }
+  p.fold_first[n_folds] = (int8_t)next;
   p.n_fields = (int)nf;
+  p.n_folds = (int)n_folds;
   p.capacity = cap;
-  p.tile = (int)std::min<int64_t>(cap, kSmemBudget / (kSegAggWarps * nf * 8));
-  TORCH_CHECK(p.tile >= 1, "state too wide for shared memory");
 }
 
 void check_state(const at::Tensor& state) {
-  TORCH_CHECK(state.is_cuda(), "state must be a CUDA tensor");
-  TORCH_CHECK(state.scalar_type() == at::kLong && state.dim() == 2 &&
+  SEG_CHECK(state.is_cuda(), "state must be a CUDA tensor");
+  SEG_CHECK(state.scalar_type() == at::kLong && state.dim() == 2 &&
                   state.is_contiguous(),
               "state must be contiguous int64 [n_fields, capacity]");
 }
@@ -143,20 +151,22 @@ void segment_agg(const at::Tensor& gid, const at::Tensor& tail,
                  const at::Tensor& pred, const at::Tensor& pvalid,
                  const std::vector<at::Tensor>& values,
                  const std::vector<at::Tensor>& valids,
-                 const std::vector<int64_t>& ops,
-                 const std::vector<int64_t>& cols, at::Tensor state) {
+                 const std::vector<int64_t>& ops, const std::vector<int64_t>& field_fold,
+                 const std::vector<int64_t>& fold_ops,
+                 const std::vector<int64_t>& fold_cols, at::Tensor state) {
   check_state(state);
   const at::Device dev = state.device();
   c10::cuda::CUDAGuard guard(dev);
   SegAggParams p{};
   seg_agg_rows(p, gid, tail, pred, pvalid, values, valids, dev);
-  seg_agg_fields(p, values, ops, cols, state);
-  const auto [chunks, rows] = seg_agg_chunking(p.n, p.n_fields, p.capacity);
-  p.n_chunks = (int)chunks;
-  p.rows_per_chunk = rows;
-  at::Tensor partial = at::empty({chunks, state.size(0), state.size(1)}, state.options());
-  // int64_t is `long` here, the kernel's words `long long`: same width
-  p.partial = reinterpret_cast<long long*>(partial.data_ptr<int64_t>());
+  seg_agg_fields(p, values, ops, field_fold, fold_ops, fold_cols, state);
+  segment_agg_plan(&p, sm_count());
+  at::Tensor partial;
+  if (p.n > 0 && !p.direct) {
+    partial = at::empty({p.n_chunks, p.n_folds, p.capacity}, state.options());
+    // int64_t is `long` here, the kernel's words `long long`: same width
+    p.partial = reinterpret_cast<long long*>(partial.data_ptr<int64_t>());
+  }
   p.state = reinterpret_cast<long long*>(state.data_ptr<int64_t>());
 
   C10_CUDA_CHECK(segment_agg_launch(&p, at::cuda::getCurrentCUDAStream()));
@@ -175,30 +185,30 @@ void segment_agg_entries_(const std::vector<at::Tensor>& gids,
                           const std::vector<std::vector<at::Tensor>>& values,
                           const std::vector<std::vector<at::Tensor>>& valids,
                           const std::vector<int64_t>& ops,
-                          const std::vector<int64_t>& cols, at::Tensor state) {
+                          const std::vector<int64_t>& field_fold,
+                          const std::vector<int64_t>& fold_ops,
+                          const std::vector<int64_t>& fold_cols, at::Tensor state) {
   check_state(state);
   const at::Device dev = state.device();
   c10::cuda::CUDAGuard guard(dev);
   const size_t n_entries = gids.size();
-  TORCH_CHECK(n_entries >= 1 && tails.size() == n_entries &&
+  SEG_CHECK(n_entries >= 1 && tails.size() == n_entries &&
                   preds.size() == n_entries && pvalids.size() == n_entries &&
                   values.size() == n_entries && valids.size() == n_entries,
               "one gid, tail, pred, pvalid, values and valids per entry");
   std::vector<SegAggParams> entries(n_entries);
   std::vector<SegAggChunk> chunks;
-  const int64_t nf = state.size(0);
-  const int64_t cap = state.size(1);
+  const int sms = sm_count();
   for (size_t e = 0; e < n_entries; ++e) {
     SegAggParams& p = entries[e];
     p = SegAggParams{};
     seg_agg_rows(p, gids[e], tails[e], preds[e], pvalids[e], values[e], valids[e], dev);
-    seg_agg_fields(p, values[e], ops, cols, state);
-    if (p.n == 0) continue;  // the one-batch kernel launches nothing
-    const auto [n_chunks, rows] = seg_agg_chunking(p.n, nf, cap);
-    for (int64_t k = 0; k < n_chunks; ++k) {
+    seg_agg_fields(p, values[e], ops, field_fold, fold_ops, fold_cols, state);
+    segment_agg_plan(&p, sms);
+    for (int64_t k = 0; k < p.n_chunks; ++k) {  // none for an empty entry
       SegAggChunk c{};
-      c.r0 = k * rows;
-      c.r1 = std::min<int64_t>(p.n, c.r0 + rows);
+      c.r0 = k * p.rows_per_chunk;
+      c.r1 = std::min<int64_t>(p.n, c.r0 + p.rows_per_chunk);
       c.entry = (int)e;
       chunks.push_back(c);
     }
@@ -206,26 +216,29 @@ void segment_agg_entries_(const std::vector<at::Tensor>& gids,
   if (chunks.empty()) return;
 
   // rounds: consecutive chunks whose partials fit the scratch budget
-  const int64_t chunk_bytes = nf * cap * 8;
+  const int64_t chunk_bytes = (int64_t)entries[0].n_folds * entries[0].capacity * 8;
   const int64_t per_round =
-      std::max<int64_t>(1, std::min<int64_t>(65535, kScratchBudget / chunk_bytes));
+      std::max<int64_t>(1, std::min<int64_t>(65535, kSegAggScratchBudget / chunk_bytes));
   const int64_t total = (int64_t)chunks.size();
   const int64_t widest = std::min<int64_t>(per_round, total);
 
   const size_t table_bytes =
       n_entries * sizeof(SegAggParams) + chunks.size() * sizeof(SegAggChunk);
-  std::vector<uint8_t> host(table_bytes);
-  std::memcpy(host.data(), entries.data(), n_entries * sizeof(SegAggParams));
-  std::memcpy(host.data() + n_entries * sizeof(SegAggParams), chunks.data(),
+  // pinned, so the copy does not hold the host (PyTorch's host allocator
+  // keeps the buffer until the copy on the stream is done)
+  at::Tensor host = at::empty({(int64_t)table_bytes},
+                              at::TensorOptions().dtype(at::kByte).pinned_memory(true));
+  uint8_t* h = host.data_ptr<uint8_t>();
+  std::memcpy(h, entries.data(), n_entries * sizeof(SegAggParams));
+  std::memcpy(h + n_entries * sizeof(SegAggParams), chunks.data(),
               chunks.size() * sizeof(SegAggChunk));
-  at::Tensor table = at::from_blob(host.data(), {(int64_t)table_bytes},
-                                   at::TensorOptions().dtype(at::kByte))
-                         .to(dev);  // a blocking copy: `host` may go after it
+  at::Tensor table = host.to(dev, /*non_blocking=*/true);
   const auto* d_entries = reinterpret_cast<const SegAggParams*>(table.data_ptr());
   const auto* d_chunks = reinterpret_cast<const SegAggChunk*>(
       static_cast<const uint8_t*>(table.data_ptr()) + n_entries * sizeof(SegAggParams));
 
-  at::Tensor partial = at::empty({widest, nf, cap}, state.options());
+  at::Tensor partial =
+      at::empty({widest, (int64_t)entries[0].n_folds, state.size(1)}, state.options());
   SegAggParams common = entries[0];
   common.partial = reinterpret_cast<long long*>(partial.data_ptr<int64_t>());
   common.state = reinterpret_cast<long long*>(state.data_ptr<int64_t>());

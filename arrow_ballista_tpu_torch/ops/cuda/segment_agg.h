@@ -21,7 +21,18 @@ enum SegAggOp : int8_t {
 
 constexpr int kSegAggMaxCols = 32;
 constexpr int kSegAggMaxFields = 64;
-constexpr int kSegAggWarps = 8;  // warps per CTA of the row pass
+// Pass 1: one CTA sorts one run of rows by group in shared memory.
+constexpr int kSegAggThreads = 512;                     // threads of a pass-1 CTA
+constexpr int kSegAggWarps = kSegAggThreads / 32;       // its warps
+constexpr int kSegAggRunRows = 8192;                    // rows of a run (one sort)
+constexpr int kSegAggQuads = kSegAggRunRows / 4 / kSegAggThreads;  // a thread's 4-row loads a run
+constexpr int kSegAggMaxTile = 8192;                    // most groups a CTA holds
+constexpr int kSegAggSmemMax = 140 << 10;               // dynamic shared memory a CTA takes
+constexpr int kSegAggAccWords = 1024;                   // most words of a chunk's partial kept in shared memory
+constexpr int kSegAggChunksPerSm = 1;                   // the chunk rule: at most one chunk an SM
+constexpr int kSegAggMaxDevices = 64;                   // devices whose smem attribute is cached
+constexpr uint16_t kSegAggDead = 0xFFFF;                // key and rank of a row outside the tile's live rows
+constexpr long long kSegAggScratchBudget = 256LL << 20;  // chunk partials in device memory
 
 struct SegAggParams {
   const int32_t* gid;    // [n]
@@ -30,18 +41,30 @@ struct SegAggParams {
   const bool* pvalid;    // [n] or null (predicate never null)
   const void* values[kSegAggMaxCols];  // [n] f64 or i64 words, or null
   const bool* valids[kSegAggMaxCols];  // [n] or null (all valid)
-  int8_t ops[kSegAggMaxFields];
-  int8_t cols[kSegAggMaxFields];       // column a field reads, -1: none
+  int8_t ops[kSegAggMaxFields];         // each state field's op
+  int8_t field_fold[kSegAggMaxFields];  // the distinct fold each field takes
+  int8_t fold_ops[kSegAggMaxFields];    // each fold's op
+  int8_t fold_cols[kSegAggMaxFields];   // its column: a count's validity, -1 the row mask
+  int8_t fold_fields[kSegAggMaxFields]; // the fields by fold: fold k's are
+  int8_t fold_first[kSegAggMaxFields + 1];  // fold_fields[fold_first[k], fold_first[k + 1])
   int n_fields;
-  int tile;                 // groups per shared-memory tile
-  int n_chunks;             // row chunks of pass 1
+  int n_folds;
+  // the plan (segment_agg_plan)
+  int tile;                 // groups of a pass-1 CTA (min(capacity, kSegAggMaxTile))
+  int rank_warps;           // warps with their own bin counters in the rank
+  int smem;                 // pass 1's dynamic shared memory, bytes
+  int vec;                  // 1: the row arrays allow 16-byte loads
+  int n_chunks;             // row chunks of pass 1 (one CTA a chunk and tile)
+  int direct;               // 1: one run, folded into the state by pass 1 alone
   long long n;              // rows
   long long capacity;       // groups
-  long long rows_per_chunk;
-  long long* partial;       // [n_chunks, n_fields, capacity] scratch
+  long long rows_per_chunk; // whole runs
+  long long* partial;       // [n_chunks, n_folds, capacity] scratch (null when direct)
   long long* state;         // [n_fields, capacity], merged in place
 };
 
-extern "C" int segment_agg_smem_bytes(int n_fields, int tile);
+// Fills the plan fields from n, capacity, n_folds, the row arrays'
+// pointers and the card's SM count (set them first).
+extern "C" void segment_agg_plan(SegAggParams* params, int sms);
 extern "C" cudaError_t segment_agg_launch(const SegAggParams* params,
                                           cudaStream_t stream);

@@ -40,6 +40,7 @@ Design rules:
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 from dataclasses import dataclass, field
@@ -1299,44 +1300,89 @@ def segment_agg_reference(
     return state
 
 
-def _check_cuda_args(gid, tail, pred, pvalid, values, valids, ops, cols, state):
-    """Raise ValueError unless the kernel's inputs have the devices, dtypes,
-    shapes and layouts the binding accepts.  The binding checks them too,
-    but with some toolchains an exception thrown inside the extension ends
-    the process (SIGSEGV) instead of raising, so bad input is turned away
-    here, before the binding."""
+@functools.lru_cache(maxsize=256)
+def _fold_map(ops: tuple, cols: tuple, counted: frozenset) -> tuple:
+    fold_ops: list = []
+    fold_cols: list = []
+    field_fold: list = []
+    index: dict = {}
+    for op, c in zip(ops, cols):
+        if op == OP_COUNT and c not in counted:
+            c = -1  # a column without a validity counts the row mask
+        k = index.setdefault((op, c), len(fold_ops))
+        if k == len(fold_ops):
+            fold_ops.append(op)
+            fold_cols.append(c)
+        field_fold.append(k)
+    return tuple(fold_ops), tuple(fold_cols), tuple(field_fold)
+
+
+def segment_fold_map(ops, cols, valids_sets) -> tuple:
+    """The state fields' distinct folds: ``(fold_ops, fold_cols,
+    field_fold)``.  Two fields fold to the same bits when they apply the
+    same op to the same column, or count the same mask: a count's fold
+    column is its column when that column has a validity in any of
+    ``valids_sets`` (one ``valids`` list per entry), else -1 (the row
+    mask).  Field ``f`` takes fold ``field_fold[f]``; folds are numbered
+    in order of their first field.  The kernels fold each distinct fold
+    once and store it to every field that takes it."""
+    counted = frozenset(c for v in valids_sets for c, x in enumerate(v) if x is not None)
+    return _fold_map(tuple(ops), tuple(cols), counted)
+
+
+def _check_fields(ops, cols, n_cols: int) -> list:
+    """Raise ValueError unless every field's op is a segment op and its
+    column in range; returns the distinct (op, column) pairs whose column
+    each entry's dtype must match (:func:`_check_rows`)."""
+    for f, (op, c) in enumerate(zip(ops, cols)):
+        if op not in _OP_ROLE or not -1 <= c < n_cols:
+            raise ValueError(f"field {f}: op {op}, column {c}")
+    return sorted({(op, c) for op, c in zip(ops, cols) if op != OP_COUNT})
+
+
+def _check_rows(gid, tail, pred, pvalid, values, valids, typed, state):
+    """Raise ValueError unless one batch's inputs have the devices, dtypes,
+    shapes and layouts the binding accepts (``typed``: the
+    :func:`_check_fields` pairs).  The binding checks them too, but with
+    some toolchains an exception thrown inside the extension ends the
+    process (SIGSEGV) instead of raising, so bad input is turned away here,
+    before the binding."""
     dev = state.device
 
     def bad(x, dtypes, shape) -> bool:
         return (
             x.device != dev or x.dtype not in dtypes
-            or tuple(x.shape) != shape or not x.is_contiguous()
+            or x.shape != shape or not x.is_contiguous()
         )
 
     if dev.type != "cuda" or state.dtype != I64 or state.dim() != 2 or (
         not state.is_contiguous()
     ):
         raise ValueError("state must be a contiguous CUDA int64 [n_fields, capacity]")
-    if gid.dim() != 1 or bad(gid, (torch.int32,), (gid.shape[0],)):
+    if gid.dim() != 1 or bad(gid, (torch.int32,), gid.shape):
         raise ValueError(f"gid must be contiguous int32 [n] on {dev}")
-    n = gid.shape[0]
-    masks = [("tail", tail), ("pred", pred), ("pvalid", pvalid)]
-    masks += [(f"validity {c}", v) for c, v in enumerate(valids)]
-    for name, m in masks:
-        if m is not None and bad(m, (torch.bool,), (n,)):
-            raise ValueError(f"{name} must be contiguous bool [{n}] on {dev}")
+    shape = gid.shape
+    for name, m in (("tail", tail), ("pred", pred), ("pvalid", pvalid)):
+        if m is not None and bad(m, (torch.bool,), shape):
+            raise ValueError(f"{name} must be contiguous bool [{shape[0]}] on {dev}")
+    for c, m in enumerate(valids):
+        if m is not None and bad(m, (torch.bool,), shape):
+            raise ValueError(f"validity {c} must be contiguous bool [{shape[0]}] on {dev}")
     if pvalid is not None and pred is None:
         raise ValueError("pvalid without pred")
     for c, v in enumerate(values):
-        if v is not None and bad(v, (F64, I64), (n,)):
-            raise ValueError(f"column {c} must be contiguous f64/i64 [{n}] on {dev}")
-    for f, (op, c) in enumerate(zip(ops, cols)):
-        if op not in _OP_ROLE or not -1 <= c < len(values):
-            raise ValueError(f"field {f}: op {op}, column {c}")
-        if op != OP_COUNT:
-            v = values[c] if c >= 0 else None
-            if v is None or v.dtype != (I64 if _OP_ROLE[op][1] else F64):
-                raise ValueError(f"field {f}: op {op} does not match its column")
+        if v is not None and bad(v, (F64, I64), shape):
+            raise ValueError(f"column {c} must be contiguous f64/i64 [{shape[0]}] on {dev}")
+    for op, c in typed:
+        v = values[c] if c >= 0 else None
+        if v is None or v.dtype != (I64 if _OP_ROLE[op][1] else F64):
+            raise ValueError(f"op {op} on column {c} does not match its column")
+
+
+def _check_cuda_args(gid, tail, pred, pvalid, values, valids, ops, cols, state):
+    """:func:`_check_fields` and :func:`_check_rows` for one batch."""
+    typed = _check_fields(ops, cols, len(values))
+    _check_rows(gid, tail, pred, pvalid, values, valids, typed, state)
 
 
 def segment_agg_cuda(
@@ -1353,13 +1399,15 @@ def segment_agg_cuda(
     """Launch the hand-written segment-aggregate kernel (CUDA tensors only).
 
     Replaces ``arrow_ballista_tpu/ops/kernels.py:make_partial_agg_kernel``'s
-    scatter route and ``combine_states``.  Devices, dtypes, shapes and
-    contiguity are checked first (ValueError on anything else); a failed
-    build or launch raises — there is no fallback to the twin.
+    scatter route and ``combine_states``.  The fields are checked here,
+    the devices, dtypes, shapes and layouts by the binding before it
+    launches (ValueError on anything else); a failed build or launch raises
+    — there is no fallback to the twin.
     """
     from .cuda.build import load
 
-    _check_cuda_args(gid, tail, pred, pvalid, values, valids, ops, cols, state)
+    _check_fields(ops, cols, len(values))
+    fold_ops, fold_cols, field_fold = segment_fold_map(ops, cols, (valids,))
     ext = load()
     empty = torch.empty(0, dtype=torch.bool, device=state.device)
     ext.segment_agg(
@@ -1370,7 +1418,9 @@ def segment_agg_cuda(
         [empty if v is None else v for v in values],
         [empty if v is None else v for v in valids],
         list(ops),
-        list(cols),
+        list(field_fold),
+        list(fold_ops),
+        list(fold_cols),
         state,
     )
     count_launch("segment_agg")
@@ -1415,31 +1465,31 @@ def segment_agg_entries_cuda(
 
     Replaces ``arrow_ballista_tpu/ops/stage_compiler.py:_run_fused`` and
     ``_fused_for`` (the per-entry kernel, ``combine_states`` and
-    ``pack_states`` in one program).  Every entry's inputs are checked
-    first (ValueError); a failed build or launch raises, and nothing
-    falls back to the one-batch kernel or the twin."""
+    ``pack_states`` in one program).  The fields are checked here, every
+    entry's inputs by the binding before it launches (ValueError); a failed
+    build or launch raises, and nothing falls back to the one-batch kernel
+    or the twin."""
     from .cuda.build import load
 
     if not entries:
         raise ValueError("segment_agg_entries: no entries")
-    for gid, tail, pred, pvalid, values, valids in entries:
-        _check_cuda_args(gid, tail, pred, pvalid, values, valids, ops, cols, state)
-    ext = load()
+    n_cols = len(entries[0][4])
+    _check_fields(ops, cols, n_cols)
     empty = torch.empty(0, dtype=torch.bool, device=state.device)
 
     def opt(x):
         return empty if x is None else x
 
-    ext.segment_agg_entries(
-        [e[0] for e in entries],
-        [opt(e[1]) for e in entries],
-        [opt(e[2]) for e in entries],
-        [opt(e[3]) for e in entries],
-        [[opt(v) for v in e[4]] for e in entries],
-        [[opt(v) for v in e[5]] for e in entries],
-        list(ops),
-        list(cols),
-        state,
+    args: tuple = ([], [], [], [], [], [])  # gid, tail, pred, pvalid, values, valids
+    for gid, tail, pred, pvalid, values, valids in entries:
+        if len(values) != n_cols:
+            raise ValueError("segment_agg_entries: every entry has the same columns")
+        for out, x in zip(args, (gid, opt(tail), opt(pred), opt(pvalid),
+                                 [opt(v) for v in values], [opt(v) for v in valids])):
+            out.append(x)
+    fold_ops, fold_cols, field_fold = segment_fold_map(ops, cols, [e[5] for e in entries])
+    load().segment_agg_entries(
+        *args, list(ops), list(field_fold), list(fold_ops), list(fold_cols), state
     )
     count_launch("segment_agg_entries")
     return state

@@ -43,6 +43,12 @@ Phases; any failure exits non-zero and prints no result line:
               (2^22 rows each for E <= 8, 2^19 for 32, the last entry
               shorter; q1's own entries are timed in the query phase) x capacity in {1, 64, 4096, 2^16}: bit-identical to
               E ``segment_agg`` launches in entry order, equal to its twin;
+            * B1 at q1's stand-in (``q1_stand_in``: 2^23 rows, q1's 16
+              fields, 4 groups) and at distributed q1's 8,192-row batch,
+              B13a at the cold q1 leg's stand-in (8 entries, 59,990,658
+              rows): each beside its bound and ``index_add_`` of the sums,
+              with ``burst_ms``, the host's ms and the card's by pass
+              (``seg_agg_split``: torch.profiler);
             * ``expr_eval`` (B3) over a seeded grid of 2^20 rows, one
               expression for every opcode (nulls, NaN, ±0.0, ±inf,
               subnormals, int64 past 2^53, INT64_MIN, zero and -1
@@ -493,11 +499,14 @@ def _b1_loop(TK, rows, ops, cols, state):
     return state
 
 
-def entries_check(TK, rows, ops, cols, state0, reps: int = 20) -> dict:
+def entries_check(TK, rows, ops, cols, state0, reps: int = 20, split: bool = False) -> dict:
     """The multi-entry kernel on ``rows`` against one B1 launch per entry
     (bit-identical, two runs bit-identical too) and against its twin (f64
     sums within REL, all else exact); its ms per call beside the twin's,
-    the B1 loop's and the bound.  No single PyTorch call computes it."""
+    the B1 loop's, the bound and ``index_add_`` of the sums over all the
+    entries' rows (``_entries_library``: no single PyTorch call folds
+    several batches into one state, this one adds one batch's sums); with
+    ``split``, where the time goes (``seg_agg_split``)."""
     import torch
 
     runs = [TK.segment_agg_entries_cuda(rows, ops, cols, state0.clone()) for _ in range(2)]
@@ -517,9 +526,47 @@ def entries_check(TK, rows, ops, cols, state0, reps: int = 20) -> dict:
     n = sum(r[0].numel() for r in rows)
     out = dict(entries=len(rows), rows=n, capacity=state0.shape[1], fields=len(ops),
                max_abs_err=err, ms=ms, b1_loop_ms=loop_ms, plain_ms=plain,
-               library_ms=None)
+               library_ms=_entries_library(TK, rows, ops, cols, state0.shape[1], min(reps, 5)))
+    if split:
+        out.update(seg_agg_split(lambda: TK.segment_agg_entries_cuda(rows, ops, cols, k_state)))
     out.update(_bound(_entries_bytes(rows, state0), f64_ops=n * len(ops)))
     return out
+
+
+def _masked_sums(TK, args: dict, ops, cols):
+    """The f64 sum fields' columns with the field masks applied (0.0 where
+    a row is masked out): the operand of the index_add_ yardstick."""
+    import torch
+
+    n = args["gid"].numel()
+    mask = torch.ones(n, dtype=torch.bool, device=args["gid"].device)
+    for m in (args["tail"], args["pred"], args["pvalid"]):
+        if m is not None:
+            mask &= m
+    sums = []
+    for op, c in zip(ops, cols):
+        if op == TK.OP_ADD_F64:
+            m = mask if args["valids"][c] is None else mask & args["valids"][c]
+            sums.append(torch.where(m, args["values"][c], 0.0))
+    return torch.stack(sums, dim=1) if sums else None
+
+
+def _entries_library(TK, rows, ops, cols, cap: int, reps: int):
+    """ms of one index_add_ of the f64 sums over every entry's rows laid
+    end to end (the concatenation made before the timed region), or None
+    without a sum field."""
+    import torch
+
+    parts = [_masked_sums(TK, dict(gid=r[0], tail=r[1], pred=r[2], pvalid=r[3],
+                                   values=list(r[4]), valids=list(r[5])), ops, cols)
+             for r in rows]
+    if parts[0] is None:
+        return None
+    V = torch.cat(parts)
+    g = torch.cat([r[0] for r in rows]).long()
+    del parts
+    acc = torch.zeros(cap, V.shape[1], dtype=torch.float64, device=V.device)
+    return _median_ms(lambda: acc.index_add_(0, g, V), reps)
 
 
 def entries_phase(TK, device) -> tuple[float, dict]:
@@ -544,6 +591,69 @@ def entries_phase(TK, device) -> tuple[float, dict]:
             print(f"segment_agg_entries entries={e} capacity={cap}: ok {json.dumps(t)}")
             del rows
     return worst, times
+
+
+# q1's stage as the main path gives B1 its batches: sum and count of four
+# columns, of three again for the averages, count(*) and the presence count
+# (16 fields, 6 distinct folds); its 4 groups' shares of the rows at SF10
+Q1_COLS = (0, 0, 1, 1, 2, 2, 3, 3, 0, 0, 1, 1, 4, 4, -1, -1)
+Q1_GROUP_SHARES = (0.2466, 0.0066, 0.4937, 0.2531)  # A/F, N/F, N/O, R/F
+Q1_BATCH_ROWS = 1 << 23  # the local legs' batches
+Q1_ENTRY_ROWS = 59_990_658  # the cold q1 leg's 8 entries at SF10 (7 full batches, the rest)
+DIST_BATCH_ROWS = 8192  # the distributed legs' parquet batches
+
+
+def q1_ops(TK) -> list:
+    return [TK.OP_ADD_F64, TK.OP_COUNT] * 7 + [TK.OP_COUNT] * 2
+
+
+def q1_stand_in(n: int, seed: int, device) -> dict:
+    """B1's arguments for ``n`` rows of q1 without the query: its 4 groups
+    (``Q1_GROUP_SHARES``) at capacity 64, a filter that keeps 98.6% of the
+    rows, five f64 columns without nulls (made on ``device`` from
+    ``seed``)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    u = torch.rand(n, generator=gen, device=device, dtype=torch.float64)
+    edges = torch.tensor(np.cumsum(Q1_GROUP_SHARES)[:-1], device=device)
+    values = [torch.rand(n, generator=gen, device=device, dtype=torch.float64) * scale
+              for scale in (50.0, 1e5, 1e5, 1e5, 0.1)]
+    return dict(gid=torch.bucketize(u, edges).to(torch.int32), tail=None,
+                pred=torch.rand(n, generator=gen, device=device) < 0.986, pvalid=None,
+                values=values, valids=[None] * 5)
+
+
+def b1_split_phase(TK, device) -> dict:
+    """B1 at q1's stand-in (``q1_stand_in``, 2^23 rows) and at distributed
+    q1's batch (8,192 rows), and B13a at the cold q1 leg's (8 entries,
+    ``Q1_ENTRY_ROWS`` rows): each against its twin (B13a also bit for bit
+    against its B1 loop), its ms beside the bound, ``index_add_`` of the
+    sums and where the time goes (``seg_agg_split``)."""
+    import torch
+
+    ops, cols = q1_ops(TK), list(Q1_COLS)
+
+    def zeros():
+        return torch.zeros(len(ops), 64, dtype=torch.int64, device=device)
+
+    out = {}
+    for name, n in (("q1 stand-in", Q1_BATCH_ROWS), ("dist. q1 stand-in", DIST_BATCH_ROWS)):
+        a = q1_stand_in(n, n, device)
+        call = (a["gid"], a["tail"], a["pred"], a["pvalid"], a["values"], a["valids"], ops,
+                cols, zeros())
+        out[name] = time_shape(TK, (call, {}))
+    sizes = [Q1_BATCH_ROWS] * 7 + [Q1_ENTRY_ROWS - 7 * Q1_BATCH_ROWS]
+    rows = []
+    for j, n in enumerate(sizes):
+        a = q1_stand_in(n, 100 + j, device)
+        rows.append((a["gid"], a["tail"], a["pred"], a["pvalid"], a["values"], a["valids"]))
+    out["q1 cold stand-in"] = entries_check(TK, rows, ops, cols, zeros(), split=True)
+    del rows
+    for name, t in out.items():
+        print(f"segment_agg {name}: ok {json.dumps(t)}")
+    return out
 
 
 # ------------------------------------------------------------ mesh (B13b)
@@ -751,7 +861,7 @@ class CaptureLargest(Capture):
 
         def hook(*args, **kwargs):
             if self.args is None or len(args[0]) > len(self.args[0][0]):
-                self.args = (args, kwargs)
+                self.args = (self.keep(args) if self.keep else args, kwargs)
             return inner(*args, **kwargs)
 
         setattr(self.module, self.name, hook)
@@ -2307,7 +2417,8 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
             with Capture(TK, "partition_ids_cuda") as first, PidCheck(TK) as pids, \
                     Capture(TK, "join_probe_cuda") as probe, \
                     Capture(TK, "join_build_table_cuda") as build, \
-                    Capture(TK, "radix_argsort_cuda") as sort:
+                    Capture(TK, "radix_argsort_cuda") as sort, \
+                    CaptureLargest(TK, "segment_agg", keep=_keep_state) as b1:
                 got, dev_s, metrics = _run_job(ctx, QUERIES[q])
             launches = _launches(TK)
             stage = metrics.get("TorchStageExec", {})
@@ -2344,7 +2455,8 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
             out[q] = dict(launches=launches, pids=first.args, probe=probe.args,
-                          build=build.args, sort=sort.args, want=want, cpu_s=cpu_s)
+                          build=build.args, sort=sort.args, b1=b1.args, want=want,
+                          cpu_s=cpu_s)
     finally:
         ctx.close()
     return out
@@ -3661,29 +3773,76 @@ def time_shape(TK, captured) -> dict:
     plain = _median_ms(lambda: _call(TK.segment_agg_reference, args, ops, cols, t_state))
     # yardstick: one index_add_ of every f64 sum field, masks pre-applied
     n, cap = args["gid"].numel(), state0.shape[1]
-    mask = torch.ones(n, dtype=torch.bool, device=state0.device)
-    for m in (args["tail"], args["pred"], args["pvalid"]):
-        if m is not None:
-            mask &= m
-    sums = []
-    for op, c in zip(ops, cols):
-        if op == TK.OP_ADD_F64:
-            m = mask if args["valids"][c] is None else mask & args["valids"][c]
-            sums.append(torch.where(m, args["values"][c], 0.0))
+    V = _masked_sums(TK, args, ops, cols)
     library = None
-    if sums:
-        V = torch.stack(sums, dim=1)
+    if V is not None:
         g = args["gid"].long()
         acc = torch.zeros(cap, V.shape[1], dtype=torch.float64, device=V.device)
         library = _median_ms(lambda: acc.index_add_(0, g, V))
     bytes_ms = _bytes_moved(args, state0) / HBM_BYTES_PER_S * 1e3
     ops_ms = n * len(ops) / F64_OPS_PER_S * 1e3
-    return dict(
+    out = dict(
         rows=n, capacity=cap, fields=len(ops), columns=len(args["values"]),
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=library,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
+    out.update(seg_agg_split(lambda: _call(TK.segment_agg_cuda, args, ops, cols, k_state)))
+    return out
+
+
+def _host_ms(fn, reps: int = 20) -> float:
+    """The host's ms to issue one call of ``fn`` (wrapper, binding,
+    launches) with the card idle: median of ``reps``."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+# B1's and B13a's kernels by pass (the names of segment_agg.cu and
+# segment_agg_entries.cu)
+SEG_AGG_PASSES = {"segment_agg_partial": "pass1_ms", "entries_partial": "pass1_ms",
+                  "segment_agg_merge": "pass2_ms", "entries_merge": "pass2_ms"}
+
+
+def seg_agg_split(fn, reps: int = 10) -> dict:
+    """Where a B1 or B13a call's time goes: ``burst_ms`` (the card's ms a
+    call), ``host_ms`` (the host's, ``_host_ms``) and, from torch.profiler's
+    records, the card's ms a call in pass 1, in pass 2 and in PyTorch's own
+    kernels and copies (``torch_ms``: fills, the entry table's copy); the
+    three are None (not measured) where the records sum to less than half
+    of ``burst_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = dict(burst_ms=_burst_ms(fn), host_ms=_host_ms(fn))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"pass1_ms": 0.0, "pass2_ms": 0.0, "torch_ms": 0.0}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t:
+            k = next((v for name, v in SEG_AGG_PASSES.items() if name in e.key), "torch_ms")
+            split[k] += t / reps / 1e3
+    if sum(split.values()) < 0.5 * out["burst_ms"]:
+        print(f"segment_agg split: the profiler recorded {sum(split.values())!r} ms of "
+              f"{out['burst_ms']!r} (not measured)")
+        split = {k: None for k in split}
+    out.update(split)
+    return out
 
 
 # ------------------------------------------------- keyed route timing
@@ -4592,6 +4751,7 @@ def run(opts, device) -> list:
     t0 = time.perf_counter()
     kernel_err, kernel_times, sorted_times = kernel_phase(TK, device)
     entries_err, entries_times = entries_phase(TK, device)
+    b1_split = b1_split_phase(TK, device)
     sort_times = sort_phase(TK, device)
     scan_times, rx_times, epilogue_times = scan_phase(TK, WK, device)
     scan_err = max(t["max_abs_err"] for t in scan_times.values())
@@ -4621,7 +4781,7 @@ def run(opts, device) -> list:
     for q, r in queries.items():
         (rows, ops, cols, state0), _ = r["cold"].pop("entries")
         r["warm"].pop("entries")
-        entry_shapes[f"q{q}"] = entries_check(TK, rows, ops, cols, state0)
+        entry_shapes[f"q{q}"] = entries_check(TK, rows, ops, cols, state0, split=q == 1)
         print(f"timing segment_agg_entries q{q} cold: {json.dumps(entry_shapes[f'q{q}'])}")
         del rows, state0
     x32_legs = x32_phase(tbt, TK, batches, wants, device)
@@ -4654,6 +4814,7 @@ def run(opts, device) -> list:
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
 
     shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
+    shapes["distributed q1"] = time_shape(TK, dist[1].pop("b1"))
     sort_shapes = {"q3": _checked_sort(TK, q3["sort"]),
                    "window": _checked_sort(TK, window["sort"]),
                    "distributed q3": _checked_sort(TK, dist[3]["sort"]),
@@ -4706,11 +4867,13 @@ def run(opts, device) -> list:
                              for k, t in expr_grid.items()}),
         _entry("segment_agg", shapes["q1"], launches["segment_agg"],
                max([kernel_err] + [s["max_abs_err"] for s in shapes.values()]),
-               shapes=shapes, kernel_phase=kernel_times, sort_route=sorted_times),
+               shapes=shapes, kernel_phase=kernel_times, sort_route=sorted_times,
+               stand_ins={k: v for k, v in b1_split.items() if k != "q1 cold stand-in"}),
         _entry("segment_agg_entries", entry_shapes["q1"], launches["segment_agg_entries"],
                max([entries_err] + [t["max_abs_err"] for t in entry_shapes.values()]),
                b1_loop_ms=entry_shapes["q1"]["b1_loop_ms"], shapes=entry_shapes,
-               kernel_phase=entries_times),
+               kernel_phase=entries_times,
+               stand_ins={"q1 cold stand-in": b1_split["q1 cold stand-in"]}),
         _entry("radix_sort", sort_shapes["q3"], launches["radix_sort"], 0.0,
                shapes=sort_shapes, kernel_phase=sort_times),
         _entry("seg_scan", scan_shapes["window"], launches["seg_scan"],

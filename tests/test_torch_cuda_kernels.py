@@ -61,10 +61,41 @@ _OPS = [TK.OP_COUNT, TK.OP_ADD_F64, TK.OP_COUNT, TK.OP_MIN_F64, TK.OP_COUNT,
 _COLS = [-1, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1, -1]
 
 
-@pytest.mark.parametrize("cap", [1, 7, 64, 4096, 70000])
-def test_segment_agg_kernel_matches_twin(cuda, cap):
-    n = 300_000
-    gid, tail, pred, pvalid, values, valids = _inputs(n, cap, cuda, seed=cap)
+RUN = 8192  # segment_agg.h: kSegAggRunRows, the rows of one run
+
+
+def _edge_inputs(n, cap, device, seed=0):
+    """``_inputs`` with B1's edges: ±inf beside NaN and -0.0 in the f64
+    column, int64 values that wrap their group sums, group 0 on every
+    third row (it spans every run), and, past two runs, one run whose
+    rows are all masked out."""
+    gid, tail, pred, pvalid, (v, w), (vv, _) = _inputs(n, cap, torch.device("cpu"), seed)
+    gid, pred, v, w = (x.numpy().copy() for x in (gid, pred, v, w))
+    rng = np.random.default_rng(seed + 1)
+    gid[::3] = 0
+    v[rng.random(n) < 0.01] = np.inf
+    v[rng.random(n) < 0.01] = -np.inf
+    wrap = rng.random(n) < 0.2
+    w[wrap] = np.iinfo(np.int64).max - rng.integers(0, 1000, int(wrap.sum()))
+    if n > 2 * RUN:
+        pred[RUN:2 * RUN] = False
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(gid), tail.to(device), t(pred), pvalid.to(device), [t(v), t(w)], [vv.to(device), None]
+
+
+# (rows, capacity): a batch of one run or less (one launch, no scratch), one
+# row past it, many runs of one each, and chunks of several runs
+_B1_CASES = [(n, cap) for n in (1, RUN, RUN + 1, 300_000) for cap in (1, 7, 64, 4096, 8192, 70000)]
+_B1_CASES += [(3_000_000, cap) for cap in (64, 8192, 70000)]
+
+
+@pytest.mark.parametrize("n,cap", _B1_CASES)
+def test_segment_agg_kernel_matches_twin(cuda, n, cap):
+    """Two launches bit-identical; the twin within rel 1e-9 on f64 sums and
+    exact elsewhere.  The fields share folds (each column's sum, min and
+    max with one count of its validity; the i64 column, which has none,
+    counts the row mask with count(*) and presence)."""
+    gid, tail, pred, pvalid, values, valids = _edge_inputs(n, cap, cuda, seed=n + cap)
     runs = []
     for _ in range(2):
         state = TK.init_states(_SPECS, cap, cuda)
@@ -193,11 +224,12 @@ def test_stage_on_cuda_matches_cpu_operators(cuda, sql):
 def _entries(n_entries, cap, device, seed):
     rng = np.random.default_rng(seed)
     sizes = rng.integers(1, 300_000, n_entries)
+    sizes[1::3] = rng.integers(1, RUN + 1, len(sizes[1::3]))  # entries of one run or less
     sizes[0] = 300_000  # at least one entry cut into many chunks
-    return [_inputs(int(n), cap, device, seed=seed + j) for j, n in enumerate(sizes)]
+    return [_edge_inputs(int(n), cap, device, seed=seed + j) for j, n in enumerate(sizes)]
 
 
-@pytest.mark.parametrize("cap", [1, 64, 4096, 1 << 16])
+@pytest.mark.parametrize("cap", [1, 64, 4096, 8192, 1 << 16])
 @pytest.mark.parametrize("n_entries", [1, 8, 32])
 def test_segment_agg_entries_matches_b1_launches_and_twin(cuda, n_entries, cap):
     """One multi-entry launch is bit-identical to one B1 launch per entry in
@@ -1194,7 +1226,8 @@ empty = torch.empty(0, dtype=torch.bool, device=dev)
 gid = torch.zeros(8, dtype=torch.int32, device=dev)
 state = torch.zeros(1, 8, dtype=torch.int64, device=dev)
 try:
-    ext.segment_agg(gid, empty, empty, empty, [empty] * 40, [empty] * 40, [0], [-1], state)
+    ext.segment_agg(gid, empty, empty, empty, [empty] * 40, [empty] * 40, [0], [0], [0], [-1],
+                    state)
 except RuntimeError as e:
     print("raised:", str(e).splitlines()[0])
 """
