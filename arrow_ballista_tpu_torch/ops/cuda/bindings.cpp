@@ -771,12 +771,20 @@ void corr_center_x32_(const at::Tensor& s2, const at::Tensor& perm,
 }
 
 // One launch of the expression program: ``words`` holds the code (32-byte
-// rows) and then the IN tables, on the card; ``inputs`` the env tensor of
-// each input slot and ``outputs`` each store's tensor, an empty tensor
-// standing for an absent validity or an output not written.  The Python
-// wrapper (ops/kernels.py:expr_eval_cuda) validates the program and
-// checks every tensor first.
-void expr_eval_(const at::Tensor& words, int64_t n_instr, int64_t n_regs,
+// rows) and then the IN tables, ``layout`` each register's ExprRegKind
+// word with ``counts`` = (uniform slots, mask slots, 8- and 4-byte tile
+// registers, scratch blocks), all on the card; ``inputs`` the env tensor
+// of each input slot (an empty tensor: absent, or read by no leaf) and
+// ``outputs`` each store's tensor (empty: not written); ``valid_bits`` and
+// ``skip_bits`` (a word of 32 bits for every 32 rows of code) mark the
+// registers whose validity this batch may carry and the rows a tile skips.
+// Each input a leaf reads is staged, its element size its width; the
+// launch sizes the tile from these (expr_eval.h:expr_plan).  The Python
+// wrapper (ops/kernels.py:expr_eval_cuda) validates the program, checks
+// every tensor and aligns the staged ones first.
+void expr_eval_(const at::Tensor& words, const at::Tensor& layout, int64_t n_instr,
+                int64_t n_regs, const std::vector<int64_t>& counts,
+                const std::vector<int64_t>& valid_bits, const std::vector<int64_t>& skip_bits,
                 const std::vector<at::Tensor>& inputs,
                 const std::vector<at::Tensor>& outputs, int64_t n) {
   const at::Device dev = words.device();
@@ -787,6 +795,11 @@ void expr_eval_(const at::Tensor& words, int64_t n_instr, int64_t n_regs,
   TORCH_CHECK(n_instr >= 1 && n_instr <= kExprMaxInstr && n_regs >= 0 &&
                   n_regs <= n_instr && words.size(0) >= 4 * n_instr,
               "expr_eval: code size");
+  TORCH_CHECK(layout.device() == dev && layout.scalar_type() == at::kInt &&
+                  layout.dim() == 1 && layout.is_contiguous() && layout.size(0) == n_regs,
+              "expr_eval: layout must be a contiguous int32 [n_regs] tensor beside the code");
+  TORCH_CHECK(counts.size() == 5,
+              "expr_eval: counts are (uniform, mask, wide, narrow, scratch)");
   TORCH_CHECK(inputs.size() <= (size_t)kExprMaxInputs &&
                   outputs.size() <= (size_t)kExprMaxOutputs,
               "expr_eval: too many slots");
@@ -794,14 +807,36 @@ void expr_eval_(const at::Tensor& words, int64_t n_instr, int64_t n_regs,
   const int64_t* w = words.data_ptr<int64_t>();
   p.code = reinterpret_cast<const ExprInstr*>(w);
   p.consts = reinterpret_cast<const long long*>(w + 4 * n_instr);
+  p.layout = n_regs ? layout.data_ptr<int32_t>() : nullptr;
   p.n = n;
   p.n_instr = (int)n_instr;
   p.n_regs = (int)n_regs;
+  p.n_uniform = (int)counts[0];
+  p.n_mask = (int)counts[1];
+  p.n_wide = (int)counts[2];
+  p.n_narrow = (int)counts[3];
+  p.n_scratch = (int)counts[4];
+  const size_t n_words = (size_t)(n_instr + 31) / 32;
+  TORCH_CHECK(valid_bits.size() == n_words && skip_bits.size() == n_words,
+              "expr_eval: a validity and a skip word for every 32 rows of code");
+  for (size_t j = 0; j < n_words; ++j) {
+    p.valid_bits[j] = (unsigned)valid_bits[j];
+    p.skip_bits[j] = (unsigned)skip_bits[j];
+  }
   for (size_t i = 0; i < inputs.size(); ++i) {
     const at::Tensor& x = inputs[i];
-    TORCH_CHECK(x.numel() == 0 || (x.device() == dev && x.is_contiguous()),
-                "expr_eval: input on another device");
-    p.in[i] = x.numel() ? x.data_ptr() : nullptr;
+    p.stage_off[i] = -1;
+    if (x.numel() == 0) continue;
+    const int width = (int)x.element_size();
+    TORCH_CHECK(x.device() == dev && x.is_contiguous() && x.numel() >= n &&
+                    (width == 1 || width == 4 || width == 8) &&
+                    reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0,
+                "expr_eval: an input must be contiguous, 16-byte aligned, of 1, 4 or 8-byte "
+                "elements, on the code's device");
+    p.in[i] = x.data_ptr();
+    p.width[i] = (unsigned char)width;
+    p.staged_w[width == 1 ? 0 : width == 4 ? 1 : 2] += 1;
+    p.staged[p.n_staged++] = (unsigned char)i;
   }
   for (size_t i = 0; i < outputs.size(); ++i) {
     const at::Tensor& x = outputs[i];
@@ -810,6 +845,25 @@ void expr_eval_(const at::Tensor& words, int64_t n_instr, int64_t n_regs,
     p.out[i] = x.numel() ? x.data_ptr() : nullptr;
   }
   launched(expr_eval_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+// The plan a launch over ``n`` rows takes (expr_eval.h:expr_plan, from the
+// sizes expr_eval_ passes: ``counts`` as there, ``staged_w`` the staged
+// slots of 1, 4 and 8 bytes) and the kernel's registers a thread, local
+// bytes a thread and CTAs an SM at it, on the current device: (threads,
+// rows, stages, shared bytes, registers, local bytes, CTAs an SM).
+std::vector<int64_t> expr_eval_describe_(int64_t n, int64_t n_regs,
+                                         const std::vector<int64_t>& counts,
+                                         const std::vector<int64_t>& staged_w) {
+  TORCH_CHECK(counts.size() == 5 && staged_w.size() == 3,
+              "expr_eval_describe: counts are (uniform, mask, wide, narrow, scratch), "
+              "staged_w (1, 4, 8 bytes)");
+  int c[5], w[3];
+  for (int j = 0; j < 5; ++j) c[j] = (int)counts[j];
+  for (int j = 0; j < 3; ++j) w[j] = (int)staged_w[j];
+  long long out[7];
+  launched(expr_eval_describe(n, (int)n_regs, c, w, out));
+  return std::vector<int64_t>(out, out + 7);
 }
 
 void mesh_reduce_(const std::vector<at::Tensor>& states, const std::vector<int64_t>& ops,
@@ -987,6 +1041,8 @@ void mesh_route_(const at::Tensor& dest, const at::Tensor& valid,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("expr_eval", &expr_eval_,
         "the expression program (filter, aggregate arguments) over one batch");
+  m.def("expr_eval_describe", &expr_eval_describe_,
+        "the expression launch's plan and the kernel's registers, local bytes, CTAs an SM");
   m.def("segment_agg", &segment_agg,
         "segment aggregate of one batch merged into the running state");
   m.def("segment_agg_entries", &segment_agg_entries_,

@@ -2576,6 +2576,14 @@ EXPR_MAX_INPUTS = 96  # expr_eval.h: kExprMaxInputs
 EXPR_MAX_OUTPUTS = 72  # kExprMaxOutputs
 EXPR_MAX_INSTR = 1024  # kExprMaxInstr
 EXPR_SMEM_LIMIT = 232448  # shared memory one CTA can use on sm_90
+# where a register lives (expr_eval.h: ExprRegKind, kRegInvariant, kRegWide)
+EXPR_REG_TILE, EXPR_REG_UNIFORM, EXPR_REG_LEAF, EXPR_REG_MASK = 0, 1, 2, 3
+EXPR_REG_INVARIANT, EXPR_REG_WIDE = 4, 8
+EXPR_MAX_ROWS = 8  # kExprMaxRows
+EXPR_PLAN_SMS = 132  # kExprPlanSms
+EXPR_SMEM_PER_SM, EXPR_SMEM_PER_CTA = 233472, 1024  # kExprSmemPerSm, kExprSmemPerCta
+EXPR_REGS_PER_SM, EXPR_MAX_REGS = 65536, 128  # kExprRegsPerSm, kExprMaxRegs
+_EXPR_THREADS = (128, 64, 256, 32)  # expr_plan's kThreads
 _CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
         "gt": torch.gt, "ge": torch.ge}
 _UNARY_F64 = {
@@ -2628,6 +2636,155 @@ def _fixed_dt(table: dict, name: str, mode: str):
     if dt is None or mode != "x32":
         return dt
     return {DT_I64: DT_I32, DT_F64: DT_F32}.get(dt, dt)
+
+
+def _expr_operand_targets(name: str, dt: int, in_dt: int) -> tuple:
+    """The dtypes the kernel reads operands (a, b) of a register row as,
+    through a converted copy when the operand's dtype differs (None: not
+    read so); ``select``'s first is its THEN operand (b)."""
+    if name in (*_CMP, "add", "sub", "mul"):
+        return (None, None) if in_dt == DT_BOOL else (in_dt, in_dt)
+    if name in ("div_int", "mod_int", "div_f", "mod_f", "power", "sqpair_lo"):
+        return (in_dt, in_dt)
+    if name in ("neg", "in", "not_in", *_UNARY_F64, "square"):
+        return (in_dt, None)
+    if name == "cast_i64":
+        return (DT_F32 if dt == DT_I32 else DT_F64, None)
+    if name == "select" and dt != DT_BOOL:
+        return (dt, None)
+    return (None, None)
+
+
+def _expr_layout(rows, stores=()) -> tuple:
+    """Where each register of ``rows`` (a program's register rows) lives
+    in the kernel, as expr_eval.h's ``ExprRegKind`` words (int32: kind in
+    bits 0-1, ``EXPR_REG_INVARIANT``, ``EXPR_REG_WIDE``, the index from
+    bit 4), and ``(uniform slots, mask slots, 8-byte tiles, 4-byte tiles,
+    scratch blocks)``.  A bool is a mask; a numeric leaf its staged column
+    (a leaf with no value column a uniform 0); a register whose operands
+    are all invariant (literals, NULL and what only they feed) is
+    invariant, and numeric it is one uniform value; any other numeric
+    register takes a tile of its width, one whose last reader (a row, or
+    one of the ``stores`` rows' registers, read at the end) has run:
+    every row reads its operands whole before it writes its result.  A
+    scratch block holds an operand that is not invariant, converted to the
+    dtype its op reads."""
+    last = list(range(len(rows)))
+    for i, (op, _, _, a, b, c, _) in enumerate(rows):
+        for r in (a, b, c)[:_ARITY[EXPR_OPS[op]]]:
+            last[r] = i
+    for r in stores:
+        last[r] = len(rows)
+    words, invariant = [], []
+    n_uni = n_mask = n_scratch = 0
+    tiles: dict = {True: [], False: []}  # wide -> each tile's register
+    for i, (op, dt, in_dt, a, b, c, _) in enumerate(rows):
+        name = EXPR_OPS[op]
+        inv = name != "leaf" and all(invariant[r] for r in (a, b, c)[:_ARITY[name]])
+        invariant.append(inv)
+        flags = EXPR_REG_INVARIANT if inv else 0
+        if dt == DT_BOOL:
+            kind, idx = EXPR_REG_MASK, n_mask
+            n_mask += 1
+        elif name == "leaf" and a >= 0:
+            kind, idx = EXPR_REG_LEAF, a
+        elif inv or name == "leaf":
+            kind, idx = EXPR_REG_UNIFORM, n_uni
+            n_uni += 1
+        else:
+            wide = dt in (DT_I64, DT_F64)
+            pool = tiles[wide]
+            idx = next((j for j, r in enumerate(pool) if last[r] <= i), len(pool))
+            pool[idx:idx + 1] = [i]
+            kind, flags = EXPR_REG_TILE, flags | (EXPR_REG_WIDE if wide else 0)
+        words.append(kind | flags | idx << 4)
+        targets = _expr_operand_targets(name, dt, in_dt)
+        operands = (b, c) if name == "select" else (a, b)
+        for slot, (want, reg) in enumerate(zip(targets, operands)):
+            if want is not None and rows[reg][1] != want and not invariant[reg]:
+                n_scratch = max(n_scratch, slot + 1)
+    counts = (n_uni, n_mask, len(tiles[True]), len(tiles[False]), n_scratch)
+    return np.asarray(words, np.int32), counts
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _align128(x: int) -> int:
+    return (x + 127) & ~127
+
+
+def expr_block_bytes(rows: int, width: int) -> int:
+    """expr_eval.h:expr_block_bytes: a thread's block of ``rows`` values."""
+    return rows * width
+
+
+def expr_smem_bytes(n_regs: int, counts: tuple, staged_w: tuple, threads: int, rows: int,
+                    stages: int) -> int:
+    """expr_eval.h:expr_smem_bytes: one CTA's shared memory (``staged_w``:
+    the staged slots of 1, 4 and 8 bytes)."""
+    n_uni, n_mask, n_wide, n_narrow, n_scratch = counts
+    b4, b8 = expr_block_bytes(rows, 4), expr_block_bytes(rows, 8)
+    stage = threads * sum(k * expr_block_bytes(rows, w) for k, w in zip(staged_w, (1, 4, 8)))
+    return (_align128(_align16(4 * n_regs) + _align16(8 * n_uni) + 16 * threads
+                      + _align16(threads * n_regs) + _align16(threads * n_mask))
+            + threads * ((n_scratch + n_wide) * b8 + n_narrow * b4) + stages * _align128(stage))
+
+
+def expr_resident_warps(threads: int, smem: int) -> int:
+    """expr_eval.h:expr_resident_warps: warps an SM holds of such CTAs."""
+    ctas = min(EXPR_SMEM_PER_SM // (smem + EXPR_SMEM_PER_CTA),
+               EXPR_REGS_PER_SM // (EXPR_MAX_REGS * threads))
+    return ctas * threads // 32
+
+
+def expr_launch_plan(n: int, n_regs: int, counts: tuple, staged_w: tuple) -> tuple:
+    """expr_eval.h:expr_plan, the tile rule: ``(threads, rows, stages,
+    shared bytes)`` for ``n`` rows of a program of ``n_regs`` registers
+    laid out as ``counts`` (:func:`_expr_layout`) with ``staged_w`` staged
+    slots of 1, 4 and 8 bytes.  Shared bytes past ``EXPR_SMEM_LIMIT``: the
+    program does not fit."""
+    def size(threads, rows, stages) -> int:
+        return expr_smem_bytes(n_regs, counts, staged_w, threads, rows, stages)
+
+    plan, warps, rows = (_EXPR_THREADS[3], 1, 1), -1, EXPR_MAX_ROWS
+    while rows >= 1 and warps < 8:
+        warps = -1
+        for stages in (2, 1):
+            for threads in _EXPR_THREADS:
+                smem = size(threads, rows, stages)
+                if smem > EXPR_SMEM_LIMIT:
+                    continue
+                w = expr_resident_warps(threads, smem)
+                if w > warps:
+                    plan, warps = (threads, rows, stages), w
+        rows //= 2
+    threads, rows, stages = plan
+
+    def tiles() -> int:
+        return -(-n // (threads * rows))
+
+    while rows > 1 and tiles() < 2 * EXPR_PLAN_SMS:
+        rows //= 2
+    while threads > 64 and tiles() < EXPR_PLAN_SMS:
+        threads //= 2
+    return threads, rows, stages, size(threads, rows, stages)
+
+
+def _staged_widths(program: "ExprProgram", widths: dict) -> tuple:
+    """The staged slots of 1, 4 and 8 bytes, each slot a leaf reads with
+    the element size ``widths[slot]`` (0 or absent: not staged, an absent
+    validity)."""
+    sizes = [widths.get(s, 0) for s in program._staged]
+    return tuple(sizes.count(w) for w in (1, 4, 8))
+
+
+def expr_program_plan(program: "ExprProgram", n: int, widths: dict) -> tuple:
+    """:func:`expr_launch_plan` for ``program`` when each staged input
+    slot has the element size ``widths[slot]``."""
+    return expr_launch_plan(n, program.n_regs, program.reg_counts,
+                            _staged_widths(program, widths))
 
 
 def _closure_node(closure) -> ExprNode:
@@ -2718,6 +2875,7 @@ class ExprProgram:
         self.stores = stores
         self.outputs = outputs
         self._device: dict = {}
+        self._launch: dict = {}  # which inputs are None -> expr_eval_cuda's per-batch words
         self._lock = threading.Lock()
         self.validate()
         self.code.setflags(write=False)
@@ -2898,6 +3056,20 @@ class ExprProgram:
         self._reads += [(r[4], DT_BOOL, True) for r in leaves]
         self._reads += [(o[1], o[2], self.inputs[o[1]].endswith("__valid"))
                         for o in self.outputs if o is not None and o[0] == "input"]
+        # the input slots a leaf reads: the kernel stages these
+        self._staged = sorted({s for r in leaves for s in (r[3], r[4]) if s >= 0})
+        self.reg_layout, self.reg_counts = _expr_layout(
+            self._regs_rows, [r[3] for r in rows[n_regs:]])
+        # the rows a tile skips whatever the batch (the invariant ones), and
+        # the numeric leaves, skipped too when their validity is absent
+        self._invariant_rows = [i for i, w in enumerate(self.reg_layout.tolist())
+                                if w & EXPR_REG_INVARIANT]
+        self._value_leaves = [i for i, r in enumerate(self._regs_rows)
+                              if EXPR_OPS[r[0]] == "leaf" and r[1] != DT_BOOL and r[3] >= 0]
+        self._store_slots = [r[4] for r in rows[n_regs:]]
+        # the tile rule's shared memory with every staged slot at its widest
+        widest = {s: _DT_BYTES[dt] for s, dt, _ in self._reads}
+        self._widest_smem = expr_program_plan(self, 1 << 40, widest)[3]
         self._valid_key = key
 
     # ---------------------------------------------------------- runtime
@@ -2935,6 +3107,21 @@ class ExprProgram:
                     rows[:, 6:] = np.ascontiguousarray(self.code[:, 6]).view(np.int32).reshape(n, 2)
                     words = np.concatenate([rows.view(np.int64).reshape(-1), self.consts])
                     t = self._device[k] = torch.from_numpy(words).to(device)
+        return t
+
+    def device_tables(self, device) -> tuple:
+        """:meth:`device_words` and :attr:`reg_layout` (one ``ExprRegKind``
+        word a register, int32) on ``device``, looked up by ``device`` as
+        given."""
+        t = self._device.get(("tables", device))
+        if t is None:
+            layout = self._device.get(("layout", torch.device(device)))
+            if layout is None:
+                with self._lock:
+                    layout = self._device.setdefault(
+                        ("layout", torch.device(device)),
+                        torch.from_numpy(self.reg_layout.copy()).to(device))
+            t = self._device[("tables", device)] = (self.device_words(device), layout)
         return t
 
     def layout(self, get) -> tuple:
@@ -3065,28 +3252,53 @@ def closures_layout(program: ExprProgram, env: dict, n: int, device) -> tuple:
     return pred, pvalid, values, valids
 
 
+_DT_BYTES = {DT_BOOL: 1, DT_I64: 8, DT_F64: 8, DT_I32: 4, DT_F32: 4}
+
+
+def _bit_words(indices, n: int) -> list:
+    """Bit i of word i // 32 set for each index, a word for every 32 of
+    ``n`` rows (expr_eval.h's ``valid_bits`` and ``skip_bits``)."""
+    words = [0] * ((n + 31) // 32)
+    for i in indices:
+        words[i >> 5] |= 1 << (i & 31)
+    return words
+
+
+def expr_fits(program: ExprProgram, n_inputs: int) -> bool:
+    """Whether the kernel takes ``program`` with ``n_inputs`` input slots:
+    instructions, input and output slots within expr_eval.h's limits, the
+    admission rule (the code and 9 bytes a register for 32 threads within
+    a CTA's shared memory), and the tile rule's shared memory with every
+    staged slot at its widest (which every program the admission rule
+    takes fits)."""
+    n_instr = len(program.code)
+    if (n_instr > EXPR_MAX_INSTR or n_instr * 32 + program.n_regs * 32 * 9 > EXPR_SMEM_LIMIT
+            or n_inputs > EXPR_MAX_INPUTS or len(program.stores) > EXPR_MAX_OUTPUTS):
+        return False
+    return program._widest_smem <= EXPR_SMEM_LIMIT
+
+
 def _check_expr_args(program: ExprProgram, inputs: list, n: int, device) -> None:
-    """Raise ValueError unless the program fits the kernel (instructions,
-    input and output slots, shared memory at 32 threads a CTA) and every
-    input slot holds what its leaf reads: a contiguous [n] tensor on
-    ``device`` of the leaf's dtype, a validity bool or None.  Checked here,
-    before the binding, like every kernel's inputs."""
+    """Raise ValueError unless the program fits the kernel
+    (:func:`expr_fits`) and every input slot holds what its leaf reads: a
+    contiguous [n] tensor on ``device`` of the leaf's dtype, a validity
+    bool or None.  Checked here, before the binding, like every kernel's
+    inputs."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"expr_eval: device {dev} is not CUDA")
-    n_instr = len(program.code)
-    smem = n_instr * 32 + program.n_regs * 32 * 9
-    if (n_instr > EXPR_MAX_INSTR or smem > EXPR_SMEM_LIMIT
-            or len(inputs) > EXPR_MAX_INPUTS or len(program.stores) > EXPR_MAX_OUTPUTS):
+    if not expr_fits(program, len(inputs)):
         raise ValueError(
-            f"expr_eval: {n_instr} instructions, {program.n_regs} registers, "
+            f"expr_eval: {len(program.code)} instructions, {program.n_regs} registers, "
             f"{len(inputs)} inputs, {len(program.stores)} outputs exceed the kernel"
         )
 
     def bad(x, dtype) -> bool:
-        return (not isinstance(x, torch.Tensor) or x.device.type != dev.type
-                or (dev.index is not None and x.device.index != dev.index)
-                or x.dtype != dtype or tuple(x.shape) != (n,) or not x.is_contiguous())
+        if (not isinstance(x, torch.Tensor) or x.dtype != dtype or x.dim() != 1
+                or x.shape[0] != n or not x.is_contiguous()):
+            return True
+        at = x.device
+        return at.type != dev.type or (dev.index is not None and at.index != dev.index)
 
     for slot, dt, optional in program._reads:
         x = inputs[slot]
@@ -3106,27 +3318,93 @@ def expr_eval_cuda(program: ExprProgram, env: dict, n: int, device) -> tuple:
     closures XLA inlines into the aggregate program).  The program and the
     inputs are checked first (ValueError); a failed build or launch raises,
     and nothing falls back to the twin or the closures.  A program that
-    computes nothing (every output an env tensor) launches nothing."""
+    computes nothing (every output an env tensor) launches nothing.  The
+    kernel copies the columns a leaf reads in 16-byte chunks, so such a
+    column that starts off a 16-byte boundary (a view at an offset) is
+    copied to a fresh tensor first."""
     from .cuda.build import load
 
     program.validate()
     inputs = [env[name] for name in program.inputs]
     _check_expr_args(program, inputs, n, device)
-    present = program.presence(inputs)
-    outs = [
-        torch.empty(n, dtype=_DT_TORCH[dt], device=device)
-        if kind == "value" or present[reg] else None
-        for kind, reg, dt in program.stores
-    ]
-    if n and any(t is not None for t in outs):
-        empty = torch.empty(0, dtype=torch.bool, device=device)
+    written, valid_words, skip_words = _expr_batch_words(program, inputs)
+    outs = _expr_outputs(program, written, n, device)
+    if n and any(written):
+        empty = _expr_empty(device)
+        staged = _expr_staged(program, inputs, empty)
+        words, layout = program.device_tables(device)
         load().expr_eval(
-            program.device_words(device), len(program.code), program.n_regs,
-            [empty if t is None else t for t in inputs],
-            [empty if t is None else t for t in outs], n,
+            words, layout, len(program.code), program.n_regs, program.reg_counts,
+            valid_words, skip_words, staged, [empty if t is None else t for t in outs], n,
         )
         count_launch("expr_eval")
     return program.layout(lambda out: inputs[out[1]] if out[0] == "input" else outs[out[-1]])
+
+
+def _expr_batch_words(program: ExprProgram, inputs: list) -> tuple:
+    """``(written, valid_words, skip_words)`` for a batch whose absent
+    inputs are those of ``inputs``: which outputs the launch writes, the
+    registers whose validity the batch may carry and the rows a tile
+    skips (expr_eval.h's ``valid_bits`` and ``skip_bits``); worked out
+    once for each pattern of absent inputs."""
+    absent = tuple(x is None for x in inputs)
+    launch = program._launch.get(absent)
+    if launch is None:
+        present = program.presence(inputs)
+        written = [kind == "value" or present[reg] for kind, reg, _ in program.stores]
+        skip = program._invariant_rows + [i for i in program._value_leaves if not present[i]]
+        skip += [program.n_regs + j for j, slot in enumerate(program._store_slots)
+                 if not written[slot]]
+        n_rows = len(program.code)
+        launch = program._launch[absent] = (
+            written, _bit_words((i for i, v in enumerate(present) if v), n_rows),
+            _bit_words(skip, n_rows))
+    return launch
+
+
+def _expr_outputs(program: ExprProgram, written: list, n: int, device) -> list:
+    """A fresh [n] tensor for each output the launch writes, else None."""
+    return [torch.empty(n, dtype=_DT_TORCH[dt], device=device) if w else None
+            for w, (_, _, dt) in zip(written, program.stores)]
+
+
+_EXPR_EMPTY: dict = {}
+
+
+def _expr_empty(device) -> torch.Tensor:
+    """The empty tensor that stands for an absent slot, one a device."""
+    t = _EXPR_EMPTY.get(device)
+    if t is None:
+        t = _EXPR_EMPTY.setdefault(device, torch.empty(0, dtype=torch.bool, device=device))
+    return t
+
+
+def _expr_staged(program: ExprProgram, inputs: list, empty: torch.Tensor) -> list:
+    """The binding's input slots: each input a leaf reads (the kernel
+    copies it in 16-byte chunks, so one that starts off a 16-byte boundary
+    is copied to a fresh tensor first), ``empty`` for every other slot."""
+    staged = [empty] * len(inputs)
+    for s in program._staged:
+        x = inputs[s]
+        if x is not None:
+            staged[s] = x if x.data_ptr() % 16 == 0 else x.clone()
+    return staged
+
+
+def expr_launch_describe(program: ExprProgram, n: int, widths: dict) -> dict:
+    """What a launch of ``program`` over ``n`` rows runs with when each
+    staged input slot has the element size ``widths[slot]`` (as
+    :func:`expr_program_plan` takes it), from the C side
+    (expr_eval.h:expr_plan and the CUDA runtime, on the current device):
+    ``threads``, ``rows`` a thread, ``stages``, ``smem`` (shared bytes),
+    and the kernel's ``registers`` and ``local_bytes`` a thread and
+    ``ctas_per_sm`` at that shape.  Card only."""
+    from .cuda.build import load
+
+    widths = list(_staged_widths(program, widths))
+    keys = ("threads", "rows", "stages", "smem", "registers", "local_bytes", "ctas_per_sm")
+    return dict(zip(keys, load().expr_eval_describe(n, program.n_regs, list(program.reg_counts),
+                                                    widths)))
 
 
 def expr_eval(program: ExprProgram, env: dict, n: int, device) -> tuple:

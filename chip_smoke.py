@@ -852,6 +852,121 @@ class Capture:
         setattr(self.module, self.name, self.inner)
 
 
+# q1 warm's device work: its expression launches, the multi-entry launch
+# and the fetch
+WARM_SPLIT = ("expr_eval_cuda", "segment_agg_entries", "fetch_states")
+
+
+class EventSplit:
+    """CUDA events recorded before and after every call of ``module.name``
+    for each of ``names`` inside the ``with`` block: :meth:`split` gives
+    each name's calls and ms (from its first event to its last, the card's
+    clock, so a call's host time shows where the card waited for it)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, tuple(names)
+        self.events: list = []
+        self.inner: dict = {}
+
+    def __enter__(self):
+        import torch
+
+        for name in self.names:
+            inner = self.inner[name] = getattr(self.module, name)
+
+            def hook(*args, _name=name, _inner=inner, **kwargs):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = _inner(*args, **kwargs)
+                b.record()
+                self.events.append((_name, a, b))
+                return out
+
+            setattr(self.module, name, hook)
+        return self
+
+    def __exit__(self, *exc):
+        for name, inner in self.inner.items():
+            setattr(self.module, name, inner)
+
+    def split(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        ms: dict = {name: [] for name in self.names}
+        for name, a, b in self.events:
+            ms[name].append(a.elapsed_time(b))
+        return {name: dict(calls=len(v), sum_ms=sum(v), ms=v) for name, v in ms.items()}
+
+
+class HostSplit:
+    """The host's clock (``time.perf_counter``) around every call of each
+    ``owner.name`` of ``parts`` (``(label, owner, name)``: a module, a
+    class or the extension) inside the ``with`` block, and the time in
+    Python's garbage collector: :meth:`split` gives each label's calls
+    and ms."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self.ms: dict = {label: [] for label, _, _ in self.parts}
+        self.gc_ms: list = []
+        self.saved: list = []
+        self._gc_t0 = 0.0
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        else:
+            self.gc_ms.append((time.perf_counter() - self._gc_t0) * 1e3)
+
+    def __enter__(self):
+        import gc
+
+        for label, owner, name in self.parts:
+            inner = getattr(owner, name)
+
+            def hook(*args, _inner=inner, _ms=self.ms[label], **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _inner(*args, **kwargs)
+                finally:
+                    _ms.append((time.perf_counter() - t0) * 1e3)
+
+            self.saved.append((owner, name, inner))
+            setattr(owner, name, hook)
+        if self.parts:
+            gc.callbacks.append(self._gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        for owner, name, inner in reversed(self.saved):
+            setattr(owner, name, inner)
+        if self._gc in gc.callbacks:
+            gc.callbacks.remove(self._gc)
+
+    def split(self) -> dict:
+        out = {label: dict(calls=len(v), sum_ms=sum(v)) for label, v in self.ms.items()}
+        out["gc"] = dict(collections=len(self.gc_ms), sum_ms=sum(self.gc_ms))
+        return out
+
+
+def expr_host_parts(TK) -> list:
+    """``expr_eval_cuda``'s host work by step, for :class:`HostSplit`: the
+    whole call, then the argument checks, the batch's skip and validity
+    words, the output tensors' allocation, the staged inputs (and their
+    alignment), the program's device tables and the binding (which plans
+    and launches)."""
+    from arrow_ballista_tpu_torch.ops.cuda import build
+
+    return [("expr_eval_cuda", TK, "expr_eval_cuda"), ("checks", TK, "_check_expr_args"),
+            ("batch words", TK, "_expr_batch_words"), ("outputs", TK, "_expr_outputs"),
+            ("staging", TK, "_expr_staged"), ("device tables", TK.ExprProgram, "device_tables"),
+            ("binding", build.load(), "expr_eval")]
+
+
 class CaptureLargest(Capture):
     """A Capture that keeps the call over the most rows (its first
     argument's length) instead of the first call."""
@@ -1681,14 +1796,23 @@ def query_phase(tbt, TK, batches, device, wants: dict) -> dict:
                 raise AssertionError(f"q{q} {name}: no TorchStageExec in the plan")
             _reset_counts(TK)
             torch.cuda.reset_peak_memory_stats()
+            warm1 = (q, name) == (1, "warm")
+            split = EventSplit(TK, WARM_SPLIT if warm1 else ())
+            host = HostSplit(expr_host_parts(TK) if warm1 else ())
+            mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
             with Capture(TK, "segment_agg", keep=_keep_state) as b1, \
                     Capture(TK, "segment_agg_entries", keep=_keep_entries) as multi, \
-                    Capture(TK, "expr_eval_cuda", keep=_keep_expr_call) as expr:
+                    Capture(TK, "expr_eval_cuda", keep=_keep_expr_call) as expr, host, split:
                 t0 = time.perf_counter()
                 got = ctx.execute(plan)
                 torch.cuda.synchronize()
                 dev_s = time.perf_counter() - t0
             launches = _launches(TK)
+            if warm1:  # device_allocs: the caching allocator's cudaMalloc calls in the run
+                print(f"q1 warm split: card={card_line()} tpu_execute_ns="
+                      f"{_stage_metrics(stages).get('tpu_execute_ns', 0)} "
+                      f"{json.dumps(split.split())} host={json.dumps(host.split())} device_allocs="
+                      f"{torch.cuda.memory_stats().get('num_device_alloc', 0) - mallocs}")
             peak = torch.cuda.max_memory_allocated()
             metrics = _stage_metrics(stages)
             for k in ("tpu_fallback", "cpu_fallback", "highcard_fallback"):
@@ -2418,6 +2542,7 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
                     Capture(TK, "join_probe_cuda") as probe, \
                     Capture(TK, "join_build_table_cuda") as build, \
                     Capture(TK, "radix_argsort_cuda") as sort, \
+                    Capture(TK, "expr_eval_cuda", keep=_keep_expr_call) as expr, \
                     CaptureLargest(TK, "segment_agg", keep=_keep_state) as b1:
                 got, dev_s, metrics = _run_job(ctx, QUERIES[q])
             launches = _launches(TK)
@@ -2455,8 +2580,8 @@ def distributed_phase(tbt, TK, root: str, lineitem_rows: int, device) -> dict:
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
             out[q] = dict(launches=launches, pids=first.args, probe=probe.args,
-                          build=build.args, sort=sort.args, b1=b1.args, want=want,
-                          cpu_s=cpu_s)
+                          build=build.args, sort=sort.args, b1=b1.args, expr=expr.args,
+                          want=want, cpu_s=cpu_s)
     finally:
         ctx.close()
     return out
@@ -2975,8 +3100,11 @@ def _expr_bytes(TK, program, env: dict, n: int) -> int:
 
 def expr_check(TK, program, env: dict, n: int, device, what: str) -> dict:
     """One program: two kernel runs, the twin and the closures it was
-    compiled from, all bit-identical; then the ms of each (median of 20)
-    beside the byte bound."""
+    compiled from, all bit-identical; the launch's plan, as the C side
+    gives it, equal to ops/kernels.py's mirror (``launch``: the plan and
+    the kernel's registers, local bytes and CTAs an SM); then the ms of
+    each (median of 20) beside the byte bound, and the kernel's card ms a
+    call (``burst_ms``) and the host's ms to issue one (``host_ms``)."""
     runs = [TK.expr_eval_cuda(program, env, n, device) for _ in range(2)]
     twin = TK.expr_program_reference(program, env, n, device)
     closures = TK.closures_layout(program, env, n, device)
@@ -2985,13 +3113,24 @@ def expr_check(TK, program, env: dict, n: int, device, what: str) -> dict:
         diff = expr_diff(runs[0], other)
         if diff is not None:
             raise AssertionError(f"expr_eval {what}: kernel against {label}: {diff}")
-    ms = _median_ms(lambda: TK.expr_eval_cuda(program, env, n, device))
+    def call():
+        return TK.expr_eval_cuda(program, env, n, device)
+
+    widths = {s: env[program.inputs[s]].element_size() for s in program._staged
+              if env[program.inputs[s]] is not None}
+    launch = TK.expr_launch_describe(program, n, widths)
+    mirror = TK.expr_program_plan(program, n, widths)
+    if tuple(launch[k] for k in ("threads", "rows", "stages", "smem")) != tuple(mirror):
+        raise AssertionError(f"expr_eval {what}: the launch's plan {launch} is not "
+                             f"ops/kernels.py's {mirror}")
+    ms = _median_ms(call)
     plain = _median_ms(lambda: TK.expr_program_reference(program, env, n, device))
     closures_ms = _median_ms(lambda: TK.closures_layout(program, env, n, device))
     moved = _expr_bytes(TK, program, env, n)
     return dict(rows=n, instructions=len(program.code), registers=program.n_regs,
-                bytes=moved, max_abs_err=0.0, ms=ms, plain_ms=plain,
-                closures_ms=closures_ms, library_ms=None, **_bound(moved))
+                bytes=moved, max_abs_err=0.0, ms=ms, burst_ms=_burst_ms(call),
+                host_ms=_host_ms(call), plain_ms=plain, closures_ms=closures_ms,
+                library_ms=None, launch=launch, **_bound(moved))
 
 
 def expr_grid_phase(TK, device) -> dict:
@@ -4815,6 +4954,11 @@ def run(opts, device) -> list:
 
     shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
     shapes["distributed q1"] = time_shape(TK, dist[1].pop("b1"))
+    (d_program, d_env, d_n, d_dev), _ = dist[1].pop("expr")
+    expr_shapes["distributed q1"] = expr_check(TK, d_program, d_env, d_n, d_dev,
+                                               "distributed q1's first call")
+    del d_env
+    dist[3].pop("expr")
     sort_shapes = {"q3": _checked_sort(TK, q3["sort"]),
                    "window": _checked_sort(TK, window["sort"]),
                    "distributed q3": _checked_sort(TK, dist[3]["sort"]),

@@ -1207,6 +1207,146 @@ def test_expr_eval_rejects_bad_input(cuda, grid_batch):
     assert TK.LAUNCHES["expr_eval"] == before
 
 
+# the tile's edges: programs of every register kind (tile, uniform, leaf
+# with and without a validity, mask), IN tables, nested selects, the
+# int64 edges and past 64 registers
+_TILE_CASES = ("q1_charge", "case_nested", "case_else", "in_int", "in_float",
+               "not_in_int_items_float_column", "div_int", "mod_int", "mul_int_overflow",
+               "and_bool_leaf", "le_bool_int", "is_null_never_null", "cast_float_int",
+               "fn_sin", "wide_program")
+_TILE_ROWS = (1 << 20) + 3
+
+
+@pytest.fixture(scope="module")
+def tile_batches():
+    return {mode: SMOKE.expr_grid_batch(_TILE_ROWS, mode=mode) for mode in ("x64", "x32")}
+
+
+def _expr_same(program, env, n, cuda):
+    """Two launches bit-identical, equal to the twin and the closures."""
+    runs = [TK.expr_eval_cuda(program, env, n, cuda) for _ in range(2)]
+    for other in (runs[1], TK.expr_program_reference(program, env, n, cuda),
+                  TK.closures_layout(program, env, n, cuda)):
+        assert SMOKE.expr_diff(runs[0], other) is None, (n, SMOKE.expr_diff(runs[0], other))
+
+
+def _tile_rows(program, env, n) -> int:
+    """T x R of the launch over ``n`` rows, as the C side plans it."""
+    widths = {s: env[program.inputs[s]].element_size() for s in program._staged
+              if env[program.inputs[s]] is not None}
+    plan = TK.expr_launch_describe(program, n, widths)
+    return plan["threads"] * plan["rows"]
+
+
+@pytest.mark.parametrize("mode", ["x64", "x32"])
+def test_expr_eval_launch_plan_is_the_mirrors(cuda, mode):
+    """The plan a launch takes (expr_eval.h:expr_plan, read back through
+    the binding) is ops/kernels.py's mirror, for the grid's programs and
+    the TPC-H stage programs, at batch sizes from 1 row to past 2^23 with
+    each staged slot at its widest; and the card holds at least one CTA
+    of every such plan."""
+    from test_torch_expr_plan import _tpch_programs, widest
+
+    batch = SMOKE.expr_grid_batch(64, mode=mode)
+    TK.set_precision(None if mode == "x64" else "x32")
+    try:
+        programs = [SMOKE.expr_case(TK, tpe, batch.schema, build)[0]
+                    for build in SMOKE.expr_grid_cases().values()]
+    finally:
+        TK.set_precision(None)
+    programs += _tpch_programs(mode)
+    for program in programs:
+        assert program.mode == mode
+        widths = widest(program)
+        for n in (1, 1000, 8192, 8193, 1 << 20, (1 << 20) + 3, 1 << 23, 1 << 26):
+            plan = TK.expr_launch_describe(program, n, widths)
+            got = tuple(plan[k] for k in ("threads", "rows", "stages", "smem"))
+            assert got == TK.expr_program_plan(program, n, widths), (n, plan)
+            assert plan["ctas_per_sm"] >= 1 and plan["registers"] > 0, (n, plan)
+
+
+@pytest.mark.parametrize("mode", ["x64", "x32"])
+@pytest.mark.parametrize("name", _TILE_CASES)
+def test_expr_eval_rows_that_cut_a_tile(cuda, tile_batches, name, mode):
+    """1 row, one row either side of a full batch's tile, distributed q1's
+    8,192 rows and 2^20 + 3, in both modes: two launches identical, equal
+    to the twin and the closures."""
+    batch = tile_batches[mode]
+    TK.set_precision(None if mode == "x64" else "x32")
+    try:
+        program, leaves = SMOKE.expr_case(TK, tpe, batch.schema, SMOKE.expr_grid_cases()[name])
+        assert program.mode == mode
+        env = SMOKE.expr_env(TK, batch, leaves, cuda, mode=mode)
+        tr = _tile_rows(program, env, _TILE_ROWS)
+        for n in sorted({1, tr - 1, tr + 1, 8192, _TILE_ROWS}):
+            cut = {k: None if v is None else v[:n] for k, v in env.items()}
+            _expr_same(program, cut, n, cuda)
+    finally:
+        TK.set_precision(None)
+
+
+def _wide_sum(terms: int):
+    def build(pe, col):
+        e = col("x")
+        for k in range(1, terms + 1):
+            e = pe.Binary(e, "+", pe.Binary(col("y"), "*", pe.Lit(float(k))))
+        return e
+    return build
+
+
+def test_expr_eval_the_largest_program_the_admission_rule_takes(cuda, tile_batches):
+    """x + y*1 + ... + y*k at the largest k the admission rule takes (past
+    700 registers: each plan one row a thread), then k + 1 refused with
+    ValueError before any launch."""
+    batch = tile_batches["x64"]
+    k = 200
+    while True:
+        program, leaves = SMOKE.expr_case(TK, tpe, batch.schema, _wide_sum(k + 1))
+        if not TK.expr_fits(program, len(program.inputs)):
+            break
+        k += 1
+    program, leaves = SMOKE.expr_case(TK, tpe, batch.schema, _wide_sum(k))
+    assert program.n_regs > 700 and TK.expr_fits(program, len(program.inputs))
+    env = SMOKE.expr_env(TK, batch, leaves, cuda)
+    for n in (1000, _TILE_ROWS):
+        cut = {key: None if v is None else v[:n] for key, v in env.items()}
+        _expr_same(program, cut, n, cuda)
+    refused, leaves = SMOKE.expr_case(TK, tpe, batch.schema, _wide_sum(k + 1))
+    before = TK.LAUNCHES["expr_eval"]
+    with pytest.raises(ValueError, match="exceed the kernel"):
+        TK.expr_eval_cuda(refused, SMOKE.expr_env(TK, batch, leaves, cuda), 1000, cuda)
+    assert TK.LAUNCHES["expr_eval"] == before
+
+
+def test_expr_eval_leaves_off_a_16_byte_boundary(cuda, tile_batches):
+    """Columns that are views at an odd offset (not 16-byte aligned) are
+    copied before the kernel stages them: the same bits as the twin."""
+    batch = tile_batches["x64"]
+    program, leaves = SMOKE.expr_case(TK, tpe, batch.schema,
+                                      SMOKE.expr_grid_cases()["case_else"])
+    env = SMOKE.expr_env(TK, batch, leaves, cuda)
+    n = _TILE_ROWS - 1
+    shifted = {k: None if v is None else v[1:] for k, v in env.items()}
+    assert any(v is not None and v.data_ptr() % 16 for v in shifted.values())
+    _expr_same(program, shifted, n, cuda)
+
+
+def test_expr_eval_x32_square_pair_program_at_tile_edges(cuda):
+    """x32's variance program (``sqpair_lo``, B12f) at the rows that cut
+    its tile, the edge grid repeated past 2^20 rows."""
+    program = SMOKE.sqpair_program(TK)
+    hi, lo = SMOKE.sqpair_edge_grid()
+    reps = -(-_TILE_ROWS // len(hi))
+    hi, lo = np.tile(hi, reps)[:_TILE_ROWS], np.tile(lo, reps)[:_TILE_ROWS]
+    env = {"col_0__pair__hi": torch.from_numpy(hi).to(cuda),
+           "col_0__pair__lo": torch.from_numpy(lo).to(cuda),
+           "col_0__pair__valid": torch.from_numpy(np.arange(len(hi)) % 3 > 0).to(cuda)}
+    tr = _tile_rows(program, env, _TILE_ROWS)
+    for n in sorted({1, tr - 1, tr + 1, 8192, _TILE_ROWS}):
+        cut = {k: v[:n] for k, v in env.items()}
+        _expr_same(program, cut, n, cuda)
+
+
 def test_extension_error_formatting_an_integer_raises(cuda):
     """An exception thrown inside the extension with an integer in its
     message raises RuntimeError (ROADMAP fault C4: built by another GCC,
