@@ -3,7 +3,8 @@
 // stream.  The only source of the extension that includes PyTorch's
 // headers.  The Python wrappers (ops/kernels.py, ops/window_kernel.py)
 // check devices, dtypes, shapes and layouts before calling in, and
-// allocate every output and scratch tensor.
+// allocate every output and scratch tensor, except the segmented scan's
+// look-back words, which persist here from call to call (scan_scratch).
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAException.h>
@@ -12,6 +13,8 @@
 
 #include <algorithm>
 #include <cstring>
+#include <map>
+#include <mutex>
 #include <utility>
 #include <vector>
 
@@ -294,19 +297,59 @@ void radix_sort_(const std::vector<at::Tensor>& keys, at::Tensor perm,
                       at::cuda::getCurrentCUDAStream()));
 }
 
+// The look-back's words of the scans on one stream of one device, kept
+// across calls (seg_scan.h: SegScanParams::words): a call takes the next
+// tag, and only a new or regrown buffer is cleared.  Launches on one stream
+// run in order, so one buffer a stream is never used by two scans at once.
+struct ScanScratch {
+  at::Tensor buf;  // int64: the header and status words, then the values
+  long long status_cap = 0;
+  long long value_cap = 0;
+  unsigned tag = 0;
+};
+
+std::mutex g_scan_mutex;
+// never freed: a tensor destroyed at exit may outlive the CUDA context
+auto* g_scan_scratch = new std::map<std::pair<int, cudaStream_t>, ScanScratch>();
+
+// Fills p.words .. p.fresh for a call of ``n_tiles`` tiles on ``dev``.
+void scan_scratch(SegScanParams& p, long long n_tiles, const at::Device& dev) {
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  std::lock_guard<std::mutex> lock(g_scan_mutex);
+  ScanScratch& s = (*g_scan_scratch)[{dev.index(), stream}];
+  const long long values = 4 * n_tiles * p.n_cols;  // two tagged halves, two words
+  p.fresh = 0;
+  if (!s.buf.defined() || n_tiles > s.status_cap || values > s.value_cap) {
+    s.status_cap = std::max(s.status_cap, (n_tiles + 63) / 64 * 64);
+    s.value_cap = std::max(s.value_cap, values);
+    const long long words = (kScanHeaderWords + s.status_cap) / 2 + s.value_cap;
+    s.buf = at::empty({words}, at::TensorOptions().dtype(at::kLong).device(dev));
+    p.fresh = 1;
+  }
+  if (++s.tag >= kScanTagMax) {
+    s.tag = 1;
+    p.fresh = 1;
+  }
+  p.words = reinterpret_cast<unsigned*>(s.buf.data_ptr<int64_t>());
+  p.status_cap = s.status_cap;
+  p.values_scratch = reinterpret_cast<long long*>(s.buf.data_ptr<int64_t>()) +
+                     (kScanHeaderWords + s.status_cap) / 2;
+  p.value_cap = s.value_cap;
+  p.tag = s.tag;
+}
+
+// ``codes``: each column's src | op << 8 | in_i64 << 16 | width << 24.
 void seg_scan_(int64_t n, const at::Tensor& perm, const at::Tensor& flag,
                const at::Tensor& key, const at::Tensor& aux, bool reverse,
                const std::vector<at::Tensor>& values,
                const std::vector<at::Tensor>& valids,
-               const std::vector<int64_t>& src, const std::vector<int64_t>& op,
-               const std::vector<int64_t>& in_i64,
+               const std::vector<at::Tensor>& values2,
+               const std::vector<int64_t>& codes,
                const std::vector<at::Tensor>& outs, const at::Tensor& state,
-               const std::vector<int64_t>& field_col,
-               const std::vector<int64_t>& field_op, at::Tensor block_agg,
-               at::Tensor block_carry, at::Tensor block_start,
-               const std::vector<at::Tensor>& values2, const std::vector<int64_t>& width,
-               const at::Tensor& state32) {
-  c10::cuda::CUDAGuard guard(block_agg.device());
+               const at::Tensor& state32, const std::vector<int64_t>& field_col,
+               const std::vector<int64_t>& field_op) {
+  const at::Device dev = (key.numel() ? key : flag.numel() ? flag : perm).device();
+  c10::cuda::CUDAGuard guard(dev);
   SegScanParams p{};
   p.n = n;
   p.perm = opt<const int32_t>(perm);
@@ -314,35 +357,49 @@ void seg_scan_(int64_t n, const at::Tensor& perm, const at::Tensor& flag,
   p.key = opt<const int32_t>(key);
   p.aux = opt<const uint8_t>(aux);
   p.reverse = reverse ? 1 : 0;
-  p.n_cols = (int)src.size();
-  TORCH_CHECK(p.n_cols <= kScanMaxCols, "seg_scan: columns");
+  p.n_cols = (int)codes.size();
+  TORCH_CHECK(p.n_cols >= 1 && p.n_cols <= kScanMaxCols && values.size() == codes.size() &&
+                  valids.size() == codes.size() && values2.size() == codes.size() &&
+                  outs.size() == codes.size(),
+              "seg_scan: columns");
   for (int c = 0; c < p.n_cols; ++c) {
+    const int64_t code = codes[c];
     p.values[c] = opt<const void>(values[c]);
     p.valid[c] = opt<const bool>(valids[c]);
-    p.src[c] = (int8_t)src[c];
-    p.op[c] = (int8_t)op[c];
-    p.in_i64[c] = (int8_t)in_i64[c];
     p.values2[c] = opt<const void>(values2[c]);
-    p.width[c] = (int8_t)width[c];
+    p.src[c] = (int8_t)(code & 0xff);
+    p.op[c] = (int8_t)((code >> 8) & 0xff);
+    p.in_i64[c] = (int8_t)((code >> 16) & 0xff);
+    p.width[c] = (int8_t)((code >> 24) & 0xff);
     p.out[c] = reinterpret_cast<long long*>(opt<int64_t>(outs[c]));
   }
   p.state = reinterpret_cast<long long*>(opt<int64_t>(state));
   p.state32 = opt<int32_t>(state32);
   TORCH_CHECK(p.state == nullptr || p.state32 == nullptr, "seg_scan: two states");
   if (p.state != nullptr || p.state32 != nullptr) {
+    TORCH_CHECK(p.key != nullptr && !reverse, "seg_scan: a state takes keys, forward");
     p.capacity = p.state != nullptr ? state.size(1) : state32.size(1);
     p.n_fields = (int)field_col.size();
-    TORCH_CHECK(p.n_fields <= kSegAggMaxFields, "seg_scan: fields");
+    TORCH_CHECK(p.n_fields <= kSegAggMaxFields && field_op.size() == field_col.size(),
+                "seg_scan: fields");
     for (int f = 0; f < p.n_fields; ++f) {
       p.field_col[f] = (int8_t)field_col[f];
       p.field_op[f] = (int8_t)field_op[f];
     }
   }
-  p.n_blocks = seg_scan_blocks(n);
-  p.block_agg = reinterpret_cast<long long*>(block_agg.data_ptr<int64_t>());
-  p.block_carry = reinterpret_cast<long long*>(block_carry.data_ptr<int64_t>());
-  p.block_start = block_start.data_ptr<uint8_t>();
+  if (n == 0) return;
+  scan_scratch(p, seg_scan_tiles(n, p.n_cols), dev);
   launched(seg_scan_launch(&p, at::cuda::getCurrentCUDAStream()));
+}
+
+// The plan a launch over ``n`` rows of ``n_cols`` columns takes
+// (seg_scan.h:scan_plan) and the kernel's registers, local bytes, CTAs an
+// SM and grid at it, on the current device: (threads, rows, tile, shared
+// bytes, registers, local bytes, CTAs an SM, grid).
+std::vector<int64_t> seg_scan_describe_(int64_t n, int64_t n_cols) {
+  long long out[8];
+  launched(seg_scan_describe(n, (int)n_cols, out));
+  return std::vector<int64_t>(out, out + 8);
 }
 
 void range_extremum_(int64_t op, int64_t depth, const at::Tensor& perm,
@@ -1054,6 +1111,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("radix_sort", &radix_sort_,
         "a stable multi-key argsort: one CTA (small), else one pass a digit in scratch");
   m.def("seg_scan", &seg_scan_, "inclusive segmented scan over columns");
+  m.def("seg_scan_describe", &seg_scan_describe_, "the segmented scan's launch plan");
   m.def("range_extremum", &range_extremum_, "ROWS-frame min/max");
   m.def("window_flags", &window_flags_, "partition and peer start flags");
   m.def("window_pack", &window_pack_, "window outputs packed in input order");

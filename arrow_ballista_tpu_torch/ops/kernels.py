@@ -2111,7 +2111,13 @@ SS_COUNT = 1   # valid[perm[r]] as 0/1 (1 without a validity)
 SS_IOTA = 2    # the sorted row index r
 SS_AUX = 3     # aux[r] as 0/1
 SCAN_MAX_COLUMNS = 32
-SCAN_TILE = 2048  # rows per block (seg_scan.h: kScanTile)
+# the tile rule (seg_scan.h: kScan*, scan_smem_bytes, scan_plan)
+SCAN_THREADS = 256
+SCAN_MAX_ROWS = 8
+SCAN_PLAN_SMS = 132
+SCAN_SMEM_BUDGET = 65536        # three CTAs an SM, room left for L1
+SCAN_SMEM_BUDGET_WIDE = 115712  # two, for R >= 4 over more columns
+SCAN_FIXED_BYTES = 5120
 
 
 @dataclass(frozen=True, eq=False)
@@ -2319,17 +2325,66 @@ def _scan_width(c: ScanColumn) -> int:
     return {F32: SW_F32, I32: SW_I32}.get(c.values.dtype, SW_WORD)
 
 
+def scan_smem_bytes(rows: int, n_cols: int) -> int:
+    """seg_scan.h:scan_smem_bytes: a CTA's shared bytes at ``rows`` a
+    thread over ``n_cols`` columns (each column's 8-byte words padded one
+    in 16, perm, the keys with a neighbour each side, the start flags)."""
+    t = SCAN_THREADS * rows
+    return (SCAN_FIXED_BYTES + n_cols * 8 * (t + t // 16) + 4 * t + 4 * (t + 2)
+            + ((t + 15) & ~15))
+
+
+def scan_launch_plan(n: int, n_cols: int) -> tuple:
+    """seg_scan.h:scan_plan, the tile rule: ``(threads, rows, tile, shared
+    bytes)`` of a scan of ``n`` rows over ``n_cols`` columns.  R, the rows
+    a thread, is the largest of 8, 4, 2, 1 whose tile leaves room for three
+    CTAs an SM, or, where that is below 4, for two; a call of fewer tiles
+    than two an SM halves R."""
+    def widest(budget: int) -> int:
+        rows = SCAN_MAX_ROWS
+        while rows > 1 and scan_smem_bytes(rows, n_cols) > budget:
+            rows //= 2
+        return rows
+
+    rows = widest(SCAN_SMEM_BUDGET)
+    if rows < 4:
+        rows = widest(SCAN_SMEM_BUDGET_WIDE)
+    while rows > 1 and -(-n // (SCAN_THREADS * rows)) < 2 * SCAN_PLAN_SMS:
+        rows //= 2
+    return SCAN_THREADS, rows, SCAN_THREADS * rows, scan_smem_bytes(rows, n_cols)
+
+
+def scan_launch_describe(n: int, n_cols: int) -> dict:
+    """What a scan launch over ``n`` rows of ``n_cols`` columns runs with,
+    from the C side (seg_scan.h:scan_plan and the CUDA runtime, on the
+    current device): ``threads``, ``rows`` a thread, ``tile``, ``smem``
+    (shared bytes), the kernel's ``registers`` and ``local_bytes`` a
+    thread, ``ctas_per_sm`` and the ``grid``.  Card only."""
+    from .cuda.build import load
+
+    keys = ("threads", "rows", "tile", "smem", "registers", "local_bytes", "ctas_per_sm",
+            "grid")
+    return dict(zip(keys, load().seg_scan_describe(n, n_cols)))
+
+
+def _scan_code(c: ScanColumn) -> int:
+    """A column's src | op << 8 | in_i64 << 16 | width << 24 (the
+    binding's ``codes``)."""
+    in_i64 = int(c.values is not None and c.values.dtype == I64)
+    return c.src | c.op << 8 | in_i64 << 16 | _scan_width(c) << 24
+
+
 def _launch_scan(cols, n, perm, flag, key, aux, reverse, outs, state, field_col,
                  field_op):
     """One seg_scan launch.  An int64 ``state`` takes the x64 epilogue
     (``field_op`` the OP_* merges), an int32 one the x32 epilogue
-    (``field_op`` the XM_* merges of :func:`x32_merge`)."""
+    (``field_op`` the XM_* merges of :func:`x32_merge`).  The look-back's
+    words persist in the binding; nothing is allocated here."""
     from .cuda.build import load
 
     device = (perm if perm is not None else flag if flag is not None else key).device
-    empty = torch.empty(0, dtype=torch.uint8, device=device)
+    empty = _expr_empty(device)
     x32_state = state is not None and state.dtype == I32
-    blocks = max(1, -(-n // SCAN_TILE))
     load().seg_scan(
         n,
         empty if perm is None else perm,
@@ -2339,18 +2394,12 @@ def _launch_scan(cols, n, perm, flag, key, aux, reverse, outs, state, field_col,
         reverse,
         [empty if c.values is None else c.values for c in cols],
         [empty if c.valid is None else c.valid for c in cols],
-        [c.src for c in cols],
-        [c.op for c in cols],
-        [int(c.values is not None and c.values.dtype == I64) for c in cols],
+        [empty if c.values2 is None else c.values2 for c in cols],
+        [_scan_code(c) for c in cols],
         [empty if o is None else o for o in outs],
         empty if state is None or x32_state else state,
-        list(field_col), list(field_op),
-        torch.empty(blocks * len(cols), dtype=I64, device=device),
-        torch.empty(blocks * len(cols), dtype=I64, device=device),
-        torch.empty(blocks, dtype=torch.uint8, device=device),
-        [empty if c.values2 is None else c.values2 for c in cols],
-        [_scan_width(c) for c in cols],
         state if x32_state else empty,
+        list(field_col), list(field_op),
     )
     count_launch("seg_scan")
 

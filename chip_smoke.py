@@ -33,7 +33,8 @@ Phases; any failure exits non-zero and prints no result line:
               calls by path;
             * ``seg_scan``, ``range_extremum`` and ``window_epilogue`` at
               n in {2^20, 2^23}, and the whole window kernel against its
-              twin;
+              twin (K2: ten columns of every source and fold through a
+              random permutation, both directions, two runs bit for bit);
             * ``partition_ids`` (B4) at n in {2^20, 2^23} x key columns in
               {1, 3} x partitions in {1, 7, 200, 2^16} over seeded keys
               (negative ints, nulls, NaN, ±0.0, float32, date32,
@@ -222,7 +223,16 @@ Phases; any failure exits non-zero and prints no result line:
             ``join_build_table``; the x32
             ``keyed_finish`` and ``keyed_corr`` (pairs within rel 1e-6);
             the window's x32 sort, scans, K3 and int32 pack; the i64pair
-            exchange's ``mesh_route``: each entry's ``x32`` shapes.
+            exchange's ``mesh_route``: each entry's ``x32`` shapes.  K2's
+            shapes also carry ``burst_ms``, ``host_ms``, the launch's plan
+            and, beside the byte bound, the sector-counted floor
+            (``sector_bound_ms``: a gather through perm costs a 32-byte
+            sector at each change of sector); the sort route at q3's
+            captured batch is split into the card's and the host's ms and
+            the host's into K1's wrapper and K2's; K2 alone runs at the
+            mesh leg's first 8,192-row batch; and K2's main-path launches
+            are counted by leg (window, local q3, dist. q3, the mesh legs,
+            corr, x32).
 
 Launch counts are set to 0 just before each main-path run (q1/q6 three ways
 each, the x32 legs, q3, keyed q3, h2o q6/q9/q10, star join, window,
@@ -281,8 +291,7 @@ H2O_FOLDED = ("q6", "q9")  # their two keys fold into one sort word; q10's six d
 # ids, in 4 (each group spans ~1,800 tiles of 1,024 rows), in Zipf 1.1 ids
 FINISH_ROWS = 1 << 23
 FINISH_SHAPES = ("uniform", "skew", "zipf")
-FINISH_KERNELS = ("kf_pack", "kf_tiles", "kf_cross", "kf_fill", "ss_reduce", "ss_carry",
-                  "ss_apply", "keyed_unfold")
+FINISH_KERNELS = ("kf_pack", "kf_tiles", "kf_cross", "kf_fill", "ss_scan", "keyed_unfold")
 Q3_KEYED_BUFFER_MB = 400  # flushes q3's keyed buffer into chunks at SF10
 PARQUET_FILES = 8  # per table (one file for the small ones)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1226,12 +1235,45 @@ def _compare_words(TK, cols, got, want, what: str) -> float:
     return worst
 
 
+def _gather_bytes(perm, x) -> int:
+    """Bytes a gather of ``x`` through ``perm`` moves when each change of
+    32-byte sector along perm costs a sector (no reuse beyond consecutive
+    positions): a random 8-byte gather costs 32 bytes."""
+    if x is None:
+        return 0
+    if perm is None:
+        return _nbytes(x)
+    sector = (perm.long() * x.element_size()) // 32
+    return 32 * (1 + int((sector[1:] != sector[:-1]).sum()))
+
+
+def _scan_sector_bytes(TK, cols, n, perm=None, flag=None, key=None, aux=None,
+                       reverse=False) -> int:
+    """:func:`_scan_bytes` with every array read through perm counted by
+    :func:`_gather_bytes` (the sector-counted floor's bytes)."""
+    total = _nbytes(perm, flag) + _gather_bytes(perm, key)
+    if any(c.src == TK.SS_AUX for c in cols):
+        total += _nbytes(aux)
+    for c in cols:
+        if c.src == TK.SS_VALUES:
+            total += _gather_bytes(perm, c.values) + _gather_bytes(perm, c.values2)
+        total += _gather_bytes(perm, c.valid) + 8 * n
+    return total
+
+
 def _time_scan(TK, cols, n, kwargs: dict, err: float) -> dict:
-    out = dict(rows=n, columns=len(cols),
-               ms=_median_ms(lambda: TK.seg_scan_cuda(cols, n, **kwargs)),
+    """K2 at one shape: events, the card's ms with the host ahead
+    (``burst_ms``), the host's (``host_ms``), the twin, and the byte bound
+    beside the sector-counted floor (``sector_bound_ms``)."""
+    fn = lambda: TK.seg_scan_cuda(cols, n, **kwargs)  # noqa: E731
+    out = dict(rows=n, columns=len(cols), ms=_median_ms(fn), burst_ms=_burst_ms(fn),
+               host_ms=_host_ms(fn),
                plain_ms=_median_ms(lambda: TK.seg_scan_reference(cols, n, **kwargs), 5),
                library_ms=None, max_abs_err=err)
     out.update(_bound(_scan_bytes(TK, cols, n, **kwargs), _f64_sums(TK, cols, n)))
+    out["sector_bound_ms"] = (_scan_sector_bytes(TK, cols, n, **kwargs)
+                              / HBM_BYTES_PER_S * 1e3)
+    out["plan"] = TK.scan_launch_describe(n, len(cols))
     return out
 
 
@@ -1395,7 +1437,50 @@ def _time_sort_route(TK, captured) -> dict:
     out = dict(rows=n, capacity=cap, fields=len(ops), ms=ms, scatter_ms=b1_ms,
                plain_ms=plain, library_ms=library, max_abs_err=err)
     out.update(_bound(_bytes_moved(args, state0)))
+    out.update(_route_split(TK, lambda: _call(TK.sorted_segment_agg_cuda, args, ops, cols, k)))
     return out
+
+
+def _route_split(TK, fn, reps: int = 50) -> dict:
+    """Where a sort-route call's time goes: the card's ms a call with the
+    host ahead (``burst_ms``), the host's (``host_ms``) and, by
+    :class:`HostSplit` over ``reps`` calls with the card idle, the host's
+    ms a call in K1's wrapper (``radix_argsort_cuda``) and in K2's (its
+    checks, its columns and the launch)."""
+    import torch
+
+    out = dict(burst_ms=_burst_ms(fn), host_ms=_host_ms(fn))
+    parts = [("route", TK, "sorted_segment_agg_cuda"), ("k1", TK, "radix_argsort_cuda"),
+             ("k2 plan", TK, "_build_scan_plan"), ("k2 checks", TK, "_check_scan_args"),
+             ("k2 launch", TK, "_launch_scan")]
+    with HostSplit(parts) as h:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            fn()
+    torch.cuda.synchronize()
+    s = {k: v["sum_ms"] / reps for k, v in h.split().items() if k != "gc"}
+    k2 = s["k2 plan"] + s["k2 checks"] + s["k2 launch"]
+    out["host_split_ms"] = dict(route=s["route"], k1_wrapper=s["k1"], k2_wrapper=k2,
+                                k2_launch=s["k2 launch"], rest=s["route"] - s["k1"] - k2)
+    return out
+
+
+def _time_scan_alone(TK, captured) -> dict:
+    """K2 alone at a captured sort-route batch: the batch's sort key and
+    permutation made once, then K2 with its epilogue into the state
+    (events, ``burst_ms``, ``host_ms``) against the epilogue's twin."""
+    (gid, tail, pred, pvalid, values, valids, ops, cols, state0), _ = captured
+    n, cap = gid.numel(), state0.shape[1]
+    key = TK._sort_key(gid, tail, pred, pvalid, cap).contiguous()
+    perm = TK.radix_argsort_cuda([key])
+    columns, field_col = TK._build_scan_plan(list(values), list(valids), ops, cols)
+    k = TK._scan_into_state_cuda(columns, field_col, ops, state0.clone(), n, perm, key)
+    t = TK._scan_into_state_reference(columns, field_col, ops, state0.clone(), n, perm, key)
+    err = compare_states(TK, k, t, ops)
+    fn = lambda: TK._scan_into_state_cuda(columns, field_col, ops, k, n, perm, key)  # noqa: E731
+    return dict(rows=n, capacity=cap, columns=len(columns), ms=_median_ms(fn),
+                burst_ms=_burst_ms(fn), host_ms=_host_ms(fn), max_abs_err=err,
+                plan=TK.scan_launch_describe(n, len(columns)))
 
 
 def _keep_state(args):
@@ -2616,7 +2701,8 @@ def mesh_dist_phase(tbt, TK, root: str, lineitem_rows: int, dist: dict, device) 
             _reset_counts(TK)
             with Capture(TM, "mesh_reduce_cuda") as red, \
                     CaptureLargest(TM, "mesh_route_cuda") as route, \
-                    Capture(TK, "radix_argsort_cuda") as sort:
+                    Capture(TK, "radix_argsort_cuda") as sort, \
+                    Capture(TK, "sorted_segment_agg_cuda", keep=_keep_state) as agg:
                 got, dev_s, metrics = _run_job(ctx, QUERIES[q])
             launches = _launches(TK)
             _tables_equal(dist[q]["want"], got, f"dist. q{q} mesh")
@@ -2673,7 +2759,8 @@ def mesh_dist_phase(tbt, TK, root: str, lineitem_rows: int, dist: dict, device) 
                 f"mesh_exchange_fallback={writer.get('mesh_exchange_fallback', 0)} "
                 f"write_time_ns={writer.get('write_time_ns', 0)}"
             )
-            out[q] = dict(launches=launches, reduce=red.args, route=route.args, sort=sort.args)
+            out[q] = dict(launches=launches, reduce=red.args, route=route.args, sort=sort.args,
+                          sorted_agg=agg.args)
         out["x32 q3"] = _x32_dist_q3(TK, TM, ctx, lineitem_rows, dist)
     finally:
         ctx.close()
@@ -4100,7 +4187,7 @@ def _burst_ms(fn, calls: int = 20, reps: int = 5) -> float:
 
 def _finish_split(fn, burst_ms: float, reps: int = 10) -> dict:
     """Device ms a call of ``fn`` by kernel, from torch.profiler's records:
-    the finish's kernels, K2's three passes and the unfold by name, every
+    the finish's kernels, K2's launch and the unfold by name, every
     other kernel or copy (PyTorch's fills and copies) as "torch".  Not
     measured (None) where the records sum to less than half of
     ``burst_ms``: late in a long run the profiler has been seen to drop
@@ -4775,6 +4862,18 @@ def x32_forms_phase(TK, WK, legs: dict, device) -> dict:
     return out
 
 
+def _scan_launches_by_shape(total: int, **legs) -> dict:
+    """K2's main-path launches by the legs that made them (``legs``: a
+    list of leg results each), the rest under "other"; printed, and kept
+    in the kernels line."""
+    out = {k: sum(r["launches"]["seg_scan"] for r in rs) for k, rs in legs.items()}
+    out["other"] = total - sum(out.values())
+    if out["other"] < 0:
+        raise AssertionError(f"seg_scan launches by shape exceed the total: {json.dumps(out)}")
+    print(f"seg_scan launches by shape: {json.dumps(out)} total={total}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def _entry(name: str, head: dict, launches: int, err: float, **extra) -> dict:
     source, replaces = KERNELS[name]
@@ -4951,6 +5050,11 @@ def run(opts, device) -> list:
             star["x32"], window, window["x32"], dist[3], dist[1], fusion, mesh_dist[1],
             mesh_dist[3], mesh_dist["x32 q3"], *x32_legs.values()]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
+    scan_by_shape = _scan_launches_by_shape(
+        launches["seg_scan"], window=[window], q3=[q3], dist_q3=[dist[3]],
+        mesh=[mesh_dist[1], mesh_dist[3]], corr=[h2o["q9"]],
+        x32=[window["x32"], star["x32"], q3k32, mesh_dist["x32 q3"], *x32_legs.values(),
+             *(r for k, r in h2o.items() if k.startswith("x32"))])
 
     shapes = {f"q{q}": time_shape(TK, r["cache_off"]["args"]) for q, r in queries.items()}
     shapes["distributed q1"] = time_shape(TK, dist[1].pop("b1"))
@@ -4965,6 +5069,10 @@ def run(opts, device) -> list:
                    "dist. q3 mesh": _checked_sort(TK, mesh_dist[3]["sort"])}
     route = _time_sort_route(TK, q3["route"])
     scan_shapes = {"window": _checked_scan(TK, window["scan"]), "q3_sort_route": route}
+    if mesh_dist[3]["sorted_agg"] is not None:  # the 8,192-row batches of the mesh leg
+        scan_shapes["dist. q3 mesh, K2 alone"] = _time_scan_alone(
+            TK, mesh_dist[3]["sorted_agg"])
+    print(f"sort route q3 split: {json.dumps(route)}")
     rx_shape = _checked_extremum(WK, window["rx"])
     pack_shape = _time_pack(WK, window["pack"])
     flags_shape = _time_flags(WK, window["flags"])
@@ -5022,7 +5130,7 @@ def run(opts, device) -> list:
                shapes=sort_shapes, kernel_phase=sort_times),
         _entry("seg_scan", scan_shapes["window"], launches["seg_scan"],
                max(scan_err, route["max_abs_err"], scan_shapes["window"]["max_abs_err"]),
-               shapes=scan_shapes, kernel_phase=scan_times),
+               shapes=scan_shapes, kernel_phase=scan_times, launches_by_shape=scan_by_shape),
         _entry("range_extremum", rx_shape, launches["range_extremum"], 0.0,
                kernel_phase=rx_times),
         _entry("window_epilogue", pack_shape, launches["window_epilogue"], 0.0,

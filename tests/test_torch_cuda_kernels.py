@@ -445,6 +445,147 @@ def test_sorted_route_matches_scatter_kernel(cuda, cap):
                 np.testing.assert_array_equal(k[f], t[f])
 
 
+def test_seg_scan_launch_plan_is_the_mirror(cuda):
+    """The plan a scan launch takes (seg_scan.h:scan_plan, read back
+    through the binding) is ops/kernels.py's mirror for 1-32 columns from
+    one row to 2^26, at each plan's tile edges too; the card holds at
+    least one CTA of each, with no spill."""
+    from scan_cases import SIZES
+
+    for n_cols in range(1, TK.SCAN_MAX_COLUMNS + 1):
+        sizes = set(SIZES)
+        for n in SIZES:
+            tile = TK.scan_launch_plan(n, n_cols)[2]
+            sizes |= {max(1, tile - 1), tile, tile + 1}
+        for n in sorted(sizes):
+            plan = TK.scan_launch_describe(n, n_cols)
+            got = tuple(plan[k] for k in ("threads", "rows", "tile", "smem"))
+            assert got == TK.scan_launch_plan(n, n_cols), (n, n_cols, plan)
+            assert plan["ctas_per_sm"] >= 1 and plan["registers"] > 0, (n, plan)
+            assert plan["local_bytes"] == 0, plan
+            assert 1 <= plan["grid"] <= -(-n // plan["tile"]), (n, plan)
+
+
+_LOOKBACK_ROWS = 1 << 22
+
+
+def _lookback_case(case: str, key_mode: bool, reverse: bool, device):
+    """Inputs of a scan over 2^22 rows whose segments are ``case``: "one"
+    (one segment over every row: the longest carry chain), "rows" (each
+    row its own segment) or "edges" (segments ending exactly on the edges
+    of the plan's tiles), by flags or by keys gathered through a random
+    permutation; an f64 sum and a df32 sum of positive values."""
+    n = _LOOKBACK_ROWS
+    rng = np.random.default_rng(17)
+    perm = rng.permutation(n).astype(np.int32)
+    v = rng.uniform(0.5, 100.0, n)
+    f = rng.uniform(0.5, 100.0, n).astype(np.float32)
+    tile = TK.scan_launch_plan(n, 2)[2]
+    pos = np.arange(n)
+    seg = {"one": np.zeros(n, np.int64), "rows": pos, "edges": pos // tile}[case]
+    # seg is the segment of each scan position; rows run backwards in reverse
+    row_seg = seg[::-1] if reverse else seg
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    cols = [TK.ScanColumn(TK.SS_VALUES, TK.OP_ADD_F64, values=t(v)),
+            TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32, values=t(f))]
+    kw = dict(perm=t(perm), reverse=reverse)
+    if key_mode:
+        key = np.empty(n, np.int32)
+        key[perm] = row_seg.astype(np.int32)  # key[perm[r]] is row r's segment
+        kw["key"] = t(key)
+    else:
+        flag = np.zeros(n, np.uint8)
+        flag[1:] = row_seg[1:] != row_seg[:-1]
+        kw["flag"] = t(flag)
+    return cols, kw
+
+
+def _busy(device, stream):
+    """Float32 products on ``stream`` that hold most SMs for milliseconds."""
+    a = torch.ones(4096, 4096, device=device)
+    with torch.cuda.stream(stream):
+        for _ in range(4):
+            a = a @ a * 1e-4
+    return a
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("key_mode", [False, True], ids=["flag", "key"])
+@pytest.mark.parametrize("case", ["one", "rows", "edges"])
+def test_seg_scan_look_back_is_deterministic(cuda, case, key_mode, reverse):
+    """20 launches of the same f64-sum and df32 scan give identical words,
+    every other one while products on another stream hold most SMs; and
+    they match the twin (f64 within rel 1e-9, df32 hi + lo within 1e-6)."""
+    n = _LOOKBACK_ROWS
+    cols, kw = _lookback_case(case, key_mode, reverse, cuda)
+    side = torch.cuda.Stream(cuda)
+    runs, busy = [], []
+    for i in range(20):
+        if i % 2:
+            busy.append(_busy(cuda, side))
+        runs.append(TK.seg_scan_cuda(cols, n, **kw))
+    torch.cuda.synchronize()
+    for k in range(1, 20):
+        for c in range(2):
+            assert torch.equal(runs[0][c], runs[k][c]), (k, c)
+    want = TK.seg_scan_reference(cols, n, **kw)
+    g, w = runs[0][0].cpu().numpy().view(np.float64), want[0].cpu().numpy().view(np.float64)
+    np.testing.assert_allclose(g, w, rtol=1e-9, atol=0)
+    hi_lo = lambda x: sum(h.double() for h in TK._df32_split(x)).cpu().numpy()  # noqa: E731
+    np.testing.assert_allclose(hi_lo(runs[0][1]), hi_lo(want[1]), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("x32", [False, True], ids=["x64", "x32"])
+def test_seg_scan_epilogue_segments_span_tiles(cuda, x32):
+    """The sorted-aggregate epilogue when each segment spans many tiles (4
+    groups over 2^22 rows, ~10% past the capacity): 20 launches into fresh
+    states, every other one beside a busy stream, give identical states,
+    and they match the twin (sums within rel 1e-9, x32 pairs 1e-6, counts
+    exact)."""
+    n, cap = _LOOKBACK_ROWS, 4
+    rng = np.random.default_rng(29)
+    gid = np.sort(rng.integers(0, cap + 1, n)).astype(np.int32)  # cap: the sentinel
+    perm = rng.permutation(n).astype(np.int32)
+    key = np.empty(n, np.int32)
+    key[perm] = gid
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    valid = t(rng.random(n) >= 0.1)
+    if x32:
+        cols = [TK.ScanColumn(TK.SS_VALUES, TK.OP_DF32,
+                              values=t(rng.uniform(0.5, 100, n).astype(np.float32)), valid=valid),
+                TK.ScanColumn(TK.SS_COUNT, TK.OP_ADD_I64, valid=valid)]
+        ops, field_col = [TK.XM_SUM_HI, TK.XM_SUM_LO, TK.XM_ADD_I32], [0, 0, 1]
+        state0 = torch.zeros((3, cap), dtype=torch.int32, device=cuda)
+        twin_fn = TK._scan_into_state_x32_reference
+    else:
+        cols = [TK.ScanColumn(TK.SS_VALUES, TK.OP_ADD_F64, values=t(rng.uniform(0.5, 100, n)),
+                              valid=valid),
+                TK.ScanColumn(TK.SS_COUNT, TK.OP_ADD_I64, valid=valid)]
+        ops, field_col = [TK.OP_ADD_F64, TK.OP_COUNT], [0, 1]
+        state0 = torch.zeros((2, cap), dtype=torch.int64, device=cuda)
+        twin_fn = TK._scan_into_state_reference
+    side = torch.cuda.Stream(cuda)
+    runs, busy = [], []
+    for i in range(20):
+        if i % 2:
+            busy.append(_busy(cuda, side))
+        runs.append(TK._scan_into_state_cuda(cols, field_col, ops, state0.clone(), n,
+                                             t(perm), t(key)))
+    twin = twin_fn(cols, field_col, ops, state0.clone(), n, t(perm), t(key))
+    torch.cuda.synchronize()
+    for k in range(1, 20):
+        assert torch.equal(runs[0], runs[k]), k
+    got, want = runs[0].cpu(), twin.cpu()
+    if x32:
+        pair = lambda s: s[0].view(torch.float32).double() + s[1].view(torch.float32).double()  # noqa: E731,E501
+        np.testing.assert_allclose(pair(got).numpy(), pair(want).numpy(), rtol=1e-6, atol=0)
+        assert torch.equal(got[2], want[2])
+    else:
+        np.testing.assert_allclose(got[0].view(torch.float64).numpy(),
+                                   want[0].view(torch.float64).numpy(), rtol=1e-9, atol=0)
+        assert torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("frame", [(-6, 0), (None, 0), (1, 3), (-5, -2)])
 @pytest.mark.parametrize("op", [TK.OP_MIN_F64, TK.OP_MAX_F64, TK.OP_MAX_I64])
 def test_range_extremum_matches_twin(cuda, frame, op):
